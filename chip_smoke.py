@@ -3,20 +3,25 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 
-1. kernel phase — holds each kernel against its plain PyTorch version on
-   the card (bf16, tolerance 2e-2 as ``tests/test_kernels.py``) at the
-   main path's shapes and at edge shapes, and times kernel, plain version,
-   one PyTorch library call where one computes the same function, and the
-   card's bound for the same work;
+1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
+   decode, WKV-6) against its plain PyTorch version on the card (bf16,
+   tolerance 2e-2 as ``tests/test_kernels.py``) at the main path's shapes
+   and at edge shapes, and times kernel, plain version, one PyTorch
+   library call where one computes the same function, and the card's
+   bound for the same work;
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
-   and paged decode on the card through the kernels, against the same
-   weights in f32 on the CPU through the plain versions;
+   and paged decode from bf16 and from int8 caches, and a 2-layer RWKV-6
+   model (head size 64) runs prefill and decode, on the card through the
+   kernels, against the same weights in f32 on the CPU through the plain
+   versions;
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
-   one weight copy, continuous then paged (block size 16), 16 requests of
-   64-512 prompt tokens and 32 new tokens each; launch counts are set to 0
-   just before each mode and read just after it.
+   one weight copy, continuous then paged (block size 16), with bf16 and
+   then with int8 KV, 16 requests of 64-512 prompt tokens and 32 new
+   tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) continuous
+   with the same mix.  Launch counts are set to 0 just before each mode
+   and read just after it.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -44,6 +49,7 @@ REF_TOL = 5e-2        # bf16 model on the card vs f32 model on the CPU,
 L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
 SEED = 0
 ARCH = "qwen2-7b"
+RWKV_ARCH = "rwkv6-1.6b"
 
 
 def log(msg: str) -> None:
@@ -230,11 +236,146 @@ def kernel_phase(rng) -> dict:
             qs[i], kps[i], vps[i], tables, lens) for i in range(n)]),
         bound_ms=bnd, bound_by=by, library_ms=None,
         shape="B=8 bs=16 M=64 cache_len in [1, 1024] H=28 K=4 D=128 bf16")
+    out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
+    out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     for name, r in out.items():
         log(f"kernel {name}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
             f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
             f"bound_ms={r['bound_ms']} ({r['bound_by']}) [{r['shape']}]")
     return out
+
+
+def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
+    """The int8 dense and paged decode kernels on the codes and scales of
+    the bf16 decode phase's K/V (quantized on the card), at its shapes."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import kv_quantize
+
+    dev = q.device
+    b, s, kv, d = kc.shape
+    h = q.shape[2]
+    (k8, ks), (v8, vs) = kv_quantize(kc), kv_quantize(vc)
+    lens = torch.as_tensor(lens_np, device=dev)
+    dense_out = da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+    out = {}
+    err = close("int8 decode main", dense_out,
+                da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens))
+    for name, el in [("cache_len=1", np.ones(b)), ("cache_len=S",
+                                                   np.full(b, s)),
+                     ("cache_len>S (free slot)", lens_np + s)]:
+        elt = torch.as_tensor(np.asarray(el, np.int32), device=dev)
+        close(f"int8 decode edge {name}",
+              da.decode_attention_quant(q, k8, v8, ks, vs, elt),
+              da.decode_attention_quant_plain(q, k8, v8, ks, vs, elt))
+    rows = int(np.minimum(lens_np, s).sum())
+    qo_bytes = 2 * q.numel() * 2
+    n = copies_for(k8.numel() * 2)
+    leaves = [[x.clone() for x in (q, k8, v8, ks, vs)] for _ in range(n)]
+    bnd, by = bound(4 * h * d * rows,
+                    2 * rows * kv * d + 2 * rows * kv * 2 + qo_bytes + 4 * b)
+    out["decode_attention_quant"] = dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:311",
+        max_abs_err=err,
+        ms=time_ms([lambda x=x: da.decode_attention_quant(*x, lens)
+                    for x in leaves]),
+        plain_ms=time_ms([lambda x=x: da.decode_attention_quant_plain(
+            *x, lens) for x in leaves]),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        shape="B=8 S=1024 cache_len in [1, 1024] H=28 K=4 D=128 int8 codes "
+              "+ bf16 scales")
+
+    # -- the same codes and scales scattered over the bf16 phase's pages --
+    bs, m = 16, tables_np.shape[1]
+    pages = [torch.zeros((1 + b * m, bs, kv, x.shape[-1]), dtype=x.dtype,
+                         device=dev) for x in (k8, v8, ks, vs)]
+    for i in range(b):
+        for t in range(-(-int(lens_np[i]) // bs)):
+            for page, x in zip(pages, (k8, v8, ks, vs)):
+                page[tables_np[i, t]] = x[i, t * bs:(t + 1) * bs]
+    tables = torch.as_tensor(tables_np, device=dev)
+    paged_out = da.paged_decode_attention_quant(q, *pages, tables, lens)
+    err = close("int8 paged main", paged_out,
+                da.paged_decode_attention_quant_plain(q, *pages, tables,
+                                                      lens))
+    if not torch.equal(paged_out, dense_out):
+        raise AssertionError("int8 paged and dense decode kernels differ on "
+                             "identical codes (they share one tile loop)")
+    one = torch.ones(b, dtype=torch.int32, device=dev)
+    close("int8 paged edge cache_len=1",
+          da.paged_decode_attention_quant(q, *pages, tables, one),
+          da.paged_decode_attention_quant_plain(q, *pages, tables, one))
+    dirty = [p.clone() for p in pages]
+    for p in dirty:
+        p[0] = 77  # the null block, named past every table's end
+    if not torch.equal(da.paged_decode_attention_quant(q, *dirty, tables,
+                                                       lens), paged_out):
+        raise AssertionError("int8 paged decode read the null block")
+    tbl_entries = int((-(-lens_np // bs)).sum())
+    n = copies_for(pages[0].numel() * 2)
+    page_sets = [[p.clone() for p in pages] for _ in range(n)]
+    bnd, by = bound(4 * h * d * rows,
+                    2 * rows * kv * d + 2 * rows * kv * 2 + qo_bytes + 4 * b
+                    + 4 * tbl_entries)
+    out["paged_decode_attention_quant"] = dict(
+        route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:256",
+        max_abs_err=err,
+        ms=time_ms([lambda x=x: da.paged_decode_attention_quant(
+            q, *x, tables, lens) for x in page_sets]),
+        plain_ms=time_ms([lambda x=x: da.paged_decode_attention_quant_plain(
+            q, *x, tables, lens) for x in page_sets]),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        shape="B=8 bs=16 M=64 cache_len in [1, 1024] H=28 K=4 D=128 int8 "
+              "codes + bf16 scales")
+    return out
+
+
+def wkv6_kernel(rng, dev) -> dict:
+    """The WKV-6 kernel at a batch-1 prefill of 512 tokens (rwkv6-1.6b: 32
+    heads of 64) from a zero state, and at edge shapes: a decode step
+    (S=1, B=8), S not a multiple of the 32-step chunk, nonzero states."""
+    import torch
+    from repro_torch.kernels import wkv6
+
+    def inputs(b, s, h, state_scale):
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+        r, k, v = (rand(b, s, h, 64).to(torch.bfloat16) for _ in range(3))
+        w = (-torch.exp(rand(b, s, h, 64) * 0.3) - 0.01).to(torch.bfloat16)
+        return r, k, v, w, rand(h, 64).to(torch.bfloat16), \
+            rand(b, h, 64, 64) * state_scale
+
+    def check(name, x):
+        o, st = wkv6.wkv6_scan(*x)
+        po, pst = wkv6.wkv6_scan_plain(*x)
+        close(f"{name} state", st, pst)
+        return close(name, o, po)
+
+    b, s, h = 1, 512, 32
+    main = inputs(b, s, h, 0.0)
+    err = check("wkv6 main", main)
+    for shape in [(8, 1, 32, 1.0), (2, 77, 4, 1.0), (1, 33, 2, 3.0)]:
+        check(f"wkv6 edge (B, S, H, state scale)={shape}", inputs(*shape))
+    seq = b * s * h * 64
+    io = 5 * seq * 2 + 2 * b * h * 64 * 64 * 4 + h * 64 * 2
+    n = copies_for(io)
+    sets = [[x.clone() for x in main] for _ in range(n)]
+    decode = [[x.clone() for x in inputs(8, 1, 32, 1.0)] for _ in range(n)]
+    bnd, by = bound(5 * seq * 64, io)
+    decode_ms = time_ms([lambda x=x: wkv6.wkv6_scan(*x) for x in decode])
+    log(f"kernel wkv6_scan at a decode step (B=8 S=1 H=32 D=64): "
+        f"ms={decode_ms}")
+    return {"wkv6_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+        replaces="src/repro/kernels/wkv6.py:64", max_abs_err=err,
+        ms=time_ms([lambda x=x: wkv6.wkv6_scan(*x) for x in sets]),
+        plain_ms=time_ms([lambda x=x: wkv6.wkv6_scan_plain(*x)
+                          for x in sets], iters=3),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        shape="B=1 S=512 H=32 D=64 bf16, f32 state")}
 
 
 # --------------------------------------------------------------------------
@@ -266,32 +407,55 @@ def reference_phase(rng) -> None:
     max_len, n = 64, 37
     prompt = np.zeros((1, max_len), np.int32)
     prompt[0, :n] = rng.integers(0, cfg.vocab_size, n)
-    worst = 0.0
+    compare = Compare("reference")
+    for kv_int8 in (False, True):
+        _reference_decode(model, p_gpu, p_ref, prompt, n, max_len, kv_int8,
+                          compare)
+    log(f"reference: 2-layer d=896 H=7 K=1 D=128 model, prefill + 8 dense "
+        f"+ 8 paged decode steps from bf16 and from int8 caches on the card "
+        f"within {compare.worst:.4f} (max |diff| / max |logit|, limit "
+        f"{REF_TOL}) of f32 on the CPU")
+    _reference_rwkv()
 
-    def compare(what, got, ref):
-        nonlocal worst
+
+class Compare:
+    """Logits on the card against the f32 CPU reference: finite, and
+    max |diff| / max |reference logit| within ``REF_TOL``."""
+
+    def __init__(self, label: str):
+        self.label, self.worst = label, 0.0
+
+    def __call__(self, what, got, ref) -> None:
+        import torch
         got = got.float().cpu()
         if not torch.isfinite(got).all():
-            raise AssertionError(f"reference {what}: non-finite logits")
+            raise AssertionError(f"{self.label} {what}: non-finite logits")
         rel = ((got - ref).abs().max() / ref.abs().max()).item()
-        worst = max(worst, rel)
+        self.worst = max(self.worst, rel)
         if rel > REF_TOL:
-            raise AssertionError(f"reference {what}: rel err {rel} > "
+            raise AssertionError(f"{self.label} {what}: rel err {rel} > "
                                  f"{REF_TOL}")
 
+
+def _reference_decode(model, p_gpu, p_ref, prompt, n, max_len, kv_int8,
+                      compare) -> None:
+    import torch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    kind = "int8" if kv_int8 else "bf16"
     lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev),
-                           max_len=max_len, length=n)
+                           max_len=max_len, length=n, kv_int8=kv_int8)
     lr, cr = model.prefill(p_ref, torch.as_tensor(prompt), max_len=max_len,
-                           length=n)
-    compare("prefill", lg, lr)
+                           length=n, kv_int8=kv_int8)
+    compare(f"{kind} prefill", lg, lr)
     # Paged pools from the same prefill entries (4 blocks of 16 rows,
     # scattered), then teacher-forced decode on both planes.
     bs = 16
     row = np.array([3, 1, 4, 2], np.int32)
     write = np.ones(4, bool)
-    pg = model.append_paged(model.init_paged_cache(5, bs, dev), cg, row,
-                            write)
-    pr = model.append_paged(model.init_paged_cache(5, bs), cr, row, write)
+    pg = model.append_paged(model.init_paged_cache(5, bs, dev, kv_int8),
+                            cg, row, write)
+    pr = model.append_paged(model.init_paged_cache(5, bs, kv_int8=kv_int8),
+                            cr, row, write)
     tbl_g = torch.as_tensor(row[None], device=dev)
     tbl_r = torch.as_tensor(row[None])
     tok = model.sample_greedy(lr)
@@ -299,17 +463,55 @@ def reference_phase(rng) -> None:
         pos = n + step
         lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
         lr, cr = model.decode_step(p_ref, tok, cr)
-        compare(f"decode step {step}", lg, lr)
+        compare(f"{kind} decode step {step}", lg, lr)
         plg, _ = model.decode_step_paged(
             p_gpu, tok.to(dev), pg, tbl_g,
             torch.tensor([pos], dtype=torch.int32, device=dev))
         plr, _ = model.decode_step_paged(
             p_ref, tok, pr, tbl_r, torch.tensor([pos], dtype=torch.int32))
-        compare(f"paged decode step {step}", plg, plr)
+        compare(f"{kind} paged decode step {step}", plg, plr)
         tok = model.sample_greedy(lr)
-    log(f"reference: 2-layer d=896 H=7 K=1 D=128 model, prefill + 8 dense "
-        f"+ 8 paged decode steps on the card within {worst:.4f} "
-        f"(max |diff| / max |logit|, limit {REF_TOL}) of f32 on the CPU")
+
+
+def _reference_rwkv() -> None:
+    """A 2-layer RWKV-6 model with head size 64 (4 heads): prefill at the
+    prompt's exact length and 8 decode steps through the WKV-6 kernel in
+    bf16 on the card, against f32 on the CPU through the plain scan."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="rwkv6-heads", family="rwkv", n_layers=2,
+                      d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                      vocab_size=1024)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for part in p_cpu["layers"].values():  # the zero-initialised norms
+        for key in ("ln", "gn"):
+            if key in part:
+                part[key].copy_(torch.randn(part[key].shape,
+                                            generator=gen) * 0.1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _tree(p_cpu, lambda t: t.to(dev))
+    p_ref = _tree(p_cpu, lambda t: t.float())
+    rng = np.random.default_rng(SEED + 2)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 37)).astype(np.int32)
+    compare = Compare("rwkv reference")
+
+    lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev))
+    lr, cr = model.prefill(p_ref, torch.as_tensor(prompt))
+    compare("prefill", lg, lr)
+    tok = model.sample_greedy(lr)
+    for step in range(8):
+        lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
+        lr, cr = model.decode_step(p_ref, tok, cr)
+        compare(f"decode step {step}", lg, lr)
+        tok = model.sample_greedy(lr)
+    log(f"reference: 2-layer RWKV-6 d=256 (4 heads of 64), prefill of 37 "
+        f"tokens + 8 decode steps on the card within {compare.worst:.4f} "
+        f"(limit "
+        f"{REF_TOL}) of f32 on the CPU")
 
 
 def _tree(tree, fn):
@@ -319,106 +521,189 @@ def _tree(tree, fn):
 
 
 # --------------------------------------------------------------------------
-# 3. full-width serving, continuous then paged
+# 3. full-width serving: qwen2-7b bf16 and int8, continuous and paged;
+#    rwkv6-1.6b continuous
 # --------------------------------------------------------------------------
+
+INT8_DENSE_BYTES = 238_551_044   # Model.dense_kv_bytes(8, 1024), int8 KV
+BF16_DENSE_BYTES = 469_762_052   # the same in bf16
+INT8_BLOCK_BYTES = 465_920       # Model.kv_block_bytes(16), int8 KV
+BF16_BLOCK_BYTES = 917_504       # the same in bf16
 
 
 def serve_phase(rng) -> dict[str, int]:
+    import gc
     import torch
     from repro_torch import kernels
-    from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.core.resources import Alloc
     from repro_torch.launch import serve
-    from repro_torch.serving import ServingEngine
 
     t0 = time.perf_counter()
     model, params = serve.init_model(ARCH, reduced=False, seed=SEED)
     torch.cuda.synchronize()
     cfg = model.cfg
-    wbytes = pytree_nbytes(params)
     log(f"serve: {ARCH} full width ({cfg.n_layers}L d={cfg.d_model} "
         f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} d_ff={cfg.d_ff} "
-        f"V={cfg.vocab_size}), {model.n_params()} params, {wbytes} bytes, "
-        f"drawn on the card in {time.perf_counter() - t0:.1f}s")
+        f"V={cfg.vocab_size}), {model.n_params()} params, drawn on the card "
+        f"in {time.perf_counter() - t0:.1f}s")
     lens = rng.integers(64, 513, 16)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
     alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=1.0)
-    new_tokens = 32
     totals = {name: 0 for name in kernels.KERNELS}
+    accounting = {
+        "dense_kv_bytes(8, 1024)": (model.dense_kv_bytes(8, 1024, False),
+                                    model.dense_kv_bytes(8, 1024, True)),
+        "kv_block_bytes(16)": (model.kv_block_bytes(16, False),
+                               model.kv_block_bytes(16, True))}
+    if accounting != {
+            "dense_kv_bytes(8, 1024)": (BF16_DENSE_BYTES, INT8_DENSE_BYTES),
+            "kv_block_bytes(16)": (BF16_BLOCK_BYTES, INT8_BLOCK_BYTES)}:
+        raise AssertionError(f"KV byte accounting (bf16, int8): {accounting}")
+    log(f"serve: KV byte accounting (bf16, int8): {accounting}")
     streams = {}
-    for mode in ("continuous", "paged"):
-        engine = ServingEngine(window=0.2, device="cuda")
-        engine.deploy(ARCH, model, params, alloc, n_instances=2,
-                      max_batch=8, max_len=1024, batching=mode,
-                      block_size=16)
-        if engine.memory_bytes() != wbytes:
-            raise AssertionError(
-                f"{mode}: store holds {engine.memory_bytes()} bytes for two "
-                f"instances, expected one copy of {wbytes}")
-        serve.drive(engine, ARCH, [prompts[0][:64]] * 2, 2)  # warm-up
-        before = {k: dict(v) for k, v in engine.telemetry().items()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        reqs, done, wall = serve.drive(engine, ARCH, prompts, new_tokens)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        if done != len(prompts) or not all(
-                r.done and len(r.tokens_out) == new_tokens for r in reqs):
-            raise AssertionError(f"{mode}: served {done}/{len(prompts)}")
-        passes = {k: v["steps"] - before[k]["steps"]
-                  for k, v in engine.telemetry().items()}
-        syncs = {k: v["syncs"] - before[k]["syncs"]
-                 for k, v in engine.telemetry().items()}
-        if passes != syncs:
-            raise AssertionError(f"{mode}: syncs {syncs} != passes {passes}")
-        used = "decode_attention" if mode == "continuous" \
-            else "paged_decode_attention"
-        idle = "paged_decode_attention" if mode == "continuous" \
-            else "decode_attention"
-        if counts["flash_attention"] == 0 or counts[used] == 0 \
-                or counts[idle] != 0:
-            raise AssertionError(f"{mode}: kernel launches {counts}")
-        for r in reqs:
-            tok = np.asarray(r.tokens_out)
-            if tok.min() < 0 or tok.max() >= cfg.vocab_size:
-                raise AssertionError(f"{mode}: token out of vocab")
-        lat = np.array([r.finished_at - r.submitted_at for r in reqs])
-        n_tok = sum(len(r.tokens_out) for r in reqs)
-        log(f"serve {mode}: {done} requests, {n_tok} tokens in {wall:.3f}s "
-            f"= {n_tok / wall:.1f} tokens/s; latency p50={np.percentile(lat, 50):.3f}s "
-            f"p99={np.percentile(lat, 99):.3f}s; passes {passes}; syncs "
-            f"{syncs} (1 per pass); launches {counts}; peak device memory "
-            f"{torch.cuda.max_memory_allocated()} bytes; weights stored "
-            f"once: {engine.memory_bytes()} bytes for 2 instances")
-        for k in totals:
-            totals[k] += counts[k]
-        streams[mode] = [list(r.tokens_out) for r in reqs]
-    if streams["continuous"] != streams["paged"]:
-        raise AssertionError("continuous and paged greedy streams differ")
-    log("serve: continuous and paged emit identical greedy streams")
+    for mode, int8, kernel in [
+            ("continuous", False, "decode_attention"),
+            ("paged", False, "paged_decode_attention"),
+            ("int8 continuous", True, "decode_attention_quant"),
+            ("int8 paged", True, "paged_decode_attention_quant")]:
+        streams[mode] = serve_mode(model, params, ARCH, prompts, alloc, mode,
+                                   {"flash_attention", kernel}, totals,
+                                   int8=int8)
+    for a, b in [("continuous", "paged"), ("int8 continuous", "int8 paged")]:
+        if streams[a] != streams[b]:
+            raise AssertionError(f"{a} and {b} greedy streams differ")
+        log(f"serve: {a} and {b} emit identical greedy streams")
+    same = [x == y for s8, s16 in zip(streams["int8 continuous"],
+                                      streams["continuous"])
+            for x, y in zip(s8, s16)]
+    log(f"serve: int8 KV streams agree with the bf16 streams on "
+        f"{sum(same)}/{len(same)} tokens ({np.mean(same):.3f}; logged, not "
+        f"asserted: random weights, near-tie argmaxes flip)")
     profile_window(model, params, prompts[:8], alloc)
+
+    # -- rwkv6-1.6b, the same request mix, after qwen2-7b is freed --------
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, params = serve.init_model(RWKV_ARCH, reduced=False, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    log(f"serve: {RWKV_ARCH} full width ({cfg.n_layers}L d={cfg.d_model} "
+        f"heads {cfg.d_model // 64}x64 d_ff={cfg.d_ff} V={cfg.vocab_size}), "
+        f"{model.n_params()} params, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    rwkv_prompts = [p % cfg.vocab_size for p in prompts]
+    serve_mode(model, params, RWKV_ARCH, rwkv_prompts, alloc, "continuous",
+               {"wkv6_scan"}, totals)
+    profile_window(model, params, rwkv_prompts[:8], alloc, RWKV_ARCH,
+                   "continuous")
     return totals
 
 
-def profile_window(model, params, prompts, alloc) -> None:
-    """Where a paged serve pass spends its time: device time by kernel
-    and the device's busy share of the wall time, from ``torch.profiler``
-    over 8 requests x 8 tokens on one instance (after a warm-up)."""
+def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
+               int8=False, new_tokens=32) -> list:
+    """Serve ``prompts`` on two weight-shared instances in ``mode``; the
+    launch counts are set to 0 just before the run and read just after it.
+    Checks that every request is served, one host sync per pass, the
+    weights stored once, that the kernels in ``used`` ran and no other
+    (for rwkv: 24 WKV launches per prefill and per round).  Returns the
+    token streams."""
+    import os
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingEngine
+
+    batching = mode.split()[-1]
+    engine = ServingEngine(window=0.2, device="cuda")
+    gate = os.environ.pop("REPRO_KV_INT8", None)
+    if int8:
+        os.environ["REPRO_KV_INT8"] = "1"  # read once, when deployed
+    engine.deploy(arch, model, params, alloc, n_instances=2, max_batch=8,
+                  max_len=1024, batching=batching, block_size=16)
+    os.environ.pop("REPRO_KV_INT8", None)
+    if gate is not None:
+        os.environ["REPRO_KV_INT8"] = gate
+    insts = list(engine.instances.values())
+    if any(i.kv_int8 != int8 for i in insts):
+        raise AssertionError(f"{arch} {mode}: instances not int8={int8}")
+    if batching == "paged" and any(
+            i.allocator.block_bytes != model.kv_block_bytes(16, int8)
+            for i in insts):
+        raise AssertionError(f"{arch} {mode}: admission block bytes")
+    wbytes = pytree_nbytes(params)
+    if engine.memory_bytes() != wbytes:
+        raise AssertionError(
+            f"{arch} {mode}: store holds {engine.memory_bytes()} bytes for "
+            f"two instances, expected one copy of {wbytes}")
+    serve.drive(engine, arch, [prompts[0][:64]] * 2, 2)  # warm-up
+    before = {k: dict(v) for k, v in engine.telemetry().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    reqs, done, wall = serve.drive(engine, arch, prompts, new_tokens)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if done != len(prompts) or not all(
+            r.done and len(r.tokens_out) == new_tokens for r in reqs):
+        raise AssertionError(f"{arch} {mode}: served {done}/{len(prompts)}")
+    delta = {k: {c: v[c] - before[k][c] for c in v}
+             for k, v in engine.telemetry().items()}
+    passes = {k: v["steps"] for k, v in delta.items()}
+    syncs = {k: v["syncs"] for k, v in delta.items()}
+    if passes != syncs:
+        raise AssertionError(f"{arch} {mode}: syncs {syncs} != passes "
+                             f"{passes}")
+    if any(counts[k] == 0 for k in used) or any(
+            counts[k] != 0 for k in counts if k not in used):
+        raise AssertionError(f"{arch} {mode}: kernel launches {counts}")
+    if "wkv6_scan" in used:
+        steps = sum(v["prefills"] + v["rounds"] for v in delta.values())
+        if counts["wkv6_scan"] != model.cfg.n_layers * steps:
+            raise AssertionError(
+                f"{arch} {mode}: {counts['wkv6_scan']} WKV launches for "
+                f"{steps} prefills and rounds of {model.cfg.n_layers} layers")
+    vocab = model.cfg.vocab_size
+    for r in reqs:
+        tok = np.asarray(r.tokens_out)
+        if tok.min() < 0 or tok.max() >= vocab:
+            raise AssertionError(f"{arch} {mode}: token out of vocab")
+    lat = np.array([r.finished_at - r.submitted_at for r in reqs])
+    n_tok = sum(len(r.tokens_out) for r in reqs)
+    log(f"serve {arch} {mode}: {done} requests, {n_tok} tokens in "
+        f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; latency "
+        f"p50={np.percentile(lat, 50):.3f}s p99={np.percentile(lat, 99):.3f}s;"
+        f" passes {passes}; syncs {syncs} (1 per pass); prefills "
+        f"{sum(v['prefills'] for v in delta.values())}, rounds "
+        f"{sum(v['rounds'] for v in delta.values())}; launches {counts}; "
+        f"peak device memory {torch.cuda.max_memory_allocated()} bytes; "
+        f"weights stored once: {engine.memory_bytes()} bytes for 2 instances")
+    for k in totals:
+        totals[k] += counts[k]
+    return [list(r.tokens_out) for r in reqs]
+
+
+def profile_window(model, params, prompts, alloc, arch=ARCH,
+                   batching="paged") -> None:
+    """Where a serve pass spends its time: device time by kernel and the
+    device's busy share of the wall time, from ``torch.profiler`` over 8
+    requests x 8 tokens on one instance (after a warm-up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(window=0.2, device="cuda")
-    engine.deploy(ARCH, model, params, alloc, n_instances=1, max_batch=8,
-                  max_len=1024, batching="paged", block_size=16)
-    serve.drive(engine, ARCH, prompts[:2], 2)
+    engine.deploy(arch, model, params, alloc, n_instances=1, max_batch=8,
+                  max_len=1024, batching=batching, block_size=16)
+    serve.drive(engine, arch, prompts[:2], 2)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve.drive(engine, ARCH, prompts, 8)
+        _, _, wall = serve.drive(engine, arch, prompts, 8)
         torch.cuda.synchronize()
     from torch.autograd import DeviceType
 
@@ -432,18 +717,18 @@ def profile_window(model, params, prompts, alloc) -> None:
         log("profile: the profiler recorded no device time (not measured)")
         return
     busy_us = sum(t for t, _, _ in rows)
-    groups = {"port attention kernels": 0.0, "cuBLAS matmuls": 0.0,
+    groups = {"port kernels": 0.0, "cuBLAS matmuls": 0.0,
               "other torch kernels": 0.0}
     for t, _, key in rows:
         if any(k in key for k in ("flash_kernel", "decode_kernel",
-                                  "combine_kernel")):
-            groups["port attention kernels"] += t
+                                  "combine_kernel", "wkv6_kernel")):
+            groups["port kernels"] += t
         elif any(k in key for k in ("nvjet", "gemm", "cutlass", "xmma")):
             groups["cuBLAS matmuls"] += t
         else:
             groups["other torch kernels"] += t
-    log(f"profile: 8 requests x 8 tokens, paged, 1 instance: wall "
-        f"{wall * 1e3:.1f} ms (profiler on), device busy "
+    log(f"profile {arch}: 8 requests x 8 tokens, {batching}, 1 instance: "
+        f"wall {wall * 1e3:.1f} ms (profiler on), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall, "
         f"{sum(n for _, n, _ in rows)} kernel launches")
     for name, t in groups.items():

@@ -1,6 +1,6 @@
 """Configs the port serves.  ``get_config(name, reduced=...)``.
 
-Only qwen2-7b is registered in this slice of the port; the other
+Registered so far: qwen2-7b (dense) and rwkv6-1.6b; the other
 architectures of ``repro.configs`` arrive with their model families
 (ROADMAP.md, Queue 1).
 """
@@ -11,10 +11,10 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("qwen2_7b",)
+ARCHS = ("qwen2_7b", "rwkv6_1_6b")
 
 # CLI ids (--arch <id>) -> module names.
-ALIASES = {"qwen2-7b": "qwen2_7b"}
+ALIASES = {"qwen2-7b": "qwen2_7b", "rwkv6-1.6b": "rwkv6_1_6b"}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -5,11 +5,15 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import wkv6 as _wkv6
 
 KERNELS = {
     "flash_attention": _flash.flash_attention,
     "decode_attention": _decode.decode_attention,
     "paged_decode_attention": _decode.paged_decode_attention,
+    "decode_attention_quant": _decode.decode_attention_quant,
+    "paged_decode_attention_quant": _decode.paged_decode_attention_quant,
+    "wkv6_scan": _wkv6.wkv6_scan,
 }
 
 

@@ -37,6 +37,14 @@ SIGNATURES = {
     "repro_paged_decode_attention_bf16":
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
          _P),
+    "repro_decode_attention_q8":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+         _P),
+    "repro_paged_decode_attention_q8":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _F, _P),
+    "repro_wkv6_bf16":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

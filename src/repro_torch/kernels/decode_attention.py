@@ -1,20 +1,23 @@
-"""Decode attention, dense and paged: CUDA kernel wrappers, plain
-versions, launch counters.
+"""Decode attention, dense and paged, over bf16 K/V or int8 codes with
+bf16 scales: CUDA kernel wrappers, plain versions, launch counters.
 
 Kernels: ``csrc/decode_attention.cu`` (replace
-``repro/kernels/decode_attention.py::decode_attention_pallas`` and
-``::paged_decode_attention_pallas``; the source note there says what
-bounds them and what their design does about it).  Plain versions: the
-masked-softmax decode of ``repro/kernels/ops.py::decode_attention`` (xla
-path) and, for pages, the gather-then-dense path of
-``ops.paged_decode_attention``.
+``repro/kernels/decode_attention.py::decode_attention_pallas``,
+``::paged_decode_attention_pallas``, ``::decode_attention_quant_pallas``
+and ``::paged_decode_attention_quant_pallas``; the source note there says
+what bounds them and what their design does about it).  Plain versions:
+the masked-softmax decode of ``repro/kernels/ops.py::decode_attention``
+(xla path); for pages, the gather-then-dense path of
+``ops.paged_decode_attention``; for int8, dequantize-to-bf16-then-decode
+as ``ops.decode_attention_quant`` (ops.py:450-477).
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; ``<wrapper>.launches`` counts
-kernel launches.  The dense kernel walks rows in tiles of ``DENSE_TILE``
-and the paged one in tiles of the page size, through the same inner loop
+kernel launches.  The dense kernels walk rows in tiles of ``DENSE_TILE``
+and the paged ones in tiles of the page size, through the same inner loop
 and the same split of S across CTAs: with pages of ``DENSE_TILE`` rows
-both give bit-identical outputs.
+dense and paged give bit-identical outputs (bf16 with bf16, int8 with
+int8).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 MAX_GROUP = 8   # query heads per kv head the kernels hold (kMaxG)
 MAX_TILE = 64   # rows per tile (kMaxT)
+MAX_TILE_Q8 = 32  # rows per int8 tile, staged in shared memory (kMaxTQ8)
 TARGET_CTAS = 4 * 132  # about four CTAs per SM of an H100
 DENSE_TILE = 16  # rows per tile of the dense kernel = the engine's page size
 
@@ -91,7 +95,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _check_decode_shapes(name: str, q: torch.Tensor, kv: torch.Tensor,
-                         tile: int) -> tuple[int, int, int]:
+                         tile: int, max_tile: int = MAX_TILE
+                         ) -> tuple[int, int, int]:
     b, one, h, d = q.shape
     n_kv, kd = kv.shape[2], kv.shape[3]
     if one != 1 or kd != d or h % n_kv or h // n_kv > MAX_GROUP:
@@ -99,9 +104,9 @@ def _check_decode_shapes(name: str, q: torch.Tensor, kv: torch.Tensor,
                          f"kv{tuple(kv.shape)}")
     if d not in (64, 128):
         raise ValueError(f"{name}: head dim {d} not in (64, 128)")
-    if not 1 <= tile <= MAX_TILE:
+    if not 1 <= tile <= max_tile:
         raise ValueError(f"{name}: tile of {tile} rows not in [1, "
-                         f"{MAX_TILE}]")
+                         f"{max_tile}]")
     return b, h, d
 
 
@@ -188,3 +193,139 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+# -- int8 KV ------------------------------------------------------------------
+
+
+def _dequantize(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (codes.float() * scale.float()).to(torch.bfloat16)
+
+
+def decode_attention_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
+                                 v_codes: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor,
+                                 cache_len: torch.Tensor) -> torch.Tensor:
+    """Dequantize to bf16, then the plain decode (ops.py:472-477).  The
+    kernel keeps the dequantized rows in f32 (as ``_kernel_q8`` does);
+    this version rounds them to bf16 first, a difference of at most half a
+    bf16 ulp per element."""
+    return decode_attention_plain(q, _dequantize(k_codes, k_scale),
+                                  _dequantize(v_codes, v_scale), cache_len)
+
+
+def paged_decode_attention_quant_plain(q: torch.Tensor,
+                                       k_pages: torch.Tensor,
+                                       v_pages: torch.Tensor,
+                                       ks_pages: torch.Tensor,
+                                       vs_pages: torch.Tensor,
+                                       block_tables: torch.Tensor,
+                                       cache_len: torch.Tensor
+                                       ) -> torch.Tensor:
+    """Gather codes and scales, then the dense int8 plain decode
+    (ops.py:425-447)."""
+    return decode_attention_quant_plain(
+        q, gather_pages(k_pages, block_tables),
+        gather_pages(v_pages, block_tables),
+        gather_pages(ks_pages, block_tables),
+        gather_pages(vs_pages, block_tables), cache_len)
+
+
+def _check_scales(name: str, codes: torch.Tensor, *scales: torch.Tensor
+                  ) -> None:
+    want = (*codes.shape[:-1], 1)
+    for sc in scales:
+        if tuple(sc.shape) != want:
+            raise ValueError(f"{name}: scales {tuple(sc.shape)} do not "
+                             f"match codes {tuple(codes.shape)}")
+
+
+def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, k_scale: torch.Tensor,
+                           v_scale: torch.Tensor,
+                           cache_len: torch.Tensor) -> torch.Tensor:
+    """``decode_attention`` over (B,S,K,D) int8 codes and (B,S,K,1) bf16
+    scales; returns (B,1,H,D) bf16.  No window (the reference has none)."""
+    if q.device.type == "cpu":
+        return decode_attention_quant_plain(q, k_cache, v_cache, k_scale,
+                                            v_scale, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention_quant: no kernel for "
+                         f"{q.device}")
+    name = "decode_attention_quant"
+    block_s = DENSE_TILE
+    b, h, d = _check_decode_shapes(name, q, k_cache, block_s, MAX_TILE_Q8)
+    _, s, n_kv, _ = k_cache.shape
+    if (v_cache.shape != k_cache.shape or k_cache.shape[0] != b
+            or tuple(cache_len.shape) != (b,)):
+        raise ValueError(f"{name}: cache / cache_len shapes do not match q")
+    _check_scales(name, k_cache, k_scale, v_scale)
+    n_tiles = -(-s // block_s)
+    per = tiles_per_split(b, n_kv, n_tiles)
+    part_acc, part_ml = _scratch(b, n_kv, -(-n_tiles // per), d, q.device)
+    o = torch.empty_like(q)
+    bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    ptrs = build.pointers(
+        name, q.device,
+        {"q": (q, bf16), "k_cache": (k_cache, i8), "v_cache": (v_cache, i8),
+         "k_scale": (k_scale, bf16), "v_scale": (v_scale, bf16),
+         "cache_len": (cache_len, torch.int32), "part_acc": (part_acc, f32),
+         "part_ml": (part_ml, f32), "o": (o, bf16)})
+    with torch.cuda.device(q.device):
+        err = build.library().repro_decode_attention_q8(
+            *ptrs, b, s, h, n_kv, d, block_s, per, d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
+    decode_attention_quant.launches += 1
+    return o
+
+
+decode_attention_quant.launches = 0
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
+                                 v_pages: torch.Tensor,
+                                 ks_pages: torch.Tensor,
+                                 vs_pages: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 cache_len: torch.Tensor) -> torch.Tensor:
+    """``paged_decode_attention`` over (N,bs,K,D) int8 code pages and
+    (N,bs,K,1) bf16 scale pages; returns (B,1,H,D) bf16."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_quant_plain(
+            q, k_pages, v_pages, ks_pages, vs_pages, block_tables, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention_quant: no kernel for "
+                         f"{q.device}")
+    name = "paged_decode_attention_quant"
+    n, bs, n_kv, _ = k_pages.shape
+    b, h, d = _check_decode_shapes(name, q, k_pages, bs, MAX_TILE_Q8)
+    if (v_pages.shape != k_pages.shape or block_tables.dim() != 2
+            or block_tables.shape[0] != b
+            or tuple(cache_len.shape) != (b,)):
+        raise ValueError(f"{name}: pages / tables / cache_len shapes do not "
+                         f"match q")
+    _check_scales(name, k_pages, ks_pages, vs_pages)
+    m = block_tables.shape[1]
+    per = tiles_per_split(b, n_kv, m)
+    part_acc, part_ml = _scratch(b, n_kv, -(-m // per), d, q.device)
+    o = torch.empty_like(q)
+    bf16, i8, i32, f32 = torch.bfloat16, torch.int8, torch.int32, \
+        torch.float32
+    ptrs = build.pointers(
+        name, q.device,
+        {"q": (q, bf16), "k_pages": (k_pages, i8), "v_pages": (v_pages, i8),
+         "ks_pages": (ks_pages, bf16), "vs_pages": (vs_pages, bf16),
+         "block_tables": (block_tables, i32), "cache_len": (cache_len, i32),
+         "part_acc": (part_acc, f32), "part_ml": (part_ml, f32),
+         "o": (o, bf16)})
+    with torch.cuda.device(q.device):
+        err = build.library().repro_paged_decode_attention_q8(
+            *ptrs, b, n, bs, m, h, n_kv, d, per, d ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
+    paged_decode_attention_quant.launches += 1
+    return o
+
+
+paged_decode_attention_quant.launches = 0

@@ -1,7 +1,8 @@
-"""Naive full-matrix oracles (O(S^2) memory) for the attention kernels.
+"""Naive oracles for the kernels: full-matrix attention (O(S^2) memory)
+and the WKV-6 recurrence as a Python loop over time.
 
-Counterparts of ``repro.kernels.ref.mha_reference`` and
-``decode_reference``: the ground truth the plain versions and the CUDA
+Counterparts of ``repro.kernels.ref.mha_reference``, ``decode_reference``
+and ``wkv6_reference``: the ground truth the plain versions and the CUDA
 kernels are held against in the tests.
 """
 
@@ -55,3 +56,21 @@ def decode_reference(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def wkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence, Python loop over time (ref.py:58-71)."""
+    _, s, _, _ = r.shape
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()
+    st = state.float()  # (B, H, Dk, Dv)
+    outs = []
+    for t in range(s):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
+        att = st + uf[None, :, :, None] * kv
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, t], att))
+        st = torch.exp(wf[:, t])[..., None] * st + kv
+    out = torch.stack(outs, dim=1)
+    return out.to(r.dtype), st.to(state.dtype)

@@ -1,15 +1,18 @@
 """GQA attention blocks: projections, prefill and decode paths, cache
-writes (counterpart of ``repro.models.attention``, dense paths only).
+writes, int8 KV quantization (counterpart of ``repro.models.attention``,
+dense paths only).
 
 Cache conventions: a dense cache is (B, S_max, K, Dh) with write row =
 position; paged pools are (N, bs, K, Dh) physical blocks.  Rotary
 embeddings are applied before caching.  Where JAX returns an updated
 (donated) cache, the port writes the preallocated cache IN PLACE and
-returns the same tensor — the counterpart of XLA donation.
+returns the same tensor — the counterpart of XLA donation.  An int8 cache
+holds codes in the K/V pools beside (…, K, 1) bf16 scale pools.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -51,6 +54,16 @@ def _project_kv(params: dict, x: torch.Tensor, cfg: ModelConfig
             v.reshape(b, s, cfg.n_kv_heads, cfg.dh))
 
 
+def _rope_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
+              cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Projections with rotary embeddings on q and k (post-rope k is what
+    the caches hold)."""
+    q = apply_rope(_project_q(params, x, cfg), positions, cfg.rope_theta)
+    k, v = _project_kv(params, x, cfg)
+    return q, apply_rope(k, positions, cfg.rope_theta), v
+
+
 def _output(params: dict, o: torch.Tensor) -> torch.Tensor:
     b, s, h, dh = o.shape
     return o.reshape(b, s, h * dh) @ params["wo"]
@@ -62,11 +75,39 @@ def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     """Causal self-attention over the whole sequence through the flash
     kernel.  Returns (output, k, v) — k/v post-rope, for the caller to
     cache."""
-    q = apply_rope(_project_q(params, x, cfg), positions, cfg.rope_theta)
-    k, v = _project_kv(params, x, cfg)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _rope_qkv(params, x, positions, cfg)
     o = ops.flash_attention(q, k, v, causal=True)
     return _output(params, o), k, v
+
+
+# --------------------------------------------------------------------------
+# int8 KV-cache quantization (attention.py:165-191)
+# --------------------------------------------------------------------------
+
+
+def kv_int8_enabled(cfg: ModelConfig) -> bool:
+    """``REPRO_KV_INT8=1`` stores full (non-rolled) dense KV caches as int8
+    codes with per-(position, kv-head) bf16 scales.  Read where a cache is
+    made; the decode steps dispatch on what the cache holds."""
+    return (os.environ.get("REPRO_KV_INT8", "") == "1"
+            and cfg.family in ("dense", "moe")
+            and cfg.sliding_window is None
+            and cfg.local_global_ratio == 0)
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(…, D) -> (int8 codes, (…, 1) bf16 scales).  Codes are rounded
+    (half to even, as ``jnp.round``) with the f32 scale; only then is the
+    scale stored as bf16."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale.float()).to(torch.bfloat16)
 
 
 # --------------------------------------------------------------------------
@@ -96,10 +137,7 @@ def attn_decode(params: dict, x: torch.Tensor, kc: torch.Tensor,
     the new token.  Returns (output, kc, vc)."""
     b = x.shape[0]
     pos_b = pos.reshape(-1).expand(b)
-    positions = pos_b[:, None]
-    q = apply_rope(_project_q(params, x, cfg), positions, cfg.rope_theta)
-    k, v = _project_kv(params, x, cfg)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _rope_qkv(params, x, pos_b[:, None], cfg)
     cache_write(kc, k, pos_b)
     cache_write(vc, v, pos_b)
     cache_len = (pos_b + 1).to(torch.int32)
@@ -141,13 +179,49 @@ def attn_decode_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token self-attention against (and updating, in place) a paged
     cache.  pos: (B,) absolute position of each sequence's new token."""
-    positions = pos[:, None]
-    q = apply_rope(_project_q(params, x, cfg), positions, cfg.rope_theta)
-    k, v = _project_kv(params, x, cfg)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _rope_qkv(params, x, pos[:, None], cfg)
     paged_cache_write(k_pages, k, block_tables, pos, active)
     paged_cache_write(v_pages, v, block_tables, pos, active)
     cache_len = (pos + 1).to(torch.int32)
     o = ops.paged_decode_attention(q, k_pages, v_pages, block_tables,
                                    cache_len)
     return _output(params, o), k_pages, v_pages
+
+
+def attn_decode_quant(params: dict, x: torch.Tensor, kc: torch.Tensor,
+                      vc: torch.Tensor, ksc: torch.Tensor, vsc: torch.Tensor,
+                      pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``attn_decode`` against int8 caches (kc/vc int8 codes, ksc/vsc
+    (B, C, K, 1) bf16 scales), all written in place: the new row is
+    quantized, cached, and attended by the int8 decode kernel."""
+    b = x.shape[0]
+    pos_b = pos.reshape(-1).expand(b)
+    q, k, v = _rope_qkv(params, x, pos_b[:, None], cfg)
+    k8, ks_new = kv_quantize(k)
+    v8, vs_new = kv_quantize(v)
+    for cache, new in ((kc, k8), (vc, v8), (ksc, ks_new), (vsc, vs_new)):
+        cache_write(cache, new, pos_b)
+    cache_len = (pos_b + 1).to(torch.int32)
+    o = ops.decode_attention_quant(q, kc, vc, ksc, vsc, cache_len)
+    return _output(params, o)
+
+
+def attn_decode_paged_quant(params: dict, x: torch.Tensor,
+                            k_pages: torch.Tensor, v_pages: torch.Tensor,
+                            ks_pages: torch.Tensor, vs_pages: torch.Tensor,
+                            block_tables: torch.Tensor, pos: torch.Tensor,
+                            cfg: ModelConfig,
+                            active: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """``attn_decode_paged`` against int8 code + scale pages, written in
+    place."""
+    q, k, v = _rope_qkv(params, x, pos[:, None], cfg)
+    k8, ks_new = kv_quantize(k)
+    v8, vs_new = kv_quantize(v)
+    for pages, new in ((k_pages, k8), (v_pages, v8), (ks_pages, ks_new),
+                       (vs_pages, vs_new)):
+        paged_cache_write(pages, new, block_tables, pos, active)
+    cache_len = (pos + 1).to(torch.int32)
+    o = ops.paged_decode_attention_quant(q, k_pages, v_pages, ks_pages,
+                                         vs_pages, block_tables, cache_len)
+    return _output(params, o)

@@ -1,25 +1,33 @@
-"""``Model``: the dense family's steps and cache factories (counterpart of
-``repro.models.model.Model`` for this slice).
+"""``Model``: family dispatch, steps and cache factories (counterpart of
+``repro.models.model.Model`` for the families ported so far: the
+full-cache dense SwiGLU family and RWKV-6).
 
-KV caches are bf16, as in model.py:223-227.  The cache methods that JAX
-expresses as functional updates of donated buffers (``merge_slot``,
-``append_paged``) write the preallocated pools in place here.
+Cache leaves follow ``cache_shapes``/``paged_cache_shapes`` of the JAX
+package (model.py:169-232, 316-342): bf16 K/V, or under the int8 gate
+int8 codes plus (…, K, 1) bf16 scales; for rwkv an f32 ``wkv`` state and
+bf16 token-shift rows.  The int8 gate (``REPRO_KV_INT8``) is read where a
+cache is made — ``prefill``, ``init_slot_cache``, ``init_paged_cache`` —
+unless the caller pins it with ``kv_int8=``, as a serving instance does.
+The cache methods that JAX expresses as functional updates of donated
+buffers (``merge_slot``, ``append_paged``) write the preallocated pools in
+place here, and refuse an entry whose leaves or dtypes differ from the
+pool's instead of casting it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import attention, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_params, param_count
 
-KV_DTYPE = torch.bfloat16
+_FAMILY = {"dense": transformer, "rwkv": rwkv6}
 
 
 def default_kv_blocks(max_batch: int, max_len: int, block_size: int) -> int:
@@ -28,18 +36,46 @@ def default_kv_blocks(max_batch: int, max_len: int, block_size: int) -> int:
     return max(max_batch * (-(-max_len // block_size)), 2)
 
 
+def _nbytes(specs: dict) -> int:
+    return sum(int(np.prod(shape)) * dtype.itemsize
+               for shape, dtype in specs.values())
+
+
+def _zeros(specs: dict, device) -> dict:
+    return {key: torch.zeros(shape, dtype=dtype, device=device)
+            for key, (shape, dtype) in specs.items()}
+
+
+def _check_entry(what: str, pool: dict, entry: dict) -> None:
+    """An entry must bring exactly the pool's leaves in the pool's dtypes:
+    a silent cast would, for one, truncate bf16 K/V into int8 codes."""
+    keys = set(pool) - {"pos"}
+    if set(entry) - {"pos"} != keys:
+        raise ValueError(f"{what}: entry leaves {sorted(entry)} do not match "
+                         f"the pool's {sorted(pool)}")
+    for key in sorted(keys):
+        if entry[key].dtype != pool[key].dtype:
+            raise TypeError(f"{what}: entry leaf {key!r} is "
+                            f"{entry[key].dtype}, the pool holds "
+                            f"{pool[key].dtype}")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self) -> None:
-        if not transformer.supports_paged(self.cfg):
+        cfg = self.cfg
+        if cfg.family not in _FAMILY or (
+                cfg.family == "dense" and not transformer.supports_paged(cfg)):
             raise NotImplementedError(
-                f"{self.cfg.name}: the port serves the full-cache dense "
-                f"SwiGLU family only so far (others: ROADMAP.md, Queue 1)")
+                f"{cfg.name}: the port serves the full-cache dense SwiGLU "
+                f"family and rwkv6 so far (others: ROADMAP.md, Queue 1)")
 
     @functools.cached_property
     def specs(self) -> Any:
+        if self.cfg.family == "rwkv":
+            return rwkv6.rwkv_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     # -- params -----------------------------------------------------------
@@ -54,18 +90,34 @@ class Model:
 
     # -- steps ---------------------------------------------------------------
 
-    def prefill(self, params, tokens, *, max_len=None, length=None):
+    def kv_int8(self) -> bool:
+        """Whether a cache made now holds int8 K/V (the process gate)."""
+        return attention.kv_int8_enabled(self.cfg)
+
+    def _int8(self, kv_int8: Optional[bool]) -> bool:
+        return self.kv_int8() if kv_int8 is None else kv_int8
+
+    def prefill(self, params, tokens, *, max_len=None, length=None,
+                kv_int8: Optional[bool] = None):
+        if self.cfg.family == "rwkv":
+            if length is not None:
+                raise NotImplementedError(
+                    "rwkv prefill runs at the exact prompt length")
+            return rwkv6.prefill(params, tokens, self.cfg, max_len=max_len)
         return transformer.prefill(params, tokens, self.cfg, max_len=max_len,
-                                   length=length)
+                                   length=length, kv_int8=self._int8(kv_int8))
 
     def supports_bucketed_prefill(self) -> bool:
-        return self.cfg.sliding_window is None
+        """Right-padded prompts need full per-position caches: pad tokens
+        would enter an rwkv recurrence."""
+        return self.cfg.family == "dense" and self.cfg.sliding_window is None
 
     def supports_paged(self) -> bool:
         return transformer.supports_paged(self.cfg)
 
     def decode_step(self, params, token, cache):
-        return transformer.decode_step(params, token, cache, self.cfg)
+        return _FAMILY[self.cfg.family].decode_step(params, token, cache,
+                                                    self.cfg)
 
     def decode_step_paged(self, params, token, cache, block_tables, pos):
         return transformer.decode_step_paged(params, token, cache,
@@ -75,95 +127,123 @@ class Model:
         return transformer.greedy_tokens(logits, self.cfg)
 
     def decode_step_tokens(self, params, token, cache):
-        return transformer.decode_step_tokens(params, token, cache, self.cfg)
+        """One round returning ((B,) int32 tokens, cache); the logits never
+        leave the device (model.py:110-128)."""
+        if self.cfg.family == "dense":
+            return transformer.decode_step_tokens(params, token, cache,
+                                                  self.cfg)
+        logits, cache = self.decode_step(params, token, cache)
+        return transformer.greedy_tokens(logits, self.cfg), cache
 
     def decode_step_paged_tokens(self, params, token, cache, block_tables,
                                  pos, active):
         return transformer.decode_step_paged_tokens(
             params, token, cache, block_tables, pos, active, self.cfg)
 
+    # -- cache layouts ---------------------------------------------------------
+
+    def cache_specs(self, batch: int, max_len: int,
+                    kv_int8: Optional[bool] = None) -> dict:
+        """{leaf: (shape, dtype)} of a cache of ``batch`` sequences, ``pos``
+        excluded (model.py:169-232)."""
+        if self.cfg.family == "rwkv":
+            return rwkv6.cache_specs(self.cfg, batch)
+        return transformer.cache_specs(self.cfg, batch, max_len,
+                                       self._int8(kv_int8))
+
+    def paged_cache_specs(self, n_blocks: int, block_size: int,
+                          kv_int8: Optional[bool] = None) -> dict:
+        """{leaf: (shape, dtype)} of the paged pools (model.py:316-342)."""
+        if not self.supports_paged():
+            raise NotImplementedError(
+                f"{self.cfg.name}: paged KV needs a full-cache dense config")
+        return transformer.cache_specs(self.cfg, n_blocks, block_size,
+                                       self._int8(kv_int8))
+
     # -- slot caches (continuous batching) ---------------------------------
 
-    def _kv_shape(self, batch: int, rows: int) -> tuple[int, ...]:
-        cfg = self.cfg
-        return (cfg.n_layers, batch, rows, cfg.n_kv_heads, cfg.dh)
-
-    def init_slot_cache(self, n_slots: int, max_len: int,
-                        device=None) -> dict:
+    def init_slot_cache(self, n_slots: int, max_len: int, device=None,
+                        kv_int8: Optional[bool] = None) -> dict:
         """Persistent decode-slot pool with a per-slot position vector."""
-        shape = self._kv_shape(n_slots, max_len)
-        return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-                "pos": torch.zeros((n_slots,), dtype=torch.int32,
-                                   device=device)}
+        cache = _zeros(self.cache_specs(n_slots, max_len, kv_int8), device)
+        cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+                                   device=device)
+        return cache
 
     def merge_slot(self, cache: dict, entry: dict, slot: int) -> dict:
         """Copy a batch-1 prefill ``entry`` into slot ``slot`` of the pool,
-        in place (a device-to-device copy; no host sync)."""
-        cache["k"][:, slot] = entry["k"][:, 0]
-        cache["v"][:, slot] = entry["v"][:, 0]
-        cache["pos"][slot] = entry["pos"]
+        in place, leaf by leaf (every leaf's batch axis is 1; a
+        device-to-device copy, no host sync)."""
+        _check_entry("merge_slot", cache, entry)
+        for key, leaf in cache.items():
+            if key == "pos":
+                leaf[slot] = entry["pos"]
+            else:
+                leaf[:, slot] = entry[key][:, 0]
         return cache
 
     def gather_slot(self, cache: dict, slot: int) -> dict:
         """Slot ``slot`` of a pool as a batch-1 cache with a scalar pos
         (the inverse of ``merge_slot``)."""
-        return {"k": cache["k"][:, slot:slot + 1].clone(),
-                "v": cache["v"][:, slot:slot + 1].clone(),
-                "pos": cache["pos"][slot].clone()}
+        return {key: (leaf[slot] if key == "pos"
+                      else leaf[:, slot:slot + 1]).clone()
+                for key, leaf in cache.items()}
 
     # -- paged caches ---------------------------------------------------------
 
-    def init_paged_cache(self, n_blocks: int, block_size: int,
-                         device=None) -> dict:
-        """Zeroed paged KV pools (block 0 is the engine's null block)."""
-        shape = self._kv_shape(n_blocks, block_size)
-        return {"k": torch.zeros(shape, dtype=KV_DTYPE, device=device),
-                "v": torch.zeros(shape, dtype=KV_DTYPE, device=device)}
+    def init_paged_cache(self, n_blocks: int, block_size: int, device=None,
+                         kv_int8: Optional[bool] = None) -> dict:
+        """Zeroed paged pools (block 0 is the engine's null block)."""
+        return _zeros(self.paged_cache_specs(n_blocks, block_size, kv_int8),
+                      device)
 
     def append_paged(self, cache: dict, entry: dict, block_row,
                      write) -> dict:
         """Scatter a batch-1 prefill ``entry`` (``max_len`` rows, a multiple
-        of the block size) into physical pages, in place: logical block i
-        lands in ``block_row[i]`` where the row mask ``write[i]`` is true.
-        The explicit mask replaces JAX's ``mode="drop"`` sentinel
-        (model.py:387-412); both arguments are host arrays, so the scatter
-        indices are built without a device sync."""
+        of the block size) into physical pages of every leaf, in place:
+        logical block i lands in ``block_row[i]`` where the row mask
+        ``write[i]`` is true.  The explicit mask replaces JAX's
+        ``mode="drop"`` sentinel (model.py:387-412); both arguments are
+        host arrays, so the scatter indices are built without a device
+        sync."""
+        _check_entry("append_paged", cache, entry)
         src = np.flatnonzero(np.asarray(write, bool))
         dst = np.asarray(block_row, np.int64)[src]
         for key, pages in cache.items():
-            leaf = entry[key][:, 0]  # (L, max_len, K, Dh)
+            leaf = entry[key][:, 0]  # (L, max_len, K, Dh or 1)
             l, s = leaf.shape[:2]
             bs = pages.shape[2]
             blocks = leaf.reshape(l, s // bs, bs, *leaf.shape[2:])
             dev = pages.device
             pages.index_copy_(
                 1, torch.as_tensor(dst, device=dev),
-                blocks.index_select(1, torch.as_tensor(src, device=dev))
-                .to(pages.dtype))
+                blocks.index_select(1, torch.as_tensor(src, device=dev)))
         return cache
 
     def gather_pages(self, cache: dict, block_row, pos) -> dict:
-        """Rebuild one sequence as a contiguous batch-1 dense cache — the
-        inverse of ``append_paged``."""
+        """Rebuild one sequence as a contiguous batch-1 dense cache, every
+        leaf — the inverse of ``append_paged``."""
         out = {}
         for key, pages in cache.items():
             idx = torch.as_tensor(np.asarray(block_row, np.int64),
                                   device=pages.device)
-            g = pages.index_select(1, idx)  # (L, M, bs, K, Dh)
+            g = pages.index_select(1, idx)  # (L, M, bs, K, Dh or 1)
             l, m, bs = g.shape[:3]
             out[key] = g.reshape(l, 1, m * bs, *g.shape[3:])
         out["pos"] = torch.as_tensor(pos, dtype=torch.int32)
         return out
 
-    def kv_block_bytes(self, block_size: int) -> int:
-        """Bytes of one paged KV block across all layers and leaves."""
-        per = int(np.prod(self._kv_shape(1, block_size)))
-        return 2 * per * KV_DTYPE.itemsize
+    # -- byte accounting ---------------------------------------------------------
 
-    def dense_kv_bytes(self, batch: int, max_len: int) -> int:
-        """Bytes of the dense slot-pool reservation for the same capacity
-        (K/V rows plus the scalar int32 position of ``cache_shapes``, as
-        model.py:361-367 counts)."""
-        per = int(np.prod(self._kv_shape(batch, max_len)))
-        return 2 * per * KV_DTYPE.itemsize + 4
+    def kv_block_bytes(self, block_size: int,
+                       kv_int8: Optional[bool] = None) -> int:
+        """Bytes of one paged KV block across all layers and leaves
+        (model.py:353-359)."""
+        return _nbytes(self.paged_cache_specs(1, block_size, kv_int8))
+
+    def dense_kv_bytes(self, batch: int, max_len: int,
+                       kv_int8: Optional[bool] = None) -> int:
+        """Bytes of the dense slot-pool reservation for the same capacity:
+        every leaf plus the scalar int32 position, as ``cache_shapes``
+        counts it (model.py:361-367)."""
+        return _nbytes(self.cache_specs(batch, max_len, kv_int8)) + 4

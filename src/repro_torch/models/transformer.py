@@ -4,7 +4,9 @@ of ``repro.models.transformer``).
 JAX scans over a stacked ``layers`` axis; the port keeps that layout and
 loops over it in Python (PyTorch runs eagerly, there is no ``jit``).
 Decode steps update the preallocated KV pools in place — the counterpart
-of the JAX package's donated caches.
+of the JAX package's donated caches.  A cache made under the int8 gate
+holds int8 K/V codes beside ``k_scale``/``v_scale`` pools; the decode
+steps dispatch on what the cache holds (``"k_scale" in cache``).
 """
 
 from __future__ import annotations
@@ -74,6 +76,28 @@ def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
     return x + mlp_apply(lp["mlp"], h)
 
 
+def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
+                       pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``block_decode`` against int8 caches (transformer.py:153)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn.attn_decode_quant(lp["attn"], h, kc, vc, ksc, vsc, pos, cfg)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
+def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
+                             block_tables: torch.Tensor, pos: torch.Tensor,
+                             cfg: ModelConfig,
+                             active: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """``block_decode_paged`` against int8 pages (transformer.py:140)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn.attn_decode_paged_quant(lp["attn"], h, kc, vc, ksc, vsc,
+                                         block_tables, pos, cfg, active)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
 def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                        vc: torch.Tensor, block_tables: torch.Tensor,
                        pos: torch.Tensor, cfg: ModelConfig,
@@ -113,8 +137,8 @@ def lm_head(params: dict, x: torch.Tensor, cfg: ModelConfig
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            max_len: Optional[int] = None, length: Optional[int] = None
-            ) -> tuple[torch.Tensor, dict]:
+            max_len: Optional[int] = None, length: Optional[int] = None,
+            kv_int8: Optional[bool] = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt; returns (last-position logits (B, V), cache dict).
 
     ``length`` enables length-masked prefill for bucketed padding:
@@ -123,22 +147,30 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``length``.  Pad rows write garbage K/V beyond ``length``; decode masks
     the cache at ``pos + 1`` and overwrites those rows token by token, so
     they are never attended.
+
+    The cache holds the K/V leaves the pools hold (``cache_specs``): bf16
+    K/V, or under ``kv_int8`` (default: the ``REPRO_KV_INT8`` gate) int8
+    codes and bf16 scales of the post-rope K/V (transformer.py:430-445),
+    zero past the prompt.  Attention itself runs on the unquantized K/V.
     """
     b, s = tokens.shape
     max_len = max_len or s
+    quant = attn.kv_int8_enabled(cfg) if kv_int8 is None else kv_int8
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)
-    shape = (cfg.n_layers, b, max_len, cfg.n_kv_heads, cfg.dh)
-    kc = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    vc = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    cache = {key: torch.zeros(shape, dtype=dtype, device=x.device)
+             for key, (shape, dtype) in cache_specs(cfg, b, max_len,
+                                                    quant).items()}
     for i in range(cfg.n_layers):
         x, k, v = block_full(layer_params(params, i), x, cfg,
                              positions=positions)
-        kc[i, :, :s] = k
-        vc[i, :, :s] = v
+        for key, t in (("k", k), ("v", v)):
+            if quant:
+                t, scale = attn.kv_quantize(t)
+                cache[f"{key}_scale"][i, :, :s] = scale
+            cache[key][i, :, :s] = t
     n = s if length is None else int(length)
-    cache = {"k": kc, "v": vc,
-             "pos": torch.tensor(n, dtype=torch.int32, device=x.device)}
+    cache["pos"] = torch.tensor(n, dtype=torch.int32, device=x.device)
     logits = lm_head(params, x[:, n - 1:n], cfg)[:, 0]
     return logits, cache
 
@@ -157,8 +189,13 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     pos = cache["pos"]
     x = embed_tokens(params, token[:, None], cfg)
     for i in range(cfg.n_layers):
-        x = block_decode(layer_params(params, i), x, cache["k"][i],
-                         cache["v"][i], pos, cfg)
+        lp = layer_params(params, i)
+        if "k_scale" in cache:
+            x = block_decode_quant(lp, x, cache["k"][i], cache["v"][i],
+                                   cache["k_scale"][i], cache["v_scale"][i],
+                                   pos, cfg)
+        else:
+            x = block_decode(lp, x, cache["k"][i], cache["v"][i], pos, cfg)
     return lm_head(params, x, cfg)[:, 0], dict(cache, pos=pos + 1)
 
 
@@ -170,19 +207,39 @@ def supports_paged(cfg: ModelConfig) -> bool:
             and cfg.sliding_window is None and cfg.local_global_ratio == 0)
 
 
+def cache_specs(cfg: ModelConfig, batch: int, rows: int, kv_int8: bool
+                ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """KV leaves of a cache of ``batch`` sequences (or pages) of ``rows``
+    rows: bf16 K/V, or int8 codes plus (…, K, 1) bf16 scales
+    (model.py:212-227, 329-342)."""
+    kv = (cfg.n_layers, batch, rows, cfg.n_kv_heads, cfg.dh)
+    if not kv_int8:
+        return {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+    sc = (*kv[:-1], 1)
+    return {"k": (kv, torch.int8), "v": (kv, torch.int8),
+            "k_scale": (sc, torch.bfloat16), "v_scale": (sc, torch.bfloat16)}
+
+
 def decode_step_paged(params: dict, token: torch.Tensor, cache: dict,
                       block_tables: torch.Tensor, pos: torch.Tensor,
                       cfg: ModelConfig,
                       active: Optional[torch.Tensor] = None
                       ) -> tuple[torch.Tensor, dict]:
     """One decode step against block-paged KV pools {"k", "v"} of
-    (L, N, bs, K, Dh), written in place.  block_tables: (B, M) int32;
-    pos: (B,) int32; ``active`` ((B,), optional) suppresses free slots'
-    KV writes.  Returns (logits (B, V), cache)."""
+    (L, N, bs, K, Dh) (+ int8 scale pools), written in place.
+    block_tables: (B, M) int32; pos: (B,) int32; ``active`` ((B,),
+    optional) suppresses free slots' KV writes.  Returns (logits (B, V),
+    cache)."""
     x = embed_tokens(params, token[:, None], cfg)
     for i in range(cfg.n_layers):
-        x = block_decode_paged(layer_params(params, i), x, cache["k"][i],
-                               cache["v"][i], block_tables, pos, cfg, active)
+        lp = layer_params(params, i)
+        if "k_scale" in cache:
+            x = block_decode_paged_quant(
+                lp, x, cache["k"][i], cache["v"][i], cache["k_scale"][i],
+                cache["v_scale"][i], block_tables, pos, cfg, active)
+        else:
+            x = block_decode_paged(lp, x, cache["k"][i], cache["v"][i],
+                                   block_tables, pos, cfg, active)
     return lm_head(params, x, cfg)[:, 0], cache
 
 

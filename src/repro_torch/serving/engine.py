@@ -27,6 +27,13 @@ KV pools are written in place by the decode steps, ``merge_slot`` and
 ``append_paged``, and the slot-token vector takes admitted tokens by an
 in-place device write (the counterpart of ``_SET_TOK``, engine.py:106).
 
+An instance reads the int8-KV gate (``REPRO_KV_INT8``) once, when it is
+built, and passes it to every prefill, pool and byte count it makes, so
+it stays int8 (or bf16) whatever the variable does later; paged
+admission then charges the int8 block bytes.  The dense family and RWKV-6
+serve through the same paths (RWKV-6 continuous only, prefill at the
+exact prompt length).
+
 Not ported yet (ROADMAP.md): static batching and ``fused=False``,
 sampling and speculation, prefix sharing and copy-on-write, migration
 (``export_slot``/``import_slot``), ``retire``/``fail``, SLO deadlines.
@@ -105,11 +112,14 @@ class FunctionInstance:
         self.max_len = max_len
         self.batching = batching
         self.params = store.get(weights_key)  # shared, zero-copy
+        self.kv_int8 = model.kv_int8()  # pinned for the instance's life
         self.queue: deque[ServeRequest] = deque()
         # Prompts are right-padded to power-of-two buckets (engine.py:
         # 518-530): O(log max_len) prefill shapes instead of one per length.
         self.bucketed = model.supports_bucketed_prefill()
         self.steps = 0
+        self.prefills = 0  # prefill launches (telemetry)
+        self.rounds = 0    # decode rounds dispatched (telemetry)
         self.slots: list[Optional[ServeRequest]] = [None] * max_batch
         self._slot_tok = np.zeros((max_batch,), np.int32)  # host mirror
         self._slot_tok_dev: Optional[torch.Tensor] = None
@@ -136,7 +146,8 @@ class FunctionInstance:
             n_blocks = (n_kv_blocks if n_kv_blocks is not None
                         else default_kv_blocks(max_batch, max_len,
                                                block_size))
-            self._block_bytes = model.kv_block_bytes(block_size)
+            self._block_bytes = model.kv_block_bytes(block_size,
+                                                     self.kv_int8)
             self.allocator = KVPageAllocator(n_blocks, block_size,
                                              block_bytes=self._block_bytes)
             self.pages = PageTable(self.allocator)
@@ -185,26 +196,28 @@ class FunctionInstance:
 
     def _init_cache(self) -> dict:
         if self.batching == "paged":
-            return self.model.init_paged_cache(self.allocator.n_blocks,
-                                               self.block_size, self.device)
+            return self.model.init_paged_cache(
+                self.allocator.n_blocks, self.block_size, self.device,
+                kv_int8=self.kv_int8)
         return self.model.init_slot_cache(self.max_batch, self.max_len,
-                                          self.device)
+                                          self.device, kv_int8=self.kv_int8)
 
     # -- admission -------------------------------------------------------------
 
     def _prefill_one(self, prompt: np.ndarray):
         """Prefill one prompt, right-padded to its bucket when enabled."""
         n = int(prompt.shape[0])
+        self.prefills += 1
+        kw = {"max_len": self.max_len, "kv_int8": self.kv_int8}
         if self.bucketed and n < self.max_len:
             pl = min(_bucket_len(n), self.max_len)
             padded = np.zeros((pl,), np.int32)
             padded[:n] = prompt
             tokens = torch.as_tensor(padded[None], device=self.device)
-            return self.model.prefill(self.params, tokens,
-                                      max_len=self.max_len, length=n)
+            return self.model.prefill(self.params, tokens, length=n, **kw)
         tokens = torch.as_tensor(np.asarray(prompt, np.int32)[None],
                                  device=self.device)
-        return self.model.prefill(self.params, tokens, max_len=self.max_len)
+        return self.model.prefill(self.params, tokens, **kw)
 
     def _map_paged_request(self, slot: int, req: ServeRequest,
                            entry: dict) -> None:
@@ -288,6 +301,7 @@ class FunctionInstance:
     def _dispatch_round(self) -> None:
         """Enqueue one fused decode round on the device — no host pull."""
         active = [s for s, r in enumerate(self.slots) if r is not None]
+        self.rounds += 1
         if self.batching == "paged":
             if self._state_dirty:
                 self._upload_paged_state()
@@ -482,9 +496,11 @@ class ServingEngine:
         return {k: v.sync_count for k, v in self.instances.items()}
 
     def telemetry(self) -> dict[str, dict[str, int]]:
-        """Hot-path counters per instance: steps, host syncs and (paged)
-        device-state uploads — ``uploads << steps`` shows the tables and
-        positions stay device-resident between admission events."""
+        """Hot-path counters per instance: steps, host syncs, prefills,
+        decode rounds and (paged) device-state uploads — ``uploads <<
+        steps`` shows the tables and positions stay device-resident
+        between admission events."""
         return {k: {"steps": v.steps, "syncs": v.sync_count,
+                    "prefills": v.prefills, "rounds": v.rounds,
                     "uploads": v.uploads}
                 for k, v in self.instances.items()}

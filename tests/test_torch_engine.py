@@ -3,7 +3,9 @@ the same greedy token streams, continuous and paged, with one host sync
 per pass (mirrors ``test_continuous_batching`` and ``test_paged_kv``).
 
 Both engines run the f32 tiny model (bf16 KV pools) on the CPU; the JAX
-side disables prefix sharing, which the port has not ported yet.
+side disables prefix sharing, which the port has not ported yet.  The
+int8-KV engines (tiny, f32) and the rwkv6 engines (reduced rwkv6-1.6b,
+f32) give the same streams too.
 """
 
 import dataclasses
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from conftest import tiny_config
+from repro.configs import get_config as jax_config
 from repro.core.resources import Alloc as JaxAlloc
 from repro.models import build_model as jax_build
 from repro.serving import ServingEngine as JaxEngine
@@ -165,3 +168,63 @@ def test_unported_modes_raise(models):
     with pytest.raises(NotImplementedError):
         eng.deploy("g", tm, tp, Alloc(**FULL), batching="paged",
                    prefix_sharing=True)
+
+
+# -- int8 KV and rwkv6 through the engine -------------------------------------
+
+
+def _f32_pair(jcfg, seed):
+    jm = jax_build(jcfg)
+    jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
+                                jm.init(jax.random.key(seed)))
+    tm = build_model(ModelConfig(**dataclasses.asdict(jcfg)))
+    return jm, jp, tm, bridge.to_torch(jax.device_get(jp))
+
+
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+def test_int8_engine_streams_match_jax(monkeypatch, batching):
+    """Under the int8 gate both engines serve from int8 pools; the port's
+    instance pins the gate when it is built (a later change of the
+    variable does not move it) and paged admission charges int8 blocks."""
+    monkeypatch.setenv("REPRO_KV_INT8", "1")
+    # A config of its own, so no JAX trace made without the gate is reused.
+    jm, jp, tm, tp = _f32_pair(tiny_config(name="tiny-int8-engine"), 0)
+    arrivals = _arrivals(MIXED)
+    kw = dict(n_instances=2, max_batch=2, max_len=32, block_size=8)
+    jreqs, _ = _serve_jax(jm, jp, batching, arrivals, **kw)
+    int8_block = jm.kv_block_bytes(8)
+    eng = ServingEngine(window=0.1, device="cpu")
+    eng.deploy("f", tm, tp, Alloc(**FULL), batching=batching, **kw)
+    monkeypatch.setenv("REPRO_KV_INT8", "0")
+    treqs = [eng.submit("f", p, max_new_tokens=n) for p, n in arrivals]
+    assert eng.pump(budget_s=120.0) == len(treqs)
+    assert [r.tokens_out for r in treqs] == [r.tokens_out for r in jreqs]
+    for inst in eng.instances.values():
+        assert inst.kv_int8 and inst.cache["k"].dtype == torch.int8
+        assert inst.sync_count == inst.steps > 0
+        if batching == "paged":
+            assert inst.allocator.block_bytes == int8_block \
+                < tm.kv_block_bytes(8)  # bf16 now that the gate is off
+            assert inst.allocator.blocks_in_use == 0
+
+
+def test_rwkv_engine_streams_match_jax():
+    """rwkv6 (reduced, f32) serves continuous batches at exact prompt
+    lengths with the same greedy streams as the JAX engine; two instances
+    share one weight copy."""
+    jm, jp, tm, tp = _f32_pair(jax_config("rwkv6-1.6b", reduced=True), 1)
+    arrivals = _arrivals([(5, 4), (9, 6), (5, 3), (9, 5), (5, 2)], seed=3)
+    kw = dict(n_instances=2, max_batch=2, max_len=32)
+    jreqs, _ = _serve_jax(jm, jp, "continuous", arrivals, **kw)
+    treqs, eng = _serve_torch(tm, tp, "continuous", arrivals, **kw)
+    assert [r.tokens_out for r in treqs] == [r.tokens_out for r in jreqs]
+    tel = eng.telemetry()
+    assert sum(v["prefills"] for v in tel.values()) == len(arrivals)
+    for inst in eng.instances.values():
+        assert not inst.bucketed and set(inst.cache) == {"wkv", "tm_x",
+                                                         "cm_x", "pos"}
+        assert inst.sync_count == inst.steps > 0
+    assert eng.memory_bytes() == sum(
+        t.numel() * t.element_size() for t in _leaves(tp))
+    with pytest.raises(ValueError):
+        eng.deploy("g", tm, tp, Alloc(**FULL), batching="paged")

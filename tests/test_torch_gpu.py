@@ -6,7 +6,9 @@ runs on the card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance 2e-2: bf16 outputs, sums in another order than the plain
-versions (as ``test_kernels.py`` holds bf16 kernels).
+versions (as ``test_kernels.py`` holds bf16 kernels); the int8 kernels
+keep dequantized rows in f32 where their plain versions round them to
+bf16 first, a difference far inside it.
 """
 
 import numpy as np
@@ -107,3 +109,81 @@ def test_decode_kernel_clamps_past_cache_end(cuda_device):
     torch.testing.assert_close(
         got.float(), da.decode_attention_plain(q, kc, vc, lens).float(),
         atol=2e-2, rtol=2e-2)
+
+
+def _int8_cache(rng, shape, device):
+    """Random bf16 rows quantized on the card: (codes, scales)."""
+    from repro_torch.models.attention import kv_quantize
+    return kv_quantize(_cuda_rand(rng, shape, device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens_case", ["mixed", "one", "full", "past_end"])
+def test_int8_decode_kernels_vs_plain_and_each_other(cuda_device, lens_case):
+    """int8 dense and paged decode against their plain versions (which
+    round the dequantized rows to bf16, within 2e-2 of the kernels' f32),
+    and bit-equal to each other on identical codes."""
+    b, s, bs = 8, 1024, 16
+    rng = np.random.default_rng(13)
+    lens_np = {"mixed": np.array([1024, 1, 517, 64, 1000, 333, 768, 129]),
+               "one": np.ones(b), "full": np.full(b, s),
+               "past_end": np.array([1024, 1, 517, 64, 1000, 333, 768, 129])
+               + s}[lens_case].astype(np.int32)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    lens = torch.as_tensor(lens_np, device=cuda_device)
+    before = da.decode_attention_quant.launches
+    dense = da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+    assert da.decode_attention_quant.launches == before + 1
+    torch.testing.assert_close(
+        dense.float(),
+        da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens).float(),
+        atol=2e-2, rtol=2e-2)
+    if lens_case == "past_end":
+        return  # pages hold no rows past their table
+    m = s // bs
+    perm = rng.permutation(np.arange(1, 1 + b * m))
+    tables_np = np.zeros((b, m), np.int32)
+    pages = [torch.zeros((1 + b * m, bs, 4, d), dtype=x.dtype,
+                         device=cuda_device)
+             for x, d in ((k8, 128), (v8, 128), (ks, 1), (vs, 1))]
+    pages[0][0] = 77  # garbage in the null block is never read
+    for i in range(b):
+        for t in range(-(-int(lens_np[i]) // bs)):
+            tables_np[i, t] = perm[i * m + t]
+            for page, x in zip(pages, (k8, v8, ks, vs)):
+                page[tables_np[i, t]] = x[i, t * bs:(t + 1) * bs]
+    tables = torch.as_tensor(tables_np, device=cuda_device)
+    paged = da.paged_decode_attention_quant(q, *pages, tables, lens)
+    torch.testing.assert_close(
+        paged.float(),
+        da.paged_decode_attention_quant_plain(q, *pages, tables,
+                                              lens).float(),
+        atol=2e-2, rtol=2e-2)
+    assert torch.equal(paged, dense)  # one shared tile loop
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,state_scale", [
+    (1, 512, 32, 0.0),   # batch-1 prefill from a zero state
+    (8, 1, 32, 1.0),     # a decode step of 8 slots
+    (2, 77, 4, 1.0),     # S not a multiple of the 32-step chunk
+    (1, 33, 2, 3.0)])
+def test_wkv6_kernel_vs_plain(cuda_device, b, s, h, state_scale):
+    from repro_torch.kernels import wkv6
+    rng = np.random.default_rng(s + h)
+    r, k, v = (_cuda_rand(rng, (b, s, h, 64), cuda_device) for _ in range(3))
+    w = (-torch.exp(_cuda_rand(rng, (b, s, h, 64), cuda_device).float()
+                    * 0.3) - 0.01).to(torch.bfloat16)
+    u = _cuda_rand(rng, (h, 64), cuda_device)
+    st = (torch.from_numpy(rng.normal(size=(b, h, 64, 64)).astype(
+        np.float32)) * state_scale).to(cuda_device)
+    before = wkv6.wkv6_scan.launches
+    out, new = wkv6.wkv6_scan(r, k, v, w, u, st)
+    torch.cuda.synchronize()
+    assert wkv6.wkv6_scan.launches == before + 1
+    want_out, want_st = wkv6.wkv6_scan_plain(r, k, v, w, u, st)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)

@@ -203,12 +203,22 @@ def test_wrappers_count_no_launch_on_cpu():
     """On the CPU the wrappers take the plain versions and launch
     nothing; a tensor on another device type is refused."""
     from repro_torch import kernels
+    from repro_torch.kernels import wkv6
     kernels.reset_launch_counts()
     q = torch.zeros((1, 1, 2, 8))
     kv = torch.zeros((1, 4, 1, 8))
-    da.decode_attention(q, kv, kv, torch.ones(1, dtype=torch.int32))
-    assert kernels.launch_counts() == {"flash_attention": 0,
-                                       "decode_attention": 0,
-                                       "paged_decode_attention": 0}
+    one = torch.ones(1, dtype=torch.int32)
+    da.decode_attention(q, kv, kv, one)
+    codes, scales = kv.to(torch.int8), torch.ones((1, 4, 1, 1))
+    da.decode_attention_quant(q, codes, codes, scales, scales, one)
+    da.paged_decode_attention_quant(q, codes, codes, scales, scales,
+                                    torch.zeros((1, 1), dtype=torch.int32),
+                                    one)
+    x = torch.zeros((1, 3, 2, 8))
+    wkv6.wkv6_scan(x, x, x, x, torch.zeros((2, 8)), torch.zeros((1, 2, 8, 8)))
+    assert kernels.launch_counts() == {
+        "flash_attention": 0, "decode_attention": 0,
+        "paged_decode_attention": 0, "decode_attention_quant": 0,
+        "paged_decode_attention_quant": 0, "wkv6_scan": 0}
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
