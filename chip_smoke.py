@@ -4,24 +4,26 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
-   decode, WKV-6) against its plain PyTorch version on the card (bf16,
-   tolerance 2e-2 as ``tests/test_kernels.py``) at the main path's shapes
-   and at edge shapes, and times kernel, plain version, one PyTorch
-   library call where one computes the same function, and the card's
-   bound for the same work;
+   decode, WKV-6, the selective scan) against its plain PyTorch version on
+   the card (bf16, tolerance 2e-2 as ``tests/test_kernels.py``) at the
+   main path's shapes and at edge shapes, and times kernel, plain version,
+   one PyTorch library call where one computes the same function, and the
+   card's bound for the same work;
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
-   and paged decode from bf16 and from int8 caches, and a 2-layer RWKV-6
-   model (head size 64) runs prefill and decode, on the card through the
-   kernels, against the same weights in f32 on the CPU through the plain
-   versions;
+   and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
+   model (head size 64) and a 2-layer hybrid with hymba-1.5b's head
+   geometry (d=1600, 25 query and 5 kv heads of 64, N=16) run prefill and
+   decode, on the card through the kernels, against the same weights in
+   f32 on the CPU through the plain versions;
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
    one weight copy, continuous then paged (block size 16), with bf16 and
    then with int8 KV, 16 requests of 64-512 prompt tokens and 32 new
-   tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) continuous
-   with the same mix.  Launch counts are set to 0 just before each mode
-   and read just after it.
+   tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) and
+   full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
+   1024) continuous with the same mix.  Launch counts are set to 0 just
+   before each mode and read just after it.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -50,6 +52,7 @@ L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
 SEED = 0
 ARCH = "qwen2-7b"
 RWKV_ARCH = "rwkv6-1.6b"
+HYBRID_ARCH = "hymba-1.5b"
 
 
 def log(msg: str) -> None:
@@ -71,6 +74,35 @@ def time_ms(calls, iters: int = 30) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(calls, iters: int = 30) -> float:
+    """Mean device time per call of the kernels ``calls`` launch, from
+    ``torch.profiler``'s kernel records: unlike ``time_ms`` it leaves out
+    the host's dispatch, which bounds ``time_ms`` when a call's kernels
+    finish before Python dispatches the next call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for c in calls[:3]:
+        c()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU)
+    return us / 1e3 / iters
+
+
+def kernel_times(calls, plain, library=None, plain_iters: int = 30) -> dict:
+    """The kernel's and the library call's times by CUDA events and by
+    device time, and the plain version's by CUDA events."""
+    return dict(ms=time_ms(calls), device_ms=device_ms(calls),
+                plain_ms=time_ms(plain, iters=plain_iters),
+                library_ms=library and time_ms(library),
+                library_device_ms=library and device_ms(library))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -128,6 +160,7 @@ def kernel_phase(rng) -> dict:
                                  q_offset=q_off),
               fa.flash_attention_plain(eq, ek, ev, causal=causal,
                                        window=window, q_offset=q_off))
+    flash_hymba(rand)
     io_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     n = copies_for(io_bytes)
     qs = [q.clone() for _ in range(n)]
@@ -141,16 +174,16 @@ def kernel_phase(rng) -> dict:
     out["flash_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:94",
-        max_abs_err=err,
-        ms=time_ms([lambda i=i: fa.flash_attention(qs[i], ks[i], vs[i])
-                    for i in range(n)]),
-        plain_ms=time_ms([lambda i=i: fa.flash_attention_plain(
-            qs[i], ks[i], vs[i]) for i in range(n)], iters=6),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_ms([lambda i=i: F.scaled_dot_product_attention(
-            qt[i], kt[i], vt[i], is_causal=True, enable_gqa=True)
-            for i in range(n)]),
-        shape="B=1 Sq=Sk=512 H=28 K=4 D=128 causal bf16")
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        shape="B=1 Sq=Sk=512 H=28 K=4 D=128 causal bf16",
+        **kernel_times(
+            [lambda i=i: fa.flash_attention(qs[i], ks[i], vs[i])
+             for i in range(n)],
+            [lambda i=i: fa.flash_attention_plain(qs[i], ks[i], vs[i])
+             for i in range(n)],
+            [lambda i=i: F.scaled_dot_product_attention(
+                qt[i], kt[i], vt[i], is_causal=True, enable_gqa=True)
+             for i in range(n)], plain_iters=6))
 
     # -- decode attention (continuous): B=8, S=1024, mixed cache_len ------
     b, s = 8, 1024
@@ -184,16 +217,16 @@ def kernel_phase(rng) -> dict:
     out["decode_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:362",
-        max_abs_err=err,
-        ms=time_ms([lambda i=i: da.decode_attention(qs[i], kcs[i], vcs[i],
-                                                    lens) for i in range(n)]),
-        plain_ms=time_ms([lambda i=i: da.decode_attention_plain(
-            qs[i], kcs[i], vcs[i], lens) for i in range(n)]),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_ms([lambda i=i: F.scaled_dot_product_attention(
-            qsd[i], kct[i], vct[i], attn_mask=mask, enable_gqa=True)
-            for i in range(n)]),
-        shape="B=8 S=1024 cache_len in [1, 1024] H=28 K=4 D=128 bf16")
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        shape="B=8 S=1024 cache_len in [1, 1024] H=28 K=4 D=128 bf16",
+        **kernel_times(
+            [lambda i=i: da.decode_attention(qs[i], kcs[i], vcs[i], lens)
+             for i in range(n)],
+            [lambda i=i: da.decode_attention_plain(qs[i], kcs[i], vcs[i],
+                                                   lens) for i in range(n)],
+            [lambda i=i: F.scaled_dot_product_attention(
+                qsd[i], kct[i], vct[i], attn_mask=mask, enable_gqa=True)
+             for i in range(n)]))
 
     # -- paged decode: the same K/V scattered over 16-row pages ------------
     bs, m = 16, s // 16
@@ -229,19 +262,23 @@ def kernel_phase(rng) -> dict:
     out["paged_decode_attention"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:199",
-        max_abs_err=err,
-        ms=time_ms([lambda i=i: da.paged_decode_attention(
-            qs[i], kps[i], vps[i], tables, lens) for i in range(n)]),
-        plain_ms=time_ms([lambda i=i: da.paged_decode_attention_plain(
-            qs[i], kps[i], vps[i], tables, lens) for i in range(n)]),
-        bound_ms=bnd, bound_by=by, library_ms=None,
-        shape="B=8 bs=16 M=64 cache_len in [1, 1024] H=28 K=4 D=128 bf16")
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
+        shape="B=8 bs=16 M=64 cache_len in [1, 1024] H=28 K=4 D=128 bf16",
+        **kernel_times(
+            [lambda i=i: da.paged_decode_attention(qs[i], kps[i], vps[i],
+                                                   tables, lens)
+             for i in range(n)],
+            [lambda i=i: da.paged_decode_attention_plain(
+                qs[i], kps[i], vps[i], tables, lens) for i in range(n)]))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
+    out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
     for name, r in out.items():
         log(f"kernel {name}: max_abs_err={r['max_abs_err']} ms={r['ms']} "
-            f"plain_ms={r['plain_ms']} library_ms={r['library_ms']} "
-            f"bound_ms={r['bound_ms']} ({r['bound_by']}) [{r['shape']}]")
+            f"device_ms={r['device_ms']} plain_ms={r['plain_ms']} "
+            f"library_ms={r['library_ms']} library_device_ms="
+            f"{r['library_device_ms']} bound_ms={r['bound_ms']} "
+            f"({r['bound_by']}) [{r['shape']}]")
     return out
 
 
@@ -277,14 +314,13 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
     out["decode_attention_quant"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:311",
-        max_abs_err=err,
-        ms=time_ms([lambda x=x: da.decode_attention_quant(*x, lens)
-                    for x in leaves]),
-        plain_ms=time_ms([lambda x=x: da.decode_attention_quant_plain(
-            *x, lens) for x in leaves]),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
         shape="B=8 S=1024 cache_len in [1, 1024] H=28 K=4 D=128 int8 codes "
-              "+ bf16 scales")
+              "+ bf16 scales",
+        **kernel_times(
+            [lambda x=x: da.decode_attention_quant(*x, lens) for x in leaves],
+            [lambda x=x: da.decode_attention_quant_plain(*x, lens)
+             for x in leaves]))
 
     # -- the same codes and scales scattered over the bf16 phase's pages --
     bs, m = 16, tables_np.shape[1]
@@ -321,14 +357,14 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
     out["paged_decode_attention_quant"] = dict(
         route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:256",
-        max_abs_err=err,
-        ms=time_ms([lambda x=x: da.paged_decode_attention_quant(
-            q, *x, tables, lens) for x in page_sets]),
-        plain_ms=time_ms([lambda x=x: da.paged_decode_attention_quant_plain(
-            q, *x, tables, lens) for x in page_sets]),
-        bound_ms=bnd, bound_by=by, library_ms=None,
+        max_abs_err=err, bound_ms=bnd, bound_by=by,
         shape="B=8 bs=16 M=64 cache_len in [1, 1024] H=28 K=4 D=128 int8 "
-              "codes + bf16 scales")
+              "codes + bf16 scales",
+        **kernel_times(
+            [lambda x=x: da.paged_decode_attention_quant(q, *x, tables, lens)
+             for x in page_sets],
+            [lambda x=x: da.paged_decode_attention_quant_plain(
+                q, *x, tables, lens) for x in page_sets]))
     return out
 
 
@@ -365,17 +401,113 @@ def wkv6_kernel(rng, dev) -> dict:
     sets = [[x.clone() for x in main] for _ in range(n)]
     decode = [[x.clone() for x in inputs(8, 1, 32, 1.0)] for _ in range(n)]
     bnd, by = bound(5 * seq * 64, io)
-    decode_ms = time_ms([lambda x=x: wkv6.wkv6_scan(*x) for x in decode])
+    calls = [lambda x=x: wkv6.wkv6_scan(*x) for x in decode]
     log(f"kernel wkv6_scan at a decode step (B=8 S=1 H=32 D=64): "
-        f"ms={decode_ms}")
+        f"ms={time_ms(calls)} device_ms={device_ms(calls)}")
     return {"wkv6_scan": dict(
         route="cuda", source="src/repro_torch/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:64", max_abs_err=err,
-        ms=time_ms([lambda x=x: wkv6.wkv6_scan(*x) for x in sets]),
-        plain_ms=time_ms([lambda x=x: wkv6.wkv6_scan_plain(*x)
-                          for x in sets], iters=3),
-        bound_ms=bnd, bound_by=by, library_ms=None,
-        shape="B=1 S=512 H=32 D=64 bf16, f32 state")}
+        bound_ms=bnd, bound_by=by, shape="B=1 S=512 H=32 D=64 bf16, f32 state",
+        **kernel_times([lambda x=x: wkv6.wkv6_scan(*x) for x in sets],
+                       [lambda x=x: wkv6.wkv6_scan_plain(*x) for x in sets],
+                       plain_iters=3))}
+
+
+def flash_hymba(rand) -> None:
+    """The flash kernel at hymba-1.5b's prefill geometry (25 query heads
+    over 5 kv heads of 64, window 1024): a 512-token prompt plus 128 meta
+    rows, and 1152 rows, where the window cuts tiles.  Times the first
+    (logged; the JSON line keeps qwen2-7b's main shape)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kv, d, w = 1, 25, 5, 64, 1024
+    for sq in (640, 1152):
+        q, k, v = rand(b, sq, h, d), rand(b, sq, kv, d), rand(b, sq, kv, d)
+        err = close(f"flash hymba Sq=Sk={sq} window={w}",
+                    fa.flash_attention(q, k, v, causal=True, window=w),
+                    fa.flash_attention_plain(q, k, v, causal=True, window=w))
+        if sq == 640:
+            main = (q, k, v, err)
+    q, k, v, err = main
+    s = q.shape[1]
+    io = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    n = copies_for(io)
+    sets = [[x.clone() for x in (q, k, v)] for _ in range(n)]
+    tsets = [[x.transpose(1, 2).contiguous() for x in xs] for xs in sets]
+    bnd, by = bound(4 * b * h * d * (s * (s + 1) // 2), io)
+    calls = [lambda x=x: fa.flash_attention(*x, causal=True, window=w)
+             for x in sets]
+    sdpa = [lambda x=x: F.scaled_dot_product_attention(
+        *x, is_causal=True, enable_gqa=True) for x in tsets]
+    log(f"kernel flash_attention at hymba's prefill (B=1 Sq=Sk=640 H=25 K=5 "
+        f"D=64 window 1024, inside which every causal pair lies): "
+        f"max_abs_err={err} ms={time_ms(calls)} device_ms="
+        f"{device_ms(calls)} library_ms={time_ms(sdpa)} library_device_ms="
+        f"{device_ms(sdpa)} (SDPA, causal) bound_ms={bnd} ({by})")
+
+
+def ssm_kernel(rng, dev) -> dict:
+    """The selective-scan kernel at hymba's batch-1 prefill of a 512-token
+    prompt plus 128 meta tokens (25 heads of 64, N=16) from a zero state,
+    at a decode step of 8 slots, and at edge shapes: S=1 at B=1, a ragged
+    S=77, S=300 (past the Pallas kernel's 256-step block), nonzero states.
+    Inputs as the hybrid layer makes them: dt = softplus(.) in bf16,
+    a_log at the ``small`` init scale."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssm_scan
+
+    def inputs(b, s, h, state_scale):
+        def rand(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev)
+        bf = torch.bfloat16
+        return (rand(b, s, h, 64).to(bf), F.softplus(rand(b, s, h)).to(bf),
+                (rand(h, 16) * 0.02).to(bf), rand(b, s, h, 16).to(bf),
+                rand(b, s, h, 16).to(bf), rand(b, h, 64, 16) * state_scale)
+
+    def check(name, x):
+        y, st = ssm_scan.ssm_scan(*x)
+        py, pst = ssm_scan.ssm_scan_plain(*x)
+        close(f"{name} state", st, pst)
+        return close(name, y, py)
+
+    def cost(b, s, h, d=64, n=16):
+        """(operations, bytes): x read and y written (bf16), b and c and
+        dt read (bf16), a_log read, the state read and written (f32)."""
+        return (5 * b * s * h * d * n + 3 * b * s * h * n,
+                4 * b * s * h * d + 4 * b * s * h * n + 2 * b * s * h
+                + 2 * h * n + 8 * b * h * d * n)
+
+    b, s, h = 1, 640, 25
+    main = inputs(b, s, h, 0.0)
+    err = check("ssm main (prefill)", main)
+    decode = inputs(8, 1, h, 1.0)
+    decode_err = check("ssm decode step (B=8 S=1)", decode)
+    for shape in [(1, 1, 25, 1.0), (1, 77, 25, 1.0), (1, 300, 25, 1.0),
+                  (2, 33, 4, 3.0)]:
+        check(f"ssm edge (B, S, H, state scale)={shape}", inputs(*shape))
+    flops, io = cost(b, s, h)
+    n = copies_for(io)
+    sets = [[x.clone() for x in main] for _ in range(n)]
+    dflops, dio = cost(8, 1, h)
+    dsets = [[x.clone() for x in decode] for _ in range(copies_for(dio))]
+    dbnd, dby = bound(dflops, dio)
+    calls = [lambda x=x: ssm_scan.ssm_scan(*x) for x in dsets]
+    log(f"kernel ssm_scan at a decode step (B=8 S=1 H=25 D=64 N=16): "
+        f"max_abs_err={decode_err} ms={time_ms(calls)} "
+        f"device_ms={device_ms(calls)} bound_ms={dbnd} ({dby})")
+    bnd, by = bound(flops, io)
+    return {"ssm_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:60", max_abs_err=err,
+        bound_ms=bnd, bound_by=by,
+        shape="B=1 S=640 H=25 D=64 N=16 bf16, f32 state",
+        **kernel_times([lambda x=x: ssm_scan.ssm_scan(*x) for x in sets],
+                       [lambda x=x: ssm_scan.ssm_scan_plain(*x)
+                        for x in sets], plain_iters=3))}
 
 
 # --------------------------------------------------------------------------
@@ -416,6 +548,7 @@ def reference_phase(rng) -> None:
         f"within {compare.worst:.4f} (max |diff| / max |logit|, limit "
         f"{REF_TOL}) of f32 on the CPU")
     _reference_rwkv()
+    _reference_hybrid()
 
 
 class Compare:
@@ -514,6 +647,56 @@ def _reference_rwkv() -> None:
         f"{REF_TOL}) of f32 on the CPU")
 
 
+def _reference_hybrid() -> None:
+    """A 2-layer hybrid with hymba-1.5b's head geometry (d=1600, 25 query
+    and 5 kv heads of 64, N=16) and cuts that make the rolled cache work
+    (window 1024 -> 64, meta tokens 128 -> 16; d_ff and the vocab cut
+    too): a 61-token prompt plus 16 meta rows passes the window at prefill
+    (flash with the window, the scan over 77 steps), and 8 decode steps
+    (rolled attention, the scan at S=1) wrap the 64-row cache.  bf16 on
+    the card through the kernels against f32 on the CPU through the plain
+    versions."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="hymba-heads", family="hybrid", n_layers=2,
+                      d_model=1600, n_heads=25, n_kv_heads=5, d_ff=1024,
+                      vocab_size=1024, mlp="swiglu", ssm_state=16,
+                      sliding_window=64, n_context_tokens=16)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    for key, leaf in p_cpu["layers"].items():  # the zero-initialised norms
+        if isinstance(leaf, torch.Tensor):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _tree(p_cpu, lambda t: t.to(dev))
+    p_ref = _tree(p_cpu, lambda t: t.float())
+    rng = np.random.default_rng(SEED + 5)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 61)).astype(np.int32)
+    compare = Compare("hybrid reference")
+    max_len = 64
+    lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev),
+                           max_len=max_len)
+    lr, cr = model.prefill(p_ref, torch.as_tensor(prompt), max_len=max_len)
+    compare("prefill", lg, lr)
+    if cg["k"].shape[2] != 64 or int(cg["pos"]) != 77:
+        raise AssertionError(f"hybrid reference: cache rows "
+                             f"{cg['k'].shape[2]}, pos {int(cg['pos'])}")
+    tok = model.sample_greedy(lr)
+    for step in range(8):
+        lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
+        lr, cr = model.decode_step(p_ref, tok, cr)
+        compare(f"decode step {step}", lg, lr)
+        tok = model.sample_greedy(lr)
+    log(f"reference: 2-layer hybrid d=1600 (25 q / 5 kv heads of 64, N=16; "
+        f"cut: window 1024 -> 64, meta 128 -> 16, d_ff 5504 -> 1024, V "
+        f"32001 -> 1024), prefill of 61 tokens + 16 meta rows past the "
+        f"window + 8 decode steps wrapping the rolled cache on the card "
+        f"within {compare.worst:.4f} (limit {REF_TOL}) of f32 on the CPU")
+
+
 def _tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _tree(v, fn) for k, v in tree.items()}
@@ -522,9 +705,12 @@ def _tree(tree, fn):
 
 # --------------------------------------------------------------------------
 # 3. full-width serving: qwen2-7b bf16 and int8, continuous and paged;
-#    rwkv6-1.6b continuous
+#    rwkv6-1.6b and hymba-1.5b continuous
 # --------------------------------------------------------------------------
 
+HYBRID_PARAMS = 1_351_336_800    # hymba-1.5b, as the JAX package counts
+HYBRID_DENSE_BYTES = 361_758_724  # its dense_kv_bytes(8, 1024): rolled
+#                                   K/V of 1024 rows + the f32 SSM state
 INT8_DENSE_BYTES = 238_551_044   # Model.dense_kv_bytes(8, 1024), int8 KV
 BF16_DENSE_BYTES = 469_762_052   # the same in bf16
 INT8_BLOCK_BYTES = 465_920       # Model.kv_block_bytes(16), int8 KV
@@ -599,6 +785,29 @@ def serve_phase(rng) -> dict[str, int]:
                {"wkv6_scan"}, totals)
     profile_window(model, params, rwkv_prompts[:8], alloc, RWKV_ARCH,
                    "continuous")
+
+    # -- hymba-1.5b, the same request mix, after rwkv6-1.6b is freed ------
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model, params = serve.init_model(HYBRID_ARCH, reduced=False, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    log(f"serve: {HYBRID_ARCH} full width ({cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} N={cfg.ssm_state} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}, {cfg.n_context_tokens} meta "
+        f"tokens, window {cfg.sliding_window}), {model.n_params()} params, "
+        f"drawn on the card in {time.perf_counter() - t0:.1f}s")
+    sizes = (model.n_params(), model.dense_kv_bytes(8, 1024))
+    if sizes != (HYBRID_PARAMS, HYBRID_DENSE_BYTES):
+        raise AssertionError(f"{HYBRID_ARCH} (params, slot-pool bytes): "
+                             f"{sizes}")
+    hybrid_prompts = [p % cfg.vocab_size for p in prompts]
+    serve_mode(model, params, HYBRID_ARCH, hybrid_prompts, alloc,
+               "continuous", {"flash_attention", "ssm_scan"}, totals)
+    profile_window(model, params, hybrid_prompts[:8], alloc, HYBRID_ARCH,
+                   "continuous")
     return totals
 
 
@@ -607,9 +816,9 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     """Serve ``prompts`` on two weight-shared instances in ``mode``; the
     launch counts are set to 0 just before the run and read just after it.
     Checks that every request is served, one host sync per pass, the
-    weights stored once, that the kernels in ``used`` ran and no other
-    (for rwkv: 24 WKV launches per prefill and per round).  Returns the
-    token streams."""
+    weights stored once, that the kernels in ``used`` ran and no other,
+    each once per layer and prefill (flash), round (decode) or both (the
+    scans).  Returns the token streams."""
     import os
     import torch
     from repro_torch import kernels
@@ -660,12 +869,16 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     if any(counts[k] == 0 for k in used) or any(
             counts[k] != 0 for k in counts if k not in used):
         raise AssertionError(f"{arch} {mode}: kernel launches {counts}")
-    if "wkv6_scan" in used:
-        steps = sum(v["prefills"] + v["rounds"] for v in delta.values())
-        if counts["wkv6_scan"] != model.cfg.n_layers * steps:
+    prefills = sum(v["prefills"] for v in delta.values())
+    rounds = sum(v["rounds"] for v in delta.values())
+    for k in used:  # one launch per layer and prefill, round, or both
+        per = {"flash_attention": prefills, "wkv6_scan": prefills + rounds,
+               "ssm_scan": prefills + rounds}.get(k, rounds)
+        if counts[k] != model.cfg.n_layers * per:
             raise AssertionError(
-                f"{arch} {mode}: {counts['wkv6_scan']} WKV launches for "
-                f"{steps} prefills and rounds of {model.cfg.n_layers} layers")
+                f"{arch} {mode}: {counts[k]} {k} launches for {prefills} "
+                f"prefills and {rounds} rounds of {model.cfg.n_layers} "
+                f"layers")
     vocab = model.cfg.vocab_size
     for r in reqs:
         tok = np.asarray(r.tokens_out)
@@ -721,7 +934,8 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
               "other torch kernels": 0.0}
     for t, _, key in rows:
         if any(k in key for k in ("flash_kernel", "decode_kernel",
-                                  "combine_kernel", "wkv6_kernel")):
+                                  "combine_kernel", "wkv6_kernel",
+                                  "ssm_scan_kernel")):
             groups["port kernels"] += t
         elif any(k in key for k in ("nvjet", "gemm", "cutlass", "xmma")):
             groups["cuBLAS matmuls"] += t
@@ -767,8 +981,9 @@ def main() -> int:
     results = kernel_phase(rng)
     reference_phase(rng)
     launches = serve_phase(rng)
+    extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],
-                    **{k: v for k, v in r.items() if k != "shape"})
+                    **{k: v for k, v in r.items() if k not in extra})
                for name, r in results.items()]
     print(json.dumps({"kernels": listing}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import wkv6 as _wkv6
 
 KERNELS = {
@@ -14,6 +15,7 @@ KERNELS = {
     "decode_attention_quant": _decode.decode_attention_quant,
     "paged_decode_attention_quant": _decode.paged_decode_attention_quant,
     "wkv6_scan": _wkv6.wkv6_scan,
+    "ssm_scan": _ssm.ssm_scan,
 }
 
 

@@ -45,6 +45,8 @@ SIGNATURES = {
          _I, _F, _P),
     "repro_wkv6_bf16":
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_ssm_scan_bf16":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

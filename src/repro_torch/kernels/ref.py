@@ -1,9 +1,9 @@
-"""Naive oracles for the kernels: full-matrix attention (O(S^2) memory)
-and the WKV-6 recurrence as a Python loop over time.
+"""Naive oracles for the kernels: full-matrix attention (O(S^2) memory),
+and the WKV-6 recurrence and the selective scan as Python loops over time.
 
-Counterparts of ``repro.kernels.ref.mha_reference``, ``decode_reference``
-and ``wkv6_reference``: the ground truth the plain versions and the CUDA
-kernels are held against in the tests.
+Counterparts of ``repro.kernels.ref.mha_reference``, ``decode_reference``,
+``wkv6_reference`` and ``ssm_reference``: the ground truth the plain
+versions and the CUDA kernels are held against in the tests.
 """
 
 from __future__ import annotations
@@ -74,3 +74,22 @@ def wkv6_reference(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         st = torch.exp(wf[:, t])[..., None] * st + kv
     out = torch.stack(outs, dim=1)
     return out.to(r.dtype), st.to(state.dtype)
+
+
+def ssm_reference(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                  b: torch.Tensor, c: torch.Tensor, state: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan, Python loop over time (ref.py:74-89)."""
+    _, s, _, _ = x.shape
+    a = -torch.exp(a_log.float())
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    st = state.float()  # (B, H, D, N)
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t][..., None] * a[None])  # (B, H, N)
+        dbx = (dtf[:, t][..., None] * bf[:, t])[:, :, None, :] \
+            * xf[:, t][..., None]
+        st = da[:, :, None, :] * st + dbx
+        ys.append(torch.einsum("bhdn,bhn->bhd", st, cf[:, t]))
+    y = torch.stack(ys, dim=1)
+    return y.to(x.dtype), st.to(state.dtype)

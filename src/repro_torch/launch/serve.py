@@ -7,12 +7,13 @@ drives a batch of requests, and reports throughput, latency, utilization,
 occupancy and the model-sharing memory ledger.  The full-width config is
 served on the card by default; ``--reduced`` serves the smoke cut and
 ``--device cpu`` runs the plain PyTorch path on the CPU.  ``--arch`` takes
-qwen2-7b (the default) and rwkv6-1.6b; ``REPRO_KV_INT8=1`` in the
-environment serves the dense family from int8 KV caches.
+qwen2-7b (the default), rwkv6-1.6b and hymba-1.5b; ``REPRO_KV_INT8=1`` in
+the environment serves the dense family from int8 KV caches.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   REPRO_KV_INT8=1 PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 """
@@ -59,7 +60,8 @@ def drive(engine: ServingEngine, fn: str, prompts: list[np.ndarray],
 def main(argv: Optional[list[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append", default=None,
-                    help="repeatable; each arch is served")
+                    help="repeatable; each arch is served: qwen2-7b "
+                         "(default), rwkv6-1.6b or hymba-1.5b")
     ap.add_argument("--instances", type=int, default=2,
                     help="instances per function (share one weight copy)")
     ap.add_argument("--requests", type=int, default=24)
@@ -94,8 +96,9 @@ def main(argv: Optional[list[str]] = None) -> None:
                       n_instances=args.instances, max_batch=args.max_batch,
                       max_len=args.prompt_len + args.max_new_tokens + 1)
         cfg = model.cfg
-        kv = "int8" if model.kv_int8() else (
-            "recurrent state" if cfg.family == "rwkv" else "bf16")
+        kv = "int8" if model.kv_int8() else {
+            "rwkv": "recurrent state",
+            "hybrid": "rolled bf16 KV + SSM state"}.get(cfg.family, "bf16")
         print(f"[deploy] {arch}: {args.instances} instances sharing "
               f"{nbytes / 1e6:.1f} MB of weights ({cfg.n_layers}L "
               f"d={cfg.d_model}, {kv} cache) on {engine.device}")

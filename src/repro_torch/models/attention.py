@@ -1,9 +1,10 @@
 """GQA attention blocks: projections, prefill and decode paths, cache
-writes, int8 KV quantization (counterpart of ``repro.models.attention``,
-dense paths only).
+writes, int8 KV quantization (counterpart of ``repro.models.attention``:
+the self-attention paths of the dense and hybrid families).
 
-Cache conventions: a dense cache is (B, S_max, K, Dh) with write row =
-position; paged pools are (N, bs, K, Dh) physical blocks.  Rotary
+Cache conventions: a full cache is (B, S_max, K, Dh) with write row =
+position; a rolled (sliding-window) cache is (B, C, K, Dh) with write row
+= position mod C; paged pools are (N, bs, K, Dh) physical blocks.  Rotary
 embeddings are applied before caching.  Where JAX returns an updated
 (donated) cache, the port writes the preallocated cache IN PLACE and
 returns the same tensor — the counterpart of XLA donation.  An int8 cache
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import PSpec, apply_rope
 
@@ -70,13 +72,13 @@ def _output(params: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor
+              positions: torch.Tensor, window: Optional[int] = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Causal self-attention over the whole sequence through the flash
-    kernel.  Returns (output, k, v) — k/v post-rope, for the caller to
-    cache."""
+    kernel, optionally within a sliding ``window`` (attention.py:131-146).
+    Returns (output, k, v) — k/v post-rope, for the caller to cache."""
     q, k, v = _rope_qkv(params, x, positions, cfg)
-    o = ops.flash_attention(q, k, v, causal=True)
+    o = ops.flash_attention(q, k, v, causal=True, window=window)
     return _output(params, o), k, v
 
 
@@ -129,19 +131,50 @@ def cache_write(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def _rolled_decode(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                   pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """Attention against a rolled cache (attention.py:219-236): slot s
+    holds position ``pos - ((pos - s) mod C)``, invalid when that position
+    is negative (or, for ``window < C``, outside the window).  Plain
+    PyTorch, as the JAX package leaves it to XLA (no Pallas original)."""
+    b, _, h, d = q.shape
+    c, n_kv = kc.shape[1], kc.shape[2]
+    qf = q.float().reshape(b, 1, n_kv, h // n_kv, d) * d ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qf, kc.float())
+    slots = torch.arange(c, device=q.device)
+    pos_b = pos.reshape(-1).expand(b).long()[:, None]
+    slot_pos = pos_b - torch.remainder(pos_b - slots[None, :], c)
+    valid = slot_pos >= 0
+    if window is not None and window < c:
+        valid &= slot_pos > pos_b - window
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, vc.float())
+    return o.reshape(b, 1, h, d).to(q.dtype)
+
+
 def attn_decode(params: dict, x: torch.Tensor, kc: torch.Tensor,
-                vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+                vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
+                rolled: bool = False, window: Optional[int] = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token self-attention against (and updating, in place) the
-    dense cache.  x: (B, 1, D); pos: scalar or (B,) absolute position of
-    the new token.  Returns (output, kc, vc)."""
+    cache.  x: (B, 1, D); pos: scalar or (B,) absolute position of the new
+    token.  A full cache takes the new row at ``pos`` (clamped, see
+    ``cache_write``) and attends through the decode kernel; a rolled cache
+    takes it at ``pos mod C``, which a free slot's ever-advancing position
+    wraps harmlessly (attention.py:239-265).  Returns (output, kc, vc)."""
     b = x.shape[0]
     pos_b = pos.reshape(-1).expand(b)
     q, k, v = _rope_qkv(params, x, pos_b[:, None], cfg)
-    cache_write(kc, k, pos_b)
-    cache_write(vc, v, pos_b)
-    cache_len = (pos_b + 1).to(torch.int32)
-    o = ops.decode_attention(q, kc, vc, cache_len)
+    row = torch.remainder(pos_b, kc.shape[1]) if rolled else pos_b
+    cache_write(kc, k, row)
+    cache_write(vc, v, row)
+    if rolled:
+        o = _rolled_decode(q, kc, vc, pos_b, window)
+    else:
+        cache_len = (pos_b + 1).to(torch.int32)
+        o = ops.decode_attention(q, kc, vc, cache_len, window=window)
     return _output(params, o), kc, vc
 
 

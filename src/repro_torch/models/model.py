@@ -1,13 +1,15 @@
 """``Model``: family dispatch, steps and cache factories (counterpart of
 ``repro.models.model.Model`` for the families ported so far: the
-full-cache dense SwiGLU family and RWKV-6).
+full-cache dense SwiGLU family, RWKV-6 and the Hymba hybrid).
 
 Cache leaves follow ``cache_shapes``/``paged_cache_shapes`` of the JAX
 package (model.py:169-232, 316-342): bf16 K/V, or under the int8 gate
 int8 codes plus (…, K, 1) bf16 scales; for rwkv an f32 ``wkv`` state and
-bf16 token-shift rows.  The int8 gate (``REPRO_KV_INT8``) is read where a
-cache is made — ``prefill``, ``init_slot_cache``, ``init_paged_cache`` —
-unless the caller pins it with ``kv_int8=``, as a serving instance does.
+bf16 token-shift rows; for the hybrid rolled bf16 K/V and an f32 ``ssm``
+state (the int8 gate never applies to either).  The int8 gate
+(``REPRO_KV_INT8``) is read where a cache is made — ``prefill``,
+``init_slot_cache``, ``init_paged_cache`` — unless the caller pins it with
+``kv_int8=``, as a serving instance does.
 The cache methods that JAX expresses as functional updates of donated
 buffers (``merge_slot``, ``append_paged``) write the preallocated pools in
 place here, and refuse an entry whose leaves or dtypes differ from the
@@ -23,11 +25,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import attention, rwkv6, transformer
+from repro_torch.models import attention, hybrid, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_params, param_count
 
-_FAMILY = {"dense": transformer, "rwkv": rwkv6}
+_FAMILY = {"dense": transformer, "rwkv": rwkv6, "hybrid": hybrid}
 
 
 def default_kv_blocks(max_batch: int, max_len: int, block_size: int) -> int:
@@ -70,12 +72,15 @@ class Model:
                 cfg.family == "dense" and not transformer.supports_paged(cfg)):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves the full-cache dense SwiGLU "
-                f"family and rwkv6 so far (others: ROADMAP.md, Queue 1)")
+                f"family, rwkv6 and the hybrid so far (others: ROADMAP.md, "
+                f"Queue 1)")
 
     @functools.cached_property
     def specs(self) -> Any:
         if self.cfg.family == "rwkv":
             return rwkv6.rwkv_specs(self.cfg)
+        if self.cfg.family == "hybrid":
+            return hybrid.hybrid_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     # -- params -----------------------------------------------------------
@@ -99,17 +104,20 @@ class Model:
 
     def prefill(self, params, tokens, *, max_len=None, length=None,
                 kv_int8: Optional[bool] = None):
-        if self.cfg.family == "rwkv":
+        if self.cfg.family in ("rwkv", "hybrid"):
             if length is not None:
                 raise NotImplementedError(
-                    "rwkv prefill runs at the exact prompt length")
-            return rwkv6.prefill(params, tokens, self.cfg, max_len=max_len)
+                    f"{self.cfg.family} prefill runs at the exact prompt "
+                    f"length")
+            return _FAMILY[self.cfg.family].prefill(params, tokens, self.cfg,
+                                                    max_len=max_len)
         return transformer.prefill(params, tokens, self.cfg, max_len=max_len,
                                    length=length, kv_int8=self._int8(kv_int8))
 
     def supports_bucketed_prefill(self) -> bool:
         """Right-padded prompts need full per-position caches: pad tokens
-        would enter an rwkv recurrence."""
+        would enter an rwkv or SSM recurrence, and a sliding-window cache
+        is not addressed by absolute position (model.py:88-92)."""
         return self.cfg.family == "dense" and self.cfg.sliding_window is None
 
     def supports_paged(self) -> bool:
@@ -148,6 +156,8 @@ class Model:
         excluded (model.py:169-232)."""
         if self.cfg.family == "rwkv":
             return rwkv6.cache_specs(self.cfg, batch)
+        if self.cfg.family == "hybrid":
+            return hybrid.cache_specs(self.cfg, batch, max_len)
         return transformer.cache_specs(self.cfg, batch, max_len,
                                        self._int8(kv_int8))
 

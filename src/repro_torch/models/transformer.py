@@ -136,6 +136,38 @@ def lm_head(params: dict, x: torch.Tensor, cfg: ModelConfig
 # --------------------------------------------------------------------------
 
 
+def local_cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of a sliding-window layer's cache: the window, or fewer when
+    the cache never holds that many (transformer.py:235-237)."""
+    w = cfg.sliding_window
+    return min(w, max_len) if w else max_len
+
+
+def _windowed_cache(k: torch.Tensor, w: int, max_len: int) -> torch.Tensor:
+    """A rolled (B, C, K, Dh) cache from full-sequence k (B, S, K, Dh),
+    C = min(w, max_len) (transformer.py:321-330): the slot of position p is
+    p mod C, so a prompt that fits lands at rows [0, S) with zeros after
+    it, and a longer one keeps its last C rows rolled by S mod C."""
+    b, s, kv, dh = k.shape
+    c = min(w, max_len)
+    if s <= c:
+        out = torch.zeros((b, c, kv, dh), dtype=k.dtype, device=k.device)
+        out[:, :s] = k
+        return out
+    return torch.roll(k[:, s - c:], shifts=s % c, dims=1)
+
+
+def _full_cache(k: torch.Tensor, max_len: int) -> torch.Tensor:
+    """k (B, S, K, Dh) in front of a zeroed (B, max_len, K, Dh) cache
+    (transformer.py:333-338)."""
+    b, s, kv, dh = k.shape
+    if s == max_len:
+        return k
+    out = torch.zeros((b, max_len, kv, dh), dtype=k.dtype, device=k.device)
+    out[:, :s] = k
+    return out
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             max_len: Optional[int] = None, length: Optional[int] = None,
             kv_int8: Optional[bool] = None) -> tuple[torch.Tensor, dict]:

@@ -30,9 +30,12 @@ in-place device write (the counterpart of ``_SET_TOK``, engine.py:106).
 An instance reads the int8-KV gate (``REPRO_KV_INT8``) once, when it is
 built, and passes it to every prefill, pool and byte count it makes, so
 it stays int8 (or bf16) whatever the variable does later; paged
-admission then charges the int8 block bytes.  The dense family and RWKV-6
-serve through the same paths (RWKV-6 continuous only, prefill at the
-exact prompt length).
+admission then charges the int8 block bytes.  The dense family, RWKV-6
+and the Hymba hybrid serve through the same paths; RWKV-6 and the hybrid
+prefill at the exact prompt length and serve continuous only (a
+``batching="paged"`` deploy raises ``ValueError``, as in JAX: their
+caches are recurrent state and rolled sliding-window rows, not rows
+addressed by absolute position).
 
 Not ported yet (ROADMAP.md): static batching and ``fused=False``,
 sampling and speculation, prefix sharing and copy-on-write, migration

@@ -4,8 +4,9 @@ per pass (mirrors ``test_continuous_batching`` and ``test_paged_kv``).
 
 Both engines run the f32 tiny model (bf16 KV pools) on the CPU; the JAX
 side disables prefix sharing, which the port has not ported yet.  The
-int8-KV engines (tiny, f32) and the rwkv6 engines (reduced rwkv6-1.6b,
-f32) give the same streams too.
+int8-KV engines (tiny, f32), the rwkv6 engines (reduced rwkv6-1.6b, f32)
+and the hybrid engines (reduced hymba-1.5b, f32) give the same streams
+too.
 """
 
 import dataclasses
@@ -170,7 +171,7 @@ def test_unported_modes_raise(models):
                    prefix_sharing=True)
 
 
-# -- int8 KV and rwkv6 through the engine -------------------------------------
+# -- int8 KV, rwkv6 and the hybrid through the engine -------------------------
 
 
 def _f32_pair(jcfg, seed):
@@ -228,3 +229,29 @@ def test_rwkv_engine_streams_match_jax():
         t.numel() * t.element_size() for t in _leaves(tp))
     with pytest.raises(ValueError):
         eng.deploy("g", tm, tp, Alloc(**FULL), batching="paged")
+
+
+@pytest.mark.parametrize("n_instances", [1, 2])
+def test_hybrid_engine_streams_match_jax(n_instances):
+    """hymba (reduced: window 8, 4 meta tokens; f32) serves continuous
+    batches at exact prompt lengths with the same greedy streams as the
+    JAX engine, prompts of 3-20 tokens passing the window so the rolled
+    caches wrap, one host sync per pass and one stored weight copy."""
+    jm, jp, tm, tp = _f32_pair(jax_config("hymba-1.5b", reduced=True), 2)
+    arrivals = _arrivals([(3, 4), (12, 6), (20, 3), (7, 5), (16, 2)],
+                         seed=5)
+    kw = dict(n_instances=n_instances, max_batch=2, max_len=32)
+    jreqs, _ = _serve_jax(jm, jp, "continuous", arrivals, **kw)
+    treqs, eng = _serve_torch(tm, tp, "continuous", arrivals, **kw)
+    assert [r.tokens_out for r in treqs] == [r.tokens_out for r in jreqs]
+    assert all(r.done and len(r.tokens_out) == r.max_new_tokens
+               for r in treqs)
+    tel = eng.telemetry()
+    assert sum(v["prefills"] for v in tel.values()) == len(arrivals)
+    for inst in eng.instances.values():
+        assert not inst.bucketed and set(inst.cache) == {"k", "v", "ssm",
+                                                         "pos"}
+        assert inst.cache["k"].shape[2] == 8  # the window
+        assert inst.sync_count == inst.steps > 0
+    assert eng.memory_bytes() == sum(
+        t.numel() * t.element_size() for t in _leaves(tp))

@@ -187,3 +187,47 @@ def test_wkv6_kernel_vs_plain(cuda_device, b, s, h, state_scale):
     torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,state_scale", [
+    (1, 640, 25, 0.0),   # hymba prefill: 512-token prompt + 128 meta rows
+    (8, 1, 25, 1.0),     # a decode step of 8 slots
+    (1, 1, 25, 1.0),     # S = 1 at B = 1
+    (1, 77, 25, 1.0),    # S not a multiple of the 64-step chunk
+    (1, 300, 25, 1.0),   # past the Pallas kernel's 256-step block
+    (2, 33, 4, 3.0)])    # nonzero initial states, another head count
+def test_ssm_kernel_vs_plain(cuda_device, b, s, h, state_scale):
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(s + h)
+    x = _cuda_rand(rng, (b, s, h, 64), cuda_device)
+    dt = torch.nn.functional.softplus(
+        _cuda_rand(rng, (b, s, h), cuda_device).float()).to(torch.bfloat16)
+    a_log = (_cuda_rand(rng, (h, 16), cuda_device).float() * 0.02).to(
+        torch.bfloat16)
+    bm, cm = (_cuda_rand(rng, (b, s, h, 16), cuda_device) for _ in range(2))
+    st = (torch.from_numpy(rng.normal(size=(b, h, 64, 16)).astype(
+        np.float32)) * state_scale).to(cuda_device)
+    before = ssm_scan.ssm_scan.launches
+    y, new = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st)
+    torch.cuda.synchronize()
+    assert ssm_scan.ssm_scan.launches == before + 1
+    want_y, want_st = ssm_scan.ssm_scan_plain(x, dt, a_log, bm, cm, st)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [640, 1152])
+def test_flash_kernel_hymba_geometry(cuda_device, sq):
+    """hymba-1.5b's prefill: 25 query heads over 5 kv heads of 64 and a
+    window of 1024, which cuts tiles at 1152 rows."""
+    rng = np.random.default_rng(sq)
+    q = _cuda_rand(rng, (1, sq, 25, 64), cuda_device)
+    k = _cuda_rand(rng, (1, sq, 5, 64), cuda_device)
+    v = _cuda_rand(rng, (1, sq, 5, 64), cuda_device)
+    got = fa.flash_attention(q, k, v, causal=True, window=1024)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=1024)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)

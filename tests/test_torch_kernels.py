@@ -203,7 +203,7 @@ def test_wrappers_count_no_launch_on_cpu():
     """On the CPU the wrappers take the plain versions and launch
     nothing; a tensor on another device type is refused."""
     from repro_torch import kernels
-    from repro_torch.kernels import wkv6
+    from repro_torch.kernels import ssm_scan, wkv6
     kernels.reset_launch_counts()
     q = torch.zeros((1, 1, 2, 8))
     kv = torch.zeros((1, 4, 1, 8))
@@ -216,9 +216,11 @@ def test_wrappers_count_no_launch_on_cpu():
                                     one)
     x = torch.zeros((1, 3, 2, 8))
     wkv6.wkv6_scan(x, x, x, x, torch.zeros((2, 8)), torch.zeros((1, 2, 8, 8)))
+    ssm_scan.ssm_scan(x, x[..., 0], torch.zeros((2, 4)), x[..., :4],
+                      x[..., :4], torch.zeros((1, 2, 8, 4)))
     assert kernels.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0,
         "paged_decode_attention": 0, "decode_attention_quant": 0,
-        "paged_decode_attention_quant": 0, "wkv6_scan": 0}
+        "paged_decode_attention_quant": 0, "wkv6_scan": 0, "ssm_scan": 0}
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
