@@ -1,14 +1,20 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and then:
+Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
+kernel's registers and spills from the ptxas report and (where the
+toolkit has ``cuobjdump``) the tensor-core instructions (HMMA) in each
+kernel's SASS, failing if the flash or bf16 decode kernels hold none,
+and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
    decode, WKV-6, the selective scan) against its plain PyTorch version on
    the card (bf16, tolerance 2e-2 as ``tests/test_kernels.py``) at the
    main path's shapes and at edge shapes, and times kernel, plain version,
    one PyTorch library call where one computes the same function, and the
-   card's bound for the same work;
+   card's bound for the same work (flash also at a short serve bucket,
+   Sq=64, and at hymba's prefill, beside SDPA; bf16 paged decode at pages
+   of 8, 16 and 32 rows, bit-equal to dense);
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
    and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
@@ -76,11 +82,12 @@ def time_ms(calls, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(calls, iters: int = 30) -> float:
+def device_ms(calls, iters: int = 30, label: str = "") -> float:
     """Mean device time per call of the kernels ``calls`` launch, from
     ``torch.profiler``'s kernel records: unlike ``time_ms`` it leaves out
     the host's dispatch, which bounds ``time_ms`` when a call's kernels
-    finish before Python dispatches the next call."""
+    finish before Python dispatches the next call.  With a ``label``,
+    logs the time per call of each CUDA kernel the calls launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -91,18 +98,37 @@ def device_ms(calls, iters: int = 30) -> float:
         for i in range(iters):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type != DeviceType.CPU)
-    return us / 1e3 / iters
+    rows = [(e.self_device_time_total / 1e3 / iters, e.key)
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and e.self_device_time_total > 0]
+    if label:
+        log(f"device ms per call of {label} by kernel: " + "; ".join(
+            f"{_port_name(key) or key[:50]} {t:.5f}" for t, key in rows))
+    return sum(t for t, _ in rows)
 
 
-def kernel_times(calls, plain, library=None, plain_iters: int = 30) -> dict:
+def kernel_times(calls, plain, library=None, plain_iters: int = 30,
+                 label: str = "") -> dict:
     """The kernel's and the library call's times by CUDA events and by
-    device time, and the plain version's by CUDA events."""
-    return dict(ms=time_ms(calls), device_ms=device_ms(calls),
+    device time (split by CUDA kernel in the log where ``label`` names
+    the calls), and the plain version's by CUDA events."""
+    return dict(ms=time_ms(calls), device_ms=device_ms(calls, label=label),
                 plain_ms=time_ms(plain, iters=plain_iters),
                 library_ms=library and time_ms(library),
-                library_device_ms=library and device_ms(library))
+                library_device_ms=library and device_ms(
+                    library, label=label and f"{label} (library)"))
+
+
+def _port_name(key: str) -> str:
+    """``flash_kernel<128>`` from a profiler key of one of the port's
+    kernels (``KERNEL_NAMES``, in anonymous namespaces); "" for any other
+    kernel."""
+    tag = "(anonymous namespace)::"
+    if tag not in key:
+        return ""
+    name = key.split(tag, 1)[1].split("(")[0]
+    return name if name.split("<")[0] in KERNEL_NAMES else ""
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -136,9 +162,17 @@ def kernel_phase(rng) -> dict:
 
     dev = torch.device("cuda", torch.cuda.current_device())
 
-    def rand(*shape):
-        x = rng.standard_normal(shape).astype(np.float32)
+    def rand(*shape, gen=rng):
+        x = gen.standard_normal(shape).astype(np.float32)
         return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+    # Shapes beyond the first set draw from their own generator, so the
+    # serve phase's prompts (drawn from ``rng`` after this phase) do not
+    # move when a check is added here.
+    extra = np.random.default_rng(SEED + 6)
+
+    def rand_extra(*shape):
+        return rand(*shape, gen=extra)
 
     out = {}
     # -- flash attention (prefill): main shape B=1, Sq=Sk=512, causal ------
@@ -146,21 +180,34 @@ def kernel_phase(rng) -> dict:
     q, k, v = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
     err = close("flash main", fa.flash_attention(q, k, v, causal=True),
                 fa.flash_attention_plain(q, k, v, causal=True))
-    for (eb, sq, sk, causal, window, q_off, ed) in [
-            (2, 37, 37, True, None, 0, 128),   # Sq not a tile multiple
-            (1, 1, 1, True, None, 0, 128),     # bucket of one token
-            (1, 100, 100, True, 33, 0, 128),   # sliding window
-            (1, 20, 84, True, None, 64, 128),  # q_offset (chunk at tail)
-            (2, 40, 70, False, None, 0, 128),  # non-causal, ragged Sk
-            (1, 65, 65, True, None, 0, 64)]:   # head dim 64
-        eq, ek, ev = rand(eb, sq, h, ed), rand(eb, sk, kv, ed), \
-            rand(eb, sk, kv, ed)
-        close(f"flash edge {(eb, sq, sk, causal, window, q_off, ed)}",
+    edges = [(2, 37, 37, True, None, 0, 128),   # Sq not a tile multiple
+             (1, 1, 1, True, None, 0, 128),     # bucket of one token
+             (1, 100, 100, True, 33, 0, 128),   # sliding window
+             (1, 20, 84, True, None, 64, 128),  # q_offset (chunk at tail)
+             (2, 40, 70, False, None, 0, 128),  # non-causal, ragged Sk
+             (1, 65, 65, True, None, 0, 64)]    # head dim 64
+    more_edges = [(1, 23, 45, False, None, 0, 128),  # Sk not a multiple
+                  (1, 37, 77, True, None, 40, 128)]  # of 16; q_offset too
+    for case, draw in ([(c, rand) for c in edges]
+                       + [(c, rand_extra) for c in more_edges]):
+        eb, sq, sk, causal, window, q_off, ed = case
+        eq, ek, ev = draw(eb, sq, h, ed), draw(eb, sk, kv, ed), \
+            draw(eb, sk, kv, ed)
+        close(f"flash edge {case}",
               fa.flash_attention(eq, ek, ev, causal=causal, window=window,
                                  q_offset=q_off),
               fa.flash_attention_plain(eq, ek, ev, causal=causal,
                                        window=window, q_offset=q_off))
-    flash_hymba(rand)
+    for sq in (2, 16, 128, 256):  # more serve buckets, at both head dims
+        for ed, eh, ekv in ((128, h, kv), (64, 25, 5)):
+            eq, ek, ev = rand_extra(1, sq, eh, ed), \
+                rand_extra(1, sq, ekv, ed), rand_extra(1, sq, ekv, ed)
+            close(f"flash bucket Sq=Sk={sq} D={ed}",
+                  fa.flash_attention(eq, ek, ev),
+                  fa.flash_attention_plain(eq, ek, ev))
+    flash_logged("a short serve bucket", rand_extra(b, 64, h, d),
+                 rand_extra(b, 64, kv, d), rand_extra(b, 64, kv, d))
+    flash_hymba(rand, rand_extra)
     io_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     n = copies_for(io_bytes)
     qs = [q.clone() for _ in range(n)]
@@ -226,7 +273,7 @@ def kernel_phase(rng) -> dict:
                                                    lens) for i in range(n)],
             [lambda i=i: F.scaled_dot_product_attention(
                 qsd[i], kct[i], vct[i], attn_mask=mask, enable_gqa=True)
-             for i in range(n)]))
+             for i in range(n)], label="bf16 dense decode"))
 
     # -- paged decode: the same K/V scattered over 16-row pages ------------
     bs, m = 16, s // 16
@@ -252,6 +299,20 @@ def kernel_phase(rng) -> dict:
     close("paged edge cache_len=1",
           da.paged_decode_attention(q, kp, vp, tables, one),
           da.paged_decode_attention_plain(q, kp, vp, tables, one))
+    for page in (8, 32):  # pages below and above one 16-row tile
+        pm = s // page
+        order = torch.as_tensor(extra.permutation(b * pm).astype(np.int32),
+                                device=dev)
+        pool = torch.empty((b * pm, page, kv, d), dtype=torch.bfloat16,
+                           device=dev)
+        vpool = torch.empty_like(pool)
+        pool[order.long()] = kc.reshape(b * pm, page, kv, d)
+        vpool[order.long()] = vc.reshape(b * pm, page, kv, d)
+        if not torch.equal(da.paged_decode_attention(
+                q, pool, vpool, order.reshape(b, pm), lens), dense_out):
+            raise AssertionError(f"paged decode with {page}-row pages "
+                                 f"differs from dense on identical K/V")
+    log("decode: paged (pages of 8, 16, 32 rows) == dense, bit for bit")
     tbl_entries = int((-(-lens_np // bs)).sum())
     n = copies_for(kp.numel() * 4)
     kps = [kp.clone() for _ in range(n)]
@@ -269,7 +330,8 @@ def kernel_phase(rng) -> dict:
                                                    tables, lens)
              for i in range(n)],
             [lambda i=i: da.paged_decode_attention_plain(
-                qs[i], kps[i], vps[i], tables, lens) for i in range(n)]))
+                qs[i], kps[i], vps[i], tables, lens) for i in range(n)],
+            label="bf16 paged decode"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
@@ -320,7 +382,7 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
         **kernel_times(
             [lambda x=x: da.decode_attention_quant(*x, lens) for x in leaves],
             [lambda x=x: da.decode_attention_quant_plain(*x, lens)
-             for x in leaves]))
+             for x in leaves], label="int8 dense decode"))
 
     # -- the same codes and scales scattered over the bf16 phase's pages --
     bs, m = 16, tables_np.shape[1]
@@ -364,7 +426,8 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
             [lambda x=x: da.paged_decode_attention_quant(q, *x, tables, lens)
              for x in page_sets],
             [lambda x=x: da.paged_decode_attention_quant_plain(
-                q, *x, tables, lens) for x in page_sets]))
+                q, *x, tables, lens) for x in page_sets],
+            label="int8 paged decode"))
     return out
 
 
@@ -413,39 +476,52 @@ def wkv6_kernel(rng, dev) -> dict:
                        plain_iters=3))}
 
 
-def flash_hymba(rand) -> None:
-    """The flash kernel at hymba-1.5b's prefill geometry (25 query heads
-    over 5 kv heads of 64, window 1024): a 512-token prompt plus 128 meta
-    rows, and 1152 rows, where the window cuts tiles.  Times the first
-    (logged; the JSON line keeps qwen2-7b's main shape)."""
-    import torch
+def flash_logged(label, q, k, v, window=None) -> None:
+    """The flash kernel at one more prefill shape, held against its plain
+    version and timed (logged; the JSON line keeps qwen2-7b's main shape)
+    beside SDPA (causal, window not applied: at the shapes timed here
+    every causal pair lies inside the window)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
-    b, h, kv, d, w = 1, 25, 5, 64, 1024
-    for sq in (640, 1152):
-        q, k, v = rand(b, sq, h, d), rand(b, sq, kv, d), rand(b, sq, kv, d)
-        err = close(f"flash hymba Sq=Sk={sq} window={w}",
-                    fa.flash_attention(q, k, v, causal=True, window=w),
-                    fa.flash_attention_plain(q, k, v, causal=True, window=w))
-        if sq == 640:
-            main = (q, k, v, err)
-    q, k, v, err = main
-    s = q.shape[1]
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    err = close(f"flash {label}",
+                fa.flash_attention(q, k, v, causal=True, window=window),
+                fa.flash_attention_plain(q, k, v, causal=True,
+                                         window=window))
     io = 2 * (q.numel() * 2 + k.numel() + v.numel())
     n = copies_for(io)
     sets = [[x.clone() for x in (q, k, v)] for _ in range(n)]
     tsets = [[x.transpose(1, 2).contiguous() for x in xs] for xs in sets]
-    bnd, by = bound(4 * b * h * d * (s * (s + 1) // 2), io)
-    calls = [lambda x=x: fa.flash_attention(*x, causal=True, window=w)
+    bnd, by = bound(4 * b * h * d * (sq * (sq + 1) // 2), io)
+    calls = [lambda x=x: fa.flash_attention(*x, causal=True, window=window)
              for x in sets]
     sdpa = [lambda x=x: F.scaled_dot_product_attention(
         *x, is_causal=True, enable_gqa=True) for x in tsets]
-    log(f"kernel flash_attention at hymba's prefill (B=1 Sq=Sk=640 H=25 K=5 "
-        f"D=64 window 1024, inside which every causal pair lies): "
-        f"max_abs_err={err} ms={time_ms(calls)} device_ms="
-        f"{device_ms(calls)} library_ms={time_ms(sdpa)} library_device_ms="
-        f"{device_ms(sdpa)} (SDPA, causal) bound_ms={bnd} ({by})")
+    log(f"kernel flash_attention at {label} (B={b} Sq=Sk={sq} H={h} K={kv} "
+        f"D={d} window {window}): max_abs_err={err} ms={time_ms(calls)} "
+        f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
+        f"library_device_ms={device_ms(sdpa)} (SDPA, causal) "
+        f"bound_ms={bnd} ({by})")
+
+
+def flash_hymba(rand, rand_extra) -> None:
+    """The flash kernel at hymba-1.5b's prefill geometry (25 query heads
+    over 5 kv heads of 64, window 1024): a 512-token prompt plus 128 meta
+    rows (timed), 1152 rows, where the window cuts tiles, and 1 + 128
+    rows (from ``rand_extra``)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, kv, d, w = 1, 25, 5, 64, 1024
+    for sq, draw in ((640, rand), (1152, rand), (129, rand_extra)):
+        q, k, v = draw(b, sq, h, d), draw(b, sq, kv, d), draw(b, sq, kv, d)
+        if sq == 640:
+            flash_logged("hymba's prefill", q, k, v, window=w)
+        else:
+            close(f"flash hymba Sq=Sk={sq} window={w}",
+                  fa.flash_attention(q, k, v, causal=True, window=w),
+                  fa.flash_attention_plain(q, k, v, causal=True, window=w))
 
 
 def ssm_kernel(rng, dev) -> dict:
@@ -933,9 +1009,7 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     groups = {"port kernels": 0.0, "cuBLAS matmuls": 0.0,
               "other torch kernels": 0.0}
     for t, _, key in rows:
-        if any(k in key for k in ("flash_kernel", "decode_kernel",
-                                  "combine_kernel", "wkv6_kernel",
-                                  "ssm_scan_kernel")):
+        if _port_name(key):
             groups["port kernels"] += t
         elif any(k in key for k in ("nvjet", "gemm", "cutlass", "xmma")):
             groups["cuBLAS matmuls"] += t
@@ -947,8 +1021,81 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
         f"{sum(n for _, n, _ in rows)} kernel launches")
     for name, t in groups.items():
         log(f"profile: {t / 1e3:9.3f} ms  {name}")
+    port = {}
+    for t, n, key in rows:
+        name = _port_name(key)
+        if name:
+            pt, pn = port.get(name, (0.0, 0))
+            port[name] = (pt + t / 1e3, pn + n)
+    log("profile: port kernels by name: " + "; ".join(
+        f"{name} {t:.3f} ms over {n} launches"
+        for name, (t, n) in sorted(port.items())))
     for t, n, key in sorted(rows, reverse=True)[:10]:
         log(f"profile: {t / 1e3:9.3f} ms  {n:6d} calls  {key[:90]}")
+
+
+KERNEL_NAMES = ("flash_kernel", "decode_bf16_kernel",
+                "paged_decode_bf16_kernel", "decode_kernel",
+                "paged_decode_kernel", "combine_kernel", "wkv6_kernel",
+                "ssm_scan_kernel")
+
+
+def _short(mangled: str) -> str:
+    """A kernel's readable name (with D) from its mangled one, where an
+    identifier is written as its length and its characters."""
+    import re
+    for name in KERNEL_NAMES:
+        tag = f"{len(name)}{name}"
+        i = mangled.find(tag)
+        if i >= 0:
+            m = re.match(r"ILi(\d+)E", mangled[i + len(tag):])
+            return f"{name}<{m.group(1)}>" if m else name
+    return mangled[:60]
+
+
+def ptxas_report(text: str) -> None:
+    """Registers, shared memory and spills of every kernel, from the
+    ``-Xptxas -v`` report the build keeps."""
+    import re
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _short(m.group(1))
+        elif name and ("spill" in line or "Used" in line):
+            log(f"ptxas {name}: {line.strip()}")
+
+
+TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
+                       "paged_decode_bf16_kernel")
+
+
+def hmma_report(lib) -> None:
+    """Tensor-core instructions (HMMA) in the SASS of each kernel, where
+    the toolkit has cuobjdump; the flash and bf16 decode kernels must hold
+    some."""
+    import re
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        log("cuobjdump not found: HMMA count not measured")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _short(m.group(1))
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    log(f"SASS HMMA instructions per kernel: {counts}")
+    for kernel in TENSOR_CORE_KERNELS:
+        for d in (64, 128):
+            if counts.get(f"{kernel}<{d}>", 0) == 0:
+                raise AssertionError(f"{kernel}<{d}> has no HMMA "
+                                     f"instruction in its SASS")
 
 
 def main() -> int:
@@ -974,9 +1121,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s: {lib}")
-    for line in (lib.parent / "ptxas.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"ptxas {line.strip()}")
+    ptxas_report((lib.parent / "ptxas.log").read_text())
+    hmma_report(lib)
     rng = np.random.default_rng(SEED)
     results = kernel_phase(rng)
     reference_phase(rng)

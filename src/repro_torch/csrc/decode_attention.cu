@@ -1,6 +1,5 @@
 // Single-token GQA decode attention: dense padded cache and block-paged
-// cache, over bf16 K/V or int8 codes with per-(row, kv head) bf16 scales,
-// all sharing one inner tile loop.
+// cache, over bf16 K/V or int8 codes with per-(row, kv head) bf16 scales.
 //
 // Replaces repro/kernels/decode_attention.py::decode_attention_pallas
 // (_kernel), ::paged_decode_attention_pallas (_paged_kernel),
@@ -10,25 +9,53 @@
 // Bound on the H100: bytes.  Each (sequence, kv head) streams its K and V
 // rows once (2 * cache_len * D * 2 bytes in bf16, half that plus 4 bytes of
 // scales per row in int8) for 2 * G * D flops per row, far below the ~295
-// flop/byte ridge.  Design: a CTA per (b, kv head, split of S) holds all G
-// query heads (G = 7 for qwen2-7b, looped, not padded to 8), so every K/V
-// row leaves HBM once for the whole group, and the split of S
-// (flash-decoding) puts B * K * n_split CTAs in flight instead of B * K,
-// enough to keep HBM busy at decode batch sizes.  Rows are walked in tiles
-// of `block` rows with an online softmax in f32; a second kernel merges the
-// splits' partial (acc, max, sum) in split order.  The dense kernel stops
-// at min(cache_len, S) (a free continuous slot keeps advancing its position
-// past S) and starts at the window edge; the paged kernel reads its own
-// block-table row and walks only ceil(cache_len / bs) entries, so only the
-// sequence's own pages are read.  An int8 tile is staged first: each thread
-// loads 16 codes (16 bytes) of K and of V, widens them to f32 in registers,
-// multiplies by the row's scale and stores them in shared memory (the
-// dequantize happens after the load, in f32, as in _kernel_q8); the tile
-// loop then reads those rows.  Both kernels of a type call attend_tile on
-// the same tiles, split the same tile indices and merge in the same order,
-// so on identical K/V (or codes and scales) the dense and the paged decode
-// give bit-identical outputs.  Not yet done: tensor cores (the G x block
-// score tile is small), cp.async / TMA prefetch of the next tile.
+// flop/byte ridge.  So the kernels must keep many bytes in flight and add
+// little latency per row.  Shared by all four: a CTA per (kv head, b,
+// split of S) holds all G query heads of its kv head, so every K/V row
+// leaves HBM once for the whole group, and the split of S
+// (flash-decoding) puts B * K * n_split CTAs in flight instead of B * K;
+// a second kernel merges the splits' partial (acc, max, sum) in split
+// order.  The dense kernels stop at min(cache_len, S) (a free continuous
+// slot keeps advancing its position past S) and start at the window
+// edge; the paged kernels read their own block-table row and only the
+// sequence's own pages.
+//
+// bf16 (decode_bf16_kernel, paged_decode_bf16_kernel): the G heads are
+// the rows of one mma.sync m16n8k16 A fragment (padded with zero rows to
+// 16; the kernel is byte-bound, so the padded half costs nothing), and
+// each warp runs the shared tensor-core tile of attention_common.cuh on
+// 16 K/V rows at a time: scores through ldmatrix, the online softmax on
+// the C fragments (no per-row warp_sum, no serial softmax, no barrier per
+// tile), P kept in registers for P . V through ldmatrix.trans.  Rows are
+// walked in tiles of 16 logical rows whatever the page size: the CTA's
+// tiles go round-robin to its 4 warps, each warp streams its own tiles
+// through a private cp.async ring (16 bytes a lane; rows past the cache
+// or on an out-of-pool page are zero-filled, noted by a ballot as the
+// copies are issued, and masked) and keeps its own (m, l, acc), and the
+// CTA merges its warps in warp order.  The ring has 2 stages only when a
+// warp has more than one tile to walk: with one, 70 KB of shared memory
+// would hold three CTAs per SM and qwen2-7b's 512-CTA decode would run in
+// two waves; with 35 KB it runs in one.  The merged partials go to the
+// combine kernel, which forms the splits' weights once and sums with its
+// loads in flight together.  A paged row's address comes from the block
+// table row by row, so pages of 1-64 rows work and a page below 16 rows
+// fills part of an mma tile.  Since
+// tiles, their warps, the split and both merges depend on logical rows
+// alone, the dense and the paged kernel give bit-identical outputs on
+// identical K/V for every page size with M * bs = S.  Scores are scaled
+// in f32 after the dot; P is rounded to bf16 for P . V (at most 2^-8
+// relative per weight).
+//
+// int8 (decode_kernel, paged_decode_kernel with T = int8_t): tiles of
+// `block` rows (16 dense, the page size paged) are staged first: each
+// thread loads 16 codes (16 bytes) of K and of V, widens them to f32 in
+// registers, multiplies by the row's scale and stores them in shared
+// memory (the dequantize happens after the load, in f32, as in
+// _kernel_q8); attend_tile then walks the rows on the CUDA cores, one
+// output dimension per thread.  Both int8 kernels call attend_tile on the
+// same tiles, split the same tile indices and merge in the same order, so
+// they too are bit-identical on identical codes and scales.  Not yet
+// done for int8: tensor cores and cp.async prefetch.
 #include <cstdint>
 
 #include "attention_common.cuh"
@@ -36,23 +63,11 @@
 namespace {
 
 constexpr int kMaxG = 8;    // query heads per kv head held by one CTA
-constexpr int kMaxT = 64;   // rows per tile
+constexpr int kMaxT = 64;   // attend_tile's score rows; the largest page
 constexpr int kMaxTQ8 = 32; // rows per int8 tile (staged as f32 in smem)
 
-// K/V rows as attend_tile reads them: bf16 straight from HBM, or the f32
-// rows an int8 tile was dequantized into in shared memory.
-struct Bf16Rows {
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  long stride;
-  __device__ __forceinline__ float key(int r, int i) const {
-    return bf2f(k[r * stride + i]);
-  }
-  __device__ __forceinline__ float val(int r, int i) const {
-    return bf2f(v[r * stride + i]);
-  }
-};
-
+// int8 tiles as attend_tile reads them: the f32 rows a tile was
+// dequantized into in shared memory.
 struct SmemRows {
   const float* k;
   const float* v;
@@ -136,17 +151,6 @@ __device__ __forceinline__ void widen16(const int4 w, float scale,
 #pragma unroll
     for (int b = 0; b < 4; ++b)
       dst[4 * i + b] = (float)(signed char)(words[i] >> (8 * b)) * scale;
-}
-
-// One tile of bf16 rows: attended where they lie.
-template <int D>
-__device__ __forceinline__ void load_attend(
-    const __nv_bfloat16* k_rows, const __nv_bfloat16* v_rows,
-    const __nv_bfloat16*, const __nv_bfloat16*, long row_stride, long,
-    int n_rows, int lo, int hi, int G, const float (&qreg)[kMaxG][D / 32],
-    float (&acc)[kMaxG], float& m, float& l, float* s_sm, float* alpha_sm) {
-  attend_tile<D>(Bf16Rows{k_rows, v_rows, row_stride}, n_rows, lo, hi, G,
-                 qreg, acc, m, l, s_sm, alpha_sm);
 }
 
 // One tile of int8 rows: every thread stages 16-code chunks of K and V
@@ -288,35 +292,322 @@ __global__ void __launch_bounds__(D) paged_decode_kernel(
 }
 
 // Merge the n_split partials of (b, kv head) in split order (a fixed
-// order: the result does not depend on which CTA finished first).
+// order: the result does not depend on which CTA finished first).  One
+// CTA per (kv head, b, query head): the splits' weights exp(m - m_all)
+// are formed once in shared memory, then each thread sums its output
+// dimension over the splits with the loads unrolled, so they are in
+// flight together rather than one after another.
 template <int D>
 __global__ void __launch_bounds__(D) combine_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
     __nv_bfloat16* __restrict__ o, int H, int KV, int n_split) {
-  const int kh = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int G = H / KV;
+  extern __shared__ float w_sm[];  // [n_split]: maxima, then weights
+  const int kh = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
+  const int tid = threadIdx.x, G = H / KV;
   const long base = ((long)b * KV + kh) * n_split;
-  for (int g = 0; g < G; ++g) {
-    float m_all = REPRO_NEG_INF;
-    for (int sp = 0; sp < n_split; ++sp)
-      m_all = fmaxf(m_all, part_ml[((base + sp) * kMaxG + g) * 2]);
-    float l_all = 0.f, acc = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const long slot = (base + sp) * kMaxG + g;
-      const float w = expf(part_ml[slot * 2] - m_all);
-      l_all += part_ml[slot * 2 + 1] * w;
-      acc += part_acc[slot * D + tid] * w;
-    }
-    o[((long)b * H + kh * G + g) * D + tid] =
-        __float2bfloat16(acc / fmaxf(l_all, 1e-30f));
+  for (int sp = tid; sp < n_split; sp += D)
+    w_sm[sp] = part_ml[((base + sp) * kMaxG + g) * 2];
+  __syncthreads();
+  float m_all = REPRO_NEG_INF;
+  for (int sp = 0; sp < n_split; ++sp) m_all = fmaxf(m_all, w_sm[sp]);
+  __syncthreads();  // every thread has read the maxima
+  for (int sp = tid; sp < n_split; sp += D)
+    w_sm[sp] = expf(w_sm[sp] - m_all);
+  __syncthreads();
+  float l_all = 0.f, acc = 0.f;
+#pragma unroll 8
+  for (int sp = 0; sp < n_split; ++sp) {
+    const long slot = (base + sp) * kMaxG + g;
+    const float w = w_sm[sp];
+    l_all += part_ml[slot * 2 + 1] * w;
+    acc += part_acc[slot * D + tid] * w;
   }
+  o[((long)b * H + kh * G + g) * D + tid] =
+      __float2bfloat16(acc / fmaxf(l_all, 1e-30f));
 }
 
 template <int D>
 void combine(const float* part_acc, const float* part_ml, void* o, int B,
              int H, int KV, int n_split, cudaStream_t st) {
-  combine_kernel<D><<<dim3(KV, B), D, 0, st>>>(
-      part_acc, part_ml, (__nv_bfloat16*)o, H, KV, n_split);
+  combine_kernel<D><<<dim3(KV, B, H / KV), D, n_split * sizeof(float),
+                      st>>>(part_acc, part_ml, (__nv_bfloat16*)o, H, KV,
+                            n_split);
+}
+
+// -- bf16: the G heads as the rows of a tensor-core tile ---------------------
+
+constexpr int kTile = 16;      // logical rows per tile: one mma n16 step
+constexpr int kDecWarps = 4;   // warps per CTA, each with its own tiles
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kDecStages = 2;  // the deepest ring: one tile in flight ahead
+
+// Row stride of the shared K/V tiles: D plus a 16-byte pad, so ldmatrix
+// reads are free of bank conflicts.
+template <int D>
+__host__ __device__ constexpr int dec_ld() { return D + 8; }
+
+// Each warp's ring of `stages` (K, V) tiles; after the loop the same
+// bytes hold the warps' partials for the CTA's merge.
+template <int D>
+int dec_smem_bytes(int stages) {
+  const int ring = kDecWarps * stages * 2 * kTile * dec_ld<D>() *
+                   (int)sizeof(__nv_bfloat16);
+  const int merge = kDecWarps * kMaxG * (D + 2) * (int)sizeof(float);
+  return ring > merge ? ring : merge;
+}
+
+// The ring depth a split needs: a warp with one tile has nothing to
+// prefetch behind it, and a single stage leaves room for twice the CTAs
+// per SM.
+__host__ __device__ inline int dec_stages(int tiles_per_split) {
+  return tiles_per_split > kDecWarps ? kDecStages : 1;
+}
+
+// Logical rows of one (b, kv head) of a dense (B, S, KV, D) cache: live
+// rows are [lo, hi), the window start to min(cache_len, S).  offset(r)
+// is the row's element offset, or -1 for a row that is not stored.
+struct DenseRows {
+  long base;    // element offset of (b, row 0, kh)
+  long stride;  // KV * D
+  int S, lo, hi;
+  __device__ __forceinline__ long offset(int r) const {
+    return r < S ? base + r * stride : -1;
+  }
+};
+
+// Logical rows of one (b, kv head) in (N, bs, KV, D) pages through its
+// block-table row: live rows are [0, min(cache_len, M * bs)) on pages of
+// the pool (an entry outside [0, N) is never read, its rows masked).
+struct PagedRows {
+  const int* table;
+  int M, bs, N;
+  long stride;  // KV * D
+  long kh_off;  // kh * D
+  int lo, hi;
+  __device__ __forceinline__ long offset(int r) const {
+    const int page = r / bs;
+    if (page >= M) return -1;
+    const int phys = table[page];
+    if (phys < 0 || phys >= N) return -1;
+    return ((long)phys * bs + r % bs) * stride + kh_off;
+  }
+};
+
+// One CTA's split: tiles [t_begin, t_end) of 16 logical rows, tile
+// t_begin + w + 4 i to warp w; then the warps' partials merged in warp
+// order and stored for combine_kernel (max in natural-log units, as the
+// int8 kernels store it).
+template <int D, typename Rows>
+__device__ __forceinline__ void decode_split(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const Rows& rows, int b, int kh,
+    int H, int G, int t_begin, int t_end, int stages, float scale_log2,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, long slot) {
+  constexpr int LD = dec_ld<D>();
+  constexpr int NO = D / 8;
+  constexpr int kPieces = D / 8;            // 16-byte pieces per row
+  constexpr int kRowsPerIt = 32 / kPieces;  // rows one copy step covers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw) +
+                        warp * stages * 2 * kTile * LD;
+  auto stage = [&](int i) { return ring + (i % stages) * 2 * kTile * LD; };
+
+  // Head kh * G + gid is row gid of the A fragment; rows 8..15 and the
+  // rows past G are zero.
+  unsigned qa[D / 16][4];
+  const __nv_bfloat16* q_row = q + ((long)b * H + kh * G + gid) * D + 2 * tig;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    qa[kk][0] = gid < G ? *reinterpret_cast<const unsigned*>(q_row + 16 * kk)
+                        : 0u;
+    qa[kk][2] = gid < G ? *reinterpret_cast<const unsigned*>(
+                              q_row + 16 * kk + 8)
+                        : 0u;
+    qa[kk][1] = qa[kk][3] = 0u;
+  }
+
+  // This warp's tiles, past those wholly before the window.
+  int t0 = t_begin + warp;
+  const int t_lo = rows.lo / kTile;
+  if (t0 < t_lo) t0 += (t_lo - t0 + kDecWarps - 1) / kDecWarps * kDecWarps;
+  const int n = t0 < t_end ? (t_end - t0 + kDecWarps - 1) / kDecWarps : 0;
+  // Copies tile i into its stage; returns the tile's stored rows as bits
+  // (a row not stored is zero-filled, and masked below).
+  auto issue = [&](int i) {
+    const int base = (t0 + i * kDecWarps) * kTile;
+    __nv_bfloat16* ks = stage(i);
+    __nv_bfloat16* vs = ks + kTile * LD;
+    unsigned stored = 0u;
+#pragma unroll
+    for (int it = 0; it < kTile * kPieces / 32; ++it) {
+      const int p = lane + 32 * it;
+      const int r = p / kPieces, c = (p % kPieces) * 8;
+      const long off = rows.offset(base + r);
+      const bool ok = off >= 0;
+      cp_async16(ks + r * LD + c, k + (ok ? off : 0) + c, ok);
+      cp_async16(vs + r * LD + c, v + (ok ? off : 0) + c, ok);
+      const unsigned vote = __ballot_sync(0xffffffffu, ok);
+#pragma unroll
+      for (int j = 0; j < kRowsPerIt; ++j)
+        stored |= ((vote >> (j * kPieces)) & 1u) << (it * kRowsPerIt + j);
+    }
+    return stored;
+  };
+
+  float acc[NO][4] = {};
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+  unsigned stored = n > 0 ? issue(0) : 0u;
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    // With one stage a warp has one tile (dec_stages): nothing follows.
+    const unsigned stored_next = i + 1 < n ? issue(i + 1) : 0u;
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i has landed (this lane's copies) ...
+    __syncwarp();        // ... and every lane's
+    const int base = (t0 + i * kDecWarps) * kTile;
+    const __nv_bfloat16* ks = stage(i);
+    float s[2][4];
+    warp_scores<D, 2>(qa, ks, LD, s);
+    warp_scale_mask<2>(s, scale_log2, [&](int, int c) {
+      const int r = base + c;
+      return ((stored >> c) & 1u) && r >= rows.lo && r < rows.hi;
+    });
+    warp_softmax<2, NO>(s, m, l, acc);
+    warp_pv<D, 2>(s, ks + kTile * LD, LD, acc);
+    __syncwarp();  // the stage is refilled `stages` tiles on
+    stored = stored_next;
+  }
+  cp_async_wait<0>();
+  warp_row_sum(l);
+
+  // Merge the warps (rows 0..7 of each: the heads) through shared memory.
+  __syncthreads();  // every warp is done with its ring
+  float* acc_sm = reinterpret_cast<float*>(smem_raw);  // [warp][kMaxG][D]
+  float* ml_sm = acc_sm + kDecWarps * kMaxG * D;       // [warp][kMaxG][2]
+  const int row = warp * kMaxG + gid;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    acc_sm[row * D + 8 * j + 2 * tig] = acc[j][0];
+    acc_sm[row * D + 8 * j + 2 * tig + 1] = acc[j][1];
+  }
+  if (tig == 0) {
+    ml_sm[row * 2] = m[0];
+    ml_sm[row * 2 + 1] = l[0];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < G * D; e += kDecThreads) {
+    const int g = e / D, d = e % D;
+    float m_all = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      m_all = fmaxf(m_all, ml_sm[(w * kMaxG + g) * 2]);
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      a += acc_sm[(w * kMaxG + g) * D + d] *
+           exp2f(ml_sm[(w * kMaxG + g) * 2] - m_all);
+    part_acc[(slot * kMaxG + g) * D + d] = a;
+  }
+  if ((int)threadIdx.x < G) {
+    const int g = threadIdx.x;
+    float m_all = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      m_all = fmaxf(m_all, ml_sm[(w * kMaxG + g) * 2]);
+    float l_all = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w)
+      l_all += ml_sm[(w * kMaxG + g) * 2 + 1] *
+               exp2f(ml_sm[(w * kMaxG + g) * 2] - m_all);
+    part_ml[(slot * kMaxG + g) * 2] = m_all * REPRO_LN2;
+    part_ml[(slot * kMaxG + g) * 2 + 1] = l_all;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDecThreads) decode_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ cache_len,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int S, int H,
+    int KV, int window, int tiles_per_split, float scale_log2) {
+  const int kh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int len = cache_len[b];
+  const DenseRows rows{((long)b * S * KV + kh) * D, (long)KV * D, S,
+                       window >= 0 ? max(0, len - window) : 0, min(len, S)};
+  const int t_end =
+      min((sp + 1) * tiles_per_split, (rows.hi + kTile - 1) / kTile);
+  decode_split<D>(q, k, v, rows, b, kh, H, H / KV, sp * tiles_per_split,
+                  t_end, dec_stages(tiles_per_split), scale_log2, part_acc,
+                  part_ml, ((long)b * KV + kh) * gridDim.z + sp);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDecThreads) paged_decode_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
+    const int* __restrict__ cache_len, float* __restrict__ part_acc,
+    float* __restrict__ part_ml, int N, int bs, int M, int H, int KV,
+    int tiles_per_split, float scale_log2) {
+  const int kh = blockIdx.x, b = blockIdx.y, sp = blockIdx.z;
+  const int len = cache_len[b];
+  const PagedRows rows{tables + (long)b * M, M, bs, N, (long)KV * D,
+                       (long)kh * D, 0, min(len, M * bs)};
+  const int t_end =
+      min((sp + 1) * tiles_per_split, (rows.hi + kTile - 1) / kTile);
+  decode_split<D>(q, kp, vp, rows, b, kh, H, H / KV, sp * tiles_per_split,
+                  t_end, dec_stages(tiles_per_split), scale_log2, part_acc,
+                  part_ml, ((long)b * KV + kh) * gridDim.z + sp);
+}
+
+// The bf16 kernels' launches: n_tiles = ceil(rows / 16) tiles of logical
+// rows (rows = S dense, M * bs paged) split tiles_per_split to a CTA.
+template <int D>
+int launch_decode_bf16(const void* q, const void* k, const void* v,
+                       const void* cache_len, void* part_acc, void* part_ml,
+                       void* o, int B, int S, int H, int KV, int window,
+                       int tiles_per_split, float scale, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dec_smem_bytes<D>(kDecStages));
+  if (err != cudaSuccess) return (int)err;
+  const int smem = dec_smem_bytes<D>(dec_stages(tiles_per_split));
+  const int n_split =
+      ((S + kTile - 1) / kTile + tiles_per_split - 1) / tiles_per_split;
+  decode_bf16_kernel<D><<<dim3(KV, B, n_split), kDecThreads, smem, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const int*)cache_len, (float*)part_acc,
+      (float*)part_ml, S, H, KV, window, tiles_per_split,
+      scale * REPRO_LOG2E);
+  combine<D>((const float*)part_acc, (const float*)part_ml, o, B, H, KV,
+             n_split, st);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_paged_bf16(const void* q, const void* k_pages,
+                      const void* v_pages, const void* tables,
+                      const void* cache_len, void* part_acc, void* part_ml,
+                      void* o, int B, int N, int bs, int M, int H, int KV,
+                      int tiles_per_split, float scale, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_decode_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dec_smem_bytes<D>(kDecStages));
+  if (err != cudaSuccess) return (int)err;
+  const int smem = dec_smem_bytes<D>(dec_stages(tiles_per_split));
+  const int n_split =
+      ((M * bs + kTile - 1) / kTile + tiles_per_split - 1) / tiles_per_split;
+  paged_decode_bf16_kernel<D><<<dim3(KV, B, n_split), kDecThreads, smem,
+                                 st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+      (const __nv_bfloat16*)v_pages, (const int*)tables,
+      (const int*)cache_len, (float*)part_acc, (float*)part_ml, N, bs, M, H,
+      KV, tiles_per_split, scale * REPRO_LOG2E);
+  combine<D>((const float*)part_acc, (const float*)part_ml, o, B, H, KV,
+             n_split, st);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -397,16 +688,24 @@ int launch_paged(const void* q, const void* k_pages, const void* v_pages,
 
 // part_acc: (B, KV, n_split, 8, D) f32 and part_ml: (B, KV, n_split, 8, 2)
 // f32 scratch, allocated by the caller; n_split = ceil(tiles /
-// tiles_per_split).
+// tiles_per_split).  bf16: tiles of 16 rows (`block` must be 16).
 extern "C" int repro_decode_attention_bf16(
     const void* q, const void* k, const void* v, const void* cache_len,
     void* part_acc, void* part_ml, void* o, int B, int S, int H, int KV,
     int D, int block, int window, int tiles_per_split, float scale,
     void* stream) {
-  return launch_decode<__nv_bfloat16>(
-      q, k, v, nullptr, nullptr, cache_len, part_acc, part_ml, o, B, S, H,
-      KV, D, block, window, tiles_per_split, scale, kMaxT,
-      (cudaStream_t)stream);
+  if (H % KV || H / KV > kMaxG || block != kTile || tiles_per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    return launch_decode_bf16<128>(q, k, v, cache_len, part_acc, part_ml, o,
+                                   B, S, H, KV, window, tiles_per_split,
+                                   scale, st);
+  if (D == 64)
+    return launch_decode_bf16<64>(q, k, v, cache_len, part_acc, part_ml, o,
+                                  B, S, H, KV, window, tiles_per_split,
+                                  scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // int8 codes k, v (B, S, KV, D) with bf16 scales ks, vs (B, S, KV, 1);
@@ -422,18 +721,30 @@ extern "C" int repro_decode_attention_q8(
                                (cudaStream_t)stream);
 }
 
-// Scratch as above with n_split = ceil(M / tiles_per_split).
+// Scratch as above with n_split = ceil(ceil(M * bs / 16) /
+// tiles_per_split): tiles of 16 logical rows, whatever the page size bs
+// (1-64 rows).
 extern "C" int repro_paged_decode_attention_bf16(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* cache_len, void* part_acc,
     void* part_ml, void* o, int B, int N, int bs, int M, int H, int KV,
     int D, int tiles_per_split, float scale, void* stream) {
-  return launch_paged<__nv_bfloat16>(
-      q, k_pages, v_pages, nullptr, nullptr, tables, cache_len, part_acc,
-      part_ml, o, B, N, bs, M, H, KV, D, tiles_per_split, scale, kMaxT,
-      (cudaStream_t)stream);
+  if (H % KV || H / KV > kMaxG || bs < 1 || bs > kMaxT ||
+      tiles_per_split < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    return launch_paged_bf16<128>(q, k_pages, v_pages, tables, cache_len,
+                                  part_acc, part_ml, o, B, N, bs, M, H, KV,
+                                  tiles_per_split, scale, st);
+  if (D == 64)
+    return launch_paged_bf16<64>(q, k_pages, v_pages, tables, cache_len,
+                                 part_acc, part_ml, o, B, N, bs, M, H, KV,
+                                 tiles_per_split, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
+// Scratch as above with n_split = ceil(M / tiles_per_split).
 // int8 code pages (N, bs, KV, D) with bf16 scale pages (N, bs, KV, 1).
 extern "C" int repro_paged_decode_attention_q8(
     const void* q, const void* k_pages, const void* v_pages,

@@ -4,30 +4,70 @@
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas
 // (_kernel), with the semantics of repro/kernels/ops.py::_xla_flash (which
 // pads ragged tails; here the kernel masks them itself, since bucketed
-// prefill hands it Sq in {1, 2, 4, ...}, often less than one tile).
+// prefill hands it Sq in {1, 2, 4, ..., 512}, often less than one tile,
+// and the hybrid prefills at exact lengths Sq = prompt + 128).
 //
-// Bound on the H100: at prefill lengths the work is dominated by the two
-// products (4 * Sq * Sk * D flops per head, halved by the causal mask)
-// against (Sq * (2H) + 2 * Sk * K) * D * 2 bytes moved, so it is
-// operation-bound for long prompts and byte-bound for short ones.  Design:
-// one CTA per (b, q head, 64-row q tile) loops over 64-row k tiles with an
-// online softmax in f32; the S x S score matrix never reaches HBM (only a
-// 64 x 64 tile in shared memory), and k tiles that the causal mask or the
-// window hide entirely are never loaded.  q is scaled in f32 before the dot
-// (ops.py:94).  This first version computes on the f32 CUDA cores, not the
-// tensor cores; wgmma and TMA are later work.
+// Bound on the H100: the two products are 4 * Sq * Sk * D flops per head
+// (halved by the causal mask) against (Sq * 2H + 2 * Sk * K) * D * 2 bytes
+// moved: at qwen2-7b's 512-token prefill about 1.9 GFLOP against 4.2 MB,
+// so the bytes bound the ideal kernel (2.5 us) only just above the bf16
+// tensor-core time (1.9 us), and both products must run on the tensor
+// cores.  Design: one CTA of 4 warps per (b, q head, 64-row q tile); each
+// warp holds its 16 q rows as mma.sync A fragments for the whole loop and
+// runs the shared warp tile of attention_common.cuh (scores through
+// ldmatrix, online softmax on the f32 C fragments, P kept in registers as
+// the A fragment of P . V, V through ldmatrix.trans).  K/V tiles of 64
+// rows stream through a 2-stage cp.async ring (16 bytes a thread,
+// neighbouring threads on neighbouring addresses, rows past Sk
+// zero-filled), so the next tile's load overlaps this tile's math; rows
+// are padded by 16 bytes so ldmatrix reads are free of bank conflicts
+// (85 KB of shared memory per CTA at D = 128, two CTAs per SM).  k tiles
+// that the causal mask or the window hide from the whole CTA are never
+// loaded, tiles hidden from one warp are skipped by it, and only tiles
+// that straddle the diagonal, the window edge or Sk evaluate the mask.
+// The grid walks q tiles heaviest first (reversed), so the last wave is
+// the shortest.
+// Scores are scaled in f32 after the dot (q is not rounded after
+// scaling, as ops.py:94 scales it in f32); P is rounded to bf16 for the
+// second product (at most 2^-8 relative per weight).  The output goes
+// through the warp's own Q rows in shared memory to 16-byte stores; q
+// rows past Sq are never written.
+#include <cstdint>
+
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per CTA
-constexpr int kBK = 64;       // key rows per tile
-constexpr int kThreads = 256; // 16 x 16 threads; each owns 4 q rows
+constexpr int kBQ = 64;     // query rows per CTA: 4 warps x 16
+constexpr int kBK = 64;     // key rows per tile
+constexpr int kWarps = kBQ / 16;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kStages = 2;  // depth of the K/V cp.async ring
+
+// Row stride of every shared tile: D plus a 16-byte pad, so the 8 rows
+// one ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
+template <int D>
+__host__ __device__ constexpr int ld() { return D + 8; }
 
 template <int D>
-constexpr int smem_floats() {
-  // Qs[BQ][D+1] + Kt[D][BK+1] + Vs[BK][D] + Ps[BQ][BK+1]
-  return kBQ * (D + 1) + D * (kBK + 1) + kBK * D + kBQ * (kBK + 1);
+__host__ __device__ constexpr int smem_bytes() {
+  return (kBQ + 2 * kStages * kBK) * ld<D>() * (int)sizeof(__nv_bfloat16);
+}
+
+// ROWS rows of D bf16 (row r at src + r * stride) into a shared tile with
+// 16-byte cp.async; rows at or past `valid` are zero-filled, not read.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long stride, int valid) {
+  constexpr int kPieces = D / 8;  // 16-byte pieces per row
+#pragma unroll
+  for (int i = 0; i < ROWS * kPieces / kThreads; ++i) {
+    const int p = threadIdx.x + i * kThreads;
+    const int r = p / kPieces, c = (p % kPieces) * 8;
+    const bool ok = r < valid;
+    cp_async16(dst + r * ld<D>() + c, src + (ok ? r * stride : 0) + c, ok);
+  }
 }
 
 template <int D>
@@ -35,140 +75,106 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int Sq, int Sk, int H, int KV, int causal, int window, int q_offset,
-    float scale) {
-  constexpr int QS = D + 1;    // padded row strides: conflict-free reads
-  constexpr int KS = kBK + 1;
-  constexpr int NO = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Kt = Qs + kBQ * QS;
-  float* Vs = Kt + D * KS;
-  float* Ps = Vs + kBK * D;
+    float scale_log2) {
+  constexpr int LD = ld<D>();
+  constexpr int NT = kBK / 8;  // n8 score tiles per warp and k tile
+  constexpr int NO = D / 8;    // n8 output tiles per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* Ks = Qs + kBQ * LD;               // [kStages][kBK][LD]
+  __nv_bfloat16* Vs = Ks + kStages * kBK * LD;     // [kStages][kBK][LD]
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int qbase = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KV);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int qbase = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KV);
   const int q_rows = min(kBQ, Sq - qbase);
+  const long kv_stride = (long)KV * D;
+  const __nv_bfloat16* k_seq = k + ((long)b * Sk * KV + kh) * D;
+  const __nv_bfloat16* v_seq = v + ((long)b * Sk * KV + kh) * D;
 
-  // Load and scale this CTA's q tile (rows past Sq are zero).
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    float x = 0.f;
-    if (r < q_rows) x = bf2f(q[(((long)b * Sq + qbase + r) * H + h) * D + c]);
-    Qs[r * QS + c] = x * scale;
-  }
-
-  float acc[4][NO];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = REPRO_NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) acc[i][j] = 0.f;
-  }
-
-  // Live k range: tiles entirely hidden by the causal mask or the window
-  // are skipped.
-  const int q_lo = q_offset + qbase;
-  const int q_hi = q_offset + qbase + q_rows - 1;
+  // Live k range: tiles hidden from the whole CTA by the causal mask or
+  // the window are never loaded.
+  const int q_lo = q_offset + qbase, q_hi = q_lo + q_rows - 1;
   const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
   const int k_begin = window >= 0 ? max(0, q_lo - window + 1) : 0;
+  const int kt0 = k_begin / kBK;
+  const int n_kt = max(0, (k_end + kBK - 1) / kBK - kt0);
 
-  for (int kt = k_begin / kBK; kt * kBK < k_end; ++kt) {
-    const int kbase = kt * kBK;
-    __syncthreads();  // previous tile's Kt / Vs / Ps reads are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (kbase + r < Sk) {
-        const long idx = (((long)b * Sk + kbase + r) * KV + kh) * D + c;
-        kx = bf2f(k[idx]);
-        vx = bf2f(v[idx]);
-      }
-      Kt[c * KS + r] = kx;
-      Vs[r * D + c] = vx;
-    }
+  load_rows<D, kBQ>(Qs, q + (((long)b * Sq + qbase) * H + h) * D,
+                    (long)H * D, q_rows);
+  cp_async_commit();
+  auto load_kv = [&](int i) {
+    const int kbase = (kt0 + i) * kBK, st = i % kStages;
+    load_rows<D, kBK>(Ks + st * kBK * LD, k_seq + kbase * kv_stride,
+                      kv_stride, Sk - kbase);
+    load_rows<D, kBK>(Vs + st * kBK * LD, v_seq + kbase * kv_stride,
+                      kv_stride, Sk - kbase);
+  };
+  if (n_kt > 0) load_kv(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // the Q tile has landed
+  __syncthreads();
+  unsigned qa[D / 16][4];
+  warp_load_a<D>(Qs + warp * 16 * LD, LD, qa);
+
+  float acc[NO][4] = {};
+  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
+  const int wq_lo = q_lo + warp * 16, wq_hi = wq_lo + 15;  // warp's rows
+  for (int i = 0; i < n_kt; ++i) {
+    if (i + 1 < n_kt) load_kv(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile i has landed
     __syncthreads();
-
-    // S = Q K^T for rows ty + 16 i, cols tx + 16 j.
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Kt[d * KS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] += qa[i] * kb[j];
-    }
-
-    // Mask, online softmax (row reductions over the 16 threads of a row).
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q_offset + qbase + ty + 16 * i;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = kbase + tx + 16 * j;
-        bool ok = kp < Sk;
-        if (causal) ok = ok && kp <= qp;
-        if (window >= 0) ok = ok && kp > qp - window;
-        if (!ok) s[i][j] = REPRO_NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
+    const int kbase = (kt0 + i) * kBK, st = i % kStages;
+    const bool visible =
+        warp * 16 < q_rows && (!causal || kbase <= wq_hi) &&
+        (window < 0 || kbase + kBK - 1 > wq_lo - window);
+    if (visible) {
+      float s[NT][4];
+      warp_scores<D, NT>(qa, Ks + st * kBK * LD, LD, s);
+      const bool edge = kbase + kBK > Sk ||
+                        (causal && kbase + kBK - 1 > wq_lo) ||
+                        (window >= 0 && kbase <= wq_hi - window);
+      if (edge) {
+        warp_scale_mask<NT>(s, scale_log2, [&](int r, int c) {
+          const int qp = wq_lo + r, kp = kbase + c;
+          return kp < Sk && (!causal || kp <= qp) &&
+                 (window < 0 || kp > qp - window);
+        });
+      } else {
+        warp_scale<NT>(s, scale_log2);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = expf(m[i] - mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mx);
-        Ps[(ty + 16 * i) * KS + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < NO; ++j) acc[i][j] *= alpha;
+      warp_softmax<NT, NO>(s, m, l, acc);
+      warp_pv<D, NT>(s, Vs + st * kBK * LD, LD, acc);
     }
-    __syncthreads();
-
-    // acc += P V.
-#pragma unroll 4
-    for (int r = 0; r < kBK; ++r) {
-      float pa[4], vb[NO];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty + 16 * i) * KS + r];
-#pragma unroll
-      for (int j = 0; j < NO; ++j) vb[j] = Vs[r * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NO; ++j) acc[i][j] += pa[i] * vb[j];
-    }
+    __syncthreads();  // stage st is refilled by the next iteration
   }
+  cp_async_wait<0>();
 
+  // Normalise, stage the warp's 16 rows in its own (no longer read) Q
+  // rows, and store them with 16-byte writes; rows past Sq are dropped.
+  warp_row_sum(l);
+  const int gid = lane >> 2, tig = lane & 3;
+  __nv_bfloat16* Os = Qs + warp * 16 * LD;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= q_rows) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = o + (((long)b * Sq + qbase + r) * H + h) * D;
+  for (int hr = 0; hr < 2; ++hr) {
+    const float inv = 1.f / fmaxf(l[hr], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NO; ++j)
-      orow[tx + 16 * j] = __float2bfloat16(acc[i][j] * inv);
+      *reinterpret_cast<unsigned*>(Os + (gid + 8 * hr) * LD + 8 * j +
+                                   2 * tig) =
+          pack_bf16(acc[j][2 * hr] * inv, acc[j][2 * hr + 1] * inv);
+  }
+  __syncwarp();
+  constexpr int kPieces = D / 8;
+#pragma unroll
+  for (int i = 0; i < 16 * kPieces / 32; ++i) {
+    const int p = lane + 32 * i;
+    const int r = p / kPieces, c = (p % kPieces) * 8;
+    if (warp * 16 + r < q_rows)
+      *reinterpret_cast<uint4*>(
+          o + (((long)b * Sq + qbase + warp * 16 + r) * H + h) * D + c) =
+          *reinterpret_cast<const uint4*>(Os + r * LD + c);
   }
 }
 
@@ -176,7 +182,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
            int q_offset, float scale, cudaStream_t st) {
-  const int smem = smem_floats<D>() * (int)sizeof(float);
+  const int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -184,12 +190,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   flash_kernel<D><<<grid, kThreads, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Sq, Sk, H, KV, causal,
-      window, q_offset, scale);
+      window, q_offset, scale * REPRO_LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// q (B, Sq, H, D), k and v (B, Sk, KV, D), o (B, Sq, H, D): bf16,
+// contiguous, 16-byte aligned.
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int Sq,
     int Sk, int H, int KV, int D, int causal, int window, int q_offset,

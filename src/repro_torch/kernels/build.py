@@ -93,12 +93,14 @@ def build() -> Path:
         procs.append((src, subprocess.Popen(
             [exe, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs = []
+    logs, failed = [], []
     for src, proc in procs:
         out, _ = proc.communicate()
         logs.append(f"== {src.name}\n{out}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+            failed.append(f"nvcc failed on {src.name}:\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
     objs = [str(tmp / (src.stem + ".o")) for src, _ in procs]
     link = subprocess.run([exe, "-shared", "-o", str(tmp / LIB_NAME), *objs],
                           capture_output=True, text=True)
@@ -123,12 +125,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def pointers(name: str, device, tensors: dict) -> list[int]:
+def pointers(name: str, device, tensors: dict, align: int = 1
+             ) -> list[int]:
     """Validate kernel operands and return their device pointers.
 
     ``tensors`` maps an operand name to ``(tensor, dtype)``: each must lie
     on ``device`` (a CUDA device), have that dtype and be contiguous —
-    the kernels compute their own offsets from the shapes alone.
+    the kernels compute their own offsets from the shapes alone — and
+    start at a multiple of ``align`` bytes (16 where a kernel moves rows
+    with 16-byte copies).
     """
     ptrs = []
     for arg, (t, dtype) in tensors.items():
@@ -138,6 +143,9 @@ def pointers(name: str, device, tensors: dict) -> list[int]:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {arg} must start at a multiple of "
+                             f"{align} bytes")
         ptrs.append(t.data_ptr())
     return ptrs
 

@@ -13,11 +13,13 @@ as ``ops.decode_attention_quant`` (ops.py:450-477).
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; ``<wrapper>.launches`` counts
-kernel launches.  The dense kernels walk rows in tiles of ``DENSE_TILE``
-and the paged ones in tiles of the page size, through the same inner loop
-and the same split of S across CTAs: with pages of ``DENSE_TILE`` rows
-dense and paged give bit-identical outputs (bf16 with bf16, int8 with
-int8).
+kernel launches.  The bf16 kernels walk tiles of ``DENSE_TILE`` logical
+rows, dense and paged alike and whatever the page size, through one
+tensor-core tile loop and one split of S across CTAs
+(``split_plan``): on identical K/V with ``M * bs == S`` they give
+bit-identical outputs.  The int8 kernels walk tiles of ``DENSE_TILE``
+rows (dense) or of the page size (paged) through their own shared loop:
+with pages of ``DENSE_TILE`` rows they too are bit-identical.
 """
 
 from __future__ import annotations
@@ -30,27 +32,46 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 MAX_GROUP = 8   # query heads per kv head the kernels hold (kMaxG)
-MAX_TILE = 64   # rows per tile (kMaxT)
+MAX_TILE = 64   # rows per page of the bf16 paged kernel (kMaxT)
 MAX_TILE_Q8 = 32  # rows per int8 tile, staged in shared memory (kMaxTQ8)
 TARGET_CTAS = 4 * 132  # about four CTAs per SM of an H100
-DENSE_TILE = 16  # rows per tile of the dense kernel = the engine's page size
+DENSE_TILE = 16  # rows per tile (kTile: one mma n16 step of the bf16
+#                  kernels) = the engine's page size
 
 
 def tiles_per_split(b: int, n_kv: int, n_tiles: int) -> int:
     """Tiles each CTA walks: S is split until about ``TARGET_CTAS`` CTAs
     run.  A function of the shapes only, and the same for the dense and
-    the paged kernel (n_tiles = S / block_s = M), so both split alike."""
+    the paged kernel (the same n_tiles), so both split alike."""
     n_tiles = max(n_tiles, 1)
     n_split = min(n_tiles, max(1, -(-TARGET_CTAS // (b * n_kv))))
     return -(-n_tiles // n_split)
 
 
+def split_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
+    """(tiles per CTA, number of splits) for ``n_tiles`` tiles of a
+    sequence: the grid is (n_kv, b, n_split)."""
+    per = tiles_per_split(b, n_kv, n_tiles)
+    return per, -(-max(n_tiles, 1) // per)
+
+
+def bf16_tiles(n_rows: int) -> int:
+    """Tiles of ``DENSE_TILE`` logical rows the bf16 kernels walk over a
+    sequence of ``n_rows`` rows (S dense, M * bs paged)."""
+    return -(-n_rows // DENSE_TILE)
+
+
+def scratch_shapes(b: int, n_kv: int, n_split: int, d: int
+                   ) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """Shapes of the per-split partials the combine kernel merges: the
+    unnormalised accumulator, and (max, sum), of every query head."""
+    return ((b, n_kv, n_split, MAX_GROUP, d),
+            (b, n_kv, n_split, MAX_GROUP, 2))
+
+
 def _scratch(b: int, n_kv: int, n_split: int, d: int, device):
-    """Per-split partials the combine kernel merges: (acc, max, sum)."""
-    return (torch.empty((b, n_kv, n_split, MAX_GROUP, d),
-                        dtype=torch.float32, device=device),
-            torch.empty((b, n_kv, n_split, MAX_GROUP, 2),
-                        dtype=torch.float32, device=device))
+    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
+                 for shape in scratch_shapes(b, n_kv, n_split, d))
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -116,8 +137,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token GQA attention against a (B,S,K,D) cache; returns
     (B,1,H,D).  ``cache_len`` (B,) int32 may exceed S (a free continuous
     slot keeps advancing): the kernel clamps its row loop to S.  Rows are
-    walked in tiles of ``DENSE_TILE``, the engine's page size, so dense
-    and paged decode agree bit for bit."""
+    walked in tiles of ``DENSE_TILE`` logical rows, as the paged kernel
+    walks them, so dense and paged decode agree bit for bit.  The kernel
+    rounds the softmax weights to bf16 for P . V (at most 2^-8 relative
+    per weight)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       window=window)
@@ -130,9 +153,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError("decode_attention: cache / cache_len shapes do "
                          "not match q")
-    n_tiles = -(-s // block_s)
-    per = tiles_per_split(b, n_kv, n_tiles)
-    part_acc, part_ml = _scratch(b, n_kv, -(-n_tiles // per), d, q.device)
+    per, n_split = split_plan(b, n_kv, bf16_tiles(s))
+    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, f32 = torch.bfloat16, torch.float32
     ptrs = build.pointers(
@@ -140,7 +162,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         {"q": (q, bf16), "k_cache": (k_cache, bf16),
          "v_cache": (v_cache, bf16), "cache_len": (cache_len, torch.int32),
          "part_acc": (part_acc, f32), "part_ml": (part_ml, f32),
-         "o": (o, bf16)})
+         "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_decode_attention_bf16(
             *ptrs, b, s, h, n_kv, d, block_s,
@@ -157,9 +179,11 @@ decode_attention.launches = 0
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            cache_len: torch.Tensor) -> torch.Tensor:
-    """Single-token GQA attention against (N,bs,K,D) pages walked through
-    a (B,M) int32 block table; returns (B,1,H,D).  Table entries must name
-    blocks of the pool (entries outside [0, N) are skipped, never read)."""
+    """Single-token GQA attention against (N,bs,K,D) pages (bs of 1-64
+    rows) walked through a (B,M) int32 block table; returns (B,1,H,D).
+    Table entries must name blocks of the pool (rows on an entry outside
+    [0, N) are masked, never read).  Bit-identical to ``decode_attention``
+    on the same K/V gathered into a cache of S = M * bs rows."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, cache_len)
@@ -173,8 +197,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: pages / tables / "
                          "cache_len shapes do not match q")
     m = block_tables.shape[1]
-    per = tiles_per_split(b, n_kv, m)
-    part_acc, part_ml = _scratch(b, n_kv, -(-m // per), d, q.device)
+    per, n_split = split_plan(b, n_kv, bf16_tiles(m * bs))
+    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i32, f32 = torch.bfloat16, torch.int32, torch.float32
     ptrs = build.pointers(
@@ -182,7 +206,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         {"q": (q, bf16), "k_pages": (k_pages, bf16),
          "v_pages": (v_pages, bf16), "block_tables": (block_tables, i32),
          "cache_len": (cache_len, i32), "part_acc": (part_acc, f32),
-         "part_ml": (part_ml, f32), "o": (o, bf16)})
+         "part_ml": (part_ml, f32), "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_paged_decode_attention_bf16(
             *ptrs, b, n, bs, m, h, n_kv, d, per, d ** -0.5,
@@ -260,9 +284,8 @@ def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError(f"{name}: cache / cache_len shapes do not match q")
     _check_scales(name, k_cache, k_scale, v_scale)
-    n_tiles = -(-s // block_s)
-    per = tiles_per_split(b, n_kv, n_tiles)
-    part_acc, part_ml = _scratch(b, n_kv, -(-n_tiles // per), d, q.device)
+    per, n_split = split_plan(b, n_kv, -(-s // block_s))
+    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     ptrs = build.pointers(
@@ -307,8 +330,8 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"match q")
     _check_scales(name, k_pages, ks_pages, vs_pages)
     m = block_tables.shape[1]
-    per = tiles_per_split(b, n_kv, m)
-    part_acc, part_ml = _scratch(b, n_kv, -(-m // per), d, q.device)
+    per, n_split = split_plan(b, n_kv, m)
+    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, i32, f32 = torch.bfloat16, torch.int8, torch.int32, \
         torch.float32

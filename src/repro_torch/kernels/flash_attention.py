@@ -91,7 +91,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """Returns (B, Sq, H, D).  CPU: plain version; CUDA: the kernel (bf16,
-    head dim 64 or 128, contiguous operands) or an error."""
+    head dim 64 or 128, contiguous operands starting at 16-byte
+    boundaries) or an error.  The kernel rounds the softmax weights to
+    bf16 for the second product (at most 2^-8 relative per weight)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
@@ -108,7 +110,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16 = torch.bfloat16
     ptrs = build.pointers("flash_attention", q.device,
                           {"q": (q, bf16), "k": (k, bf16), "v": (v, bf16),
-                           "o": (o, bf16)})
+                           "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_flash_attention_bf16(
             *ptrs, b, sq, sk, h, n_kv, d, int(causal),

@@ -6,9 +6,12 @@ runs on the card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance 2e-2: bf16 outputs, sums in another order than the plain
-versions (as ``test_kernels.py`` holds bf16 kernels); the int8 kernels
-keep dequantized rows in f32 where their plain versions round them to
-bf16 first, a difference far inside it.
+versions (as ``test_kernels.py`` holds bf16 kernels).  The flash and bf16
+decode kernels run both products on the tensor cores: they sum in mma
+order and round the softmax weights P to bf16 before P . V (at most 2^-8
+relative per weight); the int8 kernels keep dequantized rows in f32
+where their plain versions round them to bf16 first.  All of it is far
+inside 2e-2.
 """
 
 import numpy as np
@@ -36,17 +39,29 @@ def _cuda_rand(rng, shape, device):
         device).to(torch.bfloat16)
 
 
+HEADS = {128: (28, 4), 64: (25, 5)}  # qwen2-7b's and hymba-1.5b's heads
+FLASH_CASES = [  # (B, Sq, Sk, causal, window, q_offset, D)
+    (1, 512, 512, True, None, 0, 128), (2, 37, 37, True, None, 0, 128),
+    (1, 1, 1, True, None, 0, 128), (1, 100, 100, True, 33, 0, 128),
+    (1, 20, 84, True, None, 64, 128), (2, 40, 70, False, None, 0, 128),
+    # Sk not a multiple of 16 (nor Sq), with and without the mask
+    (1, 23, 45, False, None, 0, 128), (1, 37, 77, True, None, 40, 128),
+    (2, 50, 50, True, None, 0, 64),
+] + [  # every prefill bucket length, at both head dims
+    (1, n, n, True, None, 0, d) for d in (128, 64)
+    for n in (2, 4, 8, 16, 32, 64, 128, 256)
+] + [(1, 1, 1, True, None, 0, 64), (1, 512, 512, True, None, 0, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", [
-    (1, 512, 512, True, None, 0), (2, 37, 37, True, None, 0),
-    (1, 1, 1, True, None, 0), (1, 100, 100, True, 33, 0),
-    (1, 20, 84, True, None, 64), (2, 40, 70, False, None, 0)])
+@pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernel_vs_plain(cuda_device, case):
-    b, sq, sk, causal, window, off = case
+    b, sq, sk, causal, window, off, d = case
+    h, kv = HEADS[d]
     rng = np.random.default_rng(sq + sk)
-    q = _cuda_rand(rng, (b, sq, 28, 128), cuda_device)
-    k = _cuda_rand(rng, (b, sk, 4, 128), cuda_device)
-    v = _cuda_rand(rng, (b, sk, 4, 128), cuda_device)
+    q = _cuda_rand(rng, (b, sq, h, d), cuda_device)
+    k = _cuda_rand(rng, (b, sk, kv, d), cuda_device)
+    v = _cuda_rand(rng, (b, sk, kv, d), cuda_device)
     before = fa.flash_attention.launches
     got = fa.flash_attention(q, k, v, causal=causal, window=window,
                              q_offset=off)
@@ -58,14 +73,22 @@ def test_flash_kernel_vs_plain(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [None, 100])
-def test_decode_kernels_vs_plain_and_each_other(cuda_device, window):
-    b, s, bs = 8, 1024, 16
+@pytest.mark.parametrize("window,bs,d", [
+    (None, 16, 128), (100, 16, 128),  # the engine's page size; a window
+    (None, 8, 128), (None, 32, 128),  # pages below and above one tile
+    (None, 16, 64)])                  # hymba's heads (G = 5, D = 64)
+def test_decode_kernels_vs_plain_and_each_other(cuda_device, window, bs,
+                                                d):
+    """bf16 dense and paged decode against their plain versions, and
+    bit-equal to each other on identical K/V at every page size: both walk
+    tiles of 16 logical rows through one tile loop."""
+    b, s = 8, 1024
+    h, n_kv = HEADS[d]
     rng = np.random.default_rng(11)
     lens_np = np.array([1024, 1, 517, 64, 1000, 333, 768, 129], np.int32)
-    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
-    kc = _cuda_rand(rng, (b, s, 4, 128), cuda_device)
-    vc = _cuda_rand(rng, (b, s, 4, 128), cuda_device)
+    q = _cuda_rand(rng, (b, 1, h, d), cuda_device)
+    kc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
+    vc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
     lens = torch.as_tensor(lens_np, device=cuda_device)
     dense = da.decode_attention(q, kc, vc, lens, window=window)
     torch.testing.assert_close(
@@ -77,7 +100,7 @@ def test_decode_kernels_vs_plain_and_each_other(cuda_device, window):
     m = s // bs
     perm = rng.permutation(np.arange(1, 1 + b * m))
     tables_np = np.zeros((b, m), np.int32)
-    kp = torch.zeros((1 + b * m, bs, 4, 128), dtype=torch.bfloat16,
+    kp = torch.zeros((1 + b * m, bs, n_kv, d), dtype=torch.bfloat16,
                      device=cuda_device)
     vp = torch.zeros_like(kp)
     for i in range(b):
@@ -219,10 +242,11 @@ def test_ssm_kernel_vs_plain(cuda_device, b, s, h, state_scale):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq", [640, 1152])
+@pytest.mark.parametrize("sq", [129, 200, 640, 1152])
 def test_flash_kernel_hymba_geometry(cuda_device, sq):
-    """hymba-1.5b's prefill: 25 query heads over 5 kv heads of 64 and a
-    window of 1024, which cuts tiles at 1152 rows."""
+    """hymba-1.5b's prefill at exact lengths (prompt + 128 meta tokens):
+    25 query heads over 5 kv heads of 64 and a window of 1024, which cuts
+    tiles at 1152 rows."""
     rng = np.random.default_rng(sq)
     q = _cuda_rand(rng, (1, sq, 25, 64), cuda_device)
     k = _cuda_rand(rng, (1, sq, 5, 64), cuda_device)
