@@ -4,8 +4,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
 kernel's registers and spills from the ptxas report and (where the
 toolkit has ``cuobjdump``) the tensor-core instructions (HMMA) in each
-kernel's SASS, failing if the flash or bf16 decode kernels hold none,
-and then:
+kernel's SASS, failing if the flash or any decode kernel holds none or
+spills, and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
    decode, WKV-6, the selective scan) against its plain PyTorch version on
@@ -14,7 +14,10 @@ and then:
    one PyTorch library call where one computes the same function, and the
    card's bound for the same work (flash also at a short serve bucket,
    Sq=64, and at hymba's prefill, beside SDPA; bf16 paged decode at pages
-   of 8, 16 and 32 rows, bit-equal to dense);
+   of 8, 16 and 32 rows and int8 at 8, 16, 32 and 64, bit-equal to dense;
+   all four decode kernels also at starcoder2-15b's 12 query heads per kv
+   head; an int8 code view off a 16-byte boundary refused; WKV-6 and the
+   scan also at a decode round's shape, B=8 and S=1);
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
    and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
@@ -300,16 +303,9 @@ def kernel_phase(rng) -> dict:
           da.paged_decode_attention(q, kp, vp, tables, one),
           da.paged_decode_attention_plain(q, kp, vp, tables, one))
     for page in (8, 32):  # pages below and above one 16-row tile
-        pm = s // page
-        order = torch.as_tensor(extra.permutation(b * pm).astype(np.int32),
-                                device=dev)
-        pool = torch.empty((b * pm, page, kv, d), dtype=torch.bfloat16,
-                           device=dev)
-        vpool = torch.empty_like(pool)
-        pool[order.long()] = kc.reshape(b * pm, page, kv, d)
-        vpool[order.long()] = vc.reshape(b * pm, page, kv, d)
-        if not torch.equal(da.paged_decode_attention(
-                q, pool, vpool, order.reshape(b, pm), lens), dense_out):
+        pools, order = scatter_pages((kc, vc), page, extra)
+        if not torch.equal(da.paged_decode_attention(q, *pools, order, lens),
+                           dense_out):
             raise AssertionError(f"paged decode with {page}-row pages "
                                  f"differs from dense on identical K/V")
     log("decode: paged (pages of 8, 16, 32 rows) == dense, bit for bit")
@@ -333,6 +329,7 @@ def kernel_phase(rng) -> dict:
                 qs[i], kps[i], vps[i], tables, lens) for i in range(n)],
             label="bf16 paged decode"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
+    wide_group_kernels(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
     for name, r in out.items():
@@ -344,9 +341,28 @@ def kernel_phase(rng) -> dict:
     return out
 
 
+def scatter_pages(xs, page, rng):
+    """Dense (B, S, ...) leaves ``xs`` scattered over a pool of ``page``-row
+    pages in a random order: (pools, (B, S / page) int32 tables)."""
+    import torch
+    b, s = xs[0].shape[:2]
+    m = s // page
+    order = torch.as_tensor(rng.permutation(b * m).astype(np.int32),
+                            device=xs[0].device)
+    pools = []
+    for x in xs:
+        pool = torch.empty((b * m, page, *x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+        pool[order.long()] = x.reshape(b * m, page, *x.shape[2:])
+        pools.append(pool)
+    return pools, order.reshape(b, m)
+
+
 def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
     """The int8 dense and paged decode kernels on the codes and scales of
-    the bf16 decode phase's K/V (quantized on the card), at its shapes."""
+    the bf16 decode phase's K/V (quantized on the card), at its shapes;
+    paged at pages of 8, 32 and 64 rows too, bit-equal to dense; a code
+    view off a 16-byte boundary refused."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models.attention import kv_quantize
@@ -410,6 +426,32 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
     if not torch.equal(da.paged_decode_attention_quant(q, *dirty, tables,
                                                        lens), paged_out):
         raise AssertionError("int8 paged decode read the null block")
+    page_rng = np.random.default_rng(SEED + 7)
+    for page in (8, 32, 64):
+        pools, order = scatter_pages((k8, v8, ks, vs), page, page_rng)
+        if not torch.equal(da.paged_decode_attention_quant(
+                q, *pools, order, lens), dense_out):
+            raise AssertionError(f"int8 paged decode with {page}-row pages "
+                                 f"differs from dense on identical codes")
+    log("int8 decode: paged (pages of 8, 16, 32, 64 rows) == dense, bit "
+        "for bit")
+    flat = torch.zeros(max(k8.numel(), pages[0].numel()) + 16,
+                       dtype=torch.int8, device=dev)
+    shifted = flat[1:1 + k8.numel()].view(k8.shape)
+    shifted_pages = flat[1:1 + pages[0].numel()].view(pages[0].shape)
+    for name, call in [
+            ("dense", lambda: da.decode_attention_quant(q, shifted, v8, ks,
+                                                        vs, lens)),
+            ("paged", lambda: da.paged_decode_attention_quant(
+                q, shifted_pages, *pages[1:], tables, lens))]:
+        try:
+            call()
+        except ValueError as e:
+            log(f"int8 {name} decode refuses a code view at a 1-byte "
+                f"offset: {e}")
+        else:
+            raise AssertionError(f"int8 {name} decode took a code view at "
+                                 f"a 1-byte offset")
     tbl_entries = int((-(-lens_np // bs)).sum())
     n = copies_for(pages[0].numel() * 2)
     page_sets = [[p.clone() for p in pages] for _ in range(n)]
@@ -429,6 +471,53 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
                 q, *x, tables, lens) for x in page_sets],
             label="int8 paged decode"))
     return out
+
+
+def wide_group_kernels(dev) -> None:
+    """All four decode kernels at starcoder2-15b's attention geometry (48
+    query heads over 4 kv heads of 128: G = 12), B=8, S=1024, mixed
+    cache_len, against their plain versions; each paged kernel (pages of
+    16 rows) bit-equal to its dense one."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import kv_quantize
+
+    rng = np.random.default_rng(SEED + 8)
+    b, s, h, kv, d = 8, 1024, 48, 4, 128
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    q, kc, vc = rand(b, 1, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=dev)
+    k8, ks, v8, vs = kv_quantize(kc) + kv_quantize(vc)
+    (kp, vp), tables = scatter_pages((kc, vc), 16, rng)
+    pools, tables8 = scatter_pages((k8, v8, ks, vs), 16, rng)
+    errs = {}
+    for name, dense, paged in [
+            ("bf16", (da.decode_attention, da.decode_attention_plain,
+                      (q, kc, vc, lens)),
+             (da.paged_decode_attention, da.paged_decode_attention_plain,
+              (q, kp, vp, tables, lens))),
+            ("int8", (da.decode_attention_quant,
+                      da.decode_attention_quant_plain,
+                      (q, k8, v8, ks, vs, lens)),
+             (da.paged_decode_attention_quant,
+              da.paged_decode_attention_quant_plain,
+              (q, *pools, tables8, lens)))]:
+        outs = []
+        for label, (kernel, plain, args) in (("dense", dense),
+                                             ("paged", paged)):
+            outs.append(kernel(*args))
+            errs[f"{name} {label}"] = close(f"{name} {label} decode G=12",
+                                            outs[-1], plain(*args))
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"{name} paged and dense decode differ at "
+                                 f"G=12 on identical K/V")
+    log(f"decode at G=12 (B=8 S=1024 H=48 K=4 D=128): max_abs_err {errs}; "
+        f"paged == dense, bit for bit, in bf16 and int8")
 
 
 def wkv6_kernel(rng, dev) -> dict:
@@ -464,9 +553,13 @@ def wkv6_kernel(rng, dev) -> dict:
     sets = [[x.clone() for x in main] for _ in range(n)]
     decode = [[x.clone() for x in inputs(8, 1, 32, 1.0)] for _ in range(n)]
     bnd, by = bound(5 * seq * 64, io)
+    dseq = 8 * 1 * 32 * 64
+    dbnd, dby = bound(5 * dseq * 64, 5 * dseq * 2 + 2 * 8 * 32 * 64 * 64 * 4
+                      + 32 * 64 * 2)
     calls = [lambda x=x: wkv6.wkv6_scan(*x) for x in decode]
     log(f"kernel wkv6_scan at a decode step (B=8 S=1 H=32 D=64): "
-        f"ms={time_ms(calls)} device_ms={device_ms(calls)}")
+        f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
+        f"bound_ms={dbnd} ({dby})")
     return {"wkv6_scan": dict(
         route="cuda", source="src/repro_torch/csrc/wkv6.cu",
         replaces="src/repro/kernels/wkv6.py:64", max_abs_err=err,
@@ -894,7 +987,8 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     Checks that every request is served, one host sync per pass, the
     weights stored once, that the kernels in ``used`` ran and no other,
     each once per layer and prefill (flash), round (decode) or both (the
-    scans).  Returns the token streams."""
+    scans, whose launches are logged split by shape).  Returns the token
+    streams."""
     import os
     import torch
     from repro_torch import kernels
@@ -955,6 +1049,10 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
                 f"{arch} {mode}: {counts[k]} {k} launches for {prefills} "
                 f"prefills and {rounds} rounds of {model.cfg.n_layers} "
                 f"layers")
+    for k in used & {"wkv6_scan", "ssm_scan"}:
+        log(f"serve {arch} {mode}: {k} launches by shape: "
+            f"{model.cfg.n_layers * prefills} at prefill (S = prompt), "
+            f"{model.cfg.n_layers * rounds} in rounds (S = 1)")
     vocab = model.cfg.vocab_size
     for r in reqs:
         tok = np.asarray(r.tokens_out)
@@ -1034,10 +1132,11 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
         log(f"profile: {t / 1e3:9.3f} ms  {n:6d} calls  {key[:90]}")
 
 
-KERNEL_NAMES = ("flash_kernel", "decode_bf16_kernel",
-                "paged_decode_bf16_kernel", "decode_kernel",
-                "paged_decode_kernel", "combine_kernel", "wkv6_kernel",
-                "ssm_scan_kernel")
+TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
+                       "paged_decode_bf16_kernel", "decode_q8_kernel",
+                       "paged_decode_q8_kernel")
+KERNEL_NAMES = TENSOR_CORE_KERNELS + ("combine_kernel", "wkv6_kernel",
+                                      "ssm_scan_kernel")
 
 
 def _short(mangled: str) -> str:
@@ -1055,25 +1154,31 @@ def _short(mangled: str) -> str:
 
 def ptxas_report(text: str) -> None:
     """Registers, shared memory and spills of every kernel, from the
-    ``-Xptxas -v`` report the build keeps."""
+    ``-Xptxas -v`` report the build keeps; the tensor-core kernels must
+    not spill."""
     import re
-    name = None
+    name, spills = None, {}
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = _short(m.group(1))
         elif name and ("spill" in line or "Used" in line):
             log(f"ptxas {name}: {line.strip()}")
-
-
-TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
-                       "paged_decode_bf16_kernel")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills[name] = int(m.group(1)) + int(m.group(2))
+    for kernel in TENSOR_CORE_KERNELS:
+        for d in (64, 128):
+            if spills.get(f"{kernel}<{d}>", 0):
+                raise AssertionError(f"{kernel}<{d}> spills "
+                                     f"{spills[f'{kernel}<{d}>']} bytes")
 
 
 def hmma_report(lib) -> None:
     """Tensor-core instructions (HMMA) in the SASS of each kernel, where
-    the toolkit has cuobjdump; the flash and bf16 decode kernels must hold
-    some."""
+    the toolkit has cuobjdump; the flash and the four decode kernels must
+    hold some."""
     import re
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")

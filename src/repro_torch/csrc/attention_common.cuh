@@ -1,10 +1,10 @@
 // Shared helpers of the attention kernels (sm_90a, plain C interface).
 //
 // The second half is one warp's attention tile on the tensor cores, shared
-// by the flash kernel and the bf16 decode kernels: a warp holds 16 "query
+// by the flash kernel and the four decode kernels: a warp holds 16 "query
 // rows" (q rows in flash, the G query heads of one kv head in decode) as
 // the A fragment of mma.sync m16n8k16 and attends them to bf16 K/V rows
-// staged in shared memory:
+// staged in shared memory (int8 decode widens its codes to such rows):
 //   scores  S (16 x n) = Q (16 x D) . K^T   K through ldmatrix (B, "col")
 //   softmax online, on the f32 C fragments: a row's values sit in one quad
 //           of lanes, so a row reduction is two __shfl_xor_sync
@@ -32,13 +32,6 @@
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
 }
 
 // -- PTX wrappers ------------------------------------------------------------

@@ -24,6 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HEAD_DIMS = (64, 128)  # the head dims the attention kernels are built for
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p (a bare int
@@ -129,23 +130,24 @@ def pointers(name: str, device, tensors: dict, align: int = 1
              ) -> list[int]:
     """Validate kernel operands and return their device pointers.
 
-    ``tensors`` maps an operand name to ``(tensor, dtype)``: each must lie
-    on ``device`` (a CUDA device), have that dtype and be contiguous —
-    the kernels compute their own offsets from the shapes alone — and
-    start at a multiple of ``align`` bytes (16 where a kernel moves rows
-    with 16-byte copies).
+    ``tensors`` maps an operand name to ``(tensor, dtype)`` or ``(tensor,
+    dtype, align)``: each must lie on ``device`` (a CUDA device), have that
+    dtype and be contiguous — the kernels compute their own offsets from
+    the shapes alone — and start at a multiple of its own ``align`` or
+    else the call's (16 where a kernel moves rows with 16-byte copies).
     """
     ptrs = []
-    for arg, (t, dtype) in tensors.items():
+    for arg, (t, dtype, *own) in tensors.items():
+        at = own[0] if own else align
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
         if t.dtype != dtype:
             raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.data_ptr() % align:
+        if t.data_ptr() % at:
             raise ValueError(f"{name}: {arg} must start at a multiple of "
-                             f"{align} bytes")
+                             f"{at} bytes")
         ptrs.append(t.data_ptr())
     return ptrs
 

@@ -13,13 +13,12 @@ as ``ops.decode_attention_quant`` (ops.py:450-477).
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; ``<wrapper>.launches`` counts
-kernel launches.  The bf16 kernels walk tiles of ``DENSE_TILE`` logical
+kernel launches.  All four kernels walk tiles of ``DENSE_TILE`` logical
 rows, dense and paged alike and whatever the page size, through one
-tensor-core tile loop and one split of S across CTAs
-(``split_plan``): on identical K/V with ``M * bs == S`` they give
-bit-identical outputs.  The int8 kernels walk tiles of ``DENSE_TILE``
-rows (dense) or of the page size (paged) through their own shared loop:
-with pages of ``DENSE_TILE`` rows they too are bit-identical.
+tensor-core tile loop and one split of S across CTAs (``decode_plan``;
+the int8 kernels widen their codes to bf16 in shared memory first): on
+identical K/V, or codes and scales, with ``M * bs == S`` a dense and a
+paged kernel give bit-identical outputs.
 """
 
 from __future__ import annotations
@@ -31,12 +30,11 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-MAX_GROUP = 8   # query heads per kv head the kernels hold (kMaxG)
-MAX_TILE = 64   # rows per page of the bf16 paged kernel (kMaxT)
-MAX_TILE_Q8 = 32  # rows per int8 tile, staged in shared memory (kMaxTQ8)
+MAX_GROUP = 16  # query heads per kv head the kernels hold (kMaxG)
+MAX_TILE = 64   # rows per page of the paged kernels (kMaxT)
 TARGET_CTAS = 4 * 132  # about four CTAs per SM of an H100
-DENSE_TILE = 16  # rows per tile (kTile: one mma n16 step of the bf16
-#                  kernels) = the engine's page size
+DENSE_TILE = 16  # rows per tile (kTile: one mma n16 step) = the engine's
+#                  page size
 
 
 def tiles_per_split(b: int, n_kv: int, n_tiles: int) -> int:
@@ -55,10 +53,24 @@ def split_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
     return per, -(-max(n_tiles, 1) // per)
 
 
-def bf16_tiles(n_rows: int) -> int:
-    """Tiles of ``DENSE_TILE`` logical rows the bf16 kernels walk over a
+def row_tiles(n_rows: int) -> int:
+    """Tiles of ``DENSE_TILE`` logical rows the kernels walk over a
     sequence of ``n_rows`` rows (S dense, M * bs paged)."""
     return -(-n_rows // DENSE_TILE)
+
+
+def decode_plan(kv: torch.Tensor,
+                block_tables: Optional[torch.Tensor] = None
+                ) -> tuple[int, int]:
+    """``split_plan`` of a decode launch over a dense (B,S,K,D) cache or,
+    given ``block_tables`` (B,M), over (N,bs,K,D) pages (bf16 or int8
+    codes alike): tiles of the S or M * bs logical rows."""
+    if block_tables is None:
+        b, s, n_kv = kv.shape[:3]
+        return split_plan(b, n_kv, row_tiles(s))
+    b, m = block_tables.shape
+    bs, n_kv = kv.shape[1:3]
+    return split_plan(b, n_kv, row_tiles(m * bs))
 
 
 def scratch_shapes(b: int, n_kv: int, n_split: int, d: int
@@ -116,18 +128,18 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _check_decode_shapes(name: str, q: torch.Tensor, kv: torch.Tensor,
-                         tile: int, max_tile: int = MAX_TILE
-                         ) -> tuple[int, int, int]:
+                         tile: int) -> tuple[int, int, int]:
     b, one, h, d = q.shape
     n_kv, kd = kv.shape[2], kv.shape[3]
     if one != 1 or kd != d or h % n_kv or h // n_kv > MAX_GROUP:
         raise ValueError(f"{name}: bad shapes q{tuple(q.shape)} "
-                         f"kv{tuple(kv.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"{name}: head dim {d} not in (64, 128)")
-    if not 1 <= tile <= max_tile:
+                         f"kv{tuple(kv.shape)} (at most {MAX_GROUP} query "
+                         f"heads per kv head)")
+    if d not in build.HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not in {build.HEAD_DIMS}")
+    if not 1 <= tile <= MAX_TILE:
         raise ValueError(f"{name}: tile of {tile} rows not in [1, "
-                         f"{max_tile}]")
+                         f"{MAX_TILE}]")
     return b, h, d
 
 
@@ -153,7 +165,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError("decode_attention: cache / cache_len shapes do "
                          "not match q")
-    per, n_split = split_plan(b, n_kv, bf16_tiles(s))
+    per, n_split = decode_plan(k_cache)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -197,7 +209,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: pages / tables / "
                          "cache_len shapes do not match q")
     m = block_tables.shape[1]
-    per, n_split = split_plan(b, n_kv, bf16_tiles(m * bs))
+    per, n_split = decode_plan(k_pages, block_tables)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i32, f32 = torch.bfloat16, torch.int32, torch.float32
@@ -231,9 +243,8 @@ def decode_attention_quant_plain(q: torch.Tensor, k_codes: torch.Tensor,
                                  v_scale: torch.Tensor,
                                  cache_len: torch.Tensor) -> torch.Tensor:
     """Dequantize to bf16, then the plain decode (ops.py:472-477).  The
-    kernel keeps the dequantized rows in f32 (as ``_kernel_q8`` does);
-    this version rounds them to bf16 first, a difference of at most half a
-    bf16 ulp per element."""
+    kernel widens its codes to the same bf16 rows, bf16(code * scale)
+    computed in f32."""
     return decode_attention_plain(q, _dequantize(k_codes, k_scale),
                                   _dequantize(v_codes, v_scale), cache_len)
 
@@ -278,22 +289,22 @@ def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{q.device}")
     name = "decode_attention_quant"
     block_s = DENSE_TILE
-    b, h, d = _check_decode_shapes(name, q, k_cache, block_s, MAX_TILE_Q8)
+    b, h, d = _check_decode_shapes(name, q, k_cache, block_s)
     _, s, n_kv, _ = k_cache.shape
     if (v_cache.shape != k_cache.shape or k_cache.shape[0] != b
             or tuple(cache_len.shape) != (b,)):
         raise ValueError(f"{name}: cache / cache_len shapes do not match q")
     _check_scales(name, k_cache, k_scale, v_scale)
-    per, n_split = split_plan(b, n_kv, -(-s // block_s))
+    per, n_split = decode_plan(k_cache)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
     ptrs = build.pointers(
         name, q.device,
         {"q": (q, bf16), "k_cache": (k_cache, i8), "v_cache": (v_cache, i8),
-         "k_scale": (k_scale, bf16), "v_scale": (v_scale, bf16),
+         "k_scale": (k_scale, bf16, 2), "v_scale": (v_scale, bf16, 2),
          "cache_len": (cache_len, torch.int32), "part_acc": (part_acc, f32),
-         "part_ml": (part_ml, f32), "o": (o, bf16)})
+         "part_ml": (part_ml, f32), "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_decode_attention_q8(
             *ptrs, b, s, h, n_kv, d, block_s, per, d ** -0.5,
@@ -322,7 +333,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{q.device}")
     name = "paged_decode_attention_quant"
     n, bs, n_kv, _ = k_pages.shape
-    b, h, d = _check_decode_shapes(name, q, k_pages, bs, MAX_TILE_Q8)
+    b, h, d = _check_decode_shapes(name, q, k_pages, bs)
     if (v_pages.shape != k_pages.shape or block_tables.dim() != 2
             or block_tables.shape[0] != b
             or tuple(cache_len.shape) != (b,)):
@@ -330,7 +341,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"match q")
     _check_scales(name, k_pages, ks_pages, vs_pages)
     m = block_tables.shape[1]
-    per, n_split = split_plan(b, n_kv, m)
+    per, n_split = decode_plan(k_pages, block_tables)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, i32, f32 = torch.bfloat16, torch.int8, torch.int32, \
@@ -338,10 +349,10 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     ptrs = build.pointers(
         name, q.device,
         {"q": (q, bf16), "k_pages": (k_pages, i8), "v_pages": (v_pages, i8),
-         "ks_pages": (ks_pages, bf16), "vs_pages": (vs_pages, bf16),
+         "ks_pages": (ks_pages, bf16, 2), "vs_pages": (vs_pages, bf16, 2),
          "block_tables": (block_tables, i32), "cache_len": (cache_len, i32),
          "part_acc": (part_acc, f32), "part_ml": (part_ml, f32),
-         "o": (o, bf16)})
+         "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_paged_decode_attention_q8(
             *ptrs, b, n, bs, m, h, n_kv, d, per, d ** -0.5,

@@ -104,8 +104,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if v.shape != k.shape or kb != b or kd != d or h % n_kv:
         raise ValueError(f"flash_attention: bad shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {d} not in (64, 128)")
+    if d not in build.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in "
+                         f"{build.HEAD_DIMS}")
     o = torch.empty_like(q)
     bf16 = torch.bfloat16
     ptrs = build.pointers("flash_attention", q.device,

@@ -16,6 +16,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   REPRO_KV_INT8=1 PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+
+On the card a config whose head dim the attention kernels are not built
+for (the reduced configs' 16) is refused before any weight is drawn.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.model_sharing import pytree_nbytes
 from repro_torch.core.resources import Alloc
+from repro_torch.kernels.build import HEAD_DIMS
 from repro_torch.models import Model, build_model
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import ServeRequest, ServingEngine
 
 
@@ -43,6 +48,16 @@ def init_model(arch: str, *, reduced: bool, seed: int,
     model = build_model(get_config(arch, reduced=reduced))
     gen = torch.Generator(device=dev).manual_seed(seed)
     return model, model.init(gen)
+
+
+def head_dim_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the card's attention kernels cannot serve ``cfg``, or None: a
+    plain function of the config, checked before any weight is drawn."""
+    if cfg.family in ("dense", "hybrid") and cfg.dh not in HEAD_DIMS:
+        return (f"{cfg.name}: head dim {cfg.dh}, but the attention kernels "
+                f"take head dims {HEAD_DIMS} only; serve it with "
+                f"--device cpu")
+    return None
 
 
 def drive(engine: ServingEngine, fn: str, prompts: list[np.ndarray],
@@ -80,6 +95,12 @@ def main(argv: Optional[list[str]] = None) -> None:
                     help="serve the reduced smoke config of each arch")
     args = ap.parse_args(argv)
     archs = args.arch or ["qwen2-7b"]
+    if torch.device(args.device).type != "cpu":
+        for arch in archs:
+            refusal = head_dim_refusal(get_config(arch,
+                                                  reduced=args.reduced))
+            if refusal:
+                ap.error(refusal)
 
     engine = ServingEngine(window=args.window, device=args.device)
     rng = np.random.default_rng(args.seed)

@@ -3,7 +3,8 @@ the CPU: the plain flash version against the JAX package's
 ``ops.flash_attention`` (xla path) at every prefill bucket length, at
 hymba's exact lengths (prompt + 128 meta tokens, window 1024) and at a
 ``q_offset`` chunk; and the decode wrappers' host-side planning (tiles,
-splits and scratch) that the bf16 dense and paged kernels share.
+splits and scratch) that the dense and paged kernels share, bf16 and
+int8 alike.
 
 Inputs are made with numpy from a seed and handed to both packages, in
 f32 at small widths; tolerance 2e-5 (the two packages sum in different
@@ -79,11 +80,11 @@ def test_bf16_dense_and_paged_plan_alike(bs):
     for b, n_kv, s in [(8, 4, 1024), (1, 4, 512), (3, 5, 1024),
                        (16, 4, 64), (2, 1, 4096)]:
         m = s // bs
-        dense = da.split_plan(b, n_kv, da.bf16_tiles(s))
-        paged = da.split_plan(b, n_kv, da.bf16_tiles(m * bs))
+        dense = da.split_plan(b, n_kv, da.row_tiles(s))
+        paged = da.split_plan(b, n_kv, da.row_tiles(m * bs))
         assert dense == paged
         per, n_split = dense
-        n_tiles = da.bf16_tiles(s)
+        n_tiles = da.row_tiles(s)
         assert per * (n_split - 1) < n_tiles <= per * n_split
         assert n_split <= n_tiles
         assert n_split <= max(1, -(-da.TARGET_CTAS // (b * n_kv)))
@@ -92,14 +93,36 @@ def test_bf16_dense_and_paged_plan_alike(bs):
 def test_decode_plan_and_scratch_at_the_main_shape():
     """qwen2-7b's decode round (B=8, S=1024, 4 kv heads of 128): 64
     tiles of 16 rows, 4 a CTA, 16 splits: 512 CTAs, and partials of
-    MAX_GROUP heads (G = 7 fits) per split."""
+    MAX_GROUP = 16 heads (G = 7 fits, and starcoder2-15b's G = 12) per
+    split."""
     assert da.DENSE_TILE == 16
-    assert da.bf16_tiles(1024) == 64
+    assert da.row_tiles(1024) == 64
     assert da.split_plan(8, 4, 64) == (4, 16)
-    assert da.scratch_shapes(8, 4, 16, 128) == ((8, 4, 16, 8, 128),
-                                                (8, 4, 16, 8, 2))
+    assert da.MAX_GROUP == 16
+    assert da.scratch_shapes(8, 4, 16, 128) == ((8, 4, 16, 16, 128),
+                                                (8, 4, 16, 16, 2))
     # A single sequence splits down to one tile per CTA.
     assert da.split_plan(1, 4, 64) == (1, 64)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+def test_int8_paged_plan_equals_dense(bs):
+    """The int8 wrappers plan as the bf16 ones: tiles of DENSE_TILE
+    logical rows, so int8 pages of any size get the dense cache's split
+    (the condition of their bit-identity on the card), at the main shape
+    and at a single sequence split down to one tile per CTA."""
+    for b, n_kv, s, d in [(8, 4, 1024, 128), (1, 4, 1024, 128),
+                          (2, 1, 64, 128), (3, 5, 512, 64)]:
+        m = s // bs
+        codes = torch.zeros((b, s, n_kv, d), dtype=torch.int8)
+        pages = torch.zeros((1 + b * m, bs, n_kv, d), dtype=torch.int8)
+        tables = torch.zeros((b, m), dtype=torch.int32)
+        assert da.decode_plan(pages, tables) == da.decode_plan(codes)
+        assert da.decode_plan(codes) == da.split_plan(b, n_kv,
+                                                      da.row_tiles(s))
+    assert da.decode_plan(torch.zeros((8 * 16, bs, 4, 128), dtype=torch.int8),
+                          torch.zeros((8, 1024 // bs), dtype=torch.int32)
+                          ) == (4, 16)
 
 
 @pytest.mark.parametrize("bs", [8, 16, 32])

@@ -6,12 +6,11 @@ runs on the card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerance 2e-2: bf16 outputs, sums in another order than the plain
-versions (as ``test_kernels.py`` holds bf16 kernels).  The flash and bf16
-decode kernels run both products on the tensor cores: they sum in mma
-order and round the softmax weights P to bf16 before P . V (at most 2^-8
-relative per weight); the int8 kernels keep dequantized rows in f32
-where their plain versions round them to bf16 first.  All of it is far
-inside 2e-2.
+versions (as ``test_kernels.py`` holds bf16 kernels).  The flash and the
+four decode kernels run both products on the tensor cores: they sum in
+mma order and round the softmax weights P to bf16 before P . V (at most
+2^-8 relative per weight); the int8 kernels widen their codes to the
+same bf16 rows as their plain versions.  All of it is far inside 2e-2.
 """
 
 import numpy as np
@@ -143,9 +142,8 @@ def _int8_cache(rng, shape, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("lens_case", ["mixed", "one", "full", "past_end"])
 def test_int8_decode_kernels_vs_plain_and_each_other(cuda_device, lens_case):
-    """int8 dense and paged decode against their plain versions (which
-    round the dequantized rows to bf16, within 2e-2 of the kernels' f32),
-    and bit-equal to each other on identical codes."""
+    """int8 dense and paged decode against their plain versions, and
+    bit-equal to each other on identical codes."""
     b, s, bs = 8, 1024, 16
     rng = np.random.default_rng(13)
     lens_np = {"mixed": np.array([1024, 1, 517, 64, 1000, 333, 768, 129]),
@@ -185,6 +183,108 @@ def test_int8_decode_kernels_vs_plain_and_each_other(cuda_device, lens_case):
                                               lens).float(),
         atol=2e-2, rtol=2e-2)
     assert torch.equal(paged, dense)  # one shared tile loop
+
+
+def _pooled(rng, xs, bs, device):
+    """The dense (B, S, ...) leaves ``xs`` (K/V, or codes and scales)
+    scattered over a pool of bs-row pages in a random order: (pools,
+    (B, S / bs) int32 tables)."""
+    b, s = xs[0].shape[:2]
+    m = s // bs
+    order = torch.as_tensor(rng.permutation(b * m).astype(np.int32),
+                            device=device)
+    pools = []
+    for x in xs:
+        pool = torch.empty((b * m, bs, *x.shape[2:]), dtype=x.dtype,
+                           device=device)
+        pool[order.long()] = x.reshape(b * m, bs, *x.shape[2:])
+        pools.append(pool)
+    return pools, order.reshape(b, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [8, 32, 64])
+def test_int8_paged_equals_dense_at_page_sizes(cuda_device, bs):
+    """int8 pages of 8, 32 and 64 rows: the paged kernel walks the same
+    tiles of 16 logical rows as the dense one, so it is bit-equal to it."""
+    b, s = 8, 1024
+    rng = np.random.default_rng(14)
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    dense = da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+    pools, tables = _pooled(rng, (k8, v8, ks, vs), bs, cuda_device)
+    paged = da.paged_decode_attention_quant(q, *pools, tables, lens)
+    torch.testing.assert_close(
+        paged.float(),
+        da.paged_decode_attention_quant_plain(q, *pools, tables,
+                                              lens).float(),
+        atol=2e-2, rtol=2e-2)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,d", [(12, 128), (16, 128), (12, 64), (16, 64)])
+def test_decode_kernels_at_wide_groups(cuda_device, g, d):
+    """All four decode kernels with 12 and 16 query heads per kv head
+    (starcoder2-15b's G = 12; 16 fills the A fragment) against their
+    plain versions, each paged kernel bit-equal to its dense one."""
+    b, s, n_kv = 4, 256, 2
+    rng = np.random.default_rng(g + d)
+    lens = torch.tensor([256, 1, 100, 177], dtype=torch.int32,
+                        device=cuda_device)
+    q = _cuda_rand(rng, (b, 1, g * n_kv, d), cuda_device)
+    kc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
+    vc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), 16, cuda_device)
+    pools, tables8 = _pooled(rng, (k8, v8, ks, vs), 16, cuda_device)
+    pairs = [
+        (da.decode_attention(q, kc, vc, lens),
+         da.decode_attention_plain(q, kc, vc, lens)),
+        (da.paged_decode_attention(q, kp, vp, tables, lens),
+         da.paged_decode_attention_plain(q, kp, vp, tables, lens)),
+        (da.decode_attention_quant(q, k8, v8, ks, vs, lens),
+         da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens)),
+        (da.paged_decode_attention_quant(q, *pools, tables8, lens),
+         da.paged_decode_attention_quant_plain(q, *pools, tables8, lens))]
+    for got, want in pairs:
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert torch.equal(pairs[1][0], pairs[0][0])
+    assert torch.equal(pairs[3][0], pairs[2][0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 8])
+def test_int8_code_view_off_16_bytes_raises(cuda_device, offset):
+    """The int8 kernels copy codes 16 bytes at a time: a code view that
+    does not start on a 16-byte boundary is refused before any launch."""
+    b, s, n_kv, d = 2, 64, 4, 128
+    rng = np.random.default_rng(15)
+    q = _cuda_rand(rng, (b, 1, 28, d), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    flat = torch.zeros(k8.numel() + 16, dtype=torch.int8, device=cuda_device)
+    shifted = flat[offset:offset + k8.numel()].view(k8.shape)
+    shifted.copy_(k8)
+    lens = torch.tensor([64, 9], dtype=torch.int32, device=cuda_device)
+    pools, tables = _pooled(rng, (shifted, v8, ks, vs), 16, cuda_device)
+    pool_flat = torch.zeros(pools[0].numel() + 16, dtype=torch.int8,
+                            device=cuda_device)
+    pools[0] = pool_flat[offset:offset + pools[0].numel()].view(
+        pools[0].shape)
+    before = (da.decode_attention_quant.launches,
+              da.paged_decode_attention_quant.launches)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        da.decode_attention_quant(q, shifted, v8, ks, vs, lens)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        da.paged_decode_attention_quant(q, *pools, tables, lens)
+    assert (da.decode_attention_quant.launches,
+            da.paged_decode_attention_quant.launches) == before
 
 
 @pytest.mark.gpu

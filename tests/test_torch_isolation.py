@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) loads neither JAX nor the JAX package, and entry
-points that default to the card refuse to fall back to the CPU."""
+``chip_smoke.py``) loads neither JAX nor the JAX package, entry points
+that default to the card refuse to fall back to the CPU, and the serve
+entry point refuses on the card a config its kernels do not take."""
 
 import os
 import subprocess
@@ -60,3 +61,34 @@ def test_unported_arch_raises_naming_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("gemma3-27b")
     assert get_config("qwen2-7b").d_model == 3584
+
+
+def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
+                                                         capsys):
+    """On the card, a config whose head dim the attention kernels are not
+    built for (the reduced configs' 16) is refused before any weight is
+    drawn, with a message naming the head dims they take and the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    for arch in ("qwen2-7b", "hymba-1.5b"):
+        refusal = serve.head_dim_refusal(get_config(arch, reduced=True))
+        assert "(64, 128)" in refusal and "--device cpu" in refusal
+        assert serve.head_dim_refusal(get_config(arch)) is None
+    assert serve.head_dim_refusal(get_config("rwkv6-1.6b",
+                                             reduced=True)) is None
+    drawn = []
+    monkeypatch.setattr(serve, "init_model",
+                        lambda *a, **k: drawn.append(a))
+    with pytest.raises(SystemExit) as exit_info:
+        serve.main(["--reduced"])
+    assert exit_info.value.code == 2 and not drawn
+    assert "head dims (64, 128)" in capsys.readouterr().err
+
+
+def test_serve_reduced_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+
+    serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                "--max-new-tokens", "2"])
+    assert "completed 2/2 requests" in capsys.readouterr().out

@@ -157,6 +157,48 @@ def test_paged_decode_quant_plain_vs_jax(shape):
     assert torch.equal(got, dense)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_decode_at_twelve_heads_per_kv_head_vs_jax(kind, layout):
+    """starcoder2-15b's grouping (48 q / 4 kv heads, G = 12) at a small
+    size: the port's bf16 and int8 decode, dense and paged (pages of 16),
+    against ``repro.kernels.ops`` (xla path) within 2e-2 (BF16)."""
+    b, s, h, n_kv, d, bs = 2, 64, 12, 1, 128, 16
+    m = s // bs
+    rng = np.random.default_rng(12)
+    jq, tq = _bf16_pair(rng, (b, 1, h, d))
+    shape = (b, s, n_kv, d) if layout == "dense" else (1 + b * m, bs, n_kv, d)
+    jk, tk = _bf16_pair(rng, shape)
+    jv, tv = _bf16_pair(rng, shape)
+    if layout == "dense":
+        lens = np.array([s, 23], np.int32)
+    else:
+        tables, lens = _paged_tables(rng, b, m, 1 + b * m, bs)
+        jt, tt = jnp.asarray(tables), torch.from_numpy(tables)
+    jl, tl = jnp.asarray(lens), torch.from_numpy(lens)
+    if kind == "int8":
+        (jk8, jks), (tk8, tks) = _quantized(jk, tk)
+        (jv8, jvs), (tv8, tvs) = _quantized(jv, tv)
+        if layout == "dense":
+            got = da.decode_attention_quant(tq, tk8, tv8, tks, tvs, tl)
+            want = jops.decode_attention_quant(jq, jk8, jv8, jks, jvs, jl,
+                                               backend="xla")
+        else:
+            got = da.paged_decode_attention_quant(tq, tk8, tv8, tks, tvs,
+                                                  tt, tl)
+            want = jops.paged_decode_attention_quant(
+                jq, jk8, jv8, jks, jvs, jt, jl, backend="xla")
+    elif layout == "dense":
+        got = da.decode_attention(tq, tk, tv, tl)
+        want = jops.decode_attention(jq, jk, jv, jl, backend="xla")
+    else:
+        got = da.paged_decode_attention(tq, tk, tv, tt, tl)
+        want = jops.paged_decode_attention(jq, jk, jv, jt, jl,
+                                           backend="xla")
+    assert tuple(got.shape) == (b, 1, h, d)
+    np.testing.assert_allclose(_np(got), _np(want), **BF16)
+
+
 def test_quant_plain_vs_pallas_interpret():
     """The dense and the paged int8 plain versions against the Pallas
     int8 kernels in interpret mode."""
