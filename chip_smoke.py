@@ -4,27 +4,33 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
 kernel's registers and spills from the ptxas report and (where the
 toolkit has ``cuobjdump``) the tensor-core instructions (HMMA) in each
-kernel's SASS, failing if the flash or any decode kernel holds none or
+kernel's SASS, failing if flash or any decode kernel, at any head dim
+they are built for (16, 32, 64, 128), or chunked WKV-6 holds none or
 spills, and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
-   decode, WKV-6, the selective scan) against its plain PyTorch version on
-   the card (bf16, tolerance 2e-2 as ``tests/test_kernels.py``) at the
-   main path's shapes and at edge shapes, and times kernel, plain version,
-   one PyTorch library call where one computes the same function, and the
-   card's bound for the same work (flash also at a short serve bucket,
-   Sq=64, and at hymba's prefill, beside SDPA; bf16 paged decode at pages
-   of 8, 16 and 32 rows and int8 at 8, 16, 32 and 64, bit-equal to dense;
-   all four decode kernels also at starcoder2-15b's 12 query heads per kv
-   head; an int8 code view off a 16-byte boundary refused; WKV-6 and the
-   scan also at a decode round's shape, B=8 and S=1);
+   decode, the chunked and step WKV-6 kernels, the selective scan) against
+   its plain PyTorch version on the card (bf16, tolerance 2e-2 as
+   ``tests/test_kernels.py``) at the main path's shapes and at edge
+   shapes, and times kernel, plain version, one PyTorch library call where
+   one computes the same function, and the card's bound for the same work
+   (flash also at a short serve bucket, Sq=64, and at hymba's prefill,
+   beside SDPA; bf16 paged decode at pages of 8, 16 and 32 rows and int8
+   at 8, 16, 32 and 64, bit-equal to dense; all four decode kernels also
+   at starcoder2-15b's 12 query heads per kv head; flash and the four
+   decode kernels at head dims 16 and 32, timed; an int8 code view off a
+   16-byte boundary refused; chunked WKV-6 at a 512-token prefill and at
+   its edge cases, step WKV-6 and the scan at a decode round's shape,
+   B=8 and S=1);
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
    and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
-   model (head size 64) and a 2-layer hybrid with hymba-1.5b's head
-   geometry (d=1600, 25 query and 5 kv heads of 64, N=16) run prefill and
-   decode, on the card through the kernels, against the same weights in
-   f32 on the CPU through the plain versions;
+   model (head size 64; its 37-token prefill through chunked WKV-6) and
+   a 2-layer hybrid with hymba-1.5b's head geometry (d=1600, 25 query and
+   5 kv heads of 64, N=16) run prefill and decode, on the card through
+   the kernels, against the same weights in f32 on the CPU through the
+   plain versions; then ``serve.main --reduced`` serves qwen2-7b's and
+   hymba-1.5b's reduced configs (head dim 16) on the card;
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
    one weight copy, continuous then paged (block size 16), with bf16 and
@@ -330,6 +336,7 @@ def kernel_phase(rng) -> dict:
             label="bf16 paged decode"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     wide_group_kernels(dev)
+    small_head_dims(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
     for name, r in out.items():
@@ -521,52 +528,222 @@ def wide_group_kernels(dev) -> None:
 
 
 def wkv6_kernel(rng, dev) -> dict:
-    """The WKV-6 kernel at a batch-1 prefill of 512 tokens (rwkv6-1.6b: 32
-    heads of 64) from a zero state, and at edge shapes: a decode step
-    (S=1, B=8), S not a multiple of the 32-step chunk, nonzero states."""
+    """The two WKV-6 kernels (rwkv6-1.6b: 32 heads of 64): the chunked one
+    at a batch-1 prefill of 512 tokens from a zero state, the step one at
+    a decode round (B=8, S=1), each timed; and edge cases through the
+    scan: S not a multiple of a chunk, nonzero states, the threshold's
+    S - 1, S and S + 1, strong decay (-exp(N + 2): a chunk's decay reaches
+    hundreds) and weak decay (-1e-3), S = 2048 from a nonzero state, and
+    a scan split at step 777 equal to the whole."""
     import torch
     from repro_torch.kernels import wkv6
 
-    def inputs(b, s, h, state_scale):
+    def inputs(b, s, h, state_scale, decay="mild"):
         def rand(*shape):
             return torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev)
         r, k, v = (rand(b, s, h, 64).to(torch.bfloat16) for _ in range(3))
-        w = (-torch.exp(rand(b, s, h, 64) * 0.3) - 0.01).to(torch.bfloat16)
+        n = rand(b, s, h, 64)
+        w = {"mild": -torch.exp(n * 0.3) - 0.01, "strong": -torch.exp(n + 2),
+             "weak": torch.full_like(n, -1e-3)}[decay].to(torch.bfloat16)
         return r, k, v, w, rand(h, 64).to(torch.bfloat16), \
             rand(b, h, 64, 64) * state_scale
 
-    def check(name, x):
+    def check(name, x, kernel=None):
+        before = (wkv6.wkv6_step.launches, wkv6.wkv6_chunked.launches)
         o, st = wkv6.wkv6_scan(*x)
+        took = "chunked" if wkv6.wkv6_chunked.launches > before[1] else \
+            "step"
+        want = "chunked" if x[0].shape[1] >= wkv6.CHUNKED_MIN_S else "step"
+        if took != want or (kernel and kernel != took):
+            raise AssertionError(f"{name}: ran the {took} kernel")
         po, pst = wkv6.wkv6_scan_plain(*x)
+        if not (torch.isfinite(o.float()).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"{name}: non-finite output")
         close(f"{name} state", st, pst)
         return close(name, o, po)
 
+    def cost(b, s, h):
+        """(operations, bytes): r, k, v, w read and out written (bf16), u
+        read, the state read and written (f32); 5 D^2 operations a step
+        and head, as the recurrence is written."""
+        seq = b * s * h * 64
+        return 5 * seq * 64, 5 * seq * 2 + 2 * b * h * 64 * 64 * 4 + h * 128
+
     b, s, h = 1, 512, 32
     main = inputs(b, s, h, 0.0)
-    err = check("wkv6 main", main)
-    for shape in [(8, 1, 32, 1.0), (2, 77, 4, 1.0), (1, 33, 2, 3.0)]:
-        check(f"wkv6 edge (B, S, H, state scale)={shape}", inputs(*shape))
-    seq = b * s * h * 64
-    io = 5 * seq * 2 + 2 * b * h * 64 * 64 * 4 + h * 64 * 2
+    err = check("wkv6 main (prefill)", main, "chunked")
+    decode = inputs(8, 1, h, 1.0)
+    decode_err = check("wkv6 decode step (B=8 S=1)", decode, "step")
+    t = wkv6.CHUNKED_MIN_S
+    for shape in [(2, 77, 4, 1.0), (1, 33, 2, 3.0), (1, t - 1, h, 1.0),
+                  (1, t, h, 1.0), (1, t + 1, h, 1.0),
+                  (1, 512, h, 1.0, "strong"), (1, 512, h, 1.0, "weak"),
+                  (1, 2048, h, 1.0)]:
+        check(f"wkv6 edge (B, S, H, state scale, decay)={shape}",
+              inputs(*shape))
+    r, k, v, w, u, st0 = inputs(1, 2048, h, 1.0)
+    whole, st_whole = wkv6.wkv6_scan(r, k, v, w, u, st0)
+    head, st_mid = wkv6.wkv6_scan(r[:, :777], k[:, :777], v[:, :777],
+                                  w[:, :777], u, st0)
+    tail, st_end = wkv6.wkv6_scan(*(x[:, 777:].contiguous()
+                                    for x in (r, k, v, w)), u, st_mid)
+    close("wkv6 split at 777 == whole", torch.cat([head, tail], 1), whole)
+    close("wkv6 split at 777 == whole, state", st_end, st_whole)
+    log(f"wkv6: the step kernel below S={t}, the chunked kernel from S={t}; "
+        f"edge cases (threshold, strong and weak decay, S=2048, split == "
+        f"whole) within {TOL} of the plain scan")
+    flops, io = cost(b, s, h)
     n = copies_for(io)
     sets = [[x.clone() for x in main] for _ in range(n)]
-    decode = [[x.clone() for x in inputs(8, 1, 32, 1.0)] for _ in range(n)]
-    bnd, by = bound(5 * seq * 64, io)
-    dseq = 8 * 1 * 32 * 64
-    dbnd, dby = bound(5 * dseq * 64, 5 * dseq * 2 + 2 * 8 * 32 * 64 * 64 * 4
-                      + 32 * 64 * 2)
-    calls = [lambda x=x: wkv6.wkv6_scan(*x) for x in decode]
-    log(f"kernel wkv6_scan at a decode step (B=8 S=1 H=32 D=64): "
-        f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
-        f"bound_ms={dbnd} ({dby})")
-    return {"wkv6_scan": dict(
-        route="cuda", source="src/repro_torch/csrc/wkv6.cu",
-        replaces="src/repro/kernels/wkv6.py:64", max_abs_err=err,
-        bound_ms=bnd, bound_by=by, shape="B=1 S=512 H=32 D=64 bf16, f32 state",
-        **kernel_times([lambda x=x: wkv6.wkv6_scan(*x) for x in sets],
-                       [lambda x=x: wkv6.wkv6_scan_plain(*x) for x in sets],
-                       plain_iters=3))}
+    bnd, by = bound(flops, io)
+    dflops, dio = cost(8, 1, h)
+    dsets = [[x.clone() for x in decode] for _ in range(copies_for(dio))]
+    dbnd, dby = bound(dflops, dio)
+    step_at_prefill = device_ms([lambda x=x: wkv6.wkv6_step(*x)
+                                 for x in sets])
+    log(f"wkv6: the step kernel at the prefill shape (B=1 S=512 H=32), for "
+        f"comparison: device_ms={step_at_prefill}")
+    return {
+        "wkv6_chunked": dict(
+            route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+            replaces="src/repro/kernels/wkv6.py:64", max_abs_err=err,
+            bound_ms=bnd, bound_by=by,
+            shape="B=1 S=512 H=32 D=64 bf16, f32 state (prefill)",
+            **kernel_times([lambda x=x: wkv6.wkv6_scan(*x) for x in sets],
+                           [lambda x=x: wkv6.wkv6_scan_plain(*x)
+                            for x in sets], plain_iters=3,
+                           label="wkv6 chunked")),
+        "wkv6_step": dict(
+            route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+            replaces="src/repro/kernels/wkv6.py:64",
+            max_abs_err=decode_err, bound_ms=dbnd, bound_by=dby,
+            shape="B=8 S=1 H=32 D=64 bf16, f32 state (a decode round)",
+            **kernel_times([lambda x=x: wkv6.wkv6_scan(*x) for x in dsets],
+                           [lambda x=x: wkv6.wkv6_scan_plain(*x)
+                            for x in dsets], label="wkv6 step"))}
+
+
+def small_head_dims(dev) -> None:
+    """Flash and the four decode kernels at head dims 16 (the reduced
+    configs') and 32, at qwen2-7b's heads (28 q / 4 kv), against their
+    plain versions: flash causal at B=1 Sq=Sk=512 (timed beside SDPA and
+    its bound), windowed (window 8, the reduced hymba's) and ragged; the
+    four decode kernels at B=8 S=1024 with mixed cache_len (timed), each
+    paged kernel bit-equal to its dense one at pages of 8 and 16 rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import kv_quantize
+
+    rng = np.random.default_rng(SEED + 9)
+    h, kv = 28, 4
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    lens_np = np.array([1024, 1, 517, 64, 1000, 333, 768, 129], np.int32)
+    lens = torch.as_tensor(lens_np, device=dev)
+    rows = int(lens_np.sum())
+    for d in (16, 32):
+        q, k, v = rand(1, 512, h, d), rand(1, 512, kv, d), rand(1, 512, kv, d)
+        err = close(f"flash D={d}", fa.flash_attention(q, k, v),
+                    fa.flash_attention_plain(q, k, v))
+        for sq, sk, causal, window, off in [(100, 100, True, 8, 0),
+                                            (37, 77, True, None, 40),
+                                            (40, 70, False, None, 0)]:
+            eq, ek, ev = rand(2, sq, h, d), rand(2, sk, kv, d), \
+                rand(2, sk, kv, d)
+            close(f"flash D={d} ({sq}, {sk}, {causal}, {window}, {off})",
+                  fa.flash_attention(eq, ek, ev, causal=causal,
+                                     window=window, q_offset=off),
+                  fa.flash_attention_plain(eq, ek, ev, causal=causal,
+                                           window=window, q_offset=off))
+        io = 2 * (q.numel() * 2 + k.numel() + v.numel())
+        sets = [[x.clone() for x in (q, k, v)] for _ in range(copies_for(io))]
+        tsets = [[x.transpose(1, 2).contiguous() for x in xs] for xs in sets]
+        bnd, by = bound(4 * h * d * (512 * 513 // 2), io)
+        kernel_ms = device_ms([lambda x=x: fa.flash_attention(*x)
+                               for x in sets])
+        sdpa_ms = device_ms([lambda x=x: F.scaled_dot_product_attention(
+            *x, is_causal=True, enable_gqa=True) for x in tsets])
+        log(f"kernel flash_attention at D={d} (B=1 Sq=Sk=512 H=28 K=4, "
+            f"causal): max_abs_err={err} device_ms={kernel_ms} "
+            f"library_device_ms={sdpa_ms} (SDPA) bound_ms={bnd} ({by})")
+
+        q = rand(8, 1, h, d)
+        kc, vc = rand(8, 1024, kv, d), rand(8, 1024, kv, d)
+        k8, ks, v8, vs = kv_quantize(kc) + kv_quantize(vc)
+        times = {}
+        for page in (16, 8):
+            (kp, vp), tables = scatter_pages((kc, vc), page, rng)
+            pools, tables8 = scatter_pages((k8, v8, ks, vs), page, rng)
+            cases = {
+                "decode_attention": (da.decode_attention,
+                                     da.decode_attention_plain,
+                                     (q, kc, vc, lens)),
+                "paged_decode_attention": (
+                    da.paged_decode_attention,
+                    da.paged_decode_attention_plain,
+                    (q, kp, vp, tables, lens)),
+                "decode_attention_quant": (
+                    da.decode_attention_quant,
+                    da.decode_attention_quant_plain,
+                    (q, k8, v8, ks, vs, lens)),
+                "paged_decode_attention_quant": (
+                    da.paged_decode_attention_quant,
+                    da.paged_decode_attention_quant_plain,
+                    (q, *pools, tables8, lens))}
+            outs = {}
+            for name, (kernel, plain, args) in cases.items():
+                outs[name] = kernel(*args)
+                close(f"{name} D={d} pages of {page}", outs[name],
+                      plain(*args))
+                if page == 16:
+                    times[name] = device_ms([lambda a=args, f=kernel: f(*a)
+                                             for _ in range(2)])
+            for dense, paged in [("decode_attention",
+                                  "paged_decode_attention"),
+                                 ("decode_attention_quant",
+                                  "paged_decode_attention_quant")]:
+                if not torch.equal(outs[dense], outs[paged]):
+                    raise AssertionError(f"{paged} differs from {dense} at "
+                                         f"D={d}, pages of {page}")
+        bf16_b = bound(4 * h * d * rows, 2 * rows * kv * d * 2)
+        int8_b = bound(4 * h * d * rows, 2 * rows * kv * (d + 2))
+        log(f"decode at D={d} (B=8 S=1024 H=28 K=4, mixed cache_len): "
+            f"device_ms {times}; bound_ms bf16 {bf16_b[0]} int8 {int8_b[0]} "
+            f"(bytes); paged == dense, bit for bit, at pages of 8 and 16, "
+            f"bf16 and int8")
+
+
+def reduced_serve() -> None:
+    """``python -m repro_torch.launch.serve --reduced`` on the card:
+    qwen2-7b's and hymba-1.5b's reduced configs (head dim 16; hymba's SSM
+    state 8) through ``serve.main``, with their launch counts."""
+    import contextlib
+    import io
+    import re
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    kernels.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(["--reduced", "--arch", "qwen2-7b", "--arch",
+                    "hymba-1.5b", "--requests", "8", "--max-new-tokens", "8"])
+    counts = kernels.launch_counts()
+    text = buf.getvalue()
+    m = re.search(r"completed (\d+)/(\d+) requests", text)
+    if not m or m.group(1) != m.group(2) or m.group(2) != "8":
+        raise AssertionError(f"reduced serve: {text[-2000:]}")
+    if any(counts[k] == 0 for k in ("flash_attention", "decode_attention",
+                                    "ssm_scan")):
+        raise AssertionError(f"reduced serve: kernel launches {counts}")
+    log(f"reduced serve (serve.main --reduced, qwen2-7b and hymba-1.5b, "
+        f"head dim 16) on the card: {m.group(0)}; launches {counts}")
 
 
 def flash_logged(label, q, k, v, window=None) -> None:
@@ -777,9 +954,11 @@ def _reference_decode(model, p_gpu, p_ref, prompt, n, max_len, kv_int8,
 
 def _reference_rwkv() -> None:
     """A 2-layer RWKV-6 model with head size 64 (4 heads): prefill at the
-    prompt's exact length and 8 decode steps through the WKV-6 kernel in
-    bf16 on the card, against f32 on the CPU through the plain scan."""
+    prompt's exact length (37 tokens: the chunked WKV-6 kernel) and 8
+    decode steps (the step kernel) in bf16 on the card, against f32 on the
+    CPU through the plain scan."""
     import torch
+    from repro_torch.kernels import wkv6
     from repro_torch.models import build_model
     from repro_torch.models.config import ModelConfig
 
@@ -801,19 +980,25 @@ def _reference_rwkv() -> None:
     prompt = rng.integers(0, cfg.vocab_size, (1, 37)).astype(np.int32)
     compare = Compare("rwkv reference")
 
+    chunked, step = wkv6.wkv6_chunked.launches, wkv6.wkv6_step.launches
     lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev))
     lr, cr = model.prefill(p_ref, torch.as_tensor(prompt))
     compare("prefill", lg, lr)
     tok = model.sample_greedy(lr)
-    for step in range(8):
+    for step_i in range(8):
         lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
         lr, cr = model.decode_step(p_ref, tok, cr)
-        compare(f"decode step {step}", lg, lr)
+        compare(f"decode step {step_i}", lg, lr)
         tok = model.sample_greedy(lr)
+    ran = (wkv6.wkv6_chunked.launches - chunked,
+           wkv6.wkv6_step.launches - step)
+    if ran != (cfg.n_layers, 8 * cfg.n_layers):
+        raise AssertionError(f"rwkv reference: (chunked, step) WKV-6 "
+                             f"launches {ran}")
     log(f"reference: 2-layer RWKV-6 d=256 (4 heads of 64), prefill of 37 "
-        f"tokens + 8 decode steps on the card within {compare.worst:.4f} "
-        f"(limit "
-        f"{REF_TOL}) of f32 on the CPU")
+        f"tokens (the chunked kernel) + 8 decode steps (the step kernel) "
+        f"on the card within {compare.worst:.4f} (limit {REF_TOL}) of f32 "
+        f"on the CPU")
 
 
 def _reference_hybrid() -> None:
@@ -951,7 +1136,7 @@ def serve_phase(rng) -> dict[str, int]:
         f"{time.perf_counter() - t0:.1f}s")
     rwkv_prompts = [p % cfg.vocab_size for p in prompts]
     serve_mode(model, params, RWKV_ARCH, rwkv_prompts, alloc, "continuous",
-               {"wkv6_scan"}, totals)
+               {"wkv6_chunked", "wkv6_step"}, totals)
     profile_window(model, params, rwkv_prompts[:8], alloc, RWKV_ARCH,
                    "continuous")
 
@@ -986,9 +1171,9 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     launch counts are set to 0 just before the run and read just after it.
     Checks that every request is served, one host sync per pass, the
     weights stored once, that the kernels in ``used`` ran and no other,
-    each once per layer and prefill (flash), round (decode) or both (the
-    scans, whose launches are logged split by shape).  Returns the token
-    streams."""
+    each once per layer and prefill (flash, chunked WKV-6), round (decode,
+    step WKV-6) or both (the selective scan, whose launches are logged
+    split by shape).  Returns the token streams."""
     import os
     import torch
     from repro_torch import kernels
@@ -1042,14 +1227,14 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     prefills = sum(v["prefills"] for v in delta.values())
     rounds = sum(v["rounds"] for v in delta.values())
     for k in used:  # one launch per layer and prefill, round, or both
-        per = {"flash_attention": prefills, "wkv6_scan": prefills + rounds,
+        per = {"flash_attention": prefills, "wkv6_chunked": prefills,
                "ssm_scan": prefills + rounds}.get(k, rounds)
         if counts[k] != model.cfg.n_layers * per:
             raise AssertionError(
                 f"{arch} {mode}: {counts[k]} {k} launches for {prefills} "
                 f"prefills and {rounds} rounds of {model.cfg.n_layers} "
                 f"layers")
-    for k in used & {"wkv6_scan", "ssm_scan"}:
+    for k in used & {"ssm_scan"}:
         log(f"serve {arch} {mode}: {k} launches by shape: "
             f"{model.cfg.n_layers * prefills} at prefill (S = prompt), "
             f"{model.cfg.n_layers * rounds} in rounds (S = 1)")
@@ -1136,7 +1321,16 @@ TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
                        "paged_decode_bf16_kernel", "decode_q8_kernel",
                        "paged_decode_q8_kernel")
 KERNEL_NAMES = TENSOR_CORE_KERNELS + ("combine_kernel", "wkv6_kernel",
+                                      "wkv6_chunked_kernel",
                                       "ssm_scan_kernel")
+
+
+def tensor_core_builds() -> list[str]:
+    """Every built kernel that must run on the tensor cores without
+    spilling: the attention kernels at each head dim, and chunked WKV-6."""
+    from repro_torch.kernels.build import HEAD_DIMS
+    return [f"{k}<{d}>" for k in TENSOR_CORE_KERNELS for d in HEAD_DIMS] \
+        + ["wkv6_chunked_kernel"]
 
 
 def _short(mangled: str) -> str:
@@ -1154,8 +1348,8 @@ def _short(mangled: str) -> str:
 
 def ptxas_report(text: str) -> None:
     """Registers, shared memory and spills of every kernel, from the
-    ``-Xptxas -v`` report the build keeps; the tensor-core kernels must
-    not spill."""
+    ``-Xptxas -v`` report the build keeps; the tensor-core kernels
+    (``tensor_core_builds``) must not spill."""
     import re
     name, spills = None, {}
     for line in text.splitlines():
@@ -1168,17 +1362,17 @@ def ptxas_report(text: str) -> None:
                           r"loads", line)
             if m:
                 spills[name] = int(m.group(1)) + int(m.group(2))
-    for kernel in TENSOR_CORE_KERNELS:
-        for d in (64, 128):
-            if spills.get(f"{kernel}<{d}>", 0):
-                raise AssertionError(f"{kernel}<{d}> spills "
-                                     f"{spills[f'{kernel}<{d}>']} bytes")
+    for name in tensor_core_builds():
+        if name not in spills:
+            raise AssertionError(f"{name}: not in the ptxas report")
+        if spills[name]:
+            raise AssertionError(f"{name} spills {spills[name]} bytes")
 
 
 def hmma_report(lib) -> None:
     """Tensor-core instructions (HMMA) in the SASS of each kernel, where
-    the toolkit has cuobjdump; the flash and the four decode kernels must
-    hold some."""
+    the toolkit has cuobjdump; the tensor-core kernels
+    (``tensor_core_builds``) must hold some."""
     import re
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")
@@ -1196,11 +1390,10 @@ def hmma_report(lib) -> None:
         elif name and "HMMA" in line:
             counts[name] += 1
     log(f"SASS HMMA instructions per kernel: {counts}")
-    for kernel in TENSOR_CORE_KERNELS:
-        for d in (64, 128):
-            if counts.get(f"{kernel}<{d}>", 0) == 0:
-                raise AssertionError(f"{kernel}<{d}> has no HMMA "
-                                     f"instruction in its SASS")
+    for name in tensor_core_builds():
+        if counts.get(name, 0) == 0:
+            raise AssertionError(f"{name} has no HMMA instruction in its "
+                                 f"SASS")
 
 
 def main() -> int:
@@ -1231,6 +1424,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     results = kernel_phase(rng)
     reference_phase(rng)
+    reduced_serve()
     launches = serve_phase(rng)
     extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],

@@ -56,6 +56,11 @@
 // registers because a tile's codes are 8 int4 a lane at D = 128, 32
 // registers the tile loop cannot spare.
 //
+// Built for D = 16, 32, 64 and 128.  At D = 16 each product is one k16
+// step of the mma, and an int8 row is a single 16-byte piece, so a tile's
+// codes are 16 pieces: lanes 0-15 copy and widen them, and lanes 16-31
+// only take part in the ballot.
+//
 // Since tiles, their warps, the split and both merges depend on logical
 // rows alone, a dense and a paged kernel give bit-identical outputs on
 // identical K/V (or codes and scales) for every page size with M * bs = S.
@@ -74,6 +79,14 @@ constexpr int kTile = 16;      // logical rows per tile: one mma n16 step
 constexpr int kDecWarps = 4;   // warps per CTA, each with its own tiles
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecStages = 2;  // the deepest ring: one tile in flight ahead
+
+// CTAs per SM asked of ptxas: left alone it holds the D = 32 paged bf16
+// kernel to 64 registers and spills; asking for 3 (a 170-register cap)
+// gives the small head dims the registers they need.  D = 64 and 128 ask
+// for 0, which compiles as no bound at all (the same registers; 1 would
+// not).
+template <int D>
+__host__ __device__ constexpr int dec_min_ctas() { return D <= 32 ? 3 : 0; }
 
 // Merge the n_split partials of (b, kv head) in split order (a fixed
 // order: the result does not depend on which CTA finished first).  One
@@ -251,8 +264,12 @@ __device__ __forceinline__ void decode_split(
   constexpr int NO = D / 8;
   constexpr int kElems = 16 / (int)sizeof(T);  // elements per 16-byte piece
   constexpr int kPieces = D / kElems;          // pieces per row
-  constexpr int kRowsPerIt = 32 / kPieces;     // rows one copy step covers
-  constexpr int kIts = kTile * kPieces / 32;   // copy steps per tile
+  // Lanes that copy: all 32, except where a tile is fewer than 32 pieces
+  // (int8 at D = 16: one piece a row, 16 a tile), where lanes 16-31 idle.
+  constexpr int kLanes = kTile * kPieces < 32 ? kTile * kPieces : 32;
+  constexpr int kRowsPerIt = kLanes / kPieces;  // rows one copy step covers
+  constexpr int kIts = kTile * kPieces / kLanes;  // copy steps per tile
+  static_assert(kIts >= 1 && kIts * kRowsPerIt == kTile, "copy shape");
   constexpr int kStageLd = kQ8 ? D : LD;       // a stage's row stride
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -298,13 +315,16 @@ __device__ __forceinline__ void decode_split(
     unsigned stored = 0u;
 #pragma unroll
     for (int it = 0; it < kIts; ++it) {
-      const int p = lane + 32 * it;
+      const int p = lane + kLanes * it;
       const int r = p / kPieces, c = (p % kPieces) * kElems;
-      const long off = rows.offset(base + r);
-      const bool ok = off >= 0;
-      cp_async16(ks + r * kStageLd + c, cache.k + (ok ? off : 0) + c, ok);
-      cp_async16(vs + r * kStageLd + c, cache.v + (ok ? off : 0) + c, ok);
-      if constexpr (kQ8) sc[it] = ok ? scale_bits(cache, off / D) : 0u;
+      bool ok = false;
+      if (lane < kLanes) {
+        const long off = rows.offset(base + r);
+        ok = off >= 0;
+        cp_async16(ks + r * kStageLd + c, cache.k + (ok ? off : 0) + c, ok);
+        cp_async16(vs + r * kStageLd + c, cache.v + (ok ? off : 0) + c, ok);
+        if constexpr (kQ8) sc[it] = ok ? scale_bits(cache, off / D) : 0u;
+      }
       const unsigned vote = __ballot_sync(0xffffffffu, ok);
 #pragma unroll
       for (int j = 0; j < kRowsPerIt; ++j)
@@ -316,9 +336,10 @@ __device__ __forceinline__ void decode_split(
   auto widen = [&](int i) {
     const int8_t* kc = reinterpret_cast<const int8_t*>(stage(i));
     const int8_t* vc = kc + kTile * D;
+    if (lane >= kLanes) return;
 #pragma unroll
     for (int it = 0; it < kIts; ++it) {
-      const int p = lane + 32 * it;
+      const int p = lane + kLanes * it;
       const int r = p / kPieces, c = (p % kPieces) * kElems;
       widen_piece(kc + r * D + c, __uint_as_float(sc[it] << 16),
               wide + r * LD + c);
@@ -451,7 +472,8 @@ __device__ __forceinline__ void paged_split(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDecThreads) decode_bf16_kernel(
+__global__ void __launch_bounds__(kDecThreads, dec_min_ctas<D>())
+    decode_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ cache_len,
     float* __restrict__ part_acc, float* __restrict__ part_ml, int S, int H,
@@ -461,7 +483,8 @@ __global__ void __launch_bounds__(kDecThreads) decode_bf16_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDecThreads) paged_decode_bf16_kernel(
+__global__ void __launch_bounds__(kDecThreads, dec_min_ctas<D>())
+    paged_decode_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ tables,
     const int* __restrict__ cache_len, float* __restrict__ part_acc,
@@ -472,7 +495,8 @@ __global__ void __launch_bounds__(kDecThreads) paged_decode_bf16_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDecThreads) decode_q8_kernel(
+__global__ void __launch_bounds__(kDecThreads, dec_min_ctas<D>())
+    decode_q8_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
     const int8_t* __restrict__ v, const __nv_bfloat16* __restrict__ ks,
     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ cache_len,
@@ -483,7 +507,8 @@ __global__ void __launch_bounds__(kDecThreads) decode_q8_kernel(
 }
 
 template <int D>
-__global__ void __launch_bounds__(kDecThreads) paged_decode_q8_kernel(
+__global__ void __launch_bounds__(kDecThreads, dec_min_ctas<D>())
+    paged_decode_q8_kernel(
     const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ kp,
     const int8_t* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
     const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ tables,
@@ -517,9 +542,13 @@ int launch_split(void (*kernel)(Params...), int n_tiles, int B, int H,
 // are built for.
 template <typename F>
 int by_head_dim(int D, F&& f) {
-  if (D == 128) return f(std::integral_constant<int, 128>());
-  if (D == 64) return f(std::integral_constant<int, 64>());
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 128: return f(std::integral_constant<int, 128>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 16: return f(std::integral_constant<int, 16>());
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Shapes every kernel takes: G = H / KV whole and at most kMaxG, a

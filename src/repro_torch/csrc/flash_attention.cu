@@ -26,7 +26,9 @@
 // loaded, tiles hidden from one warp are skipped by it, and only tiles
 // that straddle the diagonal, the window edge or Sk evaluate the mask.
 // The grid walks q tiles heaviest first (reversed), so the last wave is
-// the shortest.
+// the shortest.  Built for D = 16, 32, 64 and 128: every copy loop moves
+// whole 16-byte pieces (two a row at D = 16), and at D = 16 each product
+// is a single k16 step of the mma.
 // Scores are scaled in f32 after the dot (q is not rounded after
 // scaling, as ops.py:94 scales it in f32); P is rounded to bf16 for the
 // second product (at most 2^-8 relative per weight).  The output goes
@@ -204,11 +206,20 @@ extern "C" int repro_flash_attention_bf16(
     float scale, void* stream) {
   if (H % KV || Sq < 1 || Sk < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                       q_offset, scale, st);
-  if (D == 64)
-    return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                      q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 128:
+      return launch<128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                         q_offset, scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                        q_offset, scale, st);
+    case 32:
+      return launch<32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                        q_offset, scale, st);
+    case 16:
+      return launch<16>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                        q_offset, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,26 +22,27 @@
 // per barrier -- the exponentials and products formed once per CTA, not
 // once per row -- and the chunk's steps then run without a barrier, its y
 // rows leaving through shared memory.  Any S >= 1 runs (prefill at the
-// exact prompt length, decode at S = 1).  Not yet done: a chunked matrix
-// form on the tensor cores, double-buffered staging.
+// exact prompt length, decode at S = 1).  Built for N = 16 (hymba) and
+// N = 8 (its reduced config: two threads a row).  Not yet done: a chunked
+// matrix form on the tensor cores, double-buffered staging.
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kN = 16;                    // state size (hymba: 16)
-constexpr int kRows = 16;                 // state rows per CTA
-constexpr int kGroup = 4;                 // threads per row
-constexpr int kPer = kN / kGroup;         // state values per thread
-constexpr int kThreads = kRows * kGroup;  // 64
-constexpr int kT = 64;                    // time steps staged per barrier
-static_assert(kPer == 4, "the step loop reads float4 slices of a row");
+constexpr int kRows = 16;  // state rows per CTA
+constexpr int kPer = 4;    // state values per thread (a float4 slice)
+constexpr int kT = 64;     // time steps staged per barrier
 
-__global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
+// kN: the state size, 8 or 16; kN / kPer threads hold a row.
+template <int kN>
+__global__ void __launch_bounds__(kRows * kN / kPer) ssm_scan_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dt,
     const __nv_bfloat16* __restrict__ a_log,
     const __nv_bfloat16* __restrict__ bm, const __nv_bfloat16* __restrict__ cm,
     const float* __restrict__ state_in, __nv_bfloat16* __restrict__ y,
     float* __restrict__ state_out, int S, int H, int D) {
+  constexpr int kGroup = kN / kPer;         // threads per row
+  constexpr int kThreads = kRows * kGroup;  // 64 at N = 16, 32 at N = 8
   __shared__ __align__(16) float da_sm[kT][kN];  // exp(dt_t * A)
   __shared__ __align__(16) float db_sm[kT][kN];  // dt_t * b_t
   __shared__ __align__(16) float c_sm[kT][kN];
@@ -89,7 +90,7 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
       float part = fmaf(st[0], cc.x, st[1] * cc.y) +
                    fmaf(st[2], cc.z, st[3] * cc.w);
       part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+      if constexpr (kGroup == 4) part += __shfl_xor_sync(0xffffffffu, part, 2);
       if (g == 0) y_sm[t][r] = part;
     }
     __syncthreads();
@@ -107,17 +108,18 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
 
 // x: (B, S, H, D) bf16; dt: (B, S, H) bf16; a_log: (H, N) bf16; b, c:
 // (B, S, H, N) bf16; state_in, state_out: two (B, H, D, N) f32 buffers;
-// y: (B, S, H, D) bf16.  N must be 16 and D a multiple of 16.
+// y: (B, S, H, D) bf16.  N must be 8 or 16 and D a multiple of 16.
 extern "C" int repro_ssm_scan_bf16(const void* x, const void* dt,
                                    const void* a_log, const void* b,
                                    const void* c, const void* state_in,
                                    void* y, void* state_out, int B, int S,
                                    int H, int D, int N, void* stream) {
-  if (N != kN || D % kRows || D < kRows || S < 1 || B < 1 || H < 1 ||
-      B > 65535 || H > 65535)
+  if ((N != 8 && N != 16) || D % kRows || D < kRows || S < 1 || B < 1 ||
+      H < 1 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  ssm_scan_kernel<<<dim3(D / kRows, H, B), kThreads, 0,
-                    (cudaStream_t)stream>>>(
+  auto kernel = N == 16 ? ssm_scan_kernel<16> : ssm_scan_kernel<8>;
+  kernel<<<dim3(D / kRows, H, B), kRows * N / kPer, 0,
+           (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)dt,
       (const __nv_bfloat16*)a_log, (const __nv_bfloat16*)b,
       (const __nv_bfloat16*)c, (const float*)state_in, (__nv_bfloat16*)y,

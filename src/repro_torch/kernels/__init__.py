@@ -14,9 +14,15 @@ KERNELS = {
     "paged_decode_attention": _decode.paged_decode_attention,
     "decode_attention_quant": _decode.decode_attention_quant,
     "paged_decode_attention_quant": _decode.paged_decode_attention_quant,
-    "wkv6_scan": _wkv6.wkv6_scan,
+    "wkv6_step": _wkv6.wkv6_step,
+    "wkv6_chunked": _wkv6.wkv6_chunked,
     "ssm_scan": _ssm.ssm_scan,
 }
+
+
+# Ops that pick one of the kernels above by shape; each counts its launches
+# of any of them.
+DISPATCHERS = (_wkv6.wkv6_scan,)
 
 
 def launch_counts() -> dict[str, int]:
@@ -25,5 +31,5 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *DISPATCHERS):
         fn.launches = 0

@@ -24,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIMS = (64, 128)  # the head dims the attention kernels are built for
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the attention kernels take
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p (a bare int
@@ -45,6 +45,8 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          _I, _F, _P),
     "repro_wkv6_bf16":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_wkv6_chunked_bf16":
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_ssm_scan_bf16":
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

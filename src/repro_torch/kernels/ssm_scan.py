@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import build
 
-STATE_SIZE = 16  # the kernel's N (hymba's ssm_state)
+STATE_SIZES = (8, 16)  # the kernel's N: hymba's ssm_state, and its reduced one
 ROWS = 16        # state rows (of D) per CTA: D must be a multiple
 
 
@@ -49,7 +49,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selective scan over S >= 1 steps from ``state``; returns (y
     (B,S,H,D), final state (B,H,D,N)).  On the card: x, dt, a_log, b, c
-    bf16, state f32, N = 16, D a multiple of 16; y bf16, the state f32 in
+    bf16, state f32, N = 8 or 16, D a multiple of 16; y bf16, the state f32 in
     a new buffer."""
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, a_log, b, c, state)
@@ -57,7 +57,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise ValueError(f"ssm_scan: no kernel for {x.device}")
     bsz, s, h, d = x.shape
     n = a_log.shape[-1]
-    if (n != STATE_SIZE or d % ROWS or s < 1
+    if (n not in STATE_SIZES or d % ROWS or s < 1
             or tuple(dt.shape) != (bsz, s, h)
             or tuple(a_log.shape) != (h, n)
             or any(tuple(t.shape) != (bsz, s, h, n) for t in (b, c))
@@ -65,8 +65,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         raise ValueError(
             f"ssm_scan: bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
             f"a_log{tuple(a_log.shape)} b{tuple(b.shape)} "
-            f"c{tuple(c.shape)} state{tuple(state.shape)} (N must be "
-            f"{STATE_SIZE}, D a multiple of {ROWS})")
+            f"c{tuple(c.shape)} state{tuple(state.shape)} (N must be one "
+            f"of {STATE_SIZES}, D a multiple of {ROWS})")
     y = torch.empty_like(x)
     new_state = torch.empty_like(state)
     bf16, f32 = torch.bfloat16, torch.float32

@@ -18,7 +18,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 On the card a config whose head dim the attention kernels are not built
-for (the reduced configs' 16) is refused before any weight is drawn.
+for (they take 16, 32, 64 and 128), or whose SSM state size the scan
+kernel does not take (8 or 16), is refused before any weight is drawn.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.model_sharing import pytree_nbytes
 from repro_torch.core.resources import Alloc
 from repro_torch.kernels.build import HEAD_DIMS
+from repro_torch.kernels.ssm_scan import STATE_SIZES
 from repro_torch.models import Model, build_model
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import ServeRequest, ServingEngine
@@ -56,6 +58,10 @@ def head_dim_refusal(cfg: ModelConfig) -> Optional[str]:
     if cfg.family in ("dense", "hybrid") and cfg.dh not in HEAD_DIMS:
         return (f"{cfg.name}: head dim {cfg.dh}, but the attention kernels "
                 f"take head dims {HEAD_DIMS} only; serve it with "
+                f"--device cpu")
+    if cfg.family == "hybrid" and cfg.ssm_state not in STATE_SIZES:
+        return (f"{cfg.name}: SSM state size {cfg.ssm_state}, but the scan "
+                f"kernel takes {STATE_SIZES} only; serve it with "
                 f"--device cpu")
     return None
 

@@ -287,29 +287,86 @@ def test_int8_code_view_off_16_bytes_raises(cuda_device, offset):
             da.paged_decode_attention_quant.launches) == before
 
 
+def _wkv_inputs(rng, b, s, h, device, decay="mild", state_scale=1.0):
+    """r, k, v, w, u, state on the card; w a negative log decay: "mild"
+    -exp(0.3 N) - 0.01 (as test_kernels.py), "strong" -exp(N + 2) (a
+    chunk's decay reaches hundreds), "weak" -1e-3."""
+    r, k, v = (_cuda_rand(rng, (b, s, h, 64), device) for _ in range(3))
+    n = rng.normal(size=(b, s, h, 64)).astype(np.float32)
+    w = {"mild": -np.exp(n * 0.3) - 0.01, "strong": -np.exp(n + 2.0),
+         "weak": np.full_like(n, -1e-3)}[decay]
+    w = torch.from_numpy(w.astype(np.float32)).to(device).to(torch.bfloat16)
+    u = _cuda_rand(rng, (h, 64), device)
+    st = (torch.from_numpy(rng.normal(size=(b, h, 64, 64)).astype(
+        np.float32)) * state_scale).to(device)
+    return r, k, v, w, u, st
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,state_scale", [
-    (1, 512, 32, 0.0),   # batch-1 prefill from a zero state
-    (8, 1, 32, 1.0),     # a decode step of 8 slots
-    (2, 77, 4, 1.0),     # S not a multiple of the 32-step chunk
-    (1, 33, 2, 3.0)])
-def test_wkv6_kernel_vs_plain(cuda_device, b, s, h, state_scale):
+@pytest.mark.parametrize("b,s,h,decay,state_scale", [
+    (1, 512, 32, "mild", 0.0),   # batch-1 prefill from a zero state
+    (8, 1, 32, "mild", 1.0),     # a decode step of 8 slots
+    (2, 77, 4, "mild", 1.0),     # S not a multiple of a chunk
+    (1, 33, 2, "mild", 3.0),
+    (1, 15, 32, "mild", 1.0),    # CHUNKED_MIN_S - 1, S and S + 1
+    (1, 16, 32, "mild", 1.0),
+    (1, 17, 32, "mild", 1.0),
+    (1, 512, 32, "strong", 1.0),
+    (1, 512, 32, "weak", 1.0),
+    (1, 2048, 32, "mild", 1.0)])  # a long prompt from a nonzero state
+def test_wkv6_kernel_vs_plain(cuda_device, b, s, h, decay, state_scale):
+    """The scan on the card takes the step kernel below CHUNKED_MIN_S and
+    the chunked kernel from there; each against the plain scan."""
     from repro_torch.kernels import wkv6
     rng = np.random.default_rng(s + h)
-    r, k, v = (_cuda_rand(rng, (b, s, h, 64), cuda_device) for _ in range(3))
-    w = (-torch.exp(_cuda_rand(rng, (b, s, h, 64), cuda_device).float()
-                    * 0.3) - 0.01).to(torch.bfloat16)
-    u = _cuda_rand(rng, (h, 64), cuda_device)
-    st = (torch.from_numpy(rng.normal(size=(b, h, 64, 64)).astype(
-        np.float32)) * state_scale).to(cuda_device)
-    before = wkv6.wkv6_scan.launches
-    out, new = wkv6.wkv6_scan(r, k, v, w, u, st)
+    x = _wkv_inputs(rng, b, s, h, cuda_device, decay, state_scale)
+    before = (wkv6.wkv6_scan.launches, wkv6.wkv6_step.launches,
+              wkv6.wkv6_chunked.launches)
+    out, new = wkv6.wkv6_scan(*x)
     torch.cuda.synchronize()
-    assert wkv6.wkv6_scan.launches == before + 1
-    want_out, want_st = wkv6.wkv6_scan_plain(r, k, v, w, u, st)
+    chunked = s >= wkv6.CHUNKED_MIN_S
+    assert (wkv6.wkv6_scan.launches, wkv6.wkv6_step.launches,
+            wkv6.wkv6_chunked.launches) == (
+        before[0] + 1, before[1] + (not chunked), before[2] + chunked)
+    want_out, want_st = wkv6.wkv6_scan_plain(*x)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(new).all()
     torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["step", "chunked"])
+def test_wkv6_kernel_short_sequences(cuda_device, kernel):
+    """Each kernel alone takes any S >= 1: S = 1, 2, 16, 31 and 33."""
+    from repro_torch.kernels import wkv6
+    fn = {"step": wkv6.wkv6_step, "chunked": wkv6.wkv6_chunked}[kernel]
+    rng = np.random.default_rng(16)
+    for s in (1, 2, 16, 31, 33):
+        x = _wkv_inputs(rng, 2, s, 4, cuda_device, "strong")
+        out, new = fn(*x)
+        want_out, want_st = wkv6.wkv6_scan_plain(*x)
+        torch.testing.assert_close(out.float(), want_out.float(),
+                                   atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_wkv6_split_scan_equals_whole(cuda_device):
+    """A 2048-step scan split at step 777 (the state carried across the
+    calls) and at step 5 (a step-kernel head) equals the whole scan."""
+    from repro_torch.kernels import wkv6
+    rng = np.random.default_rng(17)
+    r, k, v, w, u, st = _wkv_inputs(rng, 1, 2048, 32, cuda_device)
+    whole, st_whole = wkv6.wkv6_scan(r, k, v, w, u, st)
+    for cut in (777, 5):
+        head, st_mid = wkv6.wkv6_scan(*(x[:, :cut] for x in (r, k, v, w)),
+                                      u, st)
+        tail, st_end = wkv6.wkv6_scan(
+            *(x[:, cut:].contiguous() for x in (r, k, v, w)), u, st_mid)
+        torch.testing.assert_close(torch.cat([head, tail], 1).float(),
+                                   whole.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(st_end, st_whole, atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.gpu
@@ -355,3 +412,90 @@ def test_flash_kernel_hymba_geometry(cuda_device, sq):
     want = fa.flash_attention_plain(q, k, v, causal=True, window=1024)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("case", [  # (B, Sq, Sk, causal, window, q_offset)
+    (1, 512, 512, True, None, 0), (2, 37, 37, True, None, 0),
+    (1, 1, 1, True, None, 0), (1, 100, 100, True, 8, 0),
+    (1, 20, 84, True, None, 64), (2, 40, 70, False, None, 0)])
+def test_flash_kernel_small_head_dims(cuda_device, d, case):
+    """Flash at head dims 16 (the reduced configs') and 32: causal,
+    windowed (the reduced hymba's window of 8), a q offset, non-causal."""
+    b, sq, sk, causal, window, off = case
+    rng = np.random.default_rng(sq + d)
+    q = _cuda_rand(rng, (b, sq, 4, d), cuda_device)
+    k = _cuda_rand(rng, (b, sk, 2, d), cuda_device)
+    v = _cuda_rand(rng, (b, sk, 2, d), cuda_device)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             q_offset=off)
+    want = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                    q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_decode_kernels_small_head_dims(cuda_device, d, bs):
+    """All four decode kernels at head dims 16 and 32 (7 and 2 query heads
+    per kv head) against their plain versions; each paged kernel bit-equal
+    to its dense one at pages of 8, 16 and 32 rows.  At D = 16 an int8 row
+    is a single 16-byte piece, so half the warp copies a tile's codes."""
+    b, s = 8, 256
+    lens = torch.tensor([256, 1, 100, 177, 16, 17, 255, 64],
+                        dtype=torch.int32, device=cuda_device)
+    for h, n_kv in ((28, 4), (4, 2)):
+        rng = np.random.default_rng(d + bs + h)
+        q = _cuda_rand(rng, (b, 1, h, d), cuda_device)
+        kc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
+        vc = _cuda_rand(rng, (b, s, n_kv, d), cuda_device)
+        k8, ks = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+        v8, vs = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+        (kp, vp), tables = _pooled(rng, (kc, vc), bs, cuda_device)
+        pools, tables8 = _pooled(rng, (k8, v8, ks, vs), bs, cuda_device)
+        pairs = [
+            (da.decode_attention(q, kc, vc, lens),
+             da.decode_attention_plain(q, kc, vc, lens)),
+            (da.paged_decode_attention(q, kp, vp, tables, lens),
+             da.paged_decode_attention_plain(q, kp, vp, tables, lens)),
+            (da.decode_attention_quant(q, k8, v8, ks, vs, lens),
+             da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens)),
+            (da.paged_decode_attention_quant(q, *pools, tables8, lens),
+             da.paged_decode_attention_quant_plain(q, *pools, tables8,
+                                                   lens))]
+        for got, want in pairs:
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+        assert torch.equal(pairs[1][0], pairs[0][0])
+        assert torch.equal(pairs[3][0], pairs[2][0])
+        windowed = da.decode_attention(q, kc, vc, lens, window=8)
+        torch.testing.assert_close(
+            windowed.float(),
+            da.decode_attention_plain(q, kc, vc, lens, window=8).float(),
+            atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 77])
+def test_ssm_kernel_state_size_8(cuda_device, s):
+    """The selective scan at the reduced hymba's state size N = 8 (4 heads
+    of 16), at a round and at a prefill."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(s)
+    b, h, d, n = 2, 4, 16, 8
+    x = _cuda_rand(rng, (b, s, h, d), cuda_device)
+    dt = torch.nn.functional.softplus(
+        _cuda_rand(rng, (b, s, h), cuda_device).float()).to(torch.bfloat16)
+    a_log = (_cuda_rand(rng, (h, n), cuda_device).float() * 0.02).to(
+        torch.bfloat16)
+    bm, cm = (_cuda_rand(rng, (b, s, h, n), cuda_device) for _ in range(2))
+    st = torch.from_numpy(rng.normal(size=(b, h, d, n)).astype(
+        np.float32)).to(cuda_device)
+    y, new = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st)
+    want_y, want_st = ssm_scan.ssm_scan_plain(x, dt, a_log, bm, cm, st)
+    torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)

@@ -65,25 +65,35 @@ def test_unported_arch_raises_naming_roadmap():
 
 def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
                                                          capsys):
-    """On the card, a config whose head dim the attention kernels are not
-    built for (the reduced configs' 16) is refused before any weight is
-    drawn, with a message naming the head dims they take and the CPU."""
+    """On the card the reduced configs (head dim 16; hymba's SSM state 8)
+    are served; a config whose head dim the attention kernels are not
+    built for (8) or whose state size the scan does not take is refused
+    before any weight is drawn, with a message naming what the kernels
+    take and the CPU."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    for arch in ("qwen2-7b", "hymba-1.5b"):
-        refusal = serve.head_dim_refusal(get_config(arch, reduced=True))
-        assert "(64, 128)" in refusal and "--device cpu" in refusal
+    for arch in ("qwen2-7b", "hymba-1.5b", "rwkv6-1.6b"):
+        assert serve.head_dim_refusal(get_config(arch, reduced=True)) is None
         assert serve.head_dim_refusal(get_config(arch)) is None
-    assert serve.head_dim_refusal(get_config("rwkv6-1.6b",
-                                             reduced=True)) is None
+    narrow = dataclasses.replace(get_config("qwen2-7b", reduced=True),
+                                 head_dim=8)
+    assert narrow.dh == 8
+    refusal = serve.head_dim_refusal(narrow)
+    assert "(16, 32, 64, 128)" in refusal and "--device cpu" in refusal
+    small_state = dataclasses.replace(get_config("hymba-1.5b", reduced=True),
+                                      ssm_state=4)
+    assert "(8, 16)" in serve.head_dim_refusal(small_state)
     drawn = []
     monkeypatch.setattr(serve, "init_model",
                         lambda *a, **k: drawn.append(a))
+    monkeypatch.setattr(serve, "get_config", lambda *a, **k: narrow)
     with pytest.raises(SystemExit) as exit_info:
         serve.main(["--reduced"])
     assert exit_info.value.code == 2 and not drawn
-    assert "head dims (64, 128)" in capsys.readouterr().err
+    assert "head dims (16, 32, 64, 128)" in capsys.readouterr().err
 
 
 def test_serve_reduced_on_the_cpu(capsys):

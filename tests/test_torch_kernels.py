@@ -215,12 +215,17 @@ def test_wrappers_count_no_launch_on_cpu():
                                     torch.zeros((1, 1), dtype=torch.int32),
                                     one)
     x = torch.zeros((1, 3, 2, 8))
-    wkv6.wkv6_scan(x, x, x, x, torch.zeros((2, 8)), torch.zeros((1, 2, 8, 8)))
+    for s in (3, wkv6.CHUNKED_MIN_S):  # the step and the chunked shapes
+        xs = torch.zeros((1, s, 2, 8))
+        wkv6.wkv6_scan(xs, xs, xs, xs, torch.zeros((2, 8)),
+                       torch.zeros((1, 2, 8, 8)))
     ssm_scan.ssm_scan(x, x[..., 0], torch.zeros((2, 4)), x[..., :4],
                       x[..., :4], torch.zeros((1, 2, 8, 4)))
     assert kernels.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0,
         "paged_decode_attention": 0, "decode_attention_quant": 0,
-        "paged_decode_attention_quant": 0, "wkv6_scan": 0, "ssm_scan": 0}
+        "paged_decode_attention_quant": 0, "wkv6_step": 0,
+        "wkv6_chunked": 0, "ssm_scan": 0}
+    assert wkv6.wkv6_scan.launches == 0
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))

@@ -7,6 +7,12 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, each with its reason:
 * WKV scan: 2e-5 in f32 (sums in another order) and 2e-2 in bf16 (outputs
   round to bf16), as ``test_kernels.test_wkv6_pallas_vs_ref``;
+* the chunked algorithm (``wkv6_chunked_plain``, the chunked kernel's): in
+  f32, 1e-4 relative plus 1e-4 times the mean |reference| absolute — it
+  sums in another order (chunk sums of the decay, scores, then the state
+  update), and the f32 rounding of either side grows with the size of the
+  terms summed, not with each output's own value (near-zero outputs are
+  sums of terms as large as the others); 2e-2 in bf16;
 * model logits with f32 params: prefill 2e-5 (f32 end to end; the
   token-shift rows the cache keeps are bf16, as the JAX cache layout
   declares, but prefill logits do not read them); decode 1e-3 — the port
@@ -54,13 +60,16 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _wkv_inputs(rng, b, s, h, d, dtype, state_scale=1.0):
-    """r, k, v, w, u, state in both frameworks; w is a negative log decay
-    as in ``test_kernels``; the state is f32 and nonzero."""
+def _wkv_inputs(rng, b, s, h, d, dtype, state_scale=1.0, decay="mild"):
+    """r, k, v, w, u, state in both frameworks; w is a negative log decay:
+    "mild" as in ``test_kernels``, "strong" -exp(N(0,1) + 2) (a 16-step
+    chunk's decay reaches hundreds, far past f32's e^-88) or "weak"
+    -1e-3; the state is f32 and nonzero."""
     jd, td = DTYPES[dtype]
     xs = [rng.normal(size=(b, s, h, d)).astype(np.float32) for _ in range(3)]
-    xs.append((-np.exp(rng.normal(size=(b, s, h, d)) * 0.3) - 0.01)
-              .astype(np.float32))
+    n = rng.normal(size=(b, s, h, d))
+    xs.append({"mild": -np.exp(n * 0.3) - 0.01, "strong": -np.exp(n + 2.0),
+               "weak": np.full_like(n, -1e-3)}[decay].astype(np.float32))
     xs.append(rng.normal(size=(h, d)).astype(np.float32))
     st = (rng.normal(size=(b, h, d, d)) * state_scale).astype(np.float32)
     jx = [jnp.asarray(x).astype(jd) for x in xs] + [jnp.asarray(st)]
@@ -120,6 +129,77 @@ def test_wkv6_plain_vs_pallas_interpret():
     out, st = wkv6.wkv6_scan_plain(*tx)
     np.testing.assert_allclose(_np(out), _np(po), **_tol("f32"))
     np.testing.assert_allclose(st.numpy(), np.asarray(ps), **_tol("f32"))
+
+
+def _chunked_tol(name, ref):
+    if name == "bf16":
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=1e-4, atol=1e-4 * float(np.abs(_np(ref)).mean()))
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 77, 300])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_wkv6_chunked_plain_vs_jax(s, dtype):
+    """The chunked kernel's algorithm against ``ops.wkv6_scan`` (xla):
+    below one chunk, at one chunk, one step past it, ragged, long."""
+    rng = np.random.default_rng(100 + s)
+    jx, tx = _wkv_inputs(rng, 2, s, 2, wkv6.HEAD_SIZE, dtype)
+    out, st = wkv6.wkv6_chunked_plain(*tx)
+    assert out.dtype == tx[0].dtype and st.dtype == torch.float32
+    jo, js = jops.wkv6_scan(*jx, backend="xla")
+    np.testing.assert_allclose(_np(out), _np(jo), **_chunked_tol(dtype, jo))
+    np.testing.assert_allclose(st.numpy(), np.asarray(js),
+                               **_chunked_tol(dtype, js))
+
+
+@pytest.mark.parametrize("s", [16, 77])
+def test_wkv6_chunked_plain_vs_pallas_interpret(s):
+    rng = np.random.default_rng(200 + s)
+    jx, tx = _wkv_inputs(rng, 1, s, 2, wkv6.HEAD_SIZE, "f32")
+    po, ps = wkv6_pallas(*jx, block_t=s)
+    out, st = wkv6.wkv6_chunked_plain(*tx)
+    np.testing.assert_allclose(_np(out), _np(po), **_chunked_tol("f32", po))
+    np.testing.assert_allclose(st.numpy(), np.asarray(ps),
+                               **_chunked_tol("f32", ps))
+
+
+@pytest.mark.parametrize("decay,s", [("strong", 77), ("strong", 300),
+                                     ("weak", 300)])
+@pytest.mark.parametrize("chunk", [wkv6.CHUNK, 64])
+def test_wkv6_chunked_plain_decay_extremes(decay, s, chunk):
+    """Strong decay (no exponent the algorithm forms is positive, so no
+    overflow and the output stays finite) and weak decay (the state keeps
+    hundreds of steps), at the kernel's chunk and at a 64-step chunk (six
+    levels of boundaries instead of four)."""
+    rng = np.random.default_rng(300 + s)
+    jx, tx = _wkv_inputs(rng, 2, s, 2, wkv6.HEAD_SIZE, "f32",
+                         decay=decay)
+    out, st = wkv6.wkv6_chunked_plain(*tx, chunk=chunk)
+    assert torch.isfinite(out).all() and torch.isfinite(st).all()
+    jo, js = jops.wkv6_scan(*jx, backend="xla")
+    np.testing.assert_allclose(_np(out), _np(jo), **_chunked_tol("f32", jo))
+    np.testing.assert_allclose(st.numpy(), np.asarray(js),
+                               **_chunked_tol("f32", js))
+
+
+def test_wkv6_chunked_plain_split_equals_whole():
+    """A scan split at steps 37 and 160 (the state carried across calls,
+    so the chunks fall elsewhere) equals the whole scan."""
+    rng = np.random.default_rng(7)
+    _, tx = _wkv_inputs(rng, 2, 300, 2, wkv6.HEAD_SIZE, "f32")
+    r, k, v, w, u, st0 = tx
+    whole, st_whole = wkv6.wkv6_chunked_plain(*tx)
+    outs, st = [], st0
+    for lo, hi in ((0, 37), (37, 160), (160, 300)):
+        o, st = wkv6.wkv6_chunked_plain(r[:, lo:hi], k[:, lo:hi],
+                                        v[:, lo:hi], w[:, lo:hi], u, st)
+        outs.append(o)
+    np.testing.assert_allclose(_np(torch.cat(outs, 1)), _np(whole),
+                               **_chunked_tol("f32", whole))
+    np.testing.assert_allclose(st.numpy(), st_whole.numpy(),
+                               **_chunked_tol("f32", st_whole))
+    with pytest.raises(ValueError, match="power of two"):
+        wkv6.wkv6_chunked_plain(*tx, chunk=24)
 
 
 # -- the rwkv6 model against the JAX Model --------------------------------------
