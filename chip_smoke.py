@@ -5,11 +5,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
 kernel's registers and spills from the ptxas report and (where the
 toolkit has ``cuobjdump``) the tensor-core instructions (HMMA) in each
 kernel's SASS, failing if flash or any decode kernel, at any head dim
-they are built for (16, 32, 64, 128), or chunked WKV-6 holds none or
-spills, and then:
+they are built for (16, 32, 64, 128), chunked WKV-6 or the chunked
+selective scan (N = 16 and 8) holds none or spills, and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
-   decode, the chunked and step WKV-6 kernels, the selective scan) against
+   decode, the chunked and step WKV-6 kernels, the chunked and step
+   selective-scan kernels) against
    its plain PyTorch version on the card (bf16, tolerance 2e-2 as
    ``tests/test_kernels.py``) at the main path's shapes and at edge
    shapes, and times kernel, plain version, one PyTorch library call where
@@ -19,15 +20,16 @@ spills, and then:
    at 8, 16, 32 and 64, bit-equal to dense; all four decode kernels also
    at starcoder2-15b's 12 query heads per kv head; flash and the four
    decode kernels at head dims 16 and 32, timed; an int8 code view off a
-   16-byte boundary refused; chunked WKV-6 at a 512-token prefill and at
-   its edge cases, step WKV-6 and the scan at a decode round's shape,
-   B=8 and S=1);
+   16-byte boundary refused; chunked WKV-6 at a 512-token prefill and
+   the chunked scan at hymba's 640-row prefill, each at its edge cases,
+   step WKV-6 and the step scan at a decode round's shape, B=8 and S=1);
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
    and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
    model (head size 64; its 37-token prefill through chunked WKV-6) and
    a 2-layer hybrid with hymba-1.5b's head geometry (d=1600, 25 query and
-   5 kv heads of 64, N=16) run prefill and decode, on the card through
+   5 kv heads of 64, N=16; its 77-row prefill through the chunked scan)
+   run prefill and decode, on the card through
    the kernels, against the same weights in f32 on the CPU through the
    plain versions; then ``serve.main --reduced`` serves qwen2-7b's and
    hymba-1.5b's reduced configs (head dim 16) on the card;
@@ -722,7 +724,8 @@ def small_head_dims(dev) -> None:
 def reduced_serve() -> None:
     """``python -m repro_torch.launch.serve --reduced`` on the card:
     qwen2-7b's and hymba-1.5b's reduced configs (head dim 16; hymba's SSM
-    state 8) through ``serve.main``, with their launch counts."""
+    state 8, its 20-row prefills through the chunked scan) through
+    ``serve.main``, with their launch counts."""
     import contextlib
     import io
     import re
@@ -740,7 +743,7 @@ def reduced_serve() -> None:
     if not m or m.group(1) != m.group(2) or m.group(2) != "8":
         raise AssertionError(f"reduced serve: {text[-2000:]}")
     if any(counts[k] == 0 for k in ("flash_attention", "decode_attention",
-                                    "ssm_scan")):
+                                    "ssm_chunked", "ssm_step")):
         raise AssertionError(f"reduced serve: kernel launches {counts}")
     log(f"reduced serve (serve.main --reduced, qwen2-7b and hymba-1.5b, "
         f"head dim 16) on the card: {m.group(0)}; launches {counts}")
@@ -795,28 +798,47 @@ def flash_hymba(rand, rand_extra) -> None:
 
 
 def ssm_kernel(rng, dev) -> dict:
-    """The selective-scan kernel at hymba's batch-1 prefill of a 512-token
-    prompt plus 128 meta tokens (25 heads of 64, N=16) from a zero state,
-    at a decode step of 8 slots, and at edge shapes: S=1 at B=1, a ragged
-    S=77, S=300 (past the Pallas kernel's 256-step block), nonzero states.
-    Inputs as the hybrid layer makes them: dt = softplus(.) in bf16,
-    a_log at the ``small`` init scale."""
+    """The two selective-scan kernels (hymba-1.5b: 25 heads of 64, N=16):
+    the chunked one at a batch-1 prefill of a 512-token prompt plus 128
+    meta tokens from a zero state, the step one at a decode round (B=8,
+    S=1), each timed (device time split by CUDA kernel); and edge cases
+    through the scan: S=1 at B=1, a ragged S=77, S=300 (past the Pallas
+    kernel's 256-step block), nonzero states, the threshold's S - 1, S and
+    S + 1, strong decay (a_log = log(1..N) + 2, dt = softplus(N + 2): a
+    chunk's exponent reaches hundreds) and weak decay (dt = 1e-3), S=2048
+    from a nonzero state, N=8 at D=16 (the reduced hymba), and a scan split
+    at step 777 equal to the whole.  Inputs as the hybrid layer makes
+    them: dt = softplus(.) in bf16, a_log at the ``small`` init scale."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssm_scan
 
-    def inputs(b, s, h, state_scale):
+    def inputs(b, s, h, state_scale, decay="mild", d=64, n=16):
         def rand(*shape):
             return torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev)
         bf = torch.bfloat16
-        return (rand(b, s, h, 64).to(bf), F.softplus(rand(b, s, h)).to(bf),
-                (rand(h, 16) * 0.02).to(bf), rand(b, s, h, 16).to(bf),
-                rand(b, s, h, 16).to(bf), rand(b, h, 64, 16) * state_scale)
+        z = rand(b, s, h)
+        dt = {"mild": F.softplus(z), "strong": F.softplus(z + 2),
+              "weak": torch.full_like(z, 1e-3)}[decay]
+        a_log = torch.log(torch.arange(1.0, n + 1, device=dev)).repeat(
+            h, 1) + 2 if decay == "strong" else rand(h, n) * 0.02
+        return (rand(b, s, h, d).to(bf), dt.to(bf), a_log.to(bf),
+                rand(b, s, h, n).to(bf), rand(b, s, h, n).to(bf),
+                rand(b, h, d, n) * state_scale)
 
-    def check(name, x):
+    def check(name, x, kernel=None):
+        before = (ssm_scan.ssm_step.launches, ssm_scan.ssm_chunked.launches)
         y, st = ssm_scan.ssm_scan(*x)
+        took = "chunked" if ssm_scan.ssm_chunked.launches > before[1] \
+            else "step"
+        want = "chunked" if x[0].shape[1] >= ssm_scan.CHUNKED_MIN_S \
+            else "step"
+        if took != want or (kernel and kernel != took):
+            raise AssertionError(f"{name}: ran the {took} kernel")
         py, pst = ssm_scan.ssm_scan_plain(*x)
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(st).all()):
+            raise AssertionError(f"{name}: non-finite output")
         close(f"{name} state", st, pst)
         return close(name, y, py)
 
@@ -829,31 +851,66 @@ def ssm_kernel(rng, dev) -> dict:
 
     b, s, h = 1, 640, 25
     main = inputs(b, s, h, 0.0)
-    err = check("ssm main (prefill)", main)
+    err = check("ssm main (prefill)", main, "chunked")
     decode = inputs(8, 1, h, 1.0)
-    decode_err = check("ssm decode step (B=8 S=1)", decode)
-    for shape in [(1, 1, 25, 1.0), (1, 77, 25, 1.0), (1, 300, 25, 1.0),
-                  (2, 33, 4, 3.0)]:
-        check(f"ssm edge (B, S, H, state scale)={shape}", inputs(*shape))
+    decode_err = check("ssm decode step (B=8 S=1)", decode, "step")
+    t = ssm_scan.CHUNKED_MIN_S
+    for shape in [(1, 1, h, 1.0), (1, 77, h, 1.0), (1, 300, h, 1.0),
+                  (2, 33, 4, 3.0), (1, t - 1, h, 1.0), (1, t, h, 1.0),
+                  (1, t + 1, h, 1.0), (1, 640, h, 1.0, "strong"),
+                  (1, 640, h, 1.0, "weak"), (1, 2048, h, 1.0),
+                  (2, 77, 4, 1.0, "mild", 16, 8),
+                  (1, 640, 4, 1.0, "strong", 16, 8)]:
+        check(f"ssm edge (B, S, H, state scale, decay, D, N)={shape}",
+              inputs(*shape))
+    x, dt, a_log, bm, cm, st0 = inputs(1, 2048, h, 1.0)
+    whole, st_whole = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st0)
+    head, st_mid = ssm_scan.ssm_scan(x[:, :777], dt[:, :777], a_log,
+                                     bm[:, :777], cm[:, :777], st0)
+    tail, st_end = ssm_scan.ssm_scan(
+        *(v[:, 777:].contiguous() for v in (x, dt)), a_log,
+        *(v[:, 777:].contiguous() for v in (bm, cm)), st_mid)
+    close("ssm split at 777 == whole", torch.cat([head, tail], 1), whole)
+    close("ssm split at 777 == whole, state", st_end, st_whole)
+    log(f"ssm: the step kernel below S={t}, the chunked kernel from S={t}; "
+        f"edge cases (threshold, strong and weak decay, S=2048, N=8, split "
+        f"== whole) within {TOL} of the plain scan")
     flops, io = cost(b, s, h)
     n = copies_for(io)
-    sets = [[x.clone() for x in main] for _ in range(n)]
-    dflops, dio = cost(8, 1, h)
-    dsets = [[x.clone() for x in decode] for _ in range(copies_for(dio))]
-    dbnd, dby = bound(dflops, dio)
-    calls = [lambda x=x: ssm_scan.ssm_scan(*x) for x in dsets]
-    log(f"kernel ssm_scan at a decode step (B=8 S=1 H=25 D=64 N=16): "
-        f"max_abs_err={decode_err} ms={time_ms(calls)} "
-        f"device_ms={device_ms(calls)} bound_ms={dbnd} ({dby})")
+    sets = [[v.clone() for v in main] for _ in range(n)]
     bnd, by = bound(flops, io)
-    return {"ssm_scan": dict(
-        route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
-        replaces="src/repro/kernels/ssm_scan.py:60", max_abs_err=err,
-        bound_ms=bnd, bound_by=by,
-        shape="B=1 S=640 H=25 D=64 N=16 bf16, f32 state",
-        **kernel_times([lambda x=x: ssm_scan.ssm_scan(*x) for x in sets],
-                       [lambda x=x: ssm_scan.ssm_scan_plain(*x)
-                        for x in sets], plain_iters=3))}
+    dflops, dio = cost(8, 1, h)
+    dsets = [[v.clone() for v in decode] for _ in range(copies_for(dio))]
+    dbnd, dby = bound(dflops, dio)
+    step_at_prefill = device_ms([lambda v=v: ssm_scan.ssm_step(*v)
+                                 for v in sets])
+    log(f"ssm: the step kernel at the prefill shape (B=1 S=640 H=25), for "
+        f"comparison: device_ms={step_at_prefill}")
+    for label, shape in (("B=1 (100 CTAs)", (1, 640, h)),
+                         ("B=2 (200 CTAs: two waves?)", (2, 640, h)),
+                         ("S=2048 (128 chunks)", (1, 2048, h))):
+        more = inputs(*shape, 0.0)
+        log(f"ssm: the chunked kernel at {label}: device_ms="
+            f"{device_ms([lambda: ssm_scan.ssm_chunked(*more)])}")
+    return {
+        "ssm_chunked": dict(
+            route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+            replaces="src/repro/kernels/ssm_scan.py:60", max_abs_err=err,
+            bound_ms=bnd, bound_by=by,
+            shape="B=1 S=640 H=25 D=64 N=16 bf16, f32 state (prefill)",
+            **kernel_times([lambda v=v: ssm_scan.ssm_scan(*v) for v in sets],
+                           [lambda v=v: ssm_scan.ssm_scan_plain(*v)
+                            for v in sets], plain_iters=3,
+                           label="ssm chunked")),
+        "ssm_step": dict(
+            route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+            replaces="src/repro/kernels/ssm_scan.py:60",
+            max_abs_err=decode_err, bound_ms=dbnd, bound_by=dby,
+            shape="B=8 S=1 H=25 D=64 N=16 bf16, f32 state (a decode round)",
+            **kernel_times([lambda v=v: ssm_scan.ssm_scan(*v)
+                            for v in dsets],
+                           [lambda v=v: ssm_scan.ssm_scan_plain(*v)
+                            for v in dsets], label="ssm step"))}
 
 
 # --------------------------------------------------------------------------
@@ -1006,11 +1063,13 @@ def _reference_hybrid() -> None:
     and 5 kv heads of 64, N=16) and cuts that make the rolled cache work
     (window 1024 -> 64, meta tokens 128 -> 16; d_ff and the vocab cut
     too): a 61-token prompt plus 16 meta rows passes the window at prefill
-    (flash with the window, the scan over 77 steps), and 8 decode steps
-    (rolled attention, the scan at S=1) wrap the 64-row cache.  bf16 on
+    (flash with the window, the chunked scan over 77 steps), and 8 decode
+    steps (rolled attention, the step scan at S=1) wrap the 64-row cache.
+    bf16 on
     the card through the kernels against f32 on the CPU through the plain
     versions."""
     import torch
+    from repro_torch.kernels import ssm_scan
     from repro_torch.models import build_model
     from repro_torch.models.config import ModelConfig
 
@@ -1031,6 +1090,7 @@ def _reference_hybrid() -> None:
     prompt = rng.integers(0, cfg.vocab_size, (1, 61)).astype(np.int32)
     compare = Compare("hybrid reference")
     max_len = 64
+    chunked, step = ssm_scan.ssm_chunked.launches, ssm_scan.ssm_step.launches
     lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev),
                            max_len=max_len)
     lr, cr = model.prefill(p_ref, torch.as_tensor(prompt), max_len=max_len)
@@ -1039,11 +1099,16 @@ def _reference_hybrid() -> None:
         raise AssertionError(f"hybrid reference: cache rows "
                              f"{cg['k'].shape[2]}, pos {int(cg['pos'])}")
     tok = model.sample_greedy(lr)
-    for step in range(8):
+    for i in range(8):
         lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
         lr, cr = model.decode_step(p_ref, tok, cr)
-        compare(f"decode step {step}", lg, lr)
+        compare(f"decode step {i}", lg, lr)
         tok = model.sample_greedy(lr)
+    ran = (ssm_scan.ssm_chunked.launches - chunked,
+           ssm_scan.ssm_step.launches - step)
+    if ran != (cfg.n_layers, 8 * cfg.n_layers):
+        raise AssertionError(f"hybrid reference: (chunked, step) scan "
+                             f"launches {ran}")
     log(f"reference: 2-layer hybrid d=1600 (25 q / 5 kv heads of 64, N=16; "
         f"cut: window 1024 -> 64, meta 128 -> 16, d_ff 5504 -> 1024, V "
         f"32001 -> 1024), prefill of 61 tokens + 16 meta rows past the "
@@ -1159,7 +1224,8 @@ def serve_phase(rng) -> dict[str, int]:
                              f"{sizes}")
     hybrid_prompts = [p % cfg.vocab_size for p in prompts]
     serve_mode(model, params, HYBRID_ARCH, hybrid_prompts, alloc,
-               "continuous", {"flash_attention", "ssm_scan"}, totals)
+               "continuous", {"flash_attention", "ssm_chunked", "ssm_step"},
+               totals)
     profile_window(model, params, hybrid_prompts[:8], alloc, HYBRID_ARCH,
                    "continuous")
     return totals
@@ -1171,13 +1237,15 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     launch counts are set to 0 just before the run and read just after it.
     Checks that every request is served, one host sync per pass, the
     weights stored once, that the kernels in ``used`` ran and no other,
-    each once per layer and prefill (flash, chunked WKV-6), round (decode,
-    step WKV-6) or both (the selective scan, whose launches are logged
-    split by shape).  Returns the token streams."""
+    each once per layer and prefill (flash, chunked WKV-6, the chunked
+    scan) or round (decode, step WKV-6, the step scan), and that each
+    scan dispatcher launched once per layer and pass of either shape.
+    Returns the token streams."""
     import os
     import torch
     from repro_torch import kernels
     from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.kernels import ssm_scan, wkv6
     from repro_torch.launch import serve
     from repro_torch.serving import ServingEngine
 
@@ -1226,18 +1294,25 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         raise AssertionError(f"{arch} {mode}: kernel launches {counts}")
     prefills = sum(v["prefills"] for v in delta.values())
     rounds = sum(v["rounds"] for v in delta.values())
-    for k in used:  # one launch per layer and prefill, round, or both
-        per = {"flash_attention": prefills, "wkv6_chunked": prefills,
-               "ssm_scan": prefills + rounds}.get(k, rounds)
+    for k in used:  # one launch per layer and prefill, or round
+        per = prefills if k in {"flash_attention", "wkv6_chunked",
+                                "ssm_chunked"} else rounds
         if counts[k] != model.cfg.n_layers * per:
             raise AssertionError(
                 f"{arch} {mode}: {counts[k]} {k} launches for {prefills} "
                 f"prefills and {rounds} rounds of {model.cfg.n_layers} "
                 f"layers")
-    for k in used & {"ssm_scan"}:
-        log(f"serve {arch} {mode}: {k} launches by shape: "
-            f"{model.cfg.n_layers * prefills} at prefill (S = prompt), "
-            f"{model.cfg.n_layers * rounds} in rounds (S = 1)")
+    for scan, pair in ((wkv6.wkv6_scan, ("wkv6_chunked", "wkv6_step")),
+                       (ssm_scan.ssm_scan, ("ssm_chunked", "ssm_step"))):
+        if scan.launches != sum(counts[k] for k in pair):
+            raise AssertionError(f"{arch} {mode}: {scan.__name__} launched "
+                                 f"{scan.launches} times, its kernels "
+                                 f"{[counts[k] for k in pair]}")
+    if "ssm_chunked" in used:
+        log(f"serve {arch} {mode}: scan launches by kernel: ssm_chunked "
+            f"{counts['ssm_chunked']} = {model.cfg.n_layers} layers x "
+            f"{prefills} prefills, ssm_step {counts['ssm_step']} = "
+            f"{model.cfg.n_layers} layers x {rounds} rounds")
     vocab = model.cfg.vocab_size
     for r in reqs:
         tok = np.asarray(r.tokens_out)
@@ -1322,15 +1397,19 @@ TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
                        "paged_decode_q8_kernel")
 KERNEL_NAMES = TENSOR_CORE_KERNELS + ("combine_kernel", "wkv6_kernel",
                                       "wkv6_chunked_kernel",
-                                      "ssm_scan_kernel")
+                                      "ssm_scan_kernel",
+                                      "ssm_chunked_kernel")
 
 
 def tensor_core_builds() -> list[str]:
     """Every built kernel that must run on the tensor cores without
-    spilling: the attention kernels at each head dim, and chunked WKV-6."""
+    spilling: the attention kernels at each head dim, chunked WKV-6, and
+    the chunked scan at each state size."""
     from repro_torch.kernels.build import HEAD_DIMS
+    from repro_torch.kernels.ssm_scan import STATE_SIZES
     return [f"{k}<{d}>" for k in TENSOR_CORE_KERNELS for d in HEAD_DIMS] \
-        + ["wkv6_chunked_kernel"]
+        + ["wkv6_chunked_kernel"] \
+        + [f"ssm_chunked_kernel<{n}>" for n in STATE_SIZES]
 
 
 def _short(mangled: str) -> str:

@@ -156,41 +156,6 @@ __device__ __forceinline__ void producers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kProducers) : "memory");
 }
 
-// x as bf16 hi + lo halves: hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void split_store(float x, __nv_bfloat16* hi,
-                                            __nv_bfloat16* lo) {
-  const __nv_bfloat16 h = __float2bfloat16(x);
-  *hi = h;
-  *lo = __float2bfloat16(x - __bfloat162float(h));
-}
-
-// (x0, x1) as packed bf16 pairs: hi halves, then the lo halves.
-__device__ __forceinline__ void split_pack(float x0, float x1, unsigned& hi,
-                                           unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const unsigned*>(&h);
-  lo = pack_bf16(x0 - f.x, x1 - f.y);
-}
-
-// 2^x without the subnormal range (the factors here are at most 1, and one
-// below 2^-126 is as good as 0).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 8 bf16 (16 bytes) to floats.
-__device__ __forceinline__ void unpack8(uint4 bits, float* f) {
-  const unsigned words[4] = {bits.x, bits.y, bits.z, bits.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    f[2 * e] = __uint_as_float(words[e] << 16);
-    f[2 * e + 1] = __uint_as_float(words[e] & 0xffff0000u);
-  }
-}
-
 // 8 floats (two 16-byte loads).
 __device__ __forceinline__ void load8(const float* p, float* f) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];

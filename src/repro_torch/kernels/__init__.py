@@ -16,13 +16,14 @@ KERNELS = {
     "paged_decode_attention_quant": _decode.paged_decode_attention_quant,
     "wkv6_step": _wkv6.wkv6_step,
     "wkv6_chunked": _wkv6.wkv6_chunked,
-    "ssm_scan": _ssm.ssm_scan,
+    "ssm_step": _ssm.ssm_step,
+    "ssm_chunked": _ssm.ssm_chunked,
 }
 
 
 # Ops that pick one of the kernels above by shape; each counts its launches
 # of any of them.
-DISPATCHERS = (_wkv6.wkv6_scan,)
+DISPATCHERS = (_wkv6.wkv6_scan, _ssm.ssm_scan)
 
 
 def launch_counts() -> dict[str, int]:

@@ -50,6 +50,8 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_ssm_scan_bf16":
         (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_ssm_chunked_bf16":
+        (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,15 +1,19 @@
-"""Mamba-style selective scan (the Hymba SSM heads): CUDA kernel wrapper,
-plain version, launch counter.
+"""Mamba-style selective scan (the Hymba SSM heads): CUDA kernel wrappers,
+plain versions, launch counters.
 
-Kernel: ``csrc/ssm_scan.cu`` (replaces ``repro/kernels/ssm_scan.py::
-ssm_scan_pallas``; the source note there says what bounds it and what its
-design does about it).  Plain version: the f32 scan of
-``repro/kernels/ops.py::ssm_scan`` (xla path, ops.py:515-548) as a loop
-over time.
+Kernels: ``csrc/ssm_scan.cu`` (both replace ``repro/kernels/ssm_scan.py::
+ssm_scan_pallas``; the source note there says what bounds them and what
+their design does about it): a step kernel for ``S < CHUNKED_MIN_S`` (a
+decode round, S = 1) and a chunked kernel on the tensor cores from there
+up (prefill).  Each shape has exactly one kernel.  Plain version: the f32
+scan of ``repro/kernels/ops.py::ssm_scan`` (xla path, ops.py:515-548) as a
+loop over time.  ``ssm_chunked_plain`` repeats the chunked kernel's
+algorithm for the tests; nothing on the serving path calls it.
 
-The wrapper takes the plain version for a tensor on the CPU and launches
-the kernel for a CUDA tensor, or raises; ``ssm_scan.launches`` counts
-kernel launches.
+``ssm_scan`` takes the plain version for a tensor on the CPU and launches
+a kernel for a CUDA tensor, or raises.  ``ssm_scan.launches`` counts its
+launches of either kernel; ``ssm_step.launches`` and
+``ssm_chunked.launches`` count each kernel's own.
 """
 
 from __future__ import annotations
@@ -18,8 +22,10 @@ import torch
 
 from repro_torch.kernels import build
 
-STATE_SIZES = (8, 16)  # the kernel's N: hymba's ssm_state, and its reduced one
-ROWS = 16        # state rows (of D) per CTA: D must be a multiple
+STATE_SIZES = (8, 16)  # the kernels' N: hymba's ssm_state, and its reduced one
+ROWS = 16           # state rows (of D) per CTA: D must be a multiple
+CHUNK = 16          # steps per chunk of the chunked kernel (one mma k16)
+CHUNKED_MIN_S = 16  # S from which the chunked kernel runs: one chunk
 
 
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -44,17 +50,75 @@ def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), st.to(state.dtype)
 
 
-def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, state: torch.Tensor
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The selective scan over S >= 1 steps from ``state``; returns (y
-    (B,S,H,D), final state (B,H,D,N)).  On the card: x, dt, a_log, b, c
-    bf16, state f32, N = 8 or 16, D a multiple of 16; y bf16, the state f32 in
-    a new buffer."""
-    if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, a_log, b, c, state)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssm_scan: no kernel for {x.device}")
+def ssm_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, state: torch.Tensor,
+                      chunk: int = CHUNK
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel's algorithm in f32, for the tests: the same
+    function as ``ssm_scan_plain``.  Per chunk of ``chunk`` steps (a power
+    of two; rows past S are zero, dt = 0 there), with L the running sum of
+    dt from the chunk's start (inclusive) and k_s = dt_s b_s:
+
+    * the inter-chunk term (c_t . e^{A L_t}) S_0 (y reads the state after
+      step t, so the decay includes step t's own);
+    * the scores P[t][s] = sum_n c_t[n] k_s[n] e^{A_n (L_t - L_s)} (s < t),
+      each factored through a boundary between s and t: with z the highest
+      power of two in t XOR s, ref = (t // z) z - 1, the last step of the
+      z-block just below t's, and P = Q_z Q_z^T masked to the pairs of
+      level z, where Q_z holds c_t e^{A (L_t - L_ref)} on rows t in an odd
+      z-block and k_s e^{A (L_ref' - L_s)} (ref' the last step of s's own
+      z-block) on the others; c_t . k_t (exponent 0) on the diagonal;
+    * S_L = e^{A L_L} . S_0 + sum_s x_s (x) (k_s . e^{A (L_L - L_s)}).
+
+    No exponent is positive, whatever dt and A."""
+    if chunk < 1 or chunk & (chunk - 1):
+        raise ValueError(f"chunk {chunk} is not a power of two")
+    bsz, s, h, d = x.shape
+    a = -torch.exp(a_log.float())  # (H, N)
+    xf, dtf, bf, cf = (t.float() for t in (x, dt, b, c))
+    st = state.float()
+    y = torch.empty((bsz, s, h, d), dtype=torch.float32, device=x.device)
+    rows = torch.arange(chunk, device=x.device)
+
+    def decay(delta):  # (B, L, H) -> e^{A delta}, (B, L, H, N)
+        return torch.exp(delta[..., None] * a)
+
+    for c0 in range(0, s, chunk):
+        m = min(chunk, s - c0)
+
+        def take(t):
+            out = t.new_zeros((bsz, chunk) + t.shape[2:])
+            out[:, :m] = t[:, c0:c0 + m]
+            return out
+
+        xc, dtc, bc, cc = (take(t) for t in (xf, dtf, bf, cf))
+        lam = torch.cumsum(dtc, dim=1)  # (B, L, H)
+        k = dtc[..., None] * bc
+        yc = torch.einsum("bthn,bhdn->bthd", cc * decay(lam), st)
+        p = torch.diag_embed(torch.einsum("bthn,bthn->bht", cc, k))
+        z = chunk // 2
+        while z >= 1:
+            block = rows // z
+            upper = (block % 2 == 1)[None, :, None, None]
+            ref_t = (block * z - 1).clamp(min=0)        # rows in odd blocks
+            ref_s = block * z + z - 1                   # rows in even blocks
+            q = torch.where(upper, cc * decay(lam - lam[:, ref_t]),
+                            k * decay(lam[:, ref_s] - lam))
+            xor = rows[:, None] ^ rows[None, :]
+            level = (xor >= z) & (xor < 2 * z) & (rows[:, None] > rows[None, :])
+            p = p + torch.einsum("bthn,bshn->bhts", q, q) * level
+            z //= 2
+        yc = yc + torch.einsum("bhts,bshd->bthd", p, xc)
+        y[:, c0:c0 + m] = yc[:, :m]
+        lam_end = lam[:, -1]  # (B, H)
+        st = torch.exp(lam_end[..., None] * a)[:, :, None, :] * st \
+            + torch.einsum("bshd,bshn->bhdn", xc,
+                           k * decay(lam_end[:, None] - lam))
+    return y.to(x.dtype), st.to(state.dtype)
+
+
+def _launch(name: str, fn: str, x, dt, a_log, b, c, state
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     bsz, s, h, d = x.shape
     n = a_log.shape[-1]
     if (n not in STATE_SIZES or d % ROWS or s < 1
@@ -63,7 +127,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
             or any(tuple(t.shape) != (bsz, s, h, n) for t in (b, c))
             or tuple(state.shape) != (bsz, h, d, n)):
         raise ValueError(
-            f"ssm_scan: bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
+            f"{name}: bad shapes x{tuple(x.shape)} dt{tuple(dt.shape)} "
             f"a_log{tuple(a_log.shape)} b{tuple(b.shape)} "
             f"c{tuple(c.shape)} state{tuple(state.shape)} (N must be one "
             f"of {STATE_SIZES}, D a multiple of {ROWS})")
@@ -71,17 +135,55 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     new_state = torch.empty_like(state)
     bf16, f32 = torch.bfloat16, torch.float32
     ptrs = build.pointers(
-        "ssm_scan", x.device,
-        {"x": (x, bf16), "dt": (dt, bf16), "a_log": (a_log, bf16),
-         "b": (b, bf16), "c": (c, bf16), "state": (state, f32),
-         "y": (y, bf16), "new_state": (new_state, f32)})
+        name, x.device,
+        {"x": (x, bf16), "dt": (dt, bf16, 2), "a_log": (a_log, bf16, 2),
+         "b": (b, bf16), "c": (c, bf16), "state": (state, f32, 4),
+         "y": (y, bf16), "new_state": (new_state, f32, 4)}, align=16)
     with torch.cuda.device(x.device):
-        err = build.library().repro_ssm_scan_bf16(
+        err = getattr(build.library(), fn)(
             *ptrs, bsz, s, h, d, n,
             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "ssm_scan")
-    ssm_scan.launches += 1
+    build.check(err, name)
     return y, new_state
 
 
+def ssm_step(x, dt, a_log, b, c, state) -> tuple[torch.Tensor, torch.Tensor]:
+    """The step kernel on CUDA tensors (any S >= 1; the scan takes it below
+    ``CHUNKED_MIN_S``)."""
+    result = _launch("ssm_step", "repro_ssm_scan_bf16", x, dt, a_log, b, c,
+                     state)
+    ssm_step.launches += 1
+    return result
+
+
+def ssm_chunked(x, dt, a_log, b, c, state
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked kernel on CUDA tensors (any S >= 1; the scan takes it
+    from ``CHUNKED_MIN_S`` up)."""
+    result = _launch("ssm_chunked", "repro_ssm_chunked_bf16", x, dt, a_log,
+                     b, c, state)
+    ssm_chunked.launches += 1
+    return result
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, state: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan over S >= 1 steps from ``state``; returns (y
+    (B,S,H,D), final state (B,H,D,N)).  On the card: x, dt, a_log, b, c
+    bf16, state f32, N = 8 or 16, D a multiple of 16; y bf16, the state f32
+    in a new buffer; the step kernel below ``CHUNKED_MIN_S`` steps, the
+    chunked kernel from there."""
+    if x.device.type == "cpu":
+        return ssm_scan_plain(x, dt, a_log, b, c, state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan: no kernel for {x.device}")
+    kernel = ssm_chunked if x.shape[1] >= CHUNKED_MIN_S else ssm_step
+    result = kernel(x, dt, a_log, b, c, state)
+    ssm_scan.launches += 1
+    return result
+
+
+ssm_step.launches = 0
+ssm_chunked.launches = 0
 ssm_scan.launches = 0

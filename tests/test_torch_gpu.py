@@ -369,33 +369,112 @@ def test_wkv6_split_scan_equals_whole(cuda_device):
         torch.testing.assert_close(st_end, st_whole, atol=2e-2, rtol=2e-2)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,state_scale", [
-    (1, 640, 25, 0.0),   # hymba prefill: 512-token prompt + 128 meta rows
-    (8, 1, 25, 1.0),     # a decode step of 8 slots
-    (1, 1, 25, 1.0),     # S = 1 at B = 1
-    (1, 77, 25, 1.0),    # S not a multiple of the 64-step chunk
-    (1, 300, 25, 1.0),   # past the Pallas kernel's 256-step block
-    (2, 33, 4, 3.0)])    # nonzero initial states, another head count
-def test_ssm_kernel_vs_plain(cuda_device, b, s, h, state_scale):
-    from repro_torch.kernels import ssm_scan
-    rng = np.random.default_rng(s + h)
-    x = _cuda_rand(rng, (b, s, h, 64), cuda_device)
-    dt = torch.nn.functional.softplus(
-        _cuda_rand(rng, (b, s, h), cuda_device).float()).to(torch.bfloat16)
-    a_log = (_cuda_rand(rng, (h, 16), cuda_device).float() * 0.02).to(
-        torch.bfloat16)
-    bm, cm = (_cuda_rand(rng, (b, s, h, 16), cuda_device) for _ in range(2))
-    st = (torch.from_numpy(rng.normal(size=(b, h, 64, 16)).astype(
-        np.float32)) * state_scale).to(cuda_device)
-    before = ssm_scan.ssm_scan.launches
-    y, new = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st)
-    torch.cuda.synchronize()
-    assert ssm_scan.ssm_scan.launches == before + 1
-    want_y, want_st = ssm_scan.ssm_scan_plain(x, dt, a_log, bm, cm, st)
+def _ssm_inputs(rng, b, s, h, device, d=64, n=16, decay="mild",
+                state_scale=1.0):
+    """x, dt, a_log, b, c, state on the card, as the hybrid layer makes
+    them: dt = softplus(.) in bf16, a_log at the ``small`` init scale
+    ("mild"); "strong": a_log = log(1..N) + 2 and dt = softplus(N + 2) (a
+    16-step chunk's exponent reaches hundreds); "weak": dt = 1e-3."""
+    x = _cuda_rand(rng, (b, s, h, d), device)
+    z = torch.from_numpy(rng.normal(size=(b, s, h)).astype(np.float32))
+    dt = {"mild": torch.nn.functional.softplus(z),
+          "strong": torch.nn.functional.softplus(z + 2.0),
+          "weak": torch.full_like(z, 1e-3)}[decay]
+    a_log = torch.log(torch.arange(1.0, n + 1)).repeat(h, 1) + 2.0 \
+        if decay == "strong" else torch.from_numpy(
+            rng.normal(size=(h, n)).astype(np.float32)) * 0.02
+    bm, cm = (_cuda_rand(rng, (b, s, h, n), device) for _ in range(2))
+    st = (torch.from_numpy(rng.normal(size=(b, h, d, n)).astype(
+        np.float32)) * state_scale).to(device)
+    return (x, dt.to(device).to(torch.bfloat16),
+            a_log.to(device).to(torch.bfloat16), bm, cm, st)
+
+
+def _ssm_close(got, want):
+    (y, st), (want_y, want_st) = got, want
+    assert torch.isfinite(y.float()).all() and torch.isfinite(st).all()
     torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
                                rtol=2e-2)
-    torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(st, want_st, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,decay,state_scale", [
+    (1, 640, 25, "mild", 0.0),   # hymba prefill: 512-token prompt + 128 meta
+    (8, 1, 25, "mild", 1.0),     # a decode step of 8 slots
+    (1, 1, 25, "mild", 1.0),     # S = 1 at B = 1
+    (1, 77, 25, "mild", 1.0),    # S not a multiple of a chunk
+    (1, 300, 25, "mild", 1.0),   # past the Pallas kernel's 256-step block
+    (2, 33, 4, "mild", 3.0),     # nonzero initial states, another head count
+    (1, 15, 25, "mild", 1.0),    # CHUNKED_MIN_S - 1, S and S + 1
+    (1, 16, 25, "mild", 1.0),
+    (1, 17, 25, "mild", 1.0),
+    (1, 640, 25, "strong", 1.0),
+    (1, 640, 25, "weak", 1.0),
+    (1, 2048, 25, "mild", 1.0)])  # a long prompt from a nonzero state
+def test_ssm_kernel_vs_plain(cuda_device, b, s, h, decay, state_scale):
+    """The scan on the card takes the step kernel below CHUNKED_MIN_S and
+    the chunked kernel from there; each against the plain scan."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(s + h)
+    x = _ssm_inputs(rng, b, s, h, cuda_device, decay=decay,
+                    state_scale=state_scale)
+    before = (ssm_scan.ssm_scan.launches, ssm_scan.ssm_step.launches,
+              ssm_scan.ssm_chunked.launches)
+    got = ssm_scan.ssm_scan(*x)
+    torch.cuda.synchronize()
+    chunked = s >= ssm_scan.CHUNKED_MIN_S
+    assert (ssm_scan.ssm_scan.launches, ssm_scan.ssm_step.launches,
+            ssm_scan.ssm_chunked.launches) == (
+        before[0] + 1, before[1] + (not chunked), before[2] + chunked)
+    _ssm_close(got, ssm_scan.ssm_scan_plain(*x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["step", "chunked"])
+@pytest.mark.parametrize("d,n", [(16, 8), (64, 16)])
+def test_ssm_kernel_short_sequences(cuda_device, kernel, d, n):
+    """Each kernel alone takes any S >= 1: S = 1, 2, 16, 31 and 33, at
+    strong decay."""
+    from repro_torch.kernels import ssm_scan
+    fn = {"step": ssm_scan.ssm_step, "chunked": ssm_scan.ssm_chunked}[kernel]
+    rng = np.random.default_rng(16 + n)
+    for s in (1, 2, 16, 31, 33):
+        x = _ssm_inputs(rng, 2, s, 4, cuda_device, d, n, "strong")
+        _ssm_close(fn(*x), ssm_scan.ssm_scan_plain(*x))
+
+
+@pytest.mark.gpu
+def test_ssm_split_scan_equals_whole(cuda_device):
+    """A 2048-step scan split at step 777 (the state carried across the
+    calls) and at step 5 (a step-kernel head) equals the whole scan."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(18)
+    x, dt, a_log, bm, cm, st = _ssm_inputs(rng, 1, 2048, 25, cuda_device)
+    whole, st_whole = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st)
+    for cut in (777, 5):
+        head, st_mid = ssm_scan.ssm_scan(
+            *(t[:, :cut] for t in (x, dt)), a_log,
+            *(t[:, :cut] for t in (bm, cm)), st)
+        tail, st_end = ssm_scan.ssm_scan(
+            *(t[:, cut:].contiguous() for t in (x, dt)), a_log,
+            *(t[:, cut:].contiguous() for t in (bm, cm)), st_mid)
+        _ssm_close((torch.cat([head, tail], 1), st_end), (whole, st_whole))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 640])
+def test_ssm_kernel_bad_shapes_raise(cuda_device, s):
+    """D not a multiple of 16, or N not 8 or 16, is refused at either
+    shape, with no launch counted."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(19)
+    before = ssm_scan.ssm_scan.launches
+    for d, n in ((8, 16), (64, 4)):
+        x = _ssm_inputs(rng, 1, s, 2, cuda_device, d, n)
+        with pytest.raises(ValueError, match="bad shapes"):
+            ssm_scan.ssm_scan(*x)
+    assert ssm_scan.ssm_scan.launches == before
 
 
 @pytest.mark.gpu
@@ -479,10 +558,11 @@ def test_decode_kernels_small_head_dims(cuda_device, d, bs):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("s", [1, 77])
+@pytest.mark.parametrize("s", [1, 77, 16, 640])
 def test_ssm_kernel_state_size_8(cuda_device, s):
     """The selective scan at the reduced hymba's state size N = 8 (4 heads
-    of 16), at a round and at a prefill."""
+    of 16), at a round (the step kernel) and at prefills (the chunked
+    kernel: one chunk, ragged, long)."""
     from repro_torch.kernels import ssm_scan
     rng = np.random.default_rng(s)
     b, h, d, n = 2, 4, 16, 8

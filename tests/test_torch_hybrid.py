@@ -10,6 +10,12 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances, each with its reason:
 * selective scan: 2e-5 in f32 (sums in another order) and 2e-2 in bf16
   (outputs round to bf16), as ``test_kernels.test_ssm_pallas_vs_ref``;
+* the chunked algorithm (``ssm_chunked_plain``, the chunked kernel's): in
+  f32, 1e-4 relative plus 1e-4 times the mean |reference| absolute — it
+  sums in another order (chunk sums of dt, scores, then the state
+  update), and the f32 rounding of either side grows with the size of the
+  terms summed, not with each output's own value (near-zero outputs are
+  sums of terms as large as the others); 2e-2 in bf16;
 * rolled decode: 2e-5 (f32 softmax over the same rows);
 * model logits with f32 params: prefill 2e-5 (f32 end to end; prefill
   logits do not read the bf16 cache); decode 1e-3 — the K/V pools are
@@ -62,14 +68,20 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
-def _ssm_inputs(rng, b, s, h, d, n, dtype, state_scale=1.0):
+def _ssm_inputs(rng, b, s, h, d, n, dtype, state_scale=1.0, decay="mild"):
     """x, dt, a_log, b, c, state in both frameworks, drawn as
     ``test_kernels`` draws them: dt a small positive step, a_log f32, the
-    state f32 and nonzero."""
+    state f32 and nonzero.  ``decay="strong"``: a_log = log(1..N) + 2 and
+    dt = softplus(N(0, 1) + 2), so a 16-step chunk's exponent reaches the
+    hundreds; ``"weak"``: dt = 1e-3."""
     jd, td = DTYPES[dtype]
-    xs = [rng.normal(size=(b, s, h, d)),
-          np.abs(rng.normal(size=(b, s, h)) * 0.1),
-          rng.normal(size=(h, n)) * 0.2,
+    dt = {"mild": lambda: np.abs(rng.normal(size=(b, s, h)) * 0.1),
+          "strong": lambda: np.logaddexp(0.0, rng.normal(size=(b, s, h))
+                                         + 2.0),
+          "weak": lambda: np.full((b, s, h), 1e-3)}[decay]()
+    a_log = np.tile(np.log(np.arange(1.0, n + 1)) + 2.0, (h, 1)) \
+        if decay == "strong" else rng.normal(size=(h, n)) * 0.2
+    xs = [rng.normal(size=(b, s, h, d)), dt, a_log,
           rng.normal(size=(b, s, h, n)),
           rng.normal(size=(b, s, h, n)),
           rng.normal(size=(b, h, d, n)) * state_scale]
@@ -137,6 +149,71 @@ def test_ssm_split_scan_and_single_steps(dtype):
                                    atol=1e-6)
         np.testing.assert_allclose(last.numpy(), st_whole.numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+def _chunked_tol(name, ref):
+    if name == "bf16":
+        return dict(rtol=2e-2, atol=2e-2)
+    return dict(rtol=1e-4, atol=1e-4 * float(np.abs(_np(ref)).mean()))
+
+
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 77, 300])
+@pytest.mark.parametrize("d,n", [(16, 8), (64, 16)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ssm_chunked_plain_vs_jax(s, d, n, dtype):
+    """The chunked kernel's algorithm against ``ops.ssm_scan`` (xla),
+    ``ref.ssm_reference`` and the Pallas kernel (interpret mode, one block
+    of S steps): below one chunk, at one chunk, one step past it, ragged,
+    long; at the reduced hymba's D = 16, N = 8 and hymba's D = 64, N = 16."""
+    rng = np.random.default_rng(400 + s + n)
+    jx, tx = _ssm_inputs(rng, 2, s, 2, d, n, dtype)
+    y, st = ssm_scan.ssm_chunked_plain(*tx)
+    assert y.dtype == tx[0].dtype and st.dtype == torch.float32
+    for jy, js in (jops.ssm_scan(*jx, backend="xla"),
+                   jref.ssm_reference(*jx),
+                   ssm_scan_pallas(*jx, block_t=s)):
+        np.testing.assert_allclose(_np(y), _np(jy), **_chunked_tol(dtype, jy))
+        np.testing.assert_allclose(st.numpy(), np.asarray(js),
+                                   **_chunked_tol(dtype, js))
+
+
+@pytest.mark.parametrize("decay,s", [("strong", 77), ("strong", 300),
+                                     ("weak", 300)])
+@pytest.mark.parametrize("chunk", [ssm_scan.CHUNK, 64])
+@pytest.mark.parametrize("n", [8, 16])
+def test_ssm_chunked_plain_decay_extremes(decay, s, chunk, n):
+    """Strong decay (no exponent the algorithm forms is positive, so no
+    overflow and the output stays finite) and weak decay (the state keeps
+    hundreds of steps), at the kernel's chunk and at a 64-step chunk (six
+    levels of boundaries instead of four)."""
+    rng = np.random.default_rng(500 + s + n)
+    jx, tx = _ssm_inputs(rng, 2, s, 2, 16, n, "f32", decay=decay)
+    y, st = ssm_scan.ssm_chunked_plain(*tx, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    jy, js = jops.ssm_scan(*jx, backend="xla")
+    np.testing.assert_allclose(_np(y), _np(jy), **_chunked_tol("f32", jy))
+    np.testing.assert_allclose(st.numpy(), np.asarray(js),
+                               **_chunked_tol("f32", js))
+
+
+def test_ssm_chunked_plain_split_equals_whole():
+    """A scan split at steps 37 and 160 (the state carried across calls,
+    so the chunks fall elsewhere) equals the whole scan."""
+    rng = np.random.default_rng(8)
+    _, tx = _ssm_inputs(rng, 2, 300, 2, 16, 16, "f32")
+    x, dt, a_log, bm, cm, st0 = tx
+    whole, st_whole = ssm_scan.ssm_chunked_plain(*tx)
+    ys, st = [], st0
+    for lo, hi in ((0, 37), (37, 160), (160, 300)):
+        y, st = ssm_scan.ssm_chunked_plain(x[:, lo:hi], dt[:, lo:hi], a_log,
+                                           bm[:, lo:hi], cm[:, lo:hi], st)
+        ys.append(y)
+    np.testing.assert_allclose(_np(torch.cat(ys, 1)), _np(whole),
+                               **_chunked_tol("f32", whole))
+    np.testing.assert_allclose(st.numpy(), st_whole.numpy(),
+                               **_chunked_tol("f32", st_whole))
+    with pytest.raises(ValueError, match="power of two"):
+        ssm_scan.ssm_chunked_plain(*tx, chunk=24)
 
 
 def test_ssm_wrapper_refuses_other_devices():

@@ -214,18 +214,31 @@ def test_wrappers_count_no_launch_on_cpu():
     da.paged_decode_attention_quant(q, codes, codes, scales, scales,
                                     torch.zeros((1, 1), dtype=torch.int32),
                                     one)
-    x = torch.zeros((1, 3, 2, 8))
     for s in (3, wkv6.CHUNKED_MIN_S):  # the step and the chunked shapes
         xs = torch.zeros((1, s, 2, 8))
         wkv6.wkv6_scan(xs, xs, xs, xs, torch.zeros((2, 8)),
                        torch.zeros((1, 2, 8, 8)))
-    ssm_scan.ssm_scan(x, x[..., 0], torch.zeros((2, 4)), x[..., :4],
-                      x[..., :4], torch.zeros((1, 2, 8, 4)))
+    for s in (3, ssm_scan.CHUNKED_MIN_S):  # the step and the chunked shapes
+        xs = torch.zeros((1, s, 2, 8))
+        ssm_scan.ssm_scan(xs, xs[..., 0], torch.zeros((2, 4)), xs[..., :4],
+                          xs[..., :4], torch.zeros((1, 2, 8, 4)))
     assert kernels.launch_counts() == {
         "flash_attention": 0, "decode_attention": 0,
         "paged_decode_attention": 0, "decode_attention_quant": 0,
         "paged_decode_attention_quant": 0, "wkv6_step": 0,
-        "wkv6_chunked": 0, "ssm_scan": 0}
-    assert wkv6.wkv6_scan.launches == 0
+        "wkv6_chunked": 0, "ssm_step": 0, "ssm_chunked": 0}
+    assert wkv6.wkv6_scan.launches == 0 and ssm_scan.ssm_scan.launches == 0
     with pytest.raises(ValueError):
         fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+
+
+def test_every_c_entry_point_has_a_signature():
+    """Each ``extern "C"`` entry point in ``csrc`` has its ctypes
+    signature in ``build.SIGNATURES``: without one, ctypes passes each
+    pointer and the stream as a 32-bit int."""
+    import re
+    from repro_torch.kernels import build
+    names = set()
+    for src in build.CSRC.glob("*.cu"):
+        names |= set(re.findall(r'extern "C" int (\w+)\(', src.read_text()))
+    assert names == set(build.SIGNATURES)
