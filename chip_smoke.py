@@ -2,11 +2,14 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
-kernel's registers and spills from the ptxas report and (where the
-toolkit has ``cuobjdump``) the tensor-core instructions (HMMA) in each
-kernel's SASS, failing if flash or any decode kernel, at any head dim
+kernel's registers and spills from the ptxas report and, by the
+toolkit's ``cuobjdump`` (the smoke fails without it), the tensor-core
+instructions (HMMA) in each kernel's SASS, failing if flash or any decode kernel, at any head dim
 they are built for (16, 32, 64, 128), chunked WKV-6 or the chunked
-selective scan (N = 16 and 8) holds none or spills, and then:
+selective scan (N = 16 and 8) holds none or spills, or if the scan's
+step kernel spills or moves its state otherwise than by one coherent
+16-byte load and one 16-byte store a thread (it updates the state in
+place), and then:
 
 1. kernel phase — holds each kernel (flash, bf16 and int8 dense and paged
    decode, the chunked and step WKV-6 kernels, the chunked and step
@@ -22,7 +25,9 @@ selective scan (N = 16 and 8) holds none or spills, and then:
    decode kernels at head dims 16 and 32, timed; an int8 code view off a
    16-byte boundary refused; chunked WKV-6 at a 512-token prefill and
    the chunked scan at hymba's 640-row prefill, each at its edge cases,
-   step WKV-6 and the step scan at a decode round's shape, B=8 and S=1);
+   step WKV-6 and the step scan at a decode round's shape, B=8 and S=1,
+   the step scan in place; both scan kernels in place == out of place,
+   bit for bit);
 2. reference phase — a 2-layer model with qwen2-7b's head geometry
    (head dim 128, 7 query heads per kv head) runs prefill, dense decode
    and paged decode from bf16 and from int8 caches, a 2-layer RWKV-6
@@ -797,35 +802,58 @@ def flash_hymba(rand, rand_extra) -> None:
                   fa.flash_attention_plain(q, k, v, causal=True, window=w))
 
 
+def ssm_inputs(rng, dev, b, s, h, state_scale, decay="mild", d=64, n=16):
+    """x, dt, a_log, b, c, state of the selective scan on the card, as the
+    hybrid layer makes them: dt = softplus(.) in bf16, a_log at the
+    ``small`` init scale ("mild"); "strong": a_log = log(1..N) + 2 and dt
+    = softplus(N + 2); "weak": dt = 1e-3."""
+    import torch
+    import torch.nn.functional as F
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    bf = torch.bfloat16
+    z = rand(b, s, h)
+    dt = {"mild": F.softplus(z), "strong": F.softplus(z + 2),
+          "weak": torch.full_like(z, 1e-3)}[decay]
+    a_log = torch.log(torch.arange(1.0, n + 1, device=dev)).repeat(
+        h, 1) + 2 if decay == "strong" else rand(h, n) * 0.02
+    return (rand(b, s, h, d).to(bf), dt.to(bf), a_log.to(bf),
+            rand(b, s, h, n).to(bf), rand(b, s, h, n).to(bf),
+            rand(b, h, d, n) * state_scale)
+
+
+def ssm_cost(b, s, h, d=64, n=16):
+    """(operations, bytes) of the selective scan: x read and y written
+    (bf16), b and c and dt read (bf16), a_log read, the state read and
+    written (f32)."""
+    return (5 * b * s * h * d * n + 3 * b * s * h * n,
+            4 * b * s * h * d + 4 * b * s * h * n + 2 * b * s * h
+            + 2 * h * n + 8 * b * h * d * n)
+
+
 def ssm_kernel(rng, dev) -> dict:
     """The two selective-scan kernels (hymba-1.5b: 25 heads of 64, N=16):
     the chunked one at a batch-1 prefill of a 512-token prompt plus 128
     meta tokens from a zero state, the step one at a decode round (B=8,
-    S=1), each timed (device time split by CUDA kernel); and edge cases
-    through the scan: S=1 at B=1, a ragged S=77, S=300 (past the Pallas
-    kernel's 256-step block), nonzero states, the threshold's S - 1, S and
-    S + 1, strong decay (a_log = log(1..N) + 2, dt = softplus(N + 2): a
-    chunk's exponent reaches hundreds) and weak decay (dt = 1e-3), S=2048
-    from a nonzero state, N=8 at D=16 (the reduced hymba), and a scan split
-    at step 777 equal to the whole.  Inputs as the hybrid layer makes
-    them: dt = softplus(.) in bf16, a_log at the ``small`` init scale."""
+    S=1; timed in place, as the hybrid's round calls it), each timed
+    (device time split by CUDA kernel); and edge cases through the scan:
+    S=1 at B=1, a ragged S=77, S=300 (past the Pallas kernel's 256-step
+    block), nonzero states, the threshold's S - 1, S and S + 1, strong
+    decay (a_log = log(1..N) + 2, dt = softplus(N + 2): a chunk's exponent
+    reaches hundreds) and weak decay (dt = 1e-3), S=2048 from a nonzero
+    state, N=8 at D=16 (the reduced hymba), and a scan split at step 777
+    equal to the whole; and each kernel alone with its state as its own
+    ``state_out``, bit for bit equal to a new buffer (the step kernel at
+    its edge cases and a partial tail CTA).  Inputs as the hybrid layer
+    makes them: dt = softplus(.) in bf16, a_log at the ``small`` init
+    scale."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ssm_scan
 
-    def inputs(b, s, h, state_scale, decay="mild", d=64, n=16):
-        def rand(*shape):
-            return torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).to(dev)
-        bf = torch.bfloat16
-        z = rand(b, s, h)
-        dt = {"mild": F.softplus(z), "strong": F.softplus(z + 2),
-              "weak": torch.full_like(z, 1e-3)}[decay]
-        a_log = torch.log(torch.arange(1.0, n + 1, device=dev)).repeat(
-            h, 1) + 2 if decay == "strong" else rand(h, n) * 0.02
-        return (rand(b, s, h, d).to(bf), dt.to(bf), a_log.to(bf),
-                rand(b, s, h, n).to(bf), rand(b, s, h, n).to(bf),
-                rand(b, h, d, n) * state_scale)
+    def inputs(*shape):
+        return ssm_inputs(rng, dev, *shape)
 
     def check(name, x, kernel=None):
         before = (ssm_scan.ssm_step.launches, ssm_scan.ssm_chunked.launches)
@@ -842,18 +870,26 @@ def ssm_kernel(rng, dev) -> dict:
         close(f"{name} state", st, pst)
         return close(name, y, py)
 
-    def cost(b, s, h, d=64, n=16):
-        """(operations, bytes): x read and y written (bf16), b and c and
-        dt read (bf16), a_log read, the state read and written (f32)."""
-        return (5 * b * s * h * d * n + 3 * b * s * h * n,
-                4 * b * s * h * d + 4 * b * s * h * n + 2 * b * s * h
-                + 2 * h * n + 8 * b * h * d * n)
+    def in_place(name, fn, x):
+        """``fn`` with the state as its own ``state_out`` equals ``fn``
+        with a new buffer bit for bit, and the plain scan within TOL."""
+        y, st = fn(*x)
+        mine = x[5].clone()
+        y_in, st_in = fn(*x[:5], mine, state_out=mine)
+        if st_in is not mine or not (torch.equal(y_in, y)
+                                     and torch.equal(mine, st)):
+            raise AssertionError(f"{name}: in place != out of place")
+        py, pst = ssm_scan.ssm_scan_plain(*x)
+        close(f"{name} state", mine, pst)
+        return close(name, y_in, py)
 
     b, s, h = 1, 640, 25
     main = inputs(b, s, h, 0.0)
     err = check("ssm main (prefill)", main, "chunked")
     decode = inputs(8, 1, h, 1.0)
     decode_err = check("ssm decode step (B=8 S=1)", decode, "step")
+    decode_err = max(decode_err, in_place("ssm decode step (B=8 S=1)",
+                                          ssm_scan.ssm_scan, decode))
     t = ssm_scan.CHUNKED_MIN_S
     for shape in [(1, 1, h, 1.0), (1, 77, h, 1.0), (1, 300, h, 1.0),
                   (2, 33, 4, 3.0), (1, t - 1, h, 1.0), (1, t, h, 1.0),
@@ -863,6 +899,19 @@ def ssm_kernel(rng, dev) -> dict:
                   (1, 640, 4, 1.0, "strong", 16, 8)]:
         check(f"ssm edge (B, S, H, state scale, decay, D, N)={shape}",
               inputs(*shape))
+    # The step kernel alone, in place and out of place: strong decay (the
+    # decay underflows to 0) and weak, from zero and nonzero states, N = 8
+    # at D = 16, and B H D N / 4 threads that leave the last CTA of 128
+    # one warp short (B=1 H=5 D=16 N=8: 160 threads).
+    for shape in [(8, 1, h, 1.0, "strong"), (8, 1, h, 0.0, "weak"),
+                  (8, t - 1, h, 1.0, "strong"), (8, 2, h, 0.0, "weak"),
+                  (8, 1, h, 1.0, "mild", 16, 8), (1, 1, 5, 1.0, "mild", 16, 8),
+                  (1, 3, 5, 1.0, "strong", 16, 8)]:
+        in_place(f"ssm step kernel (B, S, H, state scale, decay, D, N)="
+                 f"{shape}", ssm_scan.ssm_step, inputs(*shape))
+    for shape in [(2, t, h, 1.0), (2, 77, 4, 1.0, "mild", 16, 8)]:
+        in_place(f"ssm chunked kernel (B, S, H, state scale, decay, D, N)="
+                 f"{shape}", ssm_scan.ssm_chunked, inputs(*shape))
     x, dt, a_log, bm, cm, st0 = inputs(1, 2048, h, 1.0)
     whole, st_whole = ssm_scan.ssm_scan(x, dt, a_log, bm, cm, st0)
     head, st_mid = ssm_scan.ssm_scan(x[:, :777], dt[:, :777], a_log,
@@ -873,19 +922,19 @@ def ssm_kernel(rng, dev) -> dict:
     close("ssm split at 777 == whole", torch.cat([head, tail], 1), whole)
     close("ssm split at 777 == whole, state", st_end, st_whole)
     log(f"ssm: the step kernel below S={t}, the chunked kernel from S={t}; "
-        f"edge cases (threshold, strong and weak decay, S=2048, N=8, split "
-        f"== whole) within {TOL} of the plain scan")
-    flops, io = cost(b, s, h)
+        f"edge cases (threshold, strong and weak decay, S=2048, N=8, a "
+        f"partial tail CTA, split == whole) within {TOL} of the plain scan; "
+        f"each kernel's state in place == out of place, bit for bit")
+    flops, io = ssm_cost(b, s, h)
     n = copies_for(io)
     sets = [[v.clone() for v in main] for _ in range(n)]
     bnd, by = bound(flops, io)
-    dflops, dio = cost(8, 1, h)
+    dflops, dio = ssm_cost(8, 1, h)
     dsets = [[v.clone() for v in decode] for _ in range(copies_for(dio))]
     dbnd, dby = bound(dflops, dio)
-    step_at_prefill = device_ms([lambda v=v: ssm_scan.ssm_step(*v)
-                                 for v in sets])
-    log(f"ssm: the step kernel at the prefill shape (B=1 S=640 H=25), for "
-        f"comparison: device_ms={step_at_prefill}")
+    log(f"ssm: the step kernel at a round (B=8 S=1 H=25), out of place "
+        f"(a new state buffer): device_ms="
+        f"{device_ms([lambda v=v: ssm_scan.ssm_step(*v) for v in dsets])}")
     for label, shape in (("B=1 (100 CTAs)", (1, 640, h)),
                          ("B=2 (200 CTAs: two waves?)", (2, 640, h)),
                          ("S=2048 (128 chunks)", (1, 2048, h))):
@@ -906,8 +955,9 @@ def ssm_kernel(rng, dev) -> dict:
             route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
             replaces="src/repro/kernels/ssm_scan.py:60",
             max_abs_err=decode_err, bound_ms=dbnd, bound_by=dby,
-            shape="B=8 S=1 H=25 D=64 N=16 bf16, f32 state (a decode round)",
-            **kernel_times([lambda v=v: ssm_scan.ssm_scan(*v)
+            shape="B=8 S=1 H=25 D=64 N=16 bf16, f32 state updated in place "
+                  "(a decode round)",
+            **kernel_times([lambda v=v: ssm_scan.ssm_scan(*v, state_out=v[5])
                             for v in dsets],
                            [lambda v=v: ssm_scan.ssm_scan_plain(*v)
                             for v in dsets], label="ssm step"))}
@@ -1335,9 +1385,10 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
 
 def profile_window(model, params, prompts, alloc, arch=ARCH,
                    batching="paged") -> None:
-    """Where a serve pass spends its time: device time by kernel and the
-    device's busy share of the wall time, from ``torch.profiler`` over 8
-    requests x 8 tokens on one instance (after a warm-up)."""
+    """Where a serve pass spends its time: device time by kernel (the
+    copy kernels, casts included, also summed) and the device's busy share
+    of the wall time, from ``torch.profiler`` over 8 requests x 8 tokens on
+    one instance (after a warm-up)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
@@ -1388,6 +1439,16 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     log("profile: port kernels by name: " + "; ".join(
         f"{name} {t:.3f} ms over {n} launches"
         for name, (t, n) in sorted(port.items())))
+    copies = [(t, n, key) for t, n, key in rows
+              if "copy" in key.lower() or "memcpy" in key.lower()]
+    memcpy = [(t, n) for t, n, key in copies if "memcpy" in key.lower()]
+    log(f"profile {arch}: copy kernels (casts and copies): "
+        f"{sum(n for _, n, _ in copies)} launches, "
+        f"{sum(t for t, _, _ in copies) / 1e3:.3f} ms, of which memcpy "
+        f"{sum(n for _, n in memcpy)} launches, "
+        f"{sum(t for t, _ in memcpy) / 1e3:.3f} ms; by kernel: "
+        + "; ".join(f"{n} x {key[:70]} {t / 1e3:.3f} ms"
+                    for t, n, key in sorted(copies, reverse=True)))
     for t, n, key in sorted(rows, reverse=True)[:10]:
         log(f"profile: {t / 1e3:9.3f} ms  {n:6d} calls  {key[:90]}")
 
@@ -1399,6 +1460,13 @@ KERNEL_NAMES = TENSOR_CORE_KERNELS + ("combine_kernel", "wkv6_kernel",
                                       "wkv6_chunked_kernel",
                                       "ssm_scan_kernel",
                                       "ssm_chunked_kernel")
+
+
+def step_kernel_builds() -> list[str]:
+    """The scan's step kernel at each state size: it must not spill
+    either."""
+    from repro_torch.kernels.ssm_scan import STATE_SIZES
+    return [f"ssm_scan_kernel<{n}>" for n in STATE_SIZES]
 
 
 def tensor_core_builds() -> list[str]:
@@ -1428,7 +1496,7 @@ def _short(mangled: str) -> str:
 def ptxas_report(text: str) -> None:
     """Registers, shared memory and spills of every kernel, from the
     ``-Xptxas -v`` report the build keeps; the tensor-core kernels
-    (``tensor_core_builds``) must not spill."""
+    (``tensor_core_builds``) and the step kernel must not spill."""
     import re
     name, spills = None, {}
     for line in text.splitlines():
@@ -1441,7 +1509,7 @@ def ptxas_report(text: str) -> None:
                           r"loads", line)
             if m:
                 spills[name] = int(m.group(1)) + int(m.group(2))
-    for name in tensor_core_builds():
+    for name in tensor_core_builds() + step_kernel_builds():
         if name not in spills:
             raise AssertionError(f"{name}: not in the ptxas report")
         if spills[name]:
@@ -1449,30 +1517,53 @@ def ptxas_report(text: str) -> None:
 
 
 def hmma_report(lib) -> None:
-    """Tensor-core instructions (HMMA) in the SASS of each kernel, where
-    the toolkit has cuobjdump; the tensor-core kernels
-    (``tensor_core_builds``) must hold some."""
+    """Tensor-core instructions (HMMA) in the SASS of each kernel, by the
+    toolkit's cuobjdump; the tensor-core kernels (``tensor_core_builds``)
+    must hold some, and the step kernel passes ``step_kernel_sass``."""
     import re
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
-        log("cuobjdump not found: HMMA count not measured")
-        return
+        raise AssertionError(f"{tool} not found: the SASS checks cannot "
+                             f"run")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts, name = {}, None
+    counts, lines, name = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _short(m.group(1))
-            counts[name] = 0
-        elif name and "HMMA" in line:
-            counts[name] += 1
+            counts[name], lines[name] = 0, []
+        elif name:
+            counts[name] += "HMMA" in line
+            lines[name].append(line)
     log(f"SASS HMMA instructions per kernel: {counts}")
     for name in tensor_core_builds():
         if counts.get(name, 0) == 0:
             raise AssertionError(f"{name} has no HMMA instruction in its "
                                  f"SASS")
+    for name in step_kernel_builds():
+        step_kernel_sass(name, lines.get(name, []))
+
+
+def step_kernel_sass(name: str, lines: list[str]) -> None:
+    """The step kernel moves the state in one 16-byte load and one 16-byte
+    store a thread, reads it by a coherent load (its state may be written
+    in place, so never through the non-coherent path, ``.CONSTANT``), and
+    has no barrier and no shared memory."""
+    import re
+    ops = [m.group(1) for line in lines
+           for m in [re.search(r"\b((?:LDG|STG|LDS|STS|BAR)\S*)", line)] if m]
+    wide_loads = [op for op in ops if op.startswith("LDG") and ".128" in op]
+    wide_stores = [op for op in ops if op.startswith("STG") and ".128" in op]
+    shared = [op for op in ops if op.startswith(("LDS", "STS", "BAR"))]
+    log(f"SASS {name}: 16-byte loads {wide_loads}, 16-byte stores "
+        f"{wide_stores}, shared memory and barriers {shared}")
+    if len(wide_loads) != 1 or len(wide_stores) != 1 or shared or any(
+            "CONSTANT" in op for op in wide_loads):
+        raise AssertionError(f"{name}: the state is not moved by one "
+                             f"coherent 16-byte load and store, or the "
+                             f"kernel stages through shared memory")
 
 
 def main() -> int:

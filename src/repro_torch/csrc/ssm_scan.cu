@@ -16,15 +16,24 @@
 // win (a 640-step batch-1 prefill: 5.4 MB, 1.6 us).  But the time axis is
 // a sequential dependence, so latency, not bandwidth, bounds both kernels.
 //
-// ssm_scan_kernel (the step kernel): row d of the state depends only on
-// x_t[d], dt_t, b_t, c_t and A, so rows are independent.  A CTA takes
-// kRows rows of one (b, h) (grid D / kRows x H x B), and each row is held
-// by kGroup threads with kPer of its N state values in registers for the
-// whole sequence; y_t[d] is the sum of their partial dots (two shuffles).
-// kT steps of exp(dt * A), dt * b, c and the CTA's x rows are staged in
-// shared memory per barrier, and the chunk's steps then run without a
-// barrier.  A step costs about 150 ns of dependent loads, FMAs and
-// shuffles: fine for a round, slow for a prompt.
+// ssm_scan_kernel (the step kernel, decode rounds): row d of the state
+// depends only on x_t[d], dt_t, b_t, c_t and A, so rows are independent.
+// One thread holds one float4 of the state, 4 consecutive n of one row:
+// N / 4 threads hold a row, and a warp holds 8 (N = 16) or 16 (N = 8)
+// rows of one (b, h), since D N / 4 is a multiple of 32 when D is a
+// multiple of 16.  CTAs of kStepThreads = 128 threads cover the B H D N / 4
+// threads (400 CTAs at hymba's round, B = 8: one wave); a tail CTA returns
+// whole warps.  A thread issues all of its loads at once (its state float4,
+// 4 a_log, b and c values as one 8-byte load each, dt and x[d]; the
+// threads of a row share x, dt and a_log through L1), and loads step t +
+// 1's operands before step t's math: no shared memory, no barrier.  y_t[d]
+// is the row's partial dots summed by shuffles and stored by the row's
+// first thread.  The state is read once and written once, as one float4,
+// by the same thread, so `state_out` may be `state_in` (the pool's layer
+// view, written in place): those two pointers are not __restrict__ and the
+// state is never read through the non-coherent path.  What bounds a round
+// is one DRAM round trip over 1.64 MB of state (read and written at B = 8,
+// H = 25, D = 64, N = 16: 0.49 us at 3.35 TB/s) plus the launch and drain.
 //
 // ssm_chunked_kernel (prefill): WKV-6's chunked form (wkv6.cu) with the
 // transposed state S^T (N x D) as its key x value state, k_s = dt_s b_s,
@@ -59,7 +68,10 @@
 // Filling the card: output column d depends only on state row d, so a CTA
 // takes kRows = 16 rows of one (b, h): grid (D / 16, H, B), 100 CTAs at
 // hymba's batch-1 prefill; each recomputes the chunk's scores (at N = 16
-// they are cheap).  The scores do not depend on the state, so the work
+// they are cheap).  Only the chain warp touches the state: it reads its
+// CTA's rows before the first chunk and writes the same rows after the
+// last, so `state_out` may be `state_in` here too (neither is
+// __restrict__).  The scores do not depend on the state, so the work
 // splits by chunk and by stage, a group of kG = 8 chunks at a time in
 // three buffer sets: 8 producer warps build group g's factors and scores
 // (one chunk a warp, its raw rows loaded into registers a group ahead
@@ -78,79 +90,75 @@
 
 namespace {
 
-constexpr int kRows = 16;  // state rows per CTA
-constexpr int kPer = 4;    // state values per thread (a float4 slice)
-constexpr int kT = 64;     // time steps staged per barrier
+constexpr int kRows = 16;  // state rows per CTA of the chunked kernel
+constexpr int kStepThreads = 128;  // threads per CTA of the step kernel
 
-// kN: the state size, 8 or 16; kN / kPer threads hold a row.
+// Four bf16 (one 8-byte load) as f32.
+__device__ __forceinline__ void unpack4(uint2 bits, float (&f)[4]) {
+  f[0] = __uint_as_float(bits.x << 16);
+  f[1] = __uint_as_float(bits.x & 0xffff0000u);
+  f[2] = __uint_as_float(bits.y << 16);
+  f[3] = __uint_as_float(bits.y & 0xffff0000u);
+}
+
+// One step's operands of one thread: x[d], dt, and its 4 b and c values.
+struct StepIn {
+  __nv_bfloat16 x, dt;
+  uint2 b, c;
+};
+
+// kN: the state size, 8 or 16; kN / 4 threads hold a row.  `total`: B H
+// D kN / 4 threads, a multiple of 32.
 template <int kN>
-__global__ void __launch_bounds__(kRows * kN / kPer) ssm_scan_kernel(
+__global__ void __launch_bounds__(kStepThreads) ssm_scan_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dt,
     const __nv_bfloat16* __restrict__ a_log,
     const __nv_bfloat16* __restrict__ bm, const __nv_bfloat16* __restrict__ cm,
-    const float* __restrict__ state_in, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ state_out, int S, int H, int D) {
-  constexpr int kGroup = kN / kPer;         // threads per row
-  constexpr int kThreads = kRows * kGroup;  // 64 at N = 16, 32 at N = 8
-  __shared__ __align__(16) float da_sm[kT][kN];  // exp(dt_t * A)
-  __shared__ __align__(16) float db_sm[kT][kN];  // dt_t * b_t
-  __shared__ __align__(16) float c_sm[kT][kN];
-  __shared__ float x_sm[kT][kRows];
-  __shared__ float y_sm[kT][kRows];
-  __shared__ float a_sm[kN];
-  const int d0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / kGroup, g = tid % kGroup;
-  if (tid < kN) a_sm[tid] = -expf(bf2f(a_log[h * kN + tid]));
-  const long srow = (((long)b * H + h) * D + d0 + r) * kN + g * kPer;
-  float st[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) st[i] = state_in[srow + i];
-  const long bsh = (long)b * S * H + h;  // (b, t = 0, h)
-  const long x_base = bsh * D + d0;      // x[b, 0, h, d0]; y alike
-  const long n_base = bsh * kN;          // b[b, 0, h, 0]; c alike
+    const float* state_in, __nv_bfloat16* __restrict__ y, float* state_out,
+    int total, int S, int H, int D) {
+  constexpr int kGroup = kN / 4;  // threads per row
+  const int i = blockIdx.x * kStepThreads + threadIdx.x;
+  if (i >= total) return;  // whole warps only
+  const float4 st_in = reinterpret_cast<const float4*>(state_in)[i];
+  const int row = i / kGroup, g = i % kGroup;  // row: (b, h, d)
+  const int d = row % D, bh = row / D, h = bh % H, b = bh / H;
+  const long bsh = (long)b * S * H + h;        // (b, t = 0, h)
+  const long x_base = bsh * D + d;             // x[b, 0, h, d]; y alike
+  const long n_base = bsh * kN + g * 4;        // b[b, 0, h, 4 g]; c alike
   const long x_step = (long)H * D, n_step = (long)H * kN;
-  __syncthreads();  // a_sm
-  for (int t0 = 0; t0 < S; t0 += kT) {
-    const int n = min(kT, S - t0);
-#pragma unroll 4
-    for (int e = tid; e < n * kN; e += kThreads) {
-      const int t = e / kN, j = e % kN;
-      const long off = n_base + (t0 + t) * n_step + j;
-      const float dtt = bf2f(dt[bsh + (long)(t0 + t) * H]);
-      da_sm[t][j] = expf(dtt * a_sm[j]);
-      db_sm[t][j] = dtt * bf2f(bm[off]);
-      c_sm[t][j] = bf2f(cm[off]);
-    }
-#pragma unroll 4
-    for (int e = tid; e < n * kRows; e += kThreads) {
-      const int t = e / kRows, j = e % kRows;
-      x_sm[t][j] = bf2f(x[x_base + (t0 + t) * x_step + j]);
-    }
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      const float xv = x_sm[t][r];
-      const float4 da = reinterpret_cast<const float4*>(da_sm[t])[g];
-      const float4 db = reinterpret_cast<const float4*>(db_sm[t])[g];
-      const float4 cc = reinterpret_cast<const float4*>(c_sm[t])[g];
-      st[0] = fmaf(st[0], da.x, xv * db.x);
-      st[1] = fmaf(st[1], da.y, xv * db.y);
-      st[2] = fmaf(st[2], da.z, xv * db.z);
-      st[3] = fmaf(st[3], da.w, xv * db.w);
-      float part = fmaf(st[0], cc.x, st[1] * cc.y) +
-                   fmaf(st[2], cc.z, st[3] * cc.w);
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      if constexpr (kGroup == 4) part += __shfl_xor_sync(0xffffffffu, part, 2);
-      if (g == 0) y_sm[t][r] = part;
-    }
-    __syncthreads();
-    for (int e = tid; e < n * kRows; e += kThreads) {
-      const int t = e / kRows, j = e % kRows;
-      y[x_base + (t0 + t) * x_step + j] = __float2bfloat16(y_sm[t][j]);
-    }
-    __syncthreads();  // the next chunk overwrites the staged rows
-  }
+  const uint2 a_bits = *reinterpret_cast<const uint2*>(a_log + h * kN + g * 4);
+  auto load = [&](int t, StepIn& in) {
+    in.x = x[x_base + t * x_step];
+    in.dt = dt[bsh + (long)t * H];
+    in.b = *reinterpret_cast<const uint2*>(bm + n_base + t * n_step);
+    in.c = *reinterpret_cast<const uint2*>(cm + n_base + t * n_step);
+  };
+  StepIn cur;
+  load(0, cur);
+  float a[4];
+  unpack4(a_bits, a);
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) state_out[srow + i] = st[i];
+  for (int j = 0; j < 4; ++j) a[j] = -expf(a[j]);
+  float st[4] = {st_in.x, st_in.y, st_in.z, st_in.w};
+  for (int t = 0; t < S; ++t) {
+    StepIn next = cur;
+    if (t + 1 < S) load(t + 1, next);
+    const float xv = bf2f(cur.x), dtv = bf2f(cur.dt);
+    float bv[4], cv[4];
+    unpack4(cur.b, bv);
+    unpack4(cur.c, cv);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      st[j] = fmaf(st[j], expf(dtv * a[j]), xv * (dtv * bv[j]));
+    float part = fmaf(st[0], cv[0], st[1] * cv[1]) +
+                 fmaf(st[2], cv[2], st[3] * cv[3]);
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if constexpr (kGroup == 4) part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (g == 0) y[x_base + t * x_step] = __float2bfloat16(part);
+    cur = next;
+  }
+  reinterpret_cast<float4*>(state_out)[i] =
+      make_float4(st[0], st[1], st[2], st[3]);
 }
 
 // -- the chunked kernel -------------------------------------------------------
@@ -240,8 +248,8 @@ __global__ void __launch_bounds__(kCThreads) ssm_chunked_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dt,
     const __nv_bfloat16* __restrict__ a_log,
     const __nv_bfloat16* __restrict__ bm, const __nv_bfloat16* __restrict__ cm,
-    const float* __restrict__ state_in, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ state_out, int S, int H, int D) {
+    const float* state_in, __nv_bfloat16* __restrict__ y, float* state_out,
+    int S, int H, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* scr_base = smem_raw + kSets * kG * kDerivedBytes;
 
@@ -552,24 +560,28 @@ __global__ void __launch_bounds__(kCThreads) ssm_chunked_kernel(
 }  // namespace
 
 // x: (B, S, H, D) bf16; dt: (B, S, H) bf16; a_log: (H, N) bf16; b, c:
-// (B, S, H, N) bf16; state_in, state_out: two (B, H, D, N) f32 buffers;
-// y: (B, S, H, D) bf16.  N must be 8 or 16 and D a multiple of 16.
-// The step kernel: any S >= 1.
+// (B, S, H, N) bf16; state_in, state_out: (B, H, D, N) f32, one buffer or
+// two that do not overlap; y: (B, S, H, D) bf16.  N must be 8 or 16 and D
+// a multiple of 16.
+// The step kernel: any S >= 1; the state 16-byte aligned, a_log 8-byte, b
+// and c 8-byte.
 extern "C" int repro_ssm_scan_bf16(const void* x, const void* dt,
                                    const void* a_log, const void* b,
                                    const void* c, const void* state_in,
                                    void* y, void* state_out, int B, int S,
                                    int H, int D, int N, void* stream) {
   if ((N != 8 && N != 16) || D % kRows || D < kRows || S < 1 || B < 1 ||
-      H < 1 || B > 65535 || H > 65535)
+      H < 1)
     return (int)cudaErrorInvalidValue;
+  const long total = (long)B * H * D * (N / 4);
+  if (total > 2147483647L - kStepThreads) return (int)cudaErrorInvalidValue;
   auto kernel = N == 16 ? ssm_scan_kernel<16> : ssm_scan_kernel<8>;
-  kernel<<<dim3(D / kRows, H, B), kRows * N / kPer, 0,
+  kernel<<<(int)((total + kStepThreads - 1) / kStepThreads), kStepThreads, 0,
            (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)dt,
       (const __nv_bfloat16*)a_log, (const __nv_bfloat16*)b,
       (const __nv_bfloat16*)c, (const float*)state_in, (__nv_bfloat16*)y,
-      (float*)state_out, S, H, D);
+      (float*)state_out, (int)total, S, H, D);
   return (int)cudaGetLastError();
 }
 

@@ -14,6 +14,15 @@ algorithm for the tests; nothing on the serving path calls it.
 a kernel for a CUDA tensor, or raises.  ``ssm_scan.launches`` counts its
 launches of either kernel; ``ssm_step.launches`` and
 ``ssm_chunked.launches`` count each kernel's own.
+
+``state_out``: ``ssm_scan``, ``ssm_step`` and ``ssm_chunked`` write the
+final state into a buffer the caller gives, which may be ``state``
+itself.  Both kernels read each
+state element before they write it, in the same thread (the step kernel)
+or the same warp (the chunked kernel's chain warp), and no other thread
+touches it, so the hybrid model updates its pool's layer view in place
+and copies nothing.  A ``state_out`` that overlaps ``state`` in part, or
+any input, is refused, as is one off a 16-byte boundary on the card.
 """
 
 from __future__ import annotations
@@ -117,7 +126,44 @@ def ssm_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), st.to(state.dtype)
 
 
-def _launch(name: str, fn: str, x, dt, a_log, b, c, state
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The bytes [lo, hi) that ``t``'s elements lie in (torch's strides are
+    never negative)."""
+    lo = t.data_ptr()
+    if t.numel() == 0:
+        return lo, lo
+    last = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return lo, lo + (last + 1) * t.element_size()
+
+
+def _check_state_out(name: str, state: torch.Tensor,
+                     state_out: torch.Tensor, *inputs: torch.Tensor) -> None:
+    """``state_out`` takes the final state: the state's shape, dtype and
+    device, contiguous, and either ``state`` itself (the same bytes) or
+    apart from it; it overlaps none of ``inputs`` (x, dt, a_log, b, c)."""
+    if (tuple(state_out.shape) != tuple(state.shape)
+            or state_out.dtype != state.dtype
+            or state_out.device != state.device
+            or not state_out.is_contiguous()):
+        raise ValueError(
+            f"{name}: state_out must be a contiguous {state.dtype} tensor of "
+            f"shape {tuple(state.shape)} on {state.device}, got "
+            f"{state_out.dtype} {tuple(state_out.shape)} on "
+            f"{state_out.device}")
+    out = _span(state_out)
+
+    def overlaps(t):
+        lo, hi = _span(t)
+        return t.device == state_out.device and lo < out[1] and out[0] < hi
+
+    if overlaps(state) and _span(state) != out:
+        raise ValueError(f"{name}: state_out overlaps state in part (it must "
+                         f"be state itself or apart from it)")
+    if any(overlaps(t) for t in inputs):
+        raise ValueError(f"{name}: state_out overlaps x, dt, a_log, b or c")
+
+
+def _launch(name: str, fn: str, x, dt, a_log, b, c, state, state_out
             ) -> tuple[torch.Tensor, torch.Tensor]:
     bsz, s, h, d = x.shape
     n = a_log.shape[-1]
@@ -131,55 +177,67 @@ def _launch(name: str, fn: str, x, dt, a_log, b, c, state
             f"a_log{tuple(a_log.shape)} b{tuple(b.shape)} "
             f"c{tuple(c.shape)} state{tuple(state.shape)} (N must be one "
             f"of {STATE_SIZES}, D a multiple of {ROWS})")
+    if state_out is None:
+        state_out = torch.empty_like(state)
+    else:
+        _check_state_out(name, state, state_out, x, dt, a_log, b, c)
     y = torch.empty_like(x)
-    new_state = torch.empty_like(state)
     bf16, f32 = torch.bfloat16, torch.float32
     ptrs = build.pointers(
         name, x.device,
-        {"x": (x, bf16), "dt": (dt, bf16, 2), "a_log": (a_log, bf16, 2),
-         "b": (b, bf16), "c": (c, bf16), "state": (state, f32, 4),
-         "y": (y, bf16), "new_state": (new_state, f32, 4)}, align=16)
+        {"x": (x, bf16), "dt": (dt, bf16, 2), "a_log": (a_log, bf16, 8),
+         "b": (b, bf16), "c": (c, bf16), "state": (state, f32),
+         "y": (y, bf16), "state_out": (state_out, f32)}, align=16)
     with torch.cuda.device(x.device):
         err = getattr(build.library(), fn)(
             *ptrs, bsz, s, h, d, n,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, name)
-    return y, new_state
+    return y, state_out
 
 
-def ssm_step(x, dt, a_log, b, c, state) -> tuple[torch.Tensor, torch.Tensor]:
+def ssm_step(x, dt, a_log, b, c, state, state_out=None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """The step kernel on CUDA tensors (any S >= 1; the scan takes it below
     ``CHUNKED_MIN_S``)."""
     result = _launch("ssm_step", "repro_ssm_scan_bf16", x, dt, a_log, b, c,
-                     state)
+                     state, state_out)
     ssm_step.launches += 1
     return result
 
 
-def ssm_chunked(x, dt, a_log, b, c, state
+def ssm_chunked(x, dt, a_log, b, c, state, state_out=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The chunked kernel on CUDA tensors (any S >= 1; the scan takes it
     from ``CHUNKED_MIN_S`` up)."""
     result = _launch("ssm_chunked", "repro_ssm_chunked_bf16", x, dt, a_log,
-                     b, c, state)
+                     b, c, state, state_out)
     ssm_chunked.launches += 1
     return result
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, state: torch.Tensor
+             b: torch.Tensor, c: torch.Tensor, state: torch.Tensor,
+             state_out: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The selective scan over S >= 1 steps from ``state``; returns (y
-    (B,S,H,D), final state (B,H,D,N)).  On the card: x, dt, a_log, b, c
-    bf16, state f32, N = 8 or 16, D a multiple of 16; y bf16, the state f32
-    in a new buffer; the step kernel below ``CHUNKED_MIN_S`` steps, the
-    chunked kernel from there."""
+    (B,S,H,D), final state (B,H,D,N)).  The final state goes to
+    ``state_out`` where one is given (``state`` itself, to update it in
+    place, or a buffer apart from it and from the inputs) and is returned;
+    else to a new buffer.  On the card: x, dt, a_log, b, c bf16, state
+    f32, N = 8 or 16, D a multiple of 16, the state and ``state_out``
+    16-byte aligned; y bf16; the step kernel below ``CHUNKED_MIN_S``
+    steps, the chunked kernel from there."""
     if x.device.type == "cpu":
-        return ssm_scan_plain(x, dt, a_log, b, c, state)
+        if state_out is None:
+            return ssm_scan_plain(x, dt, a_log, b, c, state)
+        _check_state_out("ssm_scan", state, state_out, x, dt, a_log, b, c)
+        y, st = ssm_scan_plain(x, dt, a_log, b, c, state)
+        return y, state_out.copy_(st)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for {x.device}")
     kernel = ssm_chunked if x.shape[1] >= CHUNKED_MIN_S else ssm_step
-    result = kernel(x, dt, a_log, b, c, state)
+    result = kernel(x, dt, a_log, b, c, state, state_out)
     ssm_scan.launches += 1
     return result
 

@@ -97,19 +97,20 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int
 
 
 def _ssm_path(p: dict, x: torch.Tensor, state: torch.Tensor,
-              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+              cfg: ModelConfig, state_out: torch.Tensor) -> torch.Tensor:
     """The Mamba heads (hybrid.py:70-84): ``dt`` is formed in f32 and cast
     to the activation dtype before the scan, which exponentiates it in
-    f32 with ``A = -exp(a_log)``."""
+    f32 with ``A = -exp(a_log)``.  The scan writes its final state into
+    ``state_out`` (which may be ``state``)."""
     b, s, _ = x.shape
     h, dh, n = cfg.n_heads, cfg.dh, cfg.ssm_state
     xin = (x @ p["w_in"]).reshape(b, s, h, dh)
     dt = F.softplus((x @ p["w_dt"]).float() + p["dt_bias"].float())
     bmat = (x @ p["w_b"]).reshape(b, s, h, n)
     cmat = (x @ p["w_c"]).reshape(b, s, h, n)
-    y, state = ops.ssm_scan(xin, dt.to(x.dtype), p["a_log"], bmat, cmat,
-                            state)
-    return y.reshape(b, s, h * dh) @ p["w_out"], state
+    y, _ = ops.ssm_scan(xin, dt.to(x.dtype), p["a_log"], bmat, cmat, state,
+                        state_out=state_out)
+    return y.reshape(b, s, h * dh) @ p["w_out"]
 
 
 def _fuse(lp: dict, a: torch.Tensor, m: torch.Tensor,
@@ -120,15 +121,17 @@ def _fuse(lp: dict, a: torch.Tensor, m: torch.Tensor,
 
 
 def _block_full(lp: dict, x: torch.Tensor, state0: torch.Tensor,
-                cfg: ModelConfig, positions: torch.Tensor):
-    """Full-sequence block.  Returns (x, k, v, final SSM state)."""
+                cfg: ModelConfig, positions: torch.Tensor,
+                state_out: torch.Tensor):
+    """Full-sequence block; the final SSM state goes to ``state_out``.
+    Returns (x, k, v)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, k, v = attn.attn_full(lp["attn"], h, cfg, positions=positions,
                              window=cfg.sliding_window)
-    m, state = _ssm_path(lp["ssm"], h, state0, cfg)
+    m = _ssm_path(lp["ssm"], h, state0, cfg, state_out)
     x = x + _fuse(lp, a, m, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h), k, v, state
+    return x + mlp_apply(lp["mlp"], h), k, v
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -137,7 +140,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     (last-position logits (B, V), cache).  The cache holds the pools'
     leaves (``cache_specs``): K/V cast to bf16 whatever the activation
     dtype (attention itself runs on the unrounded K/V), the SSM state in
-    f32, and ``pos`` = prompt + meta."""
+    f32 (the scan writes each layer's final state into the cache from a
+    zero state held apart), and ``pos`` = prompt + meta."""
     b, s = tokens.shape
     max_len = max_len or s
     meta = params["meta"]
@@ -151,13 +155,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = {key: torch.empty(shape, dtype=dtype, device=x.device)
              for key, (shape, dtype) in cache_specs(cfg, b, max_len).items()}
     for i in range(cfg.n_layers):
-        x, k, v, state = _block_full(layer_params(params, i), x, state0, cfg,
-                                     positions)
+        x, k, v = _block_full(layer_params(params, i), x, state0, cfg,
+                              positions, cache["ssm"][i])
         for key, t in (("k", k), ("v", v)):
             t = t.to(KV_DTYPE)
             cache[key][i] = (_windowed_cache(t, w, rows) if w
                              else _full_cache(t, rows))
-        cache["ssm"][i] = state
     cache["pos"] = torch.tensor(x.shape[1], dtype=torch.int32,
                                 device=x.device)
     return lm_head(params, x[:, -1:], cfg)[:, 0], cache
@@ -166,8 +169,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 def decode_step(params: dict, token: torch.Tensor, cache: dict,
                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """token: (B,) int32.  Returns (logits (B, V), cache) with the K/V and
-    SSM pools written in place and the position advanced (every slot
-    advances; a rolled cache wraps, so nothing clamps)."""
+    SSM pools written in place (the scan updates each layer's state view
+    of the pool itself) and the position advanced (every slot advances; a
+    rolled cache wraps, so nothing clamps)."""
     pos = cache["pos"]
     x = params["embed"][token[:, None].long()]
     w = cfg.sliding_window
@@ -178,8 +182,8 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
         a, _, _ = attn.attn_decode(lp["attn"], h, cache["k"][i],
                                    cache["v"][i], pos, cfg, rolled=rolled,
                                    window=w)
-        m, state = _ssm_path(lp["ssm"], h, cache["ssm"][i], cfg)
-        cache["ssm"][i] = state
+        state = cache["ssm"][i]
+        m = _ssm_path(lp["ssm"], h, state, cfg, state)
         x = x + _fuse(lp, a, m, cfg)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + mlp_apply(lp["mlp"], h)

@@ -478,6 +478,83 @@ def test_ssm_kernel_bad_shapes_raise(cuda_device, s):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 15, 77, 640])
+@pytest.mark.parametrize("d,n", [(16, 8), (64, 16)])
+def test_ssm_step_kernel_vs_plain(cuda_device, s, d, n):
+    """The step kernel alone at a round (S = 1), at S = 2 and 15 (the
+    largest S the scan gives it) and at S = 77 and 640 (it takes any S),
+    from zero and nonzero states, at strong decay (the decay underflows to
+    0, as in the plain scan) and weak decay, in place and out of place."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(700 + s + n)
+    for decay in ("strong", "weak"):
+        for scale in (0.0, 1.0):
+            x = _ssm_inputs(rng, 3, s, 5, cuda_device, d, n, decay, scale)
+            want = ssm_scan.ssm_scan_plain(*x)
+            _ssm_close(ssm_scan.ssm_step(*x), want)
+            st = x[5].clone()
+            got = ssm_scan.ssm_step(*x[:5], st, state_out=st)
+            assert got[1] is st
+            _ssm_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,s", [("step", 1), ("step", 15),
+                                      ("chunked", 16), ("chunked", 77)])
+@pytest.mark.parametrize("d,n", [(16, 8), (64, 16)])
+def test_ssm_in_place_equals_out_of_place(cuda_device, kernel, s, d, n):
+    """Each kernel writes the same y and state bit for bit whether
+    ``state_out`` is the state itself or a buffer apart from it (hymba's
+    round: B = 8, H = 25)."""
+    from repro_torch.kernels import ssm_scan
+    fn = {"step": ssm_scan.ssm_step, "chunked": ssm_scan.ssm_chunked}[kernel]
+    rng = np.random.default_rng(800 + s + n)
+    x = _ssm_inputs(rng, 8, s, 25, cuda_device, d, n)
+    apart = torch.full_like(x[5], float("nan"))
+    y_apart, _ = fn(*x, state_out=apart)
+    st = x[5].clone()
+    y_in, _ = fn(*x[:5], st, state_out=st)
+    torch.cuda.synchronize()
+    assert torch.equal(y_in, y_apart) and torch.equal(st, apart)
+    _ssm_close((y_in, st), ssm_scan.ssm_scan_plain(*x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,d,n", [(1, 5, 16, 8), (3, 1, 16, 16),
+                                     (1, 3, 48, 8)])
+def test_ssm_step_kernel_partial_tail_cta(cuda_device, b, h, d, n):
+    """B H D N / 4 threads that leave the last 128-thread CTA one to three
+    warps short (160, 192 and 288 threads)."""
+    from repro_torch.kernels import ssm_scan
+    assert (b * h * d * n // 4) % 128
+    rng = np.random.default_rng(b * h * d)
+    for s in (1, 3):
+        x = _ssm_inputs(rng, b, s, h, cuda_device, d, n)
+        _ssm_close(ssm_scan.ssm_step(*x), ssm_scan.ssm_scan_plain(*x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [4, 8])
+@pytest.mark.parametrize("which", ["state", "state_out"])
+@pytest.mark.parametrize("s", [1, 77])
+def test_ssm_state_view_off_16_bytes_raises(cuda_device, offset, which, s):
+    """The kernels move the state in 16-byte accesses: a state or
+    ``state_out`` view 4 or 8 bytes off a 16-byte boundary is refused
+    (``ValueError``, no launch counted), at either kernel's shape."""
+    from repro_torch.kernels import ssm_scan
+    rng = np.random.default_rng(offset)
+    x = _ssm_inputs(rng, 2, s, 4, cuda_device)
+    flat = torch.zeros(x[5].numel() + 4, device=cuda_device)
+    view = flat[offset // 4:offset // 4 + x[5].numel()].view(x[5].shape)
+    view.copy_(x[5])
+    state, out = (view, None) if which == "state" else (x[5], view)
+    before = ssm_scan.ssm_scan.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssm_scan.ssm_scan(*x[:5], state, state_out=out)
+    assert ssm_scan.ssm_scan.launches == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("sq", [129, 200, 640, 1152])
 def test_flash_kernel_hymba_geometry(cuda_device, sq):
     """hymba-1.5b's prefill at exact lengths (prompt + 128 meta tokens):

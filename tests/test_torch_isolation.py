@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``) loads neither JAX nor the JAX package, entry points
-that default to the card refuse to fall back to the CPU, and the serve
-entry point refuses on the card a config its kernels do not take."""
+``chip_smoke.py`` and ``scripts/scan_round.py``) loads neither JAX nor
+the JAX package, entry points that default to the card refuse to fall
+back to the CPU, and the serve entry point refuses on the card a config
+its kernels do not take."""
 
 import os
 import subprocess
@@ -22,6 +23,8 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
+sys.path.insert(0, sys.argv[1] + "/scripts")
+import scan_round
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
