@@ -44,18 +44,29 @@ place), and then:
    then with int8 KV, 16 requests of 64-512 prompt tokens and 32 new
    tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) and
    full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
-   1024) continuous with the same mix.  Launch counts are set to 0 just
-   before each mode and read just after it.
+   1024) continuous with the same mix.  Each instance's fused decode
+   round is a CUDA graph (``serving/graphs.py``), captured in a warm-up
+   before the run and replayed in every round of it, never captured
+   again; a ``fused=False`` engine (the host-argmax reference, eager)
+   must give the same greedy streams on the same prompts, and one
+   qwen2-7b paged decode step replayed over a copy of the pools must
+   equal the eager ``decode_step_paged`` bit for bit (logits, pools), as
+   must the instance's own replayed round (tokens, positions, pools).
+   Launch counts are set to 0 just before each mode and read just after
+   it.  Each model's profile window logs its wall, device busy share,
+   kernels and the host's launch calls per decode round.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero, and so does a machine without a card.
 
 Usage:  python3 chip_smoke.py
+        python3 chip_smoke.py --windows CHECKOUT   (see ``windows_phase``)
 """
 
 from __future__ import annotations
 
+import bisect
 import json
 import subprocess
 import sys
@@ -1281,34 +1292,111 @@ def serve_phase(rng) -> dict[str, int]:
     return totals
 
 
-def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
-               int8=False, new_tokens=32) -> list:
-    """Serve ``prompts`` on two weight-shared instances in ``mode``; the
-    launch counts are set to 0 just before the run and read just after it.
-    Checks that every request is served, one host sync per pass, the
-    weights stored once, that the kernels in ``used`` ran and no other,
-    each once per layer and prefill (flash, chunked WKV-6, the chunked
-    scan) or round (decode, step WKV-6, the step scan), and that each
-    scan dispatcher launched once per layer and pass of either shape.
-    Returns the token streams."""
+EAGER_TOKENS = 8  # the fused=False runs serve this many tokens a request
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")  # host calls that put work on the card
+
+
+def deploy(model, params, arch, alloc, batching, *, int8=False,
+           n_instances=2, **kw):
+    """A ``ServingEngine`` on the card with ``n_instances`` weight-shared
+    instances (``max_batch=8``, ``max_len=1024``, block size 16), the
+    int8-KV gate set for the deploy only (an instance reads it once)."""
     import os
-    import torch
-    from repro_torch import kernels
-    from repro_torch.core.model_sharing import pytree_nbytes
-    from repro_torch.kernels import ssm_scan, wkv6
-    from repro_torch.launch import serve
     from repro_torch.serving import ServingEngine
 
-    batching = mode.split()[-1]
     engine = ServingEngine(window=0.2, device="cuda")
     gate = os.environ.pop("REPRO_KV_INT8", None)
     if int8:
-        os.environ["REPRO_KV_INT8"] = "1"  # read once, when deployed
-    engine.deploy(arch, model, params, alloc, n_instances=2, max_batch=8,
-                  max_len=1024, batching=batching, block_size=16)
+        os.environ["REPRO_KV_INT8"] = "1"
+    engine.deploy(arch, model, params, alloc, n_instances=n_instances,
+                  max_batch=8, max_len=1024, batching=batching,
+                  block_size=16, **kw)
     os.environ.pop("REPRO_KV_INT8", None)
     if gate is not None:
         os.environ["REPRO_KV_INT8"] = gate
+    return engine
+
+
+def warm(engine, arch, prompt) -> dict:
+    """One request of 3 tokens per instance: its first round runs eagerly
+    and its second is captured, before any timed window.  Returns each
+    instance's graph; an engine without round graphs (a checkout before
+    them, ``--windows``) gets ``None``s."""
+    from repro_torch.launch import serve
+
+    serve.drive(engine, arch, [prompt] * len(engine.instances), 3)
+    graphs = {}
+    for k, inst in engine.instances.items():
+        rg = getattr(inst, "round_graph", None)
+        if rg is not None and (rg.graph is None or rg.captures != 1
+                               or inst.rounds != 2):
+            raise AssertionError(f"{k}: warm-up left {rg.captures} captures "
+                                 f"after {inst.rounds} rounds")
+        graphs[k] = rg and rg.graph
+    return graphs
+
+
+def same_graphs(engine, graphs, what) -> int:
+    """Fails unless every instance still has the one graph it captured in
+    the warm-up; returns the rounds replayed since."""
+    replays = 0
+    for k, inst in engine.instances.items():
+        rg = getattr(inst, "round_graph", None)
+        if rg is None:
+            continue
+        if rg.graph is not graphs[k] or rg.captures != 1:
+            raise AssertionError(f"{what}: {k} captured again")
+        replays += rg.replays
+    return replays
+
+
+def timed_serve(engine, arch, prompts, new_tokens) -> tuple:
+    """Warm every instance through its capture, then serve ``prompts``
+    with the launch counts and the peak memory set to 0 just before and
+    read just after.  Returns (requests, completed, wall s, launch counts,
+    telemetry delta per instance, rounds replayed, peak bytes)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    graphs = warm(engine, arch, prompts[0][:64])
+    before = {k: dict(v) for k, v in engine.telemetry().items()}
+    replayed = same_graphs(engine, graphs, arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    reqs, done, wall = serve.drive(engine, arch, prompts, new_tokens)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    replayed = same_graphs(engine, graphs, arch) - replayed
+    delta = {k: {c: v[c] - before[k][c] for c in v}
+             for k, v in engine.telemetry().items()}
+    return (reqs, done, wall, counts, delta, replayed,
+            torch.cuda.max_memory_allocated())
+
+
+def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
+               int8=False, new_tokens=32) -> list:
+    """Serve ``prompts`` on two weight-shared instances in ``mode``, each
+    through its round graph, captured in a warm-up before the run; the
+    launch counts are set to 0 just before the run and read just after
+    it.  Checks that every request is served, one host sync per pass, the
+    weights stored once, that every round of the run was a replay of the
+    graph captured in the warm-up, that the kernels in ``used`` ran and no
+    other, each once per layer and prefill (flash, chunked WKV-6, the
+    chunked scan) or round (decode, step WKV-6, the step scan), that each
+    scan dispatcher launched once per layer and pass of either shape, and
+    that a ``fused=False`` engine (the host-argmax reference, eager) on
+    the same prompts gives the same greedy streams over its
+    ``EAGER_TOKENS`` tokens.  Returns the token streams."""
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.kernels import ssm_scan, wkv6
+    from repro_torch.launch import serve
+
+    batching = mode.split()[-1]
+    engine = deploy(model, params, arch, alloc, batching, int8=int8)
     insts = list(engine.instances.values())
     if any(i.kv_int8 != int8 for i in insts):
         raise AssertionError(f"{arch} {mode}: instances not int8={int8}")
@@ -1321,19 +1409,11 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         raise AssertionError(
             f"{arch} {mode}: store holds {engine.memory_bytes()} bytes for "
             f"two instances, expected one copy of {wbytes}")
-    serve.drive(engine, arch, [prompts[0][:64]] * 2, 2)  # warm-up
-    before = {k: dict(v) for k, v in engine.telemetry().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    reqs, done, wall = serve.drive(engine, arch, prompts, new_tokens)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
+    reqs, done, wall, counts, delta, replayed, peak = timed_serve(
+        engine, arch, prompts, new_tokens)
     if done != len(prompts) or not all(
             r.done and len(r.tokens_out) == new_tokens for r in reqs):
         raise AssertionError(f"{arch} {mode}: served {done}/{len(prompts)}")
-    delta = {k: {c: v[c] - before[k][c] for c in v}
-             for k, v in engine.telemetry().items()}
     passes = {k: v["steps"] for k, v in delta.items()}
     syncs = {k: v["syncs"] for k, v in delta.items()}
     if passes != syncs:
@@ -1344,6 +1424,9 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         raise AssertionError(f"{arch} {mode}: kernel launches {counts}")
     prefills = sum(v["prefills"] for v in delta.values())
     rounds = sum(v["rounds"] for v in delta.values())
+    if replayed != rounds:
+        raise AssertionError(f"{arch} {mode}: {replayed} of {rounds} rounds "
+                             f"replayed")
     for k in used:  # one launch per layer and prefill, or round
         per = prefills if k in {"flash_attention", "wkv6_chunked",
                                 "ssm_chunked"} else rounds
@@ -1374,43 +1457,146 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; latency "
         f"p50={np.percentile(lat, 50):.3f}s p99={np.percentile(lat, 99):.3f}s;"
         f" passes {passes}; syncs {syncs} (1 per pass); prefills "
-        f"{sum(v['prefills'] for v in delta.values())}, rounds "
-        f"{sum(v['rounds'] for v in delta.values())}; launches {counts}; "
-        f"peak device memory {torch.cuda.max_memory_allocated()} bytes; "
-        f"weights stored once: {engine.memory_bytes()} bytes for 2 instances")
+        f"{prefills}, rounds {rounds}, of them replayed from the warm-up's "
+        f"graphs {replayed} (1 capture per instance, before the run); "
+        f"launches {counts}; peak device memory {peak} bytes; weights "
+        f"stored once: {engine.memory_bytes()} bytes for 2 instances")
     for k in totals:
         totals[k] += counts[k]
-    return [list(r.tokens_out) for r in reqs]
+    streams = [list(r.tokens_out) for r in reqs]
+    del engine
+    ref = deploy(model, params, arch, alloc, batching, int8=int8,
+                 fused=False)
+    host, done, _ = serve.drive(ref, arch, prompts, EAGER_TOKENS)
+    if done != len(prompts) or [r.tokens_out for r in host] != [
+            s[:EAGER_TOKENS] for s in streams]:
+        raise AssertionError(f"{arch} {mode}: the graph's streams differ "
+                             f"from fused=False's")
+    log(f"serve {arch} {mode}: the graph-backed rounds' greedy streams equal "
+        f"a fused=False engine's (host argmax, eager) over their first "
+        f"{EAGER_TOKENS} tokens, {len(prompts)} requests")
+    if mode == "paged":
+        logit_check(model, params, arch, prompts[:8], alloc)
+    return streams
+
+
+def logit_check(model, params, arch, prompts, alloc) -> None:
+    """One paged round with every slot live: the paged decode step
+    captured as a graph over one copy of an instance's pools, tables,
+    positions and tokens, replayed, against the eager
+    ``decode_step_paged`` on a second copy (logits and pools bit for
+    bit); then the instance's own replayed round must land the eager
+    logits' greedy tokens and advanced positions, and its pools must equal
+    the eager copy's."""
+    import torch
+    from repro_torch.serving.graphs import RoundGraph
+
+    engine = deploy(model, params, arch, alloc, "paged", n_instances=1)
+    for p in prompts:
+        engine.submit(arch, p, max_new_tokens=8)
+    (inst,) = engine.instances.values()
+    for _ in range(3):  # admission + eager round, capture, replay
+        inst.run_step()
+    if (inst.n_active() != inst.max_batch  # no free slot: no mask needed
+            or inst.round_graph.replays != 2):
+        raise AssertionError(f"logit check: {inst.n_active()} live slots, "
+                             f"{inst.round_graph.replays} replays")
+
+    def state():
+        return (inst._slot_tok_dev.clone(),
+                {k: v.clone() for k, v in inst.cache.items()},
+                inst._pos_dev.clone())
+
+    tables, active = inst._tables_dev.clone(), inst._active_dev.clone()
+    g_tok, g_cache, g_pos = state()
+    e_tok, e_cache, e_pos = state()
+    graph = RoundGraph("cuda")
+    graph.capture(lambda: model.decode_step_paged(params, g_tok, g_cache,
+                                                  tables, g_pos)[0])
+    g_logits = graph.replay()
+    e_logits, _ = model.decode_step_paged(params, e_tok, e_cache, tables,
+                                          e_pos)
+    inst.dispatch_step()  # the instance's own round: a replay
+    torch.cuda.synchronize()
+    checks = {
+        "graph logits": torch.equal(g_logits, e_logits),
+        "graph pools": all(torch.equal(g_cache[k], e_cache[k])
+                           for k in e_cache),
+        "round tokens": torch.equal(inst._slot_tok_dev,
+                                    model.sample_greedy(e_logits)),
+        "round positions": torch.equal(inst._pos_dev, e_pos + active),
+        "round pools": all(torch.equal(inst.cache[k], e_cache[k])
+                           for k in e_cache)}
+    if not all(checks.values()) or inst.round_graph.replays != 3:
+        raise AssertionError(f"logit check: graph != eager: {checks}")
+    log(f"logit check {arch} paged ({len(prompts)} live slots): the paged "
+        f"decode step replayed as a graph over a copy of the pools equals "
+        f"the eager decode_step_paged bit for bit (logits "
+        f"{tuple(g_logits.shape)}, pools), and the instance's replayed "
+        f"round lands its greedy tokens, positions and pools")
 
 
 def profile_window(model, params, prompts, alloc, arch=ARCH,
                    batching="paged") -> None:
     """Where a serve pass spends its time: device time by kernel (the
-    copy kernels, casts included, also summed) and the device's busy share
-    of the wall time, from ``torch.profiler`` over 8 requests x 8 tokens on
-    one instance (after a warm-up)."""
+    copy kernels, casts included, also summed), the device's busy share of
+    the wall time, and the host's launch calls a decode round makes (a
+    graph replay is one), from ``torch.profiler`` over 8 requests x 8
+    tokens on one instance (after a warm-up that captures its round).
+    Runs on an engine without round graphs too (``--windows``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.launch import serve
-    from repro_torch.serving import ServingEngine
 
-    engine = ServingEngine(window=0.2, device="cuda")
-    engine.deploy(arch, model, params, alloc, n_instances=1, max_batch=8,
-                  max_len=1024, batching=batching, block_size=16)
-    serve.drive(engine, arch, prompts[:2], 2)
+    engine = deploy(model, params, arch, alloc, batching, n_instances=1)
+    graphs = warm(engine, arch, prompts[0])
+    replayed = same_graphs(engine, graphs, arch)
+    (inst,) = engine.instances.values()
+    cls = type(inst)
+    plain_round = cls._dispatch_round
+
+    def labelled_round(self):
+        with record_function("decode_round"):
+            return plain_round(self)
+
+    rounds0 = inst.rounds
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve.drive(engine, arch, prompts, 8)
-        torch.cuda.synchronize()
+    cls._dispatch_round = labelled_round
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, wall = serve.drive(engine, arch, prompts, 8)
+            torch.cuda.synchronize()
+    finally:
+        cls._dispatch_round = plain_round
+    rounds = inst.rounds - rounds0
+    replayed = same_graphs(engine, graphs, arch) - replayed
     from torch.autograd import DeviceType
 
+    events = prof.events()
+    # The label's host spans (the profiler mirrors it on the device's
+    # timeline too, as an annotation kept out of every count here).
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "decode_round"
+                   and e.device_type == DeviceType.CPU)
+    starts = [s for s, _ in spans]
+    calls = [e.time_range.start for e in events if e.name in LAUNCH_CALLS]
+    in_rounds = 0
+    for t in calls:
+        i = bisect.bisect_right(starts, t) - 1
+        in_rounds += i >= 0 and t <= spans[i][1]
+    launch_text = (f"host launch calls {len(calls)}, in rounds "
+                   f"{in_rounds} = {in_rounds / max(len(spans), 1):.1f} per "
+                   f"round" if calls else
+                   "host launch calls not measured (no runtime events)")
     # Device-side (kernel) events only: the CPU-side op events carry the
     # same device time again as their children's.
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0 and e.key != "decode_round"]
+    log(f"profile {arch}: rounds {rounds} ({len(spans)} profiled), replayed "
+        f"{replayed}; {launch_text}")
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
@@ -1566,15 +1752,68 @@ def step_kernel_sass(name: str, lines: list[str]) -> None:
                              f"kernel stages through shared memory")
 
 
-def main() -> int:
+def windows_phase(checkout: Path) -> None:
+    """``--windows CHECKOUT``: only the serve runs' tokens/s (the serve
+    phase's six modes and request mix, each through ``timed_serve``) and
+    the three profile windows, with ``src/repro_torch`` of CHECKOUT; an
+    older checkout, without round graphs, serves eagerly.  Run it on two
+    checkouts in turns (parent, change, change, parent) in one call to
+    compare them."""
+    import gc
     import torch
+    from repro_torch.core.resources import Alloc
+    from repro_torch.launch import serve
+
+    log(f"windows of {checkout}")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 513, 16)
+    alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=1.0)
+    for arch, modes, window in (
+            (ARCH, ("continuous", "paged", "int8 continuous", "int8 paged"),
+             "paged"),
+            (RWKV_ARCH, ("continuous",), "continuous"),
+            (HYBRID_ARCH, ("continuous",), "continuous")):
+        model, params = serve.init_model(arch, reduced=False, seed=SEED)
+        prompts = [rng.integers(0, model.cfg.vocab_size, int(n)).astype(
+            np.int32) for n in lens]
+        for mode in modes:
+            engine = deploy(model, params, arch, alloc, mode.split()[-1],
+                            int8=mode.startswith("int8"))
+            reqs, done, wall, _, delta, replayed, peak = timed_serve(
+                engine, arch, prompts, 32)
+            passes = sum(v["steps"] for v in delta.values())
+            syncs = sum(v["syncs"] for v in delta.values())
+            n_tok = sum(len(r.tokens_out) for r in reqs)
+            if done != len(prompts) or syncs != passes:
+                raise AssertionError(f"windows {arch} {mode}: served {done}, "
+                                     f"syncs {syncs}, passes {passes}")
+            log(f"windows {arch} {mode}: {n_tok} tokens in {wall:.3f}s = "
+                f"{n_tok / wall:.1f} tokens/s; passes {passes}, rounds "
+                f"{sum(v['rounds'] for v in delta.values())}, replayed "
+                f"{replayed}; peak device memory {peak} bytes")
+            del engine
+        profile_window(model, params, prompts[:8], alloc, arch, window)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def main(argv: list[str]) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--windows", metavar="CHECKOUT", type=Path,
+                    help="only the serve runs' tokens/s and the profile "
+                         "windows, with src/repro_torch of CHECKOUT")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print("[chip_smoke] FAIL: src/repro_torch not found beside this "
-              "script", file=sys.stderr)
+    src = (args.windows or ROOT).resolve() / "src"
+    sys.path.insert(0, str(src))
+    if not (src / "repro_torch" / "csrc").is_dir():
+        print(f"[chip_smoke] FAIL: {src}/repro_torch not found",
+              file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1584,6 +1823,9 @@ def main() -> int:
     print(smi, flush=True)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    if args.windows:
+        windows_phase(args.windows.resolve())
+        return 0
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -1608,4 +1850,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -24,6 +24,7 @@ KERNELS = {
 # Ops that pick one of the kernels above by shape; each counts its launches
 # of any of them.
 DISPATCHERS = (_wkv6.wkv6_scan, _ssm.ssm_scan)
+COUNTED = (*KERNELS.values(), *DISPATCHERS)  # every ``.launches`` counter
 
 
 def launch_counts() -> dict[str, int]:
@@ -32,5 +33,18 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in (*KERNELS.values(), *DISPATCHERS):
+    for fn in COUNTED:
         fn.launches = 0
+
+
+def counter_values() -> list[int]:
+    """Every counter of ``COUNTED``, in its order."""
+    return [fn.launches for fn in COUNTED]
+
+
+def add_launches(delta: list[int]) -> None:
+    """Add ``delta`` (one entry per counter of ``COUNTED``) to the counters:
+    a replayed CUDA graph runs no wrapper, so its launches are counted
+    here, once per replay."""
+    for fn, n in zip(COUNTED, delta, strict=True):
+        fn.launches += n

@@ -2,7 +2,9 @@
 of ``repro.models.transformer``).
 
 JAX scans over a stacked ``layers`` axis; the port keeps that layout and
-loops over it in Python (PyTorch runs eagerly, there is no ``jit``).
+loops over it in Python (PyTorch runs eagerly; on the card the serving
+engine captures a whole decode round as a CUDA graph,
+``serving/graphs.py``).
 Decode steps update the preallocated KV pools in place — the counterpart
 of the JAX package's donated caches.  A cache made under the int8 gate
 holds int8 K/V codes beside ``k_scale``/``v_scale`` pools; the decode

@@ -1,6 +1,7 @@
 """Live serving engine on PyTorch: the FaST-GShare data plane over the
-port's models (counterpart of ``repro.serving.engine``, fused greedy
-continuous and paged modes).
+port's models (counterpart of ``repro.serving.engine``: greedy
+continuous, paged and static batching, the fused round and its
+host-argmax reference).
 
 * **Model sharing (§3.5)** — N instances of a function share ONE param
   tree through the ``ModelStore``; the runtime never copies weights.
@@ -15,17 +16,28 @@ continuous and paged modes).
   blocks handed out by a ``KVPageAllocator``; admission budgets free
   blocks for the request's whole lifetime, and a finished request
   releases its blocks at once.
-* **Sync-free decode rounds** — sampling runs on the device, prefill
-  tokens stay on the device, and block tables, positions and the active
-  mask stay device-resident, re-uploaded only when admission or release
-  dirtied their host mirrors.  A pass is ``dispatch_step`` (enqueue, no
-  host pull) then ``sync_step``: ONE ``.cpu()`` of one gathered tensor
-  that holds every pending prefill token and the round's tokens.
+* **Sync-free decode rounds (``fused=True``, the default)** — sampling
+  runs on the device, prefill tokens stay on the device, and block
+  tables, positions and the active mask stay device-resident, re-uploaded
+  only when admission or release dirtied their host mirrors.  A pass is
+  ``dispatch_step`` (enqueue, no host pull) then ``sync_step``: ONE
+  ``.cpu()`` of one gathered tensor that holds every pending prefill
+  token and the round's tokens.  ``fused=False`` is the host-argmax
+  reference (engine.py:736-760): the eager step, its logits pulled and
+  argmaxed on the host, one sync per round and per admitted prompt.
+* **Static batching (``batching="static"``)** — the reference batch
+  that is prefilled together (its prompts share one length) and retires
+  together (engine.py:1065-1115); eager, unbucketed, host argmax.
 
-JAX's donated buffers become in-place updates of preallocated pools: the
-KV pools are written in place by the decode steps, ``merge_slot`` and
-``append_paged``, and the slot-token vector takes admitted tokens by an
-in-place device write (the counterpart of ``_SET_TOK``, engine.py:106).
+JAX's donated buffers become buffers allocated once per instance and
+written in place: the KV pools (by the decode steps, ``merge_slot`` and
+``append_paged``), the slot-token vector (admitted tokens by an in-place
+device write, the counterpart of ``_SET_TOK``, engine.py:106; the
+round's tokens by the round itself), the positions and, paged, the block
+tables and active mask (uploads ``copy_`` into them).  JAX's jitted round
+becomes ``graphs.RoundGraph``: on the card each instance's fused round is
+one captured CUDA graph, replayed once per round; on the CPU it runs
+eagerly.
 
 An instance reads the int8-KV gate (``REPRO_KV_INT8``) once, when it is
 built, and passes it to every prefill, pool and byte count it makes, so
@@ -37,9 +49,9 @@ prefill at the exact prompt length and serve continuous only (a
 caches are recurrent state and rolled sliding-window rows, not rows
 addressed by absolute position).
 
-Not ported yet (ROADMAP.md): static batching and ``fused=False``,
-sampling and speculation, prefix sharing and copy-on-write, migration
-(``export_slot``/``import_slot``), ``retire``/``fail``, SLO deadlines.
+Not ported yet (ROADMAP.md): sampling and speculation, prefix sharing
+and copy-on-write, migration (``export_slot``/``import_slot``),
+``retire``/``fail``, SLO deadlines.
 """
 
 from __future__ import annotations
@@ -59,6 +71,7 @@ from repro_torch.core.model_sharing import ModelStore
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import SLORecorder
 from repro_torch.models.model import Model, default_kv_blocks
+from repro_torch.serving.graphs import RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
                                         PageTable, blocks_needed)
 
@@ -92,18 +105,20 @@ class ServeRequest:
 
 class FunctionInstance:
     """One FaSTPod-equivalent: prefill/decode over shared weights, a pool
-    of ``max_batch`` decode slots, continuous or block-paged KV."""
+    of ``max_batch`` decode slots, continuous or block-paged KV, or a
+    static batch.  ``fused=True`` (the default; never for static) runs the
+    sync-free round, a CUDA graph on the card (``round_graph``);
+    ``fused=False`` the host-argmax reference.  Token streams are
+    identical either way."""
 
     def __init__(self, inst_id: str, model: Model, store: ModelStore,
                  weights_key: str, *, device: torch.device,
                  max_batch: int = 4, max_len: int = 64,
                  batching: str = "continuous", block_size: int = 16,
-                 n_kv_blocks: Optional[int] = None,
+                 n_kv_blocks: Optional[int] = None, fused: bool = True,
                  prefix_sharing: bool = False):
-        if batching not in ("continuous", "paged"):
-            raise NotImplementedError(
-                f"batching={batching!r} is not ported yet (the port serves "
-                f"'continuous' and 'paged'; see ROADMAP.md)")
+        if batching not in ("continuous", "static", "paged"):
+            raise ValueError(f"unknown batching mode {batching!r}")
         if prefix_sharing:
             raise NotImplementedError(
                 "prefix sharing is not ported yet (ROADMAP.md, Queue 1 "
@@ -114,29 +129,43 @@ class FunctionInstance:
         self.max_batch = max_batch
         self.max_len = max_len
         self.batching = batching
+        self.fused = fused and batching != "static"
+        self.store = store
+        self.weights_key = weights_key
         self.params = store.get(weights_key)  # shared, zero-copy
         self.kv_int8 = model.kv_int8()  # pinned for the instance's life
         self.queue: deque[ServeRequest] = deque()
         # Prompts are right-padded to power-of-two buckets (engine.py:
         # 518-530): O(log max_len) prefill shapes instead of one per length.
-        self.bucketed = model.supports_bucketed_prefill()
+        self.bucketed = (batching != "static"
+                         and model.supports_bucketed_prefill())
         self.steps = 0
         self.prefills = 0  # prefill launches (telemetry)
         self.rounds = 0    # decode rounds dispatched (telemetry)
         self.slots: list[Optional[ServeRequest]] = [None] * max_batch
         self._slot_tok = np.zeros((max_batch,), np.int32)  # host mirror
-        self._slot_tok_dev: Optional[torch.Tensor] = None
         self.cache: Optional[dict] = None
+        self.active: list[ServeRequest] = []  # the static batch
+        # Completions of a host-synchronous step (static, fused=False),
+        # handed out by sync_step.
+        self._host_finished: list[ServeRequest] = []
         self.refills = 0
         self.last_fill = 0
         self.sync_count = 0  # host synchronisation points (telemetry)
         self.uploads = 0     # paged table/pos uploads (dirty-flag telemetry)
         # Deferred results of the in-flight pass: (req, (1,) device token,
         # slot or None for done-at-prefill) and the decode round's
-        # ((B,) device tokens, active-slot snapshot).
+        # active-slot snapshot (its tokens land in ``_slot_tok_dev``).
         self._pending_prefill: list[tuple[ServeRequest, torch.Tensor,
                                           Optional[int]]] = []
-        self._round: Optional[tuple[torch.Tensor, list[int]]] = None
+        self._round: Optional[list[int]] = None
+        self.round_graph: Optional[RoundGraph] = None
+        if self.fused:
+            # The fused round's slot tokens: its input and its output, at
+            # one address for the instance's life.
+            self._slot_tok_dev = torch.zeros((max_batch,), dtype=torch.int32,
+                                             device=device)
+            self.round_graph = RoundGraph(device)
         if batching == "paged":
             if not model.supports_paged():
                 raise ValueError(f"{model.cfg.name}: batching='paged' needs "
@@ -154,20 +183,62 @@ class FunctionInstance:
             self.allocator = KVPageAllocator(n_blocks, block_size,
                                              block_bytes=self._block_bytes)
             self.pages = PageTable(self.allocator)
-            # Host mirrors; the decode round reads device copies that are
-            # re-uploaded only when admission/release dirtied these.
+            # Host mirrors; the fused round reads device copies, allocated
+            # once and re-filled in place only when admission or release
+            # dirtied these.
             self._tables = np.full((max_batch, self.blocks_per_seq),
                                    NULL_BLOCK, np.int32)
             self._pos = np.zeros((max_batch,), np.int32)
-            self._tables_dev: Optional[torch.Tensor] = None
-            self._pos_dev: Optional[torch.Tensor] = None
-            self._active_dev: Optional[torch.Tensor] = None
+            if self.fused:
+                i32 = dict(dtype=torch.int32, device=device)
+                self._tables_dev = torch.full(self._tables.shape, NULL_BLOCK,
+                                              **i32)
+                self._pos_dev = torch.zeros((max_batch,), **i32)
+                self._active_dev = torch.zeros((max_batch,), **i32)
             self._state_dirty = True
+
+    def close(self) -> None:
+        """Return the store reference and release the paged blocks
+        (engine.py:396-401)."""
+        if self.batching == "paged":
+            self.pages.release_all()
+        self.store.put_back(self.weights_key)
+
+    # -- KV accounting ---------------------------------------------------------
+
+    def kv_bytes_in_use(self) -> int:
+        """Physical KV bytes held by live requests (paged) or reserved by
+        the allocated pool (dense slot modes)."""
+        if self.batching == "paged":
+            return self.pages.bytes_in_use(self._block_bytes)
+        return self.dense_kv_reserved() if self.cache is not None else 0
+
+    def dense_kv_reserved(self) -> int:
+        """What the dense slot pool reserves for this instance's capacity:
+        the baseline the paged pool is measured against."""
+        return self.model.dense_kv_bytes(self.max_batch, self.max_len,
+                                         self.kv_int8)
+
+    @property
+    def kv_bytes_peak(self) -> int:
+        """Paged: the allocator's block high-watermark in bytes; dense
+        modes: the slot-pool reservation once the pool exists."""
+        if self.batching != "paged":
+            return self.dense_kv_reserved() if self.cache is not None else 0
+        return self.allocator.bytes_high_watermark
+
+    def kv_bytes_saved(self) -> int:
+        """Bytes prefix sharing saves now (0 until it is ported)."""
+        if self.batching != "paged":
+            return 0
+        return self.pages.bytes_saved(self._block_bytes)
 
     def has_work(self) -> bool:
         return bool(self.queue) or self.n_active() > 0
 
     def n_active(self) -> int:
+        if self.batching == "static":
+            return len(self.active)
         return sum(1 for r in self.slots if r is not None)
 
     def load(self) -> int:
@@ -181,19 +252,15 @@ class FunctionInstance:
 
     # -- device-resident decode state ----------------------------------------
 
-    def _tok_dev(self) -> torch.Tensor:
-        if self._slot_tok_dev is None:
-            self._slot_tok_dev = torch.as_tensor(self._slot_tok,
-                                                 device=self.device)
-        return self._slot_tok_dev
-
     def _upload_paged_state(self) -> None:
-        """Push dirtied host mirrors (tables / positions / active mask) to
-        the device — once per admit/release burst, not per round."""
+        """Copy dirtied host mirrors (tables / positions / active mask)
+        into their device buffers, in place — once per admit/release
+        burst, not per round."""
         mask = np.array([r is not None for r in self.slots], np.int32)
-        self._tables_dev = torch.as_tensor(self._tables, device=self.device)
-        self._pos_dev = torch.as_tensor(self._pos, device=self.device)
-        self._active_dev = torch.as_tensor(mask, device=self.device)
+        for dev, host in ((self._tables_dev, self._tables),
+                          (self._pos_dev, self._pos),
+                          (self._active_dev, mask)):
+            dev.copy_(torch.from_numpy(host))
         self._state_dirty = False
         self.uploads += 1
 
@@ -258,12 +325,22 @@ class FunctionInstance:
             req = self.queue.popleft()
             logits, entry = self._prefill_one(req.prompt)
             tok_dev = self.model.sample_greedy(logits)  # (1,), on device
-            done_at_prefill = len(req.tokens_out) + 1 >= req.max_new_tokens
-            self._pending_prefill.append(
-                (req, tok_dev, None if done_at_prefill else slot))
-            if done_at_prefill:
-                finished.append(req)
-                continue  # slot stays free for the next queued request
+            if self.fused:
+                done_at_prefill = (len(req.tokens_out) + 1
+                                   >= req.max_new_tokens)
+                self._pending_prefill.append(
+                    (req, tok_dev, None if done_at_prefill else slot))
+                if done_at_prefill:
+                    finished.append(req)  # marked done by sync_step
+                    continue  # slot stays free for the next queued request
+            else:
+                self.sync_count += 1
+                tok = int(tok_dev.cpu()[0])
+                req.tokens_out.append(tok)
+                if len(req.tokens_out) >= req.max_new_tokens:
+                    req.done = True
+                    finished.append(req)
+                    continue
             if self.cache is None:
                 self.cache = self._init_cache()
             if had_live:
@@ -273,7 +350,10 @@ class FunctionInstance:
             else:
                 self.model.merge_slot(self.cache, entry, slot)
             self.slots[slot] = req
-            self._tok_dev()[slot] = tok_dev[0]  # in-place device write
+            if self.fused:
+                self._slot_tok_dev[slot] = tok_dev[0]  # in-place device write
+            else:
+                self._slot_tok[slot] = tok
         return finished
 
     def _advance_slot(self, slot: int, tok: int) -> Optional[ServeRequest]:
@@ -299,45 +379,157 @@ class FunctionInstance:
         self._pos[slot] = 0
         self._state_dirty = True
 
+    def _host_argmax(self, logits: torch.Tensor) -> np.ndarray:
+        """Reference sampler: the logits pulled, argmax and clip on the
+        host (one sync)."""
+        self.sync_count += 1
+        tok = np.argmax(logits.cpu().numpy(), axis=-1)
+        return np.minimum(tok, self.model.cfg.vocab_size - 1).astype(np.int32)
+
+    def _decode_round_host(self) -> list[ServeRequest]:
+        """Host-argmax reference round (``fused=False``, engine.py:736-760):
+        the eager step on freshly uploaded tokens (and tables and
+        positions), its logits argmaxed on the host."""
+        self.rounds += 1
+        tok = torch.as_tensor(self._slot_tok, device=self.device)
+        if self.batching == "paged":
+            logits, self.cache = self.model.decode_step_paged(
+                self.params, tok, self.cache,
+                torch.as_tensor(self._tables, device=self.device),
+                torch.as_tensor(self._pos, device=self.device))
+        else:
+            logits, self.cache = self.model.decode_step(self.params, tok,
+                                                        self.cache)
+        next_tok = self._host_argmax(logits)
+        finished = []
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue  # a free slot decoded garbage; ignore it
+            done = self._advance_slot(slot, int(next_tok[slot]))
+            if done is not None:
+                finished.append(done)
+        return finished
+
+    # -- static reference path (engine.py:1065-1115) ---------------------------
+
+    def _admit_static(self) -> list[ServeRequest]:
+        """Prefill up to ``max_batch`` queued requests as one batch (their
+        prompts share one length)."""
+        batch = []
+        while self.queue and len(batch) < self.max_batch:
+            batch.append(self.queue.popleft())
+        if not batch:
+            return []
+        prompts = torch.as_tensor(np.stack([r.prompt for r in batch]),
+                                  dtype=torch.int32, device=self.device)
+        self.prefills += 1
+        logits, self.cache = self.model.prefill(
+            self.params, prompts, max_len=self.max_len, kv_int8=self.kv_int8)
+        finished = []
+        for r, t in zip(batch, self._host_argmax(logits)):
+            r.tokens_out.append(int(t))
+            if len(r.tokens_out) >= r.max_new_tokens:
+                r.done = True
+                finished.append(r)
+        self.active = batch
+        self._retire_static_if_done()
+        return finished
+
+    def _decode_round_static(self) -> list[ServeRequest]:
+        """One round of the whole batch; finished members keep their row
+        but stop taking tokens."""
+        self.rounds += 1
+        toks = torch.as_tensor([r.tokens_out[-1] for r in self.active],
+                               dtype=torch.int32, device=self.device)
+        logits, self.cache = self.model.decode_step(self.params, toks,
+                                                    self.cache)
+        finished = []
+        for r, t in zip(self.active, self._host_argmax(logits)):
+            if r.done:
+                continue
+            r.tokens_out.append(int(t))
+            if len(r.tokens_out) >= r.max_new_tokens:
+                r.done = True
+                finished.append(r)
+        self._retire_static_if_done()
+        return finished
+
+    def _retire_static_if_done(self) -> None:
+        """The batch retires together once every member is done; no slot
+        is refilled mid-flight."""
+        if self.active and all(r.done for r in self.active):
+            self.active = []
+            self.cache = None
+
     # -- one pass: dispatch now, sync once -----------------------------------
 
+    def _round_body(self) -> torch.Tensor:
+        """The fused round (what ``round_graph`` runs, captures and
+        replays): it writes every buffer that crosses rounds in place, the
+        KV pools by the decode step, then, as its last ops, the positions
+        (the slot pool's ``pos``, or the paged ones advanced by the active
+        mask) and the slot tokens, its input and its output."""
+        tok = self._slot_tok_dev
+        if self.batching == "paged":
+            new_tok, _, pos = self.model.decode_step_paged_tokens(
+                self.params, tok, self.cache, self._tables_dev,
+                self._pos_dev, self._active_dev)
+            self._pos_dev.copy_(pos)
+        else:
+            new_tok, advanced = self.model.decode_step_tokens(
+                self.params, tok, self.cache)
+            self.cache["pos"].copy_(advanced["pos"])
+        return tok.copy_(new_tok)
+
     def _dispatch_round(self) -> None:
-        """Enqueue one fused decode round on the device — no host pull."""
+        """Enqueue one fused decode round on the device — no host pull: a
+        graph replay on the card, the eager round on the CPU."""
         active = [s for s, r in enumerate(self.slots) if r is not None]
         self.rounds += 1
-        if self.batching == "paged":
-            if self._state_dirty:
-                self._upload_paged_state()
-            tok, self.cache, self._pos_dev = \
-                self.model.decode_step_paged_tokens(
-                    self.params, self._tok_dev(), self.cache,
-                    self._tables_dev, self._pos_dev, self._active_dev)
-        else:
-            tok, self.cache = self.model.decode_step_tokens(
-                self.params, self._tok_dev(), self.cache)
-        self._slot_tok_dev = tok  # device-resident input of the next round
-        self._round = (tok, active)
+        if self.batching == "paged" and self._state_dirty:
+            self._upload_paged_state()
+        self.round_graph.run(self._round_body)
+        self._round = active
 
     def dispatch_step(self) -> bool:
-        """Admit and dispatch one token-gated step without any host
-        synchronisation; ``sync_step`` finishes the pass."""
+        """Admit and dispatch one token-gated step.  The fused modes do it
+        without any host synchronisation; the host-synchronous reference
+        modes (static, ``fused=False``) run the step in full and stash its
+        completions.  Either way ``sync_step`` finishes the pass."""
         self.steps += 1
+        if self.batching == "static":
+            if self.active:
+                self.last_fill = sum(1 for r in self.active if not r.done)
+                self._host_finished = self._decode_round_static()
+            else:
+                finished = self._admit_static()
+                self.last_fill = len(self.active) or len(finished)
+                self._host_finished = finished
+            return True
         finished = self._admit()
         self.last_fill = self.n_active() + len(finished)
+        if self.fused:
+            if self.n_active() > 0:
+                self._dispatch_round()
+            return True
         if self.n_active() > 0:
-            self._dispatch_round()
+            finished += self._decode_round_host()
+        self._host_finished = finished
         return True
 
     def sync_step(self) -> list[ServeRequest]:
-        """Complete the dispatched pass with ONE host synchronisation: the
-        pending prefill tokens and the round's tokens are gathered into
+        """Complete the dispatched pass.  Fused: ONE host synchronisation,
+        the pending prefill tokens and the round's tokens gathered into
         one device tensor and pulled by one ``.cpu()``.  Returns the
         requests the pass completed."""
+        if not self.fused:
+            finished, self._host_finished = self._host_finished, []
+            return finished
         if not self._pending_prefill and self._round is None:
             return []
         parts = [t.reshape(1) for _, t, _ in self._pending_prefill]
         if self._round is not None:
-            parts.append(self._round[0])
+            parts.append(self._slot_tok_dev)
         self.sync_count += 1
         host = torch.cat(parts).cpu().numpy()  # the pass's single pull
         finished = []
@@ -351,8 +543,7 @@ class FunctionInstance:
                 self._slot_tok[slot] = int(tok)
         self._pending_prefill = []
         if self._round is not None:
-            _, active = self._round
-            self._round = None
+            active, self._round = self._round, None
             toks = host[n_pre:]
             for slot in active:
                 done = self._advance_slot(slot, int(toks[slot]))
@@ -386,7 +577,7 @@ class ServingEngine:
     def deploy(self, fn: str, model: Model, params: Any, alloc: Alloc, *,
                n_instances: int = 1, max_batch: int = 4, max_len: int = 64,
                batching: str = "continuous", block_size: int = 16,
-               n_kv_blocks: Optional[int] = None,
+               n_kv_blocks: Optional[int] = None, fused: bool = True,
                prefix_sharing: bool = False) -> list[str]:
         """Deploy ``n_instances`` of ``fn`` sharing one stored copy of
         ``params`` (which must already lie on the engine's device)."""
@@ -405,7 +596,7 @@ class ServingEngine:
                 inst_id, model, self.store, fn, device=self.device,
                 max_batch=max_batch, max_len=max_len, batching=batching,
                 block_size=block_size, n_kv_blocks=n_kv_blocks,
-                prefix_sharing=prefix_sharing)
+                fused=fused, prefix_sharing=prefix_sharing)
             self.scheduler.register(inst_id, alloc)
             ids.append(inst_id)
         return ids
@@ -494,16 +685,34 @@ class ServingEngine:
         counted once, however many instances use it)."""
         return self.store.used_bytes()
 
+    def kv_bytes_in_use(self) -> int:
+        """Physical KV bytes live requests hold across this node."""
+        return sum(i.kv_bytes_in_use() for i in self.instances.values())
+
+    def dense_kv_reserved(self) -> int:
+        """What dense slot pools would reserve for the same capacity."""
+        return sum(i.dense_kv_reserved() for i in self.instances.values())
+
+    def kv_bytes_saved(self) -> int:
+        """Bytes prefix sharing saves across this node's instances."""
+        return sum(i.kv_bytes_saved() for i in self.instances.values())
+
     def sync_counts(self) -> dict[str, int]:
-        """Per-instance host syncs: exactly one per instance per pass."""
+        """Per-instance host syncs: the fused round's budget is one per
+        instance per pass; the host-argmax reference spends one per round
+        plus one per admitted prompt."""
         return {k: v.sync_count for k, v in self.instances.items()}
 
     def telemetry(self) -> dict[str, dict[str, int]]:
         """Hot-path counters per instance: steps, host syncs, prefills,
-        decode rounds and (paged) device-state uploads — ``uploads <<
-        steps`` shows the tables and positions stay device-resident
-        between admission events."""
+        decode rounds, (paged) device-state uploads — ``uploads << steps``
+        shows the tables and positions stay device-resident between
+        admission events — and the round graph's captures and replays."""
         return {k: {"steps": v.steps, "syncs": v.sync_count,
                     "prefills": v.prefills, "rounds": v.rounds,
-                    "uploads": v.uploads}
+                    "uploads": v.uploads,
+                    "captures": (v.round_graph.captures
+                                 if v.round_graph else 0),
+                    "replays": (v.round_graph.replays
+                                if v.round_graph else 0)}
                 for k, v in self.instances.items()}

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+engine's decode round as a CUDA graph against its eager reference, on the
 card.  Marked ``gpu``: without a card each test skips at run time (the
 kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
@@ -656,3 +657,149 @@ def test_ssm_kernel_state_size_8(cuda_device, s):
     torch.testing.assert_close(y.float(), want_y.float(), atol=2e-2,
                                rtol=2e-2)
     torch.testing.assert_close(new, want_st, atol=2e-2, rtol=2e-2)
+
+
+# -- the fused round as a CUDA graph (serving/graphs.py) ----------------------
+
+
+def _serving_model(arch, device):
+    """A model and its bf16 weights drawn on the card: ``tiny`` is a
+    2-layer dense config at head dim 16 (the kernels take 16-128), the
+    others the reduced rwkv6-1.6b and hymba-1.5b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    cfg = (ModelConfig(name="tiny-dense-d16", family="dense", n_layers=2,
+                       d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                       vocab_size=256, vocab_pad_multiple=32,
+                       rope_theta=10_000.0)
+           if arch == "tiny" else get_config(arch, reduced=True))
+    model = build_model(cfg)
+    return model, model.init(torch.Generator(device=device).manual_seed(0))
+
+
+def _graph_engine(model, params, batching, arrivals, **kw):
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               batching=batching, max_batch=2, max_len=64, block_size=16,
+               **kw)
+    reqs = [eng.submit("f", p, max_new_tokens=n) for p, n in arrivals]
+    assert eng.pump(budget_s=300.0) == len(reqs)
+    assert all(r.done and len(r.tokens_out) == n
+               for r, (_, n) in zip(reqs, arrivals))
+    return [r.tokens_out for r in reqs], eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,batching,int8", [
+    ("tiny", "continuous", False), ("tiny", "paged", False),
+    ("tiny", "continuous", True), ("tiny", "paged", True),
+    ("rwkv6-1.6b", "continuous", False), ("hymba-1.5b", "continuous", False),
+])
+def test_round_graph_streams_equal_host_argmax(cuda_device, monkeypatch,
+                                               arch, batching, int8):
+    """Two instances, mid-flight admission: the graph-backed fused round
+    emits the host-argmax reference's streams, each instance runs one
+    eager round, captures once and replays every later round."""
+    if int8:
+        monkeypatch.setenv("REPRO_KV_INT8", "1")
+    model, params = _serving_model(arch, cuda_device)
+    rng = np.random.default_rng(3)
+    vocab = model.cfg.vocab_size
+    arrivals = [(rng.integers(0, vocab, l).astype(np.int32), n)
+                for l, n in [(5, 6), (20, 9), (17, 3), (9, 12), (30, 5),
+                             (12, 7), (3, 10), (24, 4)]]
+    graph, eng = _graph_engine(model, params, batching, arrivals,
+                               n_instances=2)
+    host, ref = _graph_engine(model, params, batching, arrivals,
+                              n_instances=2, fused=False)
+    assert graph == host
+    for inst in eng.instances.values():
+        rg = inst.round_graph
+        assert inst.kv_int8 == int8 and inst.refills > 0
+        assert rg.graph is not None and rg.captures == 1
+        assert rg.eager_rounds == 1 and rg.replays == inst.rounds - 1
+        assert inst.sync_count == inst.steps
+    assert all(i.round_graph is None for i in ref.instances.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kernel", [
+    ("tiny", "decode_attention"), ("rwkv6-1.6b", "wkv6_step"),
+    ("hymba-1.5b", "ssm_step")])
+def test_round_graph_captures_once_and_counts_replays(cuda_device, arch,
+                                                      kernel):
+    """A 20-round decode: one capture, the same graph from the second round
+    to the last, and the round's kernel counted once per layer and round
+    under replay (prompts of 20 tokens, so no prefill runs a step
+    kernel)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ssm_scan, wkv6
+    model, params = _serving_model(arch, cuda_device)
+    rng = np.random.default_rng(4)
+    arrivals = [(rng.integers(0, model.cfg.vocab_size, 20).astype(np.int32),
+                 21) for _ in range(2)]
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               max_batch=4, max_len=64)
+    for p, n in arrivals:
+        eng.submit("f", p, max_new_tokens=n)
+    (inst,) = eng.instances.values()
+    kernels.reset_launch_counts()
+    graphs = []
+    while eng.has_work():
+        inst.run_step()
+        graphs.append(inst.round_graph.graph)
+    assert inst.rounds == 20 and inst.prefills == 2
+    assert graphs[0] is None and graphs[1] is not None
+    assert all(g is graphs[1] for g in graphs[1:])
+    assert inst.round_graph.captures == 1 and inst.round_graph.replays == 19
+    counts = kernels.launch_counts()
+    assert counts[kernel] == model.cfg.n_layers * inst.rounds, counts
+    for scan, pair in ((wkv6.wkv6_scan, ("wkv6_chunked", "wkv6_step")),
+                       (ssm_scan.ssm_scan, ("ssm_chunked", "ssm_step"))):
+        assert scan.launches == sum(counts[k] for k in pair)
+    assert eng.telemetry()["f/0"]["replays"] == 19
+
+
+@pytest.mark.gpu
+def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
+    """A round that syncs the host cannot be captured: the second round
+    raises, the launch counters are left as they were, and the instance
+    serves no further round, eagerly or otherwise.  Last in the file: it
+    leaves a failed capture behind."""
+    from repro_torch import kernels
+    from repro_torch.models.model import Model
+    model, params = _serving_model("tiny", cuda_device)
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9), max_len=64)
+    eng.submit("f", np.arange(8, dtype=np.int32), max_new_tokens=6)
+    (inst,) = eng.instances.values()
+    inst.run_step()  # admission and the eager first round
+    step = Model.decode_step_tokens
+
+    def syncing(self, *args):
+        tok, cache = step(self, *args)
+        tok[0].item()  # a host sync inside the round
+        return tok, cache
+
+    monkeypatch.setattr(Model, "decode_step_tokens", syncing)
+    before = kernels.counter_values()
+    with pytest.raises(RuntimeError):
+        inst.run_step()
+    assert kernels.counter_values() == before
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="never falls back"):
+        inst.run_step()
+    rg = inst.round_graph
+    assert rg.graph is None and rg.eager_rounds == 1 and rg.replays == 0
+    assert torch.ones(4, device=cuda_device).sum().item() == 4.0
