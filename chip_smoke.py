@@ -45,16 +45,22 @@ place), and then:
    tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) and
    full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
    1024) continuous with the same mix.  Each instance's fused decode
-   round is a CUDA graph (``serving/graphs.py``), captured in a warm-up
-   before the run and replayed in every round of it, never captured
-   again; a ``fused=False`` engine (the host-argmax reference, eager)
-   must give the same greedy streams on the same prompts, and one
-   qwen2-7b paged decode step replayed over a copy of the pools must
-   equal the eager ``decode_step_paged`` bit for bit (logits, pools), as
-   must the instance's own replayed round (tokens, positions, pools).
-   Launch counts are set to 0 just before each mode and read just after
-   it.  Each model's profile window logs its wall, device busy share,
-   kernels and the host's launch calls per decode round.
+   round is a CUDA graph (``serving/graphs.py``), and so is each of its
+   qwen2-7b admissions, one graph per prompt bucket (64, 128, 256, 512);
+   all are captured in a warm-up before the run (two admissions of every
+   bucket per instance) and replayed in every round and every qwen2-7b
+   admission of it, never captured again (rwkv6 and hymba prefill
+   eagerly, at the exact length); a ``fused=False`` engine (the
+   host-argmax reference, eager) must give the same greedy streams on the
+   same prompts, one qwen2-7b paged decode step replayed over a copy of
+   the pools must equal the eager ``decode_step_paged`` bit for bit
+   (logits, pools), as must the instance's own replayed round (tokens,
+   positions, pools), and in each qwen2-7b mode a replayed admission must
+   equal the eager admission body bit for bit (logits, pools, slot and
+   pending tokens).  Launch counts are set to 0 just before each mode and
+   read just after it.  Each model's profile window logs its wall, device
+   busy share, kernels and the host's launch calls per decode round and
+   per prefill.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1293,6 +1299,7 @@ def serve_phase(rng) -> dict[str, int]:
 
 
 EAGER_TOKENS = 8  # the fused=False runs serve this many tokens a request
+LABELS = {"_dispatch_round": "decode_round", "_admit": "admission"}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
                 "cudaMemsetAsync")  # host calls that put work on the card
@@ -1319,14 +1326,22 @@ def deploy(model, params, arch, alloc, batching, *, int8=False,
     return engine
 
 
+WARM_BUCKETS = (64, 128, 256, 512)  # the buckets of 64-512-token prompts
+
+
 def warm(engine, arch, prompt) -> dict:
-    """One request of 3 tokens per instance: its first round runs eagerly
-    and its second is captured, before any timed window.  Returns each
-    instance's graph; an engine without round graphs (a checkout before
-    them, ``--windows``) gets ``None``s."""
+    """Before any timed window, two requests of 3 tokens per instance and
+    serve bucket (64, 128, 256 and 512 tokens, cut from ``prompt`` repeated),
+    all admitted in one pass: each bucket's first admission runs eagerly
+    and its second is captured and replayed (the dense family), the first
+    round runs eagerly and the second is captured.  Returns each
+    instance's graphs, (round graph, {bucket: prefill graph}); an engine
+    without them (a checkout before them, ``--windows``) gets ``None``s."""
     from repro_torch.launch import serve
 
-    serve.drive(engine, arch, [prompt] * len(engine.instances), 3)
+    n = len(engine.instances)
+    serve.drive(engine, arch, [np.resize(prompt, b) for b in WARM_BUCKETS
+                               for _ in range(2 * n)], 3)
     graphs = {}
     for k, inst in engine.instances.items():
         rg = getattr(inst, "round_graph", None)
@@ -1334,47 +1349,66 @@ def warm(engine, arch, prompt) -> dict:
                                or inst.rounds != 2):
             raise AssertionError(f"{k}: warm-up left {rg.captures} captures "
                                  f"after {inst.rounds} rounds")
-        graphs[k] = rg and rg.graph
+        pg = getattr(inst, "prefill_graphs", None)
+        if pg is not None:
+            state = {b: (g.graph is not None, g.eager_rounds, g.captures,
+                         g.replays) for b, g in pg.by_bucket.items()}
+            if state != {b: (True, 1, 1, 1) for b in WARM_BUCKETS}:
+                raise AssertionError(f"{k}: warm-up left prefill graphs "
+                                     f"(captured, eager, captures, replays) "
+                                     f"{state}")
+        graphs[k] = (rg and rg.graph,
+                     pg and {b: g.graph for b, g in pg.by_bucket.items()})
     return graphs
 
 
-def same_graphs(engine, graphs, what) -> int:
-    """Fails unless every instance still has the one graph it captured in
-    the warm-up; returns the rounds replayed since."""
-    replays = 0
+def same_graphs(engine, graphs, what) -> tuple[int, int]:
+    """Fails unless every instance still has the graphs it captured in the
+    warm-up, its round's and its prefill buckets', and no other; returns
+    the rounds and the prefills replayed since."""
+    rounds = prefills = 0
     for k, inst in engine.instances.items():
         rg = getattr(inst, "round_graph", None)
-        if rg is None:
-            continue
-        if rg.graph is not graphs[k] or rg.captures != 1:
-            raise AssertionError(f"{what}: {k} captured again")
-        replays += rg.replays
-    return replays
+        if rg is not None:
+            if rg.graph is not graphs[k][0] or rg.captures != 1:
+                raise AssertionError(f"{what}: {k} captured its round again")
+            rounds += rg.replays
+        pg = getattr(inst, "prefill_graphs", None)
+        if pg is not None:
+            now = {b: g.graph for b, g in pg.by_bucket.items()}
+            if pg.captures != len(WARM_BUCKETS) or now != graphs[k][1]:
+                raise AssertionError(f"{what}: {k} captured a prefill again")
+            prefills += pg.replays
+    return rounds, prefills
 
 
 def timed_serve(engine, arch, prompts, new_tokens) -> tuple:
-    """Warm every instance through its capture, then serve ``prompts``
+    """Warm every instance through its captures, then serve ``prompts``
     with the launch counts and the peak memory set to 0 just before and
     read just after.  Returns (requests, completed, wall s, launch counts,
-    telemetry delta per instance, rounds replayed, peak bytes)."""
+    telemetry delta per instance, (rounds, prefills) replayed, peak
+    bytes allocated and reserved: a graph's memory pool is reserved, and
+    a replay allocates nothing)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch import serve
 
-    graphs = warm(engine, arch, prompts[0][:64])
+    graphs = warm(engine, arch, prompts[0])
     before = {k: dict(v) for k, v in engine.telemetry().items()}
-    replayed = same_graphs(engine, graphs, arch)
+    rounds0, prefills0 = same_graphs(engine, graphs, arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     reqs, done, wall = serve.drive(engine, arch, prompts, new_tokens)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    replayed = same_graphs(engine, graphs, arch) - replayed
+    rounds, prefills = same_graphs(engine, graphs, arch)
     delta = {k: {c: v[c] - before[k][c] for c in v}
              for k, v in engine.telemetry().items()}
-    return (reqs, done, wall, counts, delta, replayed,
-            torch.cuda.max_memory_allocated())
+    return (reqs, done, wall, counts, delta,
+            (rounds - rounds0, prefills - prefills0),
+            (torch.cuda.max_memory_allocated(),
+             torch.cuda.max_memory_reserved()))
 
 
 def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
@@ -1409,8 +1443,8 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         raise AssertionError(
             f"{arch} {mode}: store holds {engine.memory_bytes()} bytes for "
             f"two instances, expected one copy of {wbytes}")
-    reqs, done, wall, counts, delta, replayed, peak = timed_serve(
-        engine, arch, prompts, new_tokens)
+    reqs, done, wall, counts, delta, (replayed, pre_replayed), peak = \
+        timed_serve(engine, arch, prompts, new_tokens)
     if done != len(prompts) or not all(
             r.done and len(r.tokens_out) == new_tokens for r in reqs):
         raise AssertionError(f"{arch} {mode}: served {done}/{len(prompts)}")
@@ -1427,6 +1461,10 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     if replayed != rounds:
         raise AssertionError(f"{arch} {mode}: {replayed} of {rounds} rounds "
                              f"replayed")
+    graphed = model.supports_bucketed_prefill()  # else exact-length, eager
+    if pre_replayed != (prefills if graphed else 0):
+        raise AssertionError(f"{arch} {mode}: {pre_replayed} of {prefills} "
+                             f"prefills replayed")
     for k in used:  # one launch per layer and prefill, or round
         per = prefills if k in {"flash_attention", "wkv6_chunked",
                                 "ssm_chunked"} else rounds
@@ -1457,9 +1495,13 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; latency "
         f"p50={np.percentile(lat, 50):.3f}s p99={np.percentile(lat, 99):.3f}s;"
         f" passes {passes}; syncs {syncs} (1 per pass); prefills "
-        f"{prefills}, rounds {rounds}, of them replayed from the warm-up's "
-        f"graphs {replayed} (1 capture per instance, before the run); "
-        f"launches {counts}; peak device memory {peak} bytes; weights "
+        f"{prefills}, of them replayed from the warm-up's graphs "
+        f"{pre_replayed} (1 capture per instance and bucket, before the "
+        f"run{'' if graphed else '; exact-length prefill, eager'}); rounds "
+        f"{rounds}, of them replayed {replayed} (1 capture per instance, "
+        f"before the run); "
+        f"launches {counts}; peak device memory allocated {peak[0]}, "
+        f"reserved {peak[1]} bytes; weights "
         f"stored once: {engine.memory_bytes()} bytes for 2 instances")
     for k in totals:
         totals[k] += counts[k]
@@ -1477,7 +1519,61 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         f"{EAGER_TOKENS} tokens, {len(prompts)} requests")
     if mode == "paged":
         logit_check(model, params, arch, prompts[:8], alloc)
+    if graphed:
+        prefill_check(model, params, arch, prompts[:2], alloc, batching,
+                      int8)
     return streams
+
+
+def prefill_check(model, params, arch, prompts, alloc, batching, int8
+                  ) -> None:
+    """One admission replayed from its bucket's graph against the eager
+    admission body on the same argument buffer and from the same state:
+    the logits row, every pool leaf, the slot tokens and the pending
+    tokens must agree bit for bit, paged pools in every block but the
+    sink (it takes every block the admission must not write, and which of
+    those lands last is not fixed).  The instance admits ``prompts`` (one
+    bucket: the first eagerly, the second captured and replayed); the
+    compared admission re-admits the second into its own slot."""
+    import functools
+    import torch
+
+    bucket = 1 << (len(prompts[1]) - 1).bit_length()
+    prompts = [np.resize(prompts[0], len(prompts[1])), prompts[1]]
+    engine = deploy(model, params, arch, alloc, batching, int8=int8,
+                    n_instances=1)
+    for p in prompts:
+        engine.submit(arch, p, max_new_tokens=8)
+    (inst,) = engine.instances.values()
+    inst.dispatch_step()  # both admissions, then the round; no sync
+    graph = inst.prefill_graphs.by_bucket[bucket]
+    if (graph.eager_rounds, graph.captures, graph.replays) != (1, 1, 1):
+        raise AssertionError(f"prefill check: bucket {bucket} graph "
+                             f"{graph.eager_rounds, graph.captures}")
+    live = {"slot tokens": inst._slot_tok_dev,
+            "pending tokens": inst._pending_dev, **inst.cache}
+    start = {k: v.clone() for k, v in live.items()}
+    body = functools.partial(inst._admission_body, bucket, True)
+    replayed = inst.prefill_graphs.run(bucket, body).clone()
+    after = {k: v.clone() for k, v in live.items()}
+    for k, v in start.items():
+        live[k].copy_(v)
+    eager = body()
+    torch.cuda.synchronize()
+    if batching == "paged":  # the sink block is the pools' last
+        live = {k: v if "tokens" in k else v[:, :-1] for k, v in live.items()}
+        after = {k: v if "tokens" in k else v[:, :-1]
+                 for k, v in after.items()}
+    checks = {"logits": torch.equal(replayed, eager),
+              **{k: torch.equal(after[k], v) for k, v in live.items()}}
+    if not all(checks.values()) or graph.replays != 2:
+        raise AssertionError(f"prefill check: replay != eager: {checks}")
+    log(f"prefill check {arch} {'int8 ' if int8 else ''}{batching}: a "
+        f"{len(prompts[1])}-token admission replayed from the bucket-"
+        f"{bucket} graph equals the eager admission bit for bit (logits "
+        f"{tuple(eager.shape)}, {len(live) - 2} pool leaves"
+        f"{' but the sink block' if batching == 'paged' else ''}, slot and "
+        f"pending tokens)")
 
 
 def logit_check(model, params, arch, prompts, alloc) -> None:
@@ -1540,63 +1636,80 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
                    batching="paged") -> None:
     """Where a serve pass spends its time: device time by kernel (the
     copy kernels, casts included, also summed), the device's busy share of
-    the wall time, and the host's launch calls a decode round makes (a
-    graph replay is one), from ``torch.profiler`` over 8 requests x 8
-    tokens on one instance (after a warm-up that captures its round).
-    Runs on an engine without round graphs too (``--windows``)."""
+    the wall time, and the host's launch calls a decode round and an
+    admission make (a graph replay is one, an admission's argument copy
+    one more), from ``torch.profiler`` over 8 requests x 8 tokens on one
+    instance (after a warm-up that captures its round and, dense, its
+    prefill buckets).  Runs on an engine without graphs too
+    (``--windows``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.launch import serve
 
     engine = deploy(model, params, arch, alloc, batching, n_instances=1)
     graphs = warm(engine, arch, prompts[0])
-    replayed = same_graphs(engine, graphs, arch)
+    replayed0 = same_graphs(engine, graphs, arch)
     (inst,) = engine.instances.values()
     cls = type(inst)
-    plain_round = cls._dispatch_round
+    # ``_admit`` spans a pass's admissions, in older checkouts too.
+    plain = {name: getattr(cls, name) for name in LABELS}
 
-    def labelled_round(self):
-        with record_function("decode_round"):
-            return plain_round(self)
+    def labelled(name):
+        def run(self, *args):
+            with record_function(LABELS[name]):
+                return plain[name](self, *args)
+        return run
 
-    rounds0 = inst.rounds
+    rounds0, prefills0 = inst.rounds, inst.prefills
     torch.cuda.synchronize()
-    cls._dispatch_round = labelled_round
+    for name in LABELS:
+        setattr(cls, name, labelled(name))
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, wall = serve.drive(engine, arch, prompts, 8)
             torch.cuda.synchronize()
     finally:
-        cls._dispatch_round = plain_round
-    rounds = inst.rounds - rounds0
-    replayed = same_graphs(engine, graphs, arch) - replayed
+        for name, fn in plain.items():
+            setattr(cls, name, fn)
+    rounds, prefills = inst.rounds - rounds0, inst.prefills - prefills0
+    replayed = [b - a for a, b in zip(replayed0,
+                                      same_graphs(engine, graphs, arch))]
     from torch.autograd import DeviceType
 
     events = prof.events()
-    # The label's host spans (the profiler mirrors it on the device's
-    # timeline too, as an annotation kept out of every count here).
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == "decode_round"
-                   and e.device_type == DeviceType.CPU)
-    starts = [s for s, _ in spans]
     calls = [e.time_range.start for e in events if e.name in LAUNCH_CALLS]
-    in_rounds = 0
-    for t in calls:
-        i = bisect.bisect_right(starts, t) - 1
-        in_rounds += i >= 0 and t <= spans[i][1]
+    inside = {}
+    for label in LABELS.values():
+        # The label's host spans (the profiler mirrors it on the device's
+        # timeline too, as an annotation kept out of every count here).
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == label
+                       and e.device_type == DeviceType.CPU)
+        starts = [s for s, _ in spans]
+        n = 0
+        for t in calls:
+            i = bisect.bisect_right(starts, t) - 1
+            n += i >= 0 and t <= spans[i][1]
+        inside[label] = (n, len(spans))
+    (in_rounds, n_spans), (in_admit, _) = (inside["decode_round"],
+                                           inside["admission"])
     launch_text = (f"host launch calls {len(calls)}, in rounds "
-                   f"{in_rounds} = {in_rounds / max(len(spans), 1):.1f} per "
-                   f"round" if calls else
+                   f"{in_rounds} = {in_rounds / max(n_spans, 1):.1f} per "
+                   f"round, in admissions {in_admit} = "
+                   f"{in_admit / max(prefills, 1):.1f} per prefill"
+                   if calls else
                    "host launch calls not measured (no runtime events)")
     # Device-side (kernel) events only: the CPU-side op events carry the
     # same device time again as their children's.
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0 and e.key != "decode_round"]
-    log(f"profile {arch}: rounds {rounds} ({len(spans)} profiled), replayed "
-        f"{replayed}; {launch_text}")
+            and e.self_device_time_total > 0
+            and e.key not in LABELS.values()]
+    log(f"profile {arch}: rounds {rounds} ({n_spans} profiled), replayed "
+        f"{replayed[0]}; prefills {prefills}, replayed {replayed[1]}; "
+        f"{launch_text}")
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
@@ -1779,8 +1892,8 @@ def windows_phase(checkout: Path) -> None:
         for mode in modes:
             engine = deploy(model, params, arch, alloc, mode.split()[-1],
                             int8=mode.startswith("int8"))
-            reqs, done, wall, _, delta, replayed, peak = timed_serve(
-                engine, arch, prompts, 32)
+            reqs, done, wall, _, delta, (replayed, pre_replayed), peak = \
+                timed_serve(engine, arch, prompts, 32)
             passes = sum(v["steps"] for v in delta.values())
             syncs = sum(v["syncs"] for v in delta.values())
             n_tok = sum(len(r.tokens_out) for r in reqs)
@@ -1790,7 +1903,10 @@ def windows_phase(checkout: Path) -> None:
             log(f"windows {arch} {mode}: {n_tok} tokens in {wall:.3f}s = "
                 f"{n_tok / wall:.1f} tokens/s; passes {passes}, rounds "
                 f"{sum(v['rounds'] for v in delta.values())}, replayed "
-                f"{replayed}; peak device memory {peak} bytes")
+                f"{replayed}; prefills "
+                f"{sum(v['prefills'] for v in delta.values())}, replayed "
+                f"{pre_replayed}; peak device memory allocated {peak[0]}, "
+                f"reserved {peak[1]} bytes")
             del engine
         profile_window(model, params, prompts[:8], alloc, arch, window)
         del model, params

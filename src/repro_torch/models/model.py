@@ -180,16 +180,20 @@ class Model:
                                    device=device)
         return cache
 
-    def merge_slot(self, cache: dict, entry: dict, slot: int) -> dict:
+    def merge_slot(self, cache: dict, entry: dict, slot) -> dict:
         """Copy a batch-1 prefill ``entry`` into slot ``slot`` of the pool,
         in place, leaf by leaf (every leaf's batch axis is 1; a
-        device-to-device copy, no host sync)."""
+        device-to-device copy, no host sync).  ``slot`` is a host int or a
+        (1,) int64 tensor on the pool's device, read there: a captured
+        admission then serves every slot."""
         _check_entry("merge_slot", cache, entry)
         for key, leaf in cache.items():
-            if key == "pos":
-                leaf[slot] = entry["pos"]
+            axis, src = ((0, entry["pos"].reshape(1)) if key == "pos"
+                         else (1, entry[key]))
+            if torch.is_tensor(slot):
+                leaf.index_copy_(axis, slot, src)
             else:
-                leaf[:, slot] = entry[key][:, 0]
+                leaf.narrow(axis, slot, 1).copy_(src)
         return cache
 
     def gather_slot(self, cache: dict, slot: int) -> dict:
@@ -203,31 +207,45 @@ class Model:
 
     def init_paged_cache(self, n_blocks: int, block_size: int, device=None,
                          kv_int8: Optional[bool] = None) -> dict:
-        """Zeroed paged pools (block 0 is the engine's null block)."""
+        """Zeroed paged pools (block 0 is the engine's null block; a
+        serving instance asks for one block more than its allocator holds,
+        the write-only sink of ``append_paged``)."""
         return _zeros(self.paged_cache_specs(n_blocks, block_size, kv_int8),
                       device)
 
     def append_paged(self, cache: dict, entry: dict, block_row,
-                     write) -> dict:
+                     write=None) -> dict:
         """Scatter a batch-1 prefill ``entry`` (``max_len`` rows, a multiple
         of the block size) into physical pages of every leaf, in place:
-        logical block i lands in ``block_row[i]`` where the row mask
-        ``write[i]`` is true.  The explicit mask replaces JAX's
-        ``mode="drop"`` sentinel (model.py:387-412); both arguments are
-        host arrays, so the scatter indices are built without a device
-        sync."""
+        logical block i lands in ``block_row[i]``.
+
+        Two forms.  With a host row mask ``write`` (host arrays both), only
+        the blocks where ``write[i]`` is true are written, and the scatter
+        indices are built on the host.  Without it, ``block_row`` is a
+        (max_len / block_size,) int64 tensor on the pool's device and every
+        logical block is written: the caller points the blocks it must not
+        write at a sink block that nothing reads, so the scatter has one
+        shape whatever the request holds and a captured admission serves
+        every request.  That is JAX's ``mode="drop"`` sentinel
+        (model.py:387-412, ``drop = n_blocks`` at engine.py:630) made a
+        real, write-only block; which of the blocks sent there lands last
+        is not fixed, so its contents are garbage by design."""
         _check_entry("append_paged", cache, entry)
-        src = np.flatnonzero(np.asarray(write, bool))
-        dst = np.asarray(block_row, np.int64)[src]
+        if write is not None:
+            src = np.flatnonzero(np.asarray(write, bool))
+            dst = np.asarray(block_row, np.int64)[src]
         for key, pages in cache.items():
             leaf = entry[key][:, 0]  # (L, max_len, K, Dh or 1)
             l, s = leaf.shape[:2]
             bs = pages.shape[2]
             blocks = leaf.reshape(l, s // bs, bs, *leaf.shape[2:])
-            dev = pages.device
-            pages.index_copy_(
-                1, torch.as_tensor(dst, device=dev),
-                blocks.index_select(1, torch.as_tensor(src, device=dev)))
+            if write is None:
+                pages.index_copy_(1, block_row, blocks)
+            else:
+                dev = pages.device
+                pages.index_copy_(
+                    1, torch.as_tensor(dst, device=dev),
+                    blocks.index_select(1, torch.as_tensor(src, device=dev)))
         return cache
 
     def gather_pages(self, cache: dict, block_row, pos) -> dict:

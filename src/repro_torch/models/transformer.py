@@ -180,7 +180,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     are read at position ``length - 1`` and the cache position is set to
     ``length``.  Pad rows write garbage K/V beyond ``length``; decode masks
     the cache at ``pos + 1`` and overwrites those rows token by token, so
-    they are never attended.
+    they are never attended.  ``length`` is a host int, or a 0-d integer
+    tensor on the tokens' device that is read there, never on the host
+    (JAX traces it as an int32, engine.py:224-228): a captured CUDA graph
+    of the prefill then serves every length of its bucket.
 
     The cache holds the K/V leaves the pools hold (``cache_specs``): bf16
     K/V, or under ``kv_int8`` (default: the ``REPRO_KV_INT8`` gate) int8
@@ -203,10 +206,14 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 t, scale = attn.kv_quantize(t)
                 cache[f"{key}_scale"][i, :, :s] = scale
             cache[key][i, :, :s] = t
-    n = s if length is None else int(length)
-    cache["pos"] = torch.tensor(n, dtype=torch.int32, device=x.device)
-    logits = lm_head(params, x[:, n - 1:n], cfg)[:, 0]
-    return logits, cache
+    if torch.is_tensor(length):
+        cache["pos"] = length.to(torch.int32, copy=True)
+        last = x.index_select(1, (length - 1).reshape(1).long())
+    else:
+        n = s if length is None else int(length)
+        cache["pos"] = torch.tensor(n, dtype=torch.int32, device=x.device)
+        last = x[:, n - 1:n]
+    return lm_head(params, last, cfg)[:, 0], cache
 
 
 # --------------------------------------------------------------------------

@@ -31,13 +31,27 @@ host-argmax reference).
 
 JAX's donated buffers become buffers allocated once per instance and
 written in place: the KV pools (by the decode steps, ``merge_slot`` and
-``append_paged``), the slot-token vector (admitted tokens by an in-place
-device write, the counterpart of ``_SET_TOK``, engine.py:106; the
-round's tokens by the round itself), the positions and, paged, the block
-tables and active mask (uploads ``copy_`` into them).  JAX's jitted round
-becomes ``graphs.RoundGraph``: on the card each instance's fused round is
-one captured CUDA graph, replayed once per round; on the CPU it runs
-eagerly.
+``append_paged``), the slot-token vector (admitted tokens by an
+``index_copy_`` at the slot, the counterpart of ``_SET_TOK``,
+engine.py:106; the round's tokens by the round itself), the positions
+and, paged, the block tables and active mask (one upload ``copy_`` into
+them).  JAX's jitted round becomes ``graphs.RoundGraph``: on the card
+each instance's fused round is one captured CUDA graph, replayed once per
+round; on the CPU it runs eagerly.
+
+A fused admission is one body, ``_admission_body``: prefill, greedy
+pick, the token's write into the slot-token vector and into the pass's
+pending buffer, and the cache's merge into the slot (continuous) or its
+scatter into the pages (paged), all driven by one argument buffer on
+the device (length, slot, ordinal, append row, padded tokens) that one
+``copy_`` fills from a pinned staging row before each admission.  The
+dense family's bucketed admissions run it as ``graphs.PrefillGraphs``,
+one CUDA graph per (instance, bucket) on the card, the counterpart of
+JAX's ``_prefill_len`` -> ``_greedy`` -> ``_merge``/``_append`` ->
+``_SET_TOK``; RWKV-6 and the hybrid prefill at the exact length and run
+the body eagerly.  Paged pools hold one block past the allocator's, a
+write-only sink for the blocks an admission must not write (JAX's drop
+sentinel, engine.py:625-633).
 
 An instance reads the int8-KV gate (``REPRO_KV_INT8``) once, when it is
 built, and passes it to every prefill, pool and byte count it makes, so
@@ -57,6 +71,7 @@ and copy-on-write, migration (``export_slot``/``import_slot``),
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import time
 from collections import deque
@@ -71,12 +86,15 @@ from repro_torch.core.model_sharing import ModelStore
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import SLORecorder
 from repro_torch.models.model import Model, default_kv_blocks
-from repro_torch.serving.graphs import RoundGraph
+from repro_torch.serving.graphs import PrefillGraphs, RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
                                         PageTable, blocks_needed)
 
 
 IDLE_SLEEP_S = 0.001  # pump's yield when a pass grants nothing after a lull
+# The fused admission's argument buffer (int64): length, slot and ordinal
+# in the pass, then (paged) the append row, then the padded prompt.
+_LEN, _SLOT, _ORD, _ROW = 0, 1, 2, 3
 
 
 def _bucket_len(n: int) -> int:
@@ -153,19 +171,14 @@ class FunctionInstance:
         self.last_fill = 0
         self.sync_count = 0  # host synchronisation points (telemetry)
         self.uploads = 0     # paged table/pos uploads (dirty-flag telemetry)
-        # Deferred results of the in-flight pass: (req, (1,) device token,
-        # slot or None for done-at-prefill) and the decode round's
-        # active-slot snapshot (its tokens land in ``_slot_tok_dev``).
-        self._pending_prefill: list[tuple[ServeRequest, torch.Tensor,
-                                          Optional[int]]] = []
+        # Deferred results of the in-flight pass: (req, slot or None for
+        # done-at-prefill), the i-th admission's token in
+        # ``_pending_dev[i]``, and the decode round's active-slot snapshot
+        # (its tokens land in ``_slot_tok_dev``).
+        self._pending_prefill: list[tuple[ServeRequest, Optional[int]]] = []
         self._round: Optional[list[int]] = None
         self.round_graph: Optional[RoundGraph] = None
-        if self.fused:
-            # The fused round's slot tokens: its input and its output, at
-            # one address for the instance's life.
-            self._slot_tok_dev = torch.zeros((max_batch,), dtype=torch.int32,
-                                             device=device)
-            self.round_graph = RoundGraph(device)
+        self.prefill_graphs: Optional[PrefillGraphs] = None
         if batching == "paged":
             if not model.supports_paged():
                 raise ValueError(f"{model.cfg.name}: batching='paged' needs "
@@ -189,13 +202,42 @@ class FunctionInstance:
             self._tables = np.full((max_batch, self.blocks_per_seq),
                                    NULL_BLOCK, np.int32)
             self._pos = np.zeros((max_batch,), np.int32)
-            if self.fused:
-                i32 = dict(dtype=torch.int32, device=device)
-                self._tables_dev = torch.full(self._tables.shape, NULL_BLOCK,
-                                              **i32)
-                self._pos_dev = torch.zeros((max_batch,), **i32)
-                self._active_dev = torch.zeros((max_batch,), **i32)
             self._state_dirty = True
+        if self.fused:
+            self._init_fused_buffers()
+
+    def _init_fused_buffers(self) -> None:
+        """The buffers every fused round and admission reads and writes,
+        allocated once, at one address for the instance's life: the slot
+        tokens (the round's input and output), the pass's pending prefill
+        tokens, the admission's argument buffer and, paged, the tables,
+        positions and active mask (views of one state buffer).  Each
+        device buffer that the host fills has a pinned staging copy, so a
+        fill is one asynchronous ``copy_``; a staging row is rewritten only
+        after the pass's sync, when its copy has run."""
+        mb, dev = self.max_batch, self.device
+        pin = torch.device(dev).type == "cuda"
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._slot_tok_dev = torch.zeros((mb,), **i32)
+        self._pending_dev = torch.zeros((mb,), **i32)
+        self._tok0 = _ROW + (self.blocks_per_seq
+                             if self.batching == "paged" else 0)
+        width = self._tok0 + self.max_len
+        self._args = torch.zeros((width,), dtype=torch.int64, device=dev)
+        # One staging row per admission of a pass (at most max_batch).
+        self._args_stage = torch.zeros((mb, width), dtype=torch.int64,
+                                       pin_memory=pin)
+        self.round_graph = RoundGraph(dev)
+        if self.bucketed:
+            self.prefill_graphs = PrefillGraphs(dev)
+        if self.batching == "paged":
+            n = mb * self.blocks_per_seq
+            self._state_dev = torch.zeros((n + 2 * mb,), **i32)
+            self._state_stage = torch.zeros((n + 2 * mb,), dtype=torch.int32,
+                                            pin_memory=pin)
+            self._tables_dev = self._state_dev[:n].view(self._tables.shape)
+            self._pos_dev = self._state_dev[n:n + mb]
+            self._active_dev = self._state_dev[n + mb:]
 
     def close(self) -> None:
         """Return the store reference and release the paged blocks
@@ -254,20 +296,21 @@ class FunctionInstance:
 
     def _upload_paged_state(self) -> None:
         """Copy dirtied host mirrors (tables / positions / active mask)
-        into their device buffers, in place — once per admit/release
-        burst, not per round."""
+        into their device buffers, in place, by one asynchronous copy —
+        once per admit/release burst, not per round."""
         mask = np.array([r is not None for r in self.slots], np.int32)
-        for dev, host in ((self._tables_dev, self._tables),
-                          (self._pos_dev, self._pos),
-                          (self._active_dev, mask)):
-            dev.copy_(torch.from_numpy(host))
+        self._state_stage.numpy()[:] = np.concatenate(
+            [self._tables.ravel(), self._pos, mask])
+        self._state_dev.copy_(self._state_stage, non_blocking=True)
         self._state_dirty = False
         self.uploads += 1
 
     def _init_cache(self) -> dict:
+        """The slot pool, or the paged pools with the sink block at index
+        ``allocator.n_blocks``, which the allocator never hands out."""
         if self.batching == "paged":
             return self.model.init_paged_cache(
-                self.allocator.n_blocks, self.block_size, self.device,
+                self.allocator.n_blocks + 1, self.block_size, self.device,
                 kv_int8=self.kv_int8)
         return self.model.init_slot_cache(self.max_batch, self.max_len,
                                           self.device, kv_int8=self.kv_int8)
@@ -289,19 +332,74 @@ class FunctionInstance:
                                  device=self.device)
         return self.model.prefill(self.params, tokens, **kw)
 
-    def _map_paged_request(self, slot: int, req: ServeRequest,
-                           entry: dict) -> None:
-        """Bind a slot's blocks and scatter its prefill entry into them.
-        The write mask keeps the entry's padding blocks (past the blocks
-        the request holds) out of the pool — the counterpart of the JAX
-        drop sentinel (engine.py:625-628)."""
+    def _map_paged_request(self, slot: int, req: ServeRequest
+                           ) -> tuple[list[int], np.ndarray]:
+        """Bind a slot's blocks; returns its block row and the mask of the
+        logical blocks its prefill entry may write (the padding blocks past
+        the blocks the request holds stay out of the pool — the
+        counterpart of the JAX drop sentinel, engine.py:625-628)."""
         self.pages.allocate(slot, self._kv_rows_needed(req))
         row = self.pages.row(slot, self.blocks_per_seq)
         self._tables[slot] = row
         self._pos[slot] = int(req.prompt.shape[0])
         self._state_dirty = True
         write = np.arange(self.blocks_per_seq) < len(self.pages.blocks(slot))
-        self.model.append_paged(self.cache, entry, row, write)
+        return row, write
+
+    def _admission_body(self, width: int, bucketed: bool) -> torch.Tensor:
+        """One fused admission, read from ``_args`` (what a prefill graph
+        captures and replays): prefill the ``width`` prompt tokens (at the
+        true length from the buffer when bucketed), pick the greedy token,
+        write it into the pending buffer at the admission's ordinal and
+        into the slot-token vector at its slot, and merge the cache into
+        the slot or scatter it through the append row.  A request done at
+        prefill leaves its slot free: its merge lands in a free slot (which
+        the next admission there overwrites whole) and its append row is
+        all sink.  Returns the logits row (what checks compare; the engine
+        reads only the buffers)."""
+        a = self._args
+        tokens = a[self._tok0:self._tok0 + width].view(1, width)
+        logits, entry = self.model.prefill(
+            self.params, tokens, max_len=self.max_len,
+            length=a[_LEN] if bucketed else None, kv_int8=self.kv_int8)
+        tok = self.model.sample_greedy(logits)
+        slot = a[_SLOT:_SLOT + 1]
+        self._pending_dev.index_copy_(0, a[_ORD:_ORD + 1], tok)
+        self._slot_tok_dev.index_copy_(0, slot, tok)
+        if self.batching == "paged":
+            self.model.append_paged(self.cache, entry, a[_ROW:self._tok0])
+        else:
+            self.model.merge_slot(self.cache, entry, slot)
+        return logits
+
+    def _admit_fused(self, slot: int, req: ServeRequest, done: bool) -> None:
+        """Stage the admission's arguments, copy them into ``_args`` and
+        run the body: a prefill graph of the prompt's bucket (dense), or
+        eagerly at the exact length (rwkv6, the hybrid)."""
+        k = len(self._pending_prefill)
+        if k >= self.max_batch:
+            raise RuntimeError(f"{self.inst_id}: more than {self.max_batch} "
+                               f"admissions before a sync_step")
+        n = int(req.prompt.shape[0])
+        width = min(_bucket_len(n), self.max_len) if self.bucketed else n
+        stage = self._args_stage.numpy()[k]
+        stage[_LEN], stage[_SLOT], stage[_ORD] = n, slot, k
+        if self.batching == "paged":
+            sink = self.allocator.n_blocks
+            if done:
+                stage[_ROW:self._tok0] = sink
+            else:
+                row, write = self._map_paged_request(slot, req)
+                stage[_ROW:self._tok0] = np.where(write, row, sink)
+        stage[self._tok0 + n:self._tok0 + width] = 0
+        stage[self._tok0:self._tok0 + n] = req.prompt
+        self._args.copy_(self._args_stage[k], non_blocking=True)
+        self.prefills += 1
+        body = functools.partial(self._admission_body, width, self.bucketed)
+        if self.bucketed:
+            self.prefill_graphs.run(width, body)
+        else:
+            body()
 
     def _admit(self) -> list[ServeRequest]:
         """Prefill queued requests one at a time into free slots.  Paged
@@ -323,37 +421,37 @@ class FunctionInstance:
                 if not self.allocator.can_alloc(need):
                     break
             req = self.queue.popleft()
-            logits, entry = self._prefill_one(req.prompt)
-            tok_dev = self.model.sample_greedy(logits)  # (1,), on device
             if self.fused:
+                if self.cache is None:
+                    self.cache = self._init_cache()
                 done_at_prefill = (len(req.tokens_out) + 1
                                    >= req.max_new_tokens)
+                self._admit_fused(slot, req, done_at_prefill)
                 self._pending_prefill.append(
-                    (req, tok_dev, None if done_at_prefill else slot))
+                    (req, None if done_at_prefill else slot))
                 if done_at_prefill:
                     finished.append(req)  # marked done by sync_step
                     continue  # slot stays free for the next queued request
             else:
+                logits, entry = self._prefill_one(req.prompt)
                 self.sync_count += 1
-                tok = int(tok_dev.cpu()[0])
+                tok = int(self.model.sample_greedy(logits).cpu()[0])
                 req.tokens_out.append(tok)
                 if len(req.tokens_out) >= req.max_new_tokens:
                     req.done = True
                     finished.append(req)
                     continue
-            if self.cache is None:
-                self.cache = self._init_cache()
+                if self.cache is None:
+                    self.cache = self._init_cache()
+                if paged:
+                    row, write = self._map_paged_request(slot, req)
+                    self.model.append_paged(self.cache, entry, row, write)
+                else:
+                    self.model.merge_slot(self.cache, entry, slot)
+                self._slot_tok[slot] = tok
             if had_live:
                 self.refills += 1
-            if paged:
-                self._map_paged_request(slot, req, entry)
-            else:
-                self.model.merge_slot(self.cache, entry, slot)
             self.slots[slot] = req
-            if self.fused:
-                self._slot_tok_dev[slot] = tok_dev[0]  # in-place device write
-            else:
-                self._slot_tok[slot] = tok
         return finished
 
     def _advance_slot(self, slot: int, tok: int) -> Optional[ServeRequest]:
@@ -527,14 +625,14 @@ class FunctionInstance:
             return finished
         if not self._pending_prefill and self._round is None:
             return []
-        parts = [t.reshape(1) for _, t, _ in self._pending_prefill]
+        n_pre = len(self._pending_prefill)
+        parts = [self._pending_dev[:n_pre]]
         if self._round is not None:
             parts.append(self._slot_tok_dev)
         self.sync_count += 1
         host = torch.cat(parts).cpu().numpy()  # the pass's single pull
         finished = []
-        n_pre = len(self._pending_prefill)
-        for (req, _, slot), tok in zip(self._pending_prefill, host[:n_pre]):
+        for (req, slot), tok in zip(self._pending_prefill, host[:n_pre]):
             req.tokens_out.append(int(tok))
             if slot is None:  # whole request served by its prefill
                 req.done = True
@@ -634,11 +732,12 @@ class ServingEngine:
     def pump(self, budget_s: float = 1.0, *, overlap: bool = True) -> int:
         """Run token-gated passes until idle or ``budget_s`` is spent.
 
-        ``overlap=True`` dispatches every granted instance's step first
-        (kernels queue on the device and the call returns), then syncs
-        each instance once, so one instance's kernels run while Python
-        dispatches and pulls the others.  ``overlap=False`` dispatches and
-        syncs one instance at a time."""
+        ``overlap=True`` dispatches every granted fused instance's step
+        first (kernels queue on the device and the call returns), then
+        syncs each instance once, so one instance's kernels run while
+        Python dispatches and pulls the others; a host-synchronous
+        instance dispatches in the sync pass, just before its sync.
+        ``overlap=False`` dispatches and syncs one instance at a time."""
         completed = 0
         deadline = time.perf_counter() + budget_s
         worked_last_pass = False
@@ -660,11 +759,17 @@ class ServingEngine:
             worked_last_pass = True
             t_prev = time.perf_counter()
             if overlap:
+                # Only fused instances dispatch early: a host-synchronous
+                # step (static, fused=False) runs in full in dispatch_step,
+                # so it runs in the sync pass, timed against its own Q_used
+                # (engine.py:1382-1404).
                 for token in granted:
-                    self.instances[token.pod_id].dispatch_step()
+                    inst = self.instances[token.pod_id]
+                    if inst.fused:
+                        inst.dispatch_step()
             for token in granted:
                 inst = self.instances[token.pod_id]
-                if not overlap:
+                if not overlap or not inst.fused:
                     inst.dispatch_step()
                 finished = inst.sync_step()
                 t_now = time.perf_counter()
@@ -707,12 +812,15 @@ class ServingEngine:
         """Hot-path counters per instance: steps, host syncs, prefills,
         decode rounds, (paged) device-state uploads — ``uploads << steps``
         shows the tables and positions stay device-resident between
-        admission events — and the round graph's captures and replays."""
+        admission events — the round graph's captures and replays, and the
+        prefill graphs' (summed over buckets; 0 where admission is eager)."""
+        def count(graphs, what):
+            return 0 if graphs is None else getattr(graphs, what)
         return {k: {"steps": v.steps, "syncs": v.sync_count,
                     "prefills": v.prefills, "rounds": v.rounds,
                     "uploads": v.uploads,
-                    "captures": (v.round_graph.captures
-                                 if v.round_graph else 0),
-                    "replays": (v.round_graph.replays
-                                if v.round_graph else 0)}
+                    "captures": count(v.round_graph, "captures"),
+                    "replays": count(v.round_graph, "replays"),
+                    "prefill_captures": count(v.prefill_graphs, "captures"),
+                    "prefill_replays": count(v.prefill_graphs, "replays")}
                 for k, v in self.instances.items()}

@@ -337,3 +337,83 @@ def test_launch_counters_take_a_replayed_delta():
         kernels.add_launches(delta[:-1])
     kernels.reset_launch_counts()
     assert not any(kernels.counter_values())
+
+
+# -- the overlapped pump: who dispatches early --------------------------------
+
+
+HALF = dict(sm=0.5, quota_request=1.0, quota_limit=1.0)
+
+
+def _logged_passes(eng):
+    """Wrap the scheduler's grants and every instance's dispatch and sync:
+    returns the log, a list of passes, each [granted ids, events]."""
+    passes = []
+    grant = eng.scheduler.dispatch
+
+    def dispatch(now):
+        granted = grant(now)
+        if granted:
+            passes.append([[t.pod_id for t in granted], []])
+        return granted
+
+    eng.scheduler.dispatch = dispatch
+    for inst_id, inst in eng.instances.items():
+        for name in ("dispatch_step", "sync_step"):
+            def logged(fn=getattr(inst, name), name=name, inst_id=inst_id):
+                passes[-1][1].append((name, inst_id))
+                return fn()
+            setattr(inst, name, logged)
+    return passes
+
+
+def _jax_order(granted, fused):
+    """JAX engine.py:1382-1404: with overlap, fused instances dispatch in
+    a first pass; the sync pass dispatches the others just before their
+    own sync."""
+    out = [("dispatch_step", g) for g in granted if fused[g]]
+    for g in granted:
+        if not fused[g]:
+            out.append(("dispatch_step", g))
+        out.append(("sync_step", g))
+    return out
+
+
+@pytest.mark.parametrize("host_batching", ["continuous", "static"])
+def test_overlapped_pump_times_host_synchronous_steps_in_their_own_leg(
+        models, host_batching):
+    """One fused and one host-synchronous instance (``fused=False``
+    continuous, or static) at half the SMs each, so one pass grants both.
+    With ``overlap=True`` only the fused one dispatches early; the other
+    runs its whole step in the sync pass, just before its own sync, so its
+    wall time lands in its own ``elapsed`` and ``Q_used``.  The JAX engine
+    and the port follow that order pass by pass, and serve the same
+    streams."""
+    jm, jp, tm, tp = models
+    rng = np.random.default_rng(7)
+    arrivals = [(rng.integers(0, 64, 6, dtype=np.int32), n)
+                for n in (4, 3, 5, 2)]
+    streams = {}
+    for side in ("jax", "torch"):
+        if side == "jax":
+            eng = JaxEngine(window=10.0)
+            deploy = dict(prefix_sharing=False)
+            m, p, alloc = jm, jp, JaxAlloc(**HALF)
+        else:
+            eng = ServingEngine(window=10.0, device="cpu")
+            deploy = {}
+            m, p, alloc = tm, tp, Alloc(**HALF)
+        eng.deploy("a", m, p, alloc, max_batch=2, max_len=32, **deploy)
+        eng.deploy("b", m, p, alloc, max_batch=2, max_len=32,
+                   batching=host_batching, fused=False, **deploy)
+        fused = {k: i.fused for k, i in eng.instances.items()}
+        assert sorted(fused.values()) == [False, True]
+        passes = _logged_passes(eng)
+        reqs = [eng.submit(fn, q, max_new_tokens=n)
+                for q, n in arrivals for fn in ("a", "b")]
+        assert eng.pump(budget_s=120.0, overlap=True) == len(reqs)
+        for granted, events in passes:
+            assert events == _jax_order(granted, fused), (side, granted)
+        assert any(len(g) == 2 for g, _ in passes), "no pass granted both"
+        streams[side] = [r.tokens_out for r in reqs]
+    assert streams["torch"] == streams["jax"]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, and the
-engine's decode round as a CUDA graph against its eager reference, on the
-card.  Marked ``gpu``: without a card each test skips at run time (the
-kernels have no CPU mode).  Imports torch and numpy only, so the file
+engine's decode round and bucketed admissions as CUDA graphs against
+their eager references, on the card.  Marked ``gpu``: without a card
+each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -772,8 +772,9 @@ def test_round_graph_captures_once_and_counts_replays(cuda_device, arch,
 def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
     """A round that syncs the host cannot be captured: the second round
     raises, the launch counters are left as they were, and the instance
-    serves no further round, eagerly or otherwise.  Last in the file: it
-    leaves a failed capture behind."""
+    serves no further round, eagerly or otherwise.  Near the end of the
+    file, as the prefill's counterpart after it: each leaves a failed
+    capture behind."""
     from repro_torch import kernels
     from repro_torch.models.model import Model
     model, params = _serving_model("tiny", cuda_device)
@@ -802,4 +803,164 @@ def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
         inst.run_step()
     rg = inst.round_graph
     assert rg.graph is None and rg.eager_rounds == 1 and rg.replays == 0
+    assert torch.ones(4, device=cuda_device).sum().item() == 4.0
+
+
+# -- the bucketed admission as CUDA graphs (serving/graphs.py) ----------------
+
+
+def _admission_engine(model, params, batching, **kw):
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               batching=batching, max_batch=4, max_len=64, block_size=16,
+               **kw)
+    return eng
+
+
+def _serve_phases(eng, phases):
+    """Serve each phase's (prompt, new tokens) to completion in turn."""
+    out = []
+    for phase in phases:
+        reqs = [eng.submit("f", p, max_new_tokens=n) for p, n in phase]
+        assert eng.pump(budget_s=300.0) == len(reqs)
+        out += [r.tokens_out for r in reqs]
+    return out
+
+
+GRAPH_MODES = [("continuous", False), ("paged", False),
+               ("continuous", True), ("paged", True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching,int8", GRAPH_MODES)
+def test_prefill_replay_equals_eager_bit_for_bit(cuda_device, monkeypatch,
+                                                 batching, int8):
+    """From one state, a replayed admission of bucket 16 and the eager body
+    on the same argument buffer give the same logits row, pools, slot
+    tokens and pending tokens, bit for bit (paged: every block but the
+    sink, whose last writer among the blocks sent there is not fixed); a
+    second capture of the bucket raises."""
+    import functools
+    from repro_torch.serving.engine import _LEN, _ORD, _ROW, _SLOT
+    if int8:
+        monkeypatch.setenv("REPRO_KV_INT8", "1")
+    model, params = _serving_model("tiny", cuda_device)
+    eng = _admission_engine(model, params, batching)
+    rng = np.random.default_rng(5)
+    for n in (11, 13):  # bucket 16: the first eager, the second captured
+        eng.submit("f", rng.integers(0, 256, n).astype(np.int32),
+                   max_new_tokens=8)
+    (inst,) = eng.instances.values()
+    inst.run_step()
+    graph = inst.prefill_graphs.by_bucket[16]
+    assert (graph.eager_rounds, graph.captures, graph.replays) == (1, 1, 1)
+    args = torch.zeros(inst._args.shape, dtype=torch.int64)
+    args[_LEN], args[_SLOT], args[_ORD] = 14, 1, 0
+    args[inst._tok0:inst._tok0 + 14] = torch.from_numpy(
+        rng.integers(0, 256, 14))
+    if batching == "paged":
+        held = len(inst.pages.blocks(1))
+        args[_ROW:inst._tok0] = torch.from_numpy(np.where(
+            np.arange(inst.blocks_per_seq) < held, inst._tables[1],
+            inst.allocator.n_blocks))
+    inst._args.copy_(args)
+    live = {"tok": inst._slot_tok_dev, "pending": inst._pending_dev,
+            **inst.cache}
+    start = {k: v.clone() for k, v in live.items()}
+    body = functools.partial(inst._admission_body, 16, True)
+    replayed = inst.prefill_graphs.run(16, body).clone()
+    after_replay = {k: v.clone() for k, v in live.items()}
+    for k, v in start.items():
+        live[k].copy_(v)
+    eager = body()
+    torch.cuda.synchronize()
+    assert graph.replays == 2 and graph.eager_rounds == 1
+    assert torch.equal(replayed, eager)
+    for k, v in live.items():
+        cut = (slice(None), slice(inst.allocator.n_blocks)) if (
+            batching == "paged" and k not in ("tok", "pending")) else ...
+        assert torch.equal(after_replay[k][cut], v[cut]), k
+    assert not torch.equal(after_replay["k"], start["k"])
+    with pytest.raises(RuntimeError, match="captured once already"):
+        graph.capture(body)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching,int8", GRAPH_MODES)
+def test_prefill_graphs_streams_equal_host_argmax(cuda_device, monkeypatch,
+                                                  batching, int8):
+    """Buckets 8, 16 and 32 captured in that order on one shared pool, then
+    replayed out of it (32, 8, 8, 16) in one pass: two replays of bucket 8
+    before the pass's one sync, one of them a request done at prefill.
+    Streams equal the host-argmax engine's; each bucket captures once and
+    every admission of the second phase is a replay."""
+    from repro_torch import kernels
+    if int8:
+        monkeypatch.setenv("REPRO_KV_INT8", "1")
+    model, params = _serving_model("tiny", cuda_device)
+    rng = np.random.default_rng(6)
+
+    def prompts(spec):
+        return [(rng.integers(0, 256, l).astype(np.int32), n)
+                for l, n in spec]
+
+    phases = [prompts([(5, 3), (7, 3), (12, 3), (14, 3), (20, 3), (30, 3)]),
+              prompts([(25, 4), (6, 1), (8, 5), (10, 3)])]
+    eng = _admission_engine(model, params, batching)
+    (inst,) = eng.instances.values()
+    got = _serve_phases(eng, phases[:1])
+    pg = inst.prefill_graphs
+    assert sorted(pg.by_bucket) == [8, 16, 32]
+    assert pg.captures == 3 and pg.eager == 3
+    graphs = {b: g.graph for b, g in pg.by_bucket.items()}
+    replays, steps = pg.replays, inst.steps
+    kernels.reset_launch_counts()
+    got += _serve_phases(eng, phases[1:])
+    assert pg.replays - replays == 4 and pg.captures == 3 and pg.eager == 3
+    assert {b: g.graph for b, g in pg.by_bucket.items()} == graphs
+    flash = kernels.launch_counts()["flash_attention"]
+    assert flash == model.cfg.n_layers * 4
+    ref = _admission_engine(model, params, batching, fused=False)
+    assert got == _serve_phases(ref, phases)
+    assert inst.sync_count == inst.steps and inst.steps > steps
+    tel = eng.telemetry()["f/0"]
+    assert (tel["prefill_captures"], tel["prefill_replays"]) == (3, 7)
+
+
+@pytest.mark.gpu
+def test_prefill_capture_failure_raises(cuda_device, monkeypatch):
+    """An admission that syncs the host cannot be captured: the bucket's
+    second admission raises, the launch counters are left as they were,
+    and a later admission of that bucket raises too, with no eager
+    fallback.  Last in the file: it leaves a failed capture behind."""
+    from repro_torch import kernels
+    from repro_torch.models.model import Model
+    model, params = _serving_model("tiny", cuda_device)
+    eng = _admission_engine(model, params, "continuous")
+    (inst,) = eng.instances.values()
+    eng.submit("f", np.arange(8, dtype=np.int32), max_new_tokens=4)
+    inst.run_step()  # the bucket's eager admission and round
+    prefill = Model.prefill
+
+    def syncing(self, *args, **kw):
+        logits, cache = prefill(self, *args, **kw)
+        logits[0, 0].item()  # a host sync inside the admission
+        return logits, cache
+
+    monkeypatch.setattr(Model, "prefill", syncing)
+    eng.submit("f", np.arange(7, dtype=np.int32), max_new_tokens=4)
+    before = kernels.counter_values()
+    with pytest.raises(RuntimeError):
+        inst.run_step()
+    assert kernels.counter_values() == before
+    monkeypatch.undo()
+    eng.submit("f", np.arange(6, dtype=np.int32), max_new_tokens=4)
+    with pytest.raises(RuntimeError, match="never falls back"):
+        inst._admit_fused(2, inst.queue.popleft(), False)
+    graph = inst.prefill_graphs.by_bucket[8]
+    assert graph.graph is None and graph.eager_rounds == 1
+    assert graph.replays == 0 and graph.captures == 1
     assert torch.ones(4, device=cuda_device).sum().item() == 4.0
