@@ -60,7 +60,23 @@ place), and then:
    pending tokens).  Launch counts are set to 0 just before each mode and
    read just after it.  Each model's profile window logs its wall, device
    busy share, kernels and the host's launch calls per decode round and
-   per prefill.
+   per prefill;
+4. sharing, migration and release phase — qwen2-7b at full width, paged
+   with prefix sharing (the default) from bf16 and then int8 KV, two
+   instances, 16 requests each of one 256-token system prompt and a
+   unique suffix of 16-240 tokens (two pairs of exact duplicates an
+   instance), 32 new tokens each: the sharing hits and copy-on-write
+   copies equal a host replay of the admission plan, every timed round
+   and prefill is a replay, ``kv_bytes_saved() > 0`` mid-run, the streams
+   equal an unshared paged and a continuous engine's, and the allocator's
+   high watermark is below the unshared run's; the profiler counts the
+   host launches of a COW pass (one copy a pool leaf) and of the passes
+   after it (none); slots exported after two passes from one
+   single-instance engine (paged with sharing, then continuous) and
+   imported into another whose graphs are captured give the unmigrated
+   streams, with every later round of the target a replay; and after
+   ``retire`` drains an instance, and after ``fail``, the reserved device
+   memory falls by at least that instance's KV pool.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1253,6 +1269,10 @@ def serve_phase(rng) -> dict[str, int]:
         f"{sum(same)}/{len(same)} tokens ({np.mean(same):.3f}; logged, not "
         f"asserted: random weights, near-tie argmaxes flip)")
     profile_window(model, params, prompts[:8], alloc)
+    shared_prefix_phase(model, params, alloc, totals, rng)
+    chat = shared_prompts(np.random.default_rng(SEED + 1), cfg.vocab_size)
+    migration_phase(model, params, alloc, chat)
+    release_phase(model, params, alloc, chat)
 
     # -- rwkv6-1.6b, the same request mix, after qwen2-7b is freed --------
     del model, params
@@ -1630,6 +1650,339 @@ def logit_check(model, params, arch, prompts, alloc) -> None:
         f"the eager decode_step_paged bit for bit (logits "
         f"{tuple(g_logits.shape)}, pools), and the instance's replayed "
         f"round lands its greedy tokens, positions and pools")
+
+
+# --------------------------------------------------------------------------
+# 4. qwen2-7b prefix sharing with copy-on-write, migration and release
+# --------------------------------------------------------------------------
+
+SYSTEM_TOKENS = 256   # the system prompt every request shares: 16 blocks
+SHARED_REQUESTS = 16  # per instance, two waves of max_batch=8
+PAIRS = ((1, 5), (9, 13))  # per instance: exact duplicates, one pair a wave
+MIGRATION_TOKENS = 16
+
+
+def shared_prompts(rng, vocab: int, n_instances: int = 2) -> list:
+    """The chat function's traffic: each request is one 256-token system
+    prompt and a unique suffix of 16-240 tokens (every prompt in bucket
+    512), but for two pairs of exact duplicates per instance whose length
+    is not a multiple of 16.  Submitted in order, request i lands on
+    instance i % n_instances (JSQ over equal loads), so each instance gets
+    ``SHARED_REQUESTS``, and each pair falls in one wave."""
+    system = rng.integers(0, vocab, SYSTEM_TOKENS)
+    per = []
+    for _ in range(n_instances):
+        mine = [np.concatenate([system, rng.integers(
+            0, vocab, int(rng.integers(16, 241)))]).astype(np.int32)
+            for _ in range(SHARED_REQUESTS)]
+        for a, b in PAIRS:
+            n = int(rng.integers(1, 15)) * 16 + int(rng.integers(1, 16))
+            mine[a] = np.concatenate([system, rng.integers(
+                0, vocab, n)]).astype(np.int32)
+            mine[b] = mine[a].copy()
+        per.append(mine)
+    return [per[i % n_instances][i // n_instances]
+            for i in range(n_instances * SHARED_REQUESTS)]
+
+
+def replay_sharing(waves: list, block_size: int, n_blocks: int) -> tuple:
+    """A host replay of the paged admission plan: one instance's waves in
+    order, each a list of (prompt, new tokens) admitted in one pass into
+    slots 0.., decoded together to the end and released, as the engine
+    runs them when a wave fills ``max_batch`` and its requests ask for
+    equal tokens.  It makes the engine's calls on a fresh allocator
+    (digests, ``match_prefix``, ``allocate_shared``, ``register_prefix``,
+    one ``writable_block`` a slot a round).  Returns (sharing hits, COW
+    copies) per wave and the allocator's high watermark in blocks."""
+    from repro_torch.serving.paging import (KVPageAllocator, PageTable,
+                                            prompt_digests)
+
+    alloc = KVPageAllocator(n_blocks, block_size)
+    pages = PageTable(alloc)
+    out = []
+    for wave in waves:
+        hits = cow = 0
+        pos = []
+        for slot, (prompt, new) in enumerate(wave):
+            full, tail = prompt_digests(prompt, block_size)
+            shared, tail_block = pages.match_prefix(full, tail)
+            both = shared + ([tail_block] if tail_block is not None else [])
+            rows = len(prompt) + new - 1
+            if both:
+                pages.allocate_shared(slot, rows, both,
+                                      tail_shared=tail_block is not None)
+                hits += len(both)
+            else:
+                pages.allocate(slot, rows)
+            pages.register_prefix(slot, full, tail)
+            pos.append(len(prompt))
+        for _ in range(wave[0][1] - 1):
+            for slot in range(len(wave)):
+                cow += pages.writable_block(slot, pos[slot])[1] is not None
+                pos[slot] += 1
+        for slot in range(len(wave)):
+            pages.release(slot)
+        out.append((hits, cow))
+    return out, alloc.high_watermark
+
+
+def predicted_sharing(prompts, new_tokens, n_instances=2) -> tuple:
+    """``replay_sharing`` of each instance's warm-up wave (``warm``: two
+    3-token requests of every serve bucket, cut from the first prompt)
+    and its timed waves.  Returns the timed run's (hits, COW copies)
+    summed over instances and each instance's high watermark."""
+    warm_wave = [(np.resize(prompts[0], b), 3) for b in WARM_BUCKETS
+                 for _ in range(2)]
+    hits = cow = 0
+    marks = []
+    for i in range(n_instances):
+        mine = [(p, new_tokens) for p in prompts[i::n_instances]]
+        waves = [warm_wave] + [mine[w:w + 8] for w in range(0, len(mine), 8)]
+        per_wave, mark = replay_sharing(waves, 16, 8 * 1024 // 16)
+        hits += sum(h for h, _ in per_wave[1:])
+        cow += sum(c for _, c in per_wave[1:])
+        marks.append(mark)
+    return hits, cow, marks
+
+
+def shared_prefix_phase(model, params, alloc, totals, rng) -> None:
+    """qwen2-7b at full width, paged with prefix sharing (the default),
+    from bf16 and then int8 KV, two weight-shared instances, the chat
+    traffic of ``shared_prompts``, 32 new tokens a request: sharing hits
+    and COW copies equal to ``predicted_sharing``'s, every timed round and
+    prefill a replay of the warm-up's graphs, ``kv_bytes_saved() > 0``
+    while the requests run, streams equal to an unshared paged engine's
+    and a continuous engine's, and an allocator high watermark below the
+    unshared run's; one COW pass's launches counted by the profiler."""
+    from repro_torch.launch import serve
+
+    vocab = model.cfg.vocab_size
+    prompts = shared_prompts(rng, vocab)
+    want_hits, want_cow, want_marks = predicted_sharing(prompts, 32)
+    for int8, kernel in ((False, "paged_decode_attention"),
+                         (True, "paged_decode_attention_quant")):
+        kv = "int8" if int8 else "bf16"
+        runs = {}
+        for mode, kw in (("shared", {}), ("unshared",
+                                           {"prefix_sharing": False})):
+            engine = deploy(model, params, ARCH, alloc, "paged", int8=int8,
+                            **kw)
+            saved = []  # bytes saved, read at every grant of the run
+            engine.scheduler.on_grant = (
+                lambda _, saved=saved, engine=engine:
+                saved.append(engine.kv_bytes_saved()))
+            reqs, done, wall, counts, delta, replayed, _ = timed_serve(
+                engine, ARCH, prompts, 32)
+            engine.scheduler.on_grant = None
+            rounds = sum(v["rounds"] for v in delta.values())
+            prefills = sum(v["prefills"] for v in delta.values())
+            if done != len(prompts) or replayed != (rounds, prefills):
+                raise AssertionError(
+                    f"shared-prefix {kv} {mode}: served {done}, replayed "
+                    f"{replayed} of {rounds} rounds and {prefills} prefills")
+            if counts["flash_attention"] != model.cfg.n_layers * prefills or \
+                    counts[kernel] != model.cfg.n_layers * rounds:
+                raise AssertionError(f"shared-prefix {kv} {mode}: launches "
+                                     f"{counts}")
+            n_tok = sum(len(r.tokens_out) for r in reqs)
+            marks = [i.allocator.high_watermark
+                     for i in engine.instances.values()]
+            runs[mode] = dict(
+                streams=[list(r.tokens_out) for r in reqs],
+                hits=sum(v["shared_hits"] for v in delta.values()),
+                cow=sum(v["cow"] for v in delta.values()), marks=marks,
+                saved=max(saved), rate=n_tok / wall, rounds=rounds)
+            if mode == "shared":
+                for k in totals:
+                    totals[k] += counts[k]
+            log(f"shared-prefix {kv} {mode}: {done} requests, {n_tok} tokens "
+                f"in {wall:.3f}s = {n_tok / wall:.1f} tokens/s (logged, not "
+                f"asserted); sharing hits {runs[mode]['hits']}, COW copies "
+                f"{runs[mode]['cow']}; allocator high watermark {marks} "
+                f"blocks of {engine.instances[ARCH + '/0']._block_bytes} "
+                f"bytes; kv_bytes_saved peak {max(saved)}; rounds {rounds} "
+                f"and prefills {prefills}, all replays of the warm-up's "
+                f"graphs; launches {counts}")
+            del engine
+        engine = deploy(model, params, ARCH, alloc, "continuous", int8=int8)
+        reqs, done, _ = serve.drive(engine, ARCH, prompts, 32)
+        del engine
+        shared, unshared = runs["shared"], runs["unshared"]
+        checks = {
+            "hits as predicted": (shared["hits"], want_hits),
+            "COW as predicted": (shared["cow"], want_cow),
+            "high watermark as predicted": (shared["marks"], want_marks)}
+        bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+        if (bad or not want_hits or not want_cow or unshared["hits"]
+                or unshared["cow"] or not shared["saved"] > 0
+                or not max(shared["marks"]) < min(unshared["marks"])):
+            raise AssertionError(f"shared-prefix {kv}: {bad or checks}; "
+                                 f"unshared {unshared['hits']} hits "
+                                 f"{unshared['cow']} COW, marks "
+                                 f"{unshared['marks']}, saved "
+                                 f"{shared['saved']}")
+        if not (shared["streams"] == unshared["streams"]
+                == [list(r.tokens_out) for r in reqs]) or done != len(reqs):
+            raise AssertionError(f"shared-prefix {kv}: streams differ from "
+                                 f"the unshared paged or continuous run's")
+        log(f"shared-prefix {kv}: hits {shared['hits']} and COW copies "
+            f"{shared['cow']} as the host replay of the admission plan "
+            f"predicts; high watermark {shared['marks']} blocks (predicted "
+            f"{want_marks}) against unshared {unshared['marks']}; streams "
+            f"equal the unshared paged and the continuous engines' "
+            f"({len(reqs)} requests); tokens/s shared "
+            f"{shared['rate']:.1f}, unshared {unshared['rate']:.1f}")
+        cow_launches(model, params, alloc, prompts, int8)
+
+
+def cow_launches(model, params, alloc, prompts, int8) -> None:
+    """Host launch calls inside ``_cow_round`` per pass (profiler), on one
+    instance (its graphs captured first) admitting an exact-duplicate pair
+    and one other prompt: the COW pass pays one copy a pool leaf (2 bf16,
+    4 int8), the others none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    engine = deploy(model, params, ARCH, alloc, "paged", int8=int8,
+                    n_instances=1)
+    warm(engine, ARCH, prompts[0])  # no capture under the profiler
+    (inst,) = engine.instances.values()
+    pair = prompts[2 * PAIRS[0][0]]
+    for p in (pair, pair, prompts[0]):
+        engine.submit(ARCH, p, max_new_tokens=4)
+    cow_round = inst._cow_round
+
+    def labelled():
+        with record_function("cow_round"):
+            cow_round()
+    inst._cow_round = labelled
+    per_pass = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            inst.run_step()
+            torch.cuda.synchronize()
+        events = prof.events()
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "cow_round" and e.device_type == DeviceType.CPU]
+        per_pass.append(sum(1 for e in events if e.name in LAUNCH_CALLS
+                            and any(a <= e.time_range.start <= b
+                                    for a, b in spans)))
+    del inst._cow_round  # the wrapper holds the instance
+    leaves = len(inst.cache)
+    if inst.cow_count != 1 or per_pass != [leaves, 0, 0]:
+        raise AssertionError(f"COW launches per pass {per_pass}, "
+                             f"{inst.cow_count} copies, {leaves} leaves")
+    log(f"COW launches ({'int8' if int8 else 'bf16'}): host launch calls "
+        f"inside the COW step per pass {per_pass} (1 copy, one launch per "
+        f"pool leaf; passes without a COW pay none)")
+
+
+def migration_phase(model, params, alloc, prompts) -> None:
+    """Two single-instance engines of qwen2-7b, paged with sharing and
+    then continuous, each through its graphs' capture (``warm``): after
+    two passes of 8 requests on one, every occupied slot is exported and
+    imported into the other.  The streams must equal an unmigrated
+    engine's, and the target's later rounds must be replays of its
+    warm-up's graph; each run's decode kernel counted from 0."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    prompts = prompts[0:16:2][:8]  # one instance's first wave, a pair in it
+    for batching, kernel in (("paged", "paged_decode_attention"),
+                             ("continuous", "decode_attention")):
+        ref = deploy(model, params, ARCH, alloc, batching, n_instances=1)
+        stayed, _, _ = serve.drive(ref, ARCH, prompts, MIGRATION_TOKENS)
+        del ref
+        src = deploy(model, params, ARCH, alloc, batching, n_instances=1)
+        dst = deploy(model, params, ARCH, alloc, batching, n_instances=1)
+        graphs = warm(dst, ARCH, prompts[0])
+        warm(src, ARCH, prompts[0])
+        (sid, inst), = src.instances.items()
+        (tgt,) = dst.instances.values()
+        reqs = [src.submit(ARCH, p, max_new_tokens=MIGRATION_TOKENS)
+                for p in prompts]
+        inst.run_step()
+        inst.run_step()
+        hits0, replays0, rounds0 = (tgt.shared_block_hits,
+                                    tgt.round_graph.replays, tgt.rounds)
+        moved = 0
+        for slot in range(inst.max_batch):
+            if inst.slots[slot] is None:
+                continue
+            tgt.import_slot(slot, *inst.export_slot(slot))
+            inst.slots[slot] = None
+            if batching == "paged":
+                inst._release_paged(slot)
+            moved += 1
+        tgt.queue.extend(inst.queue)
+        inst.queue.clear()
+        src.retire(sid)
+        del inst
+        kernels.reset_launch_counts()
+        dst.pump(budget_s=600.0)
+        counts = kernels.launch_counts()
+        same_graphs(dst, graphs, f"migration {batching}")
+        rounds = tgt.rounds - rounds0
+        if (moved != len(prompts) or src.instances or not all(
+                r.done for r in reqs)
+                or [r.tokens_out for r in reqs]
+                != [r.tokens_out for r in stayed]
+                or tgt.round_graph.replays - replays0 != rounds
+                or counts[kernel] != model.cfg.n_layers * rounds):
+            raise AssertionError(
+                f"migration {batching}: moved {moved}, rounds {rounds}, "
+                f"replays {tgt.round_graph.replays - replays0}, launches "
+                f"{counts}")
+        log(f"migration {batching}: {moved} slots exported after 2 passes "
+            f"and imported into an instance with captured graphs; its "
+            f"{rounds} later rounds all replays ({kernel} {counts[kernel]} "
+            f"launches); streams equal the unmigrated engine's over "
+            f"{MIGRATION_TOKENS} tokens; sharing hits on import "
+            f"{tgt.shared_block_hits - hits0}")
+        del src, dst, tgt
+
+
+def release_phase(model, params, alloc, prompts) -> None:
+    """Two paged qwen2-7b instances through their captures; the first is
+    retired mid-decode and drained by the pump (it closes), then the node
+    fails: after each, with ``gc.collect()`` and ``empty_cache()``, the
+    reserved device memory must fall by at least the KV pool of the
+    instance that went."""
+    import gc
+    import torch
+
+    def reserved():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    reserved()
+    engine = deploy(model, params, ARCH, alloc, "paged")
+    warm(engine, ARCH, prompts[0])
+    pools = {k: sum(v.numel() * v.element_size() for v in i.cache.values())
+             for k, i in engine.instances.items()}
+    for p in prompts[:4]:
+        engine.submit(ARCH, p, max_new_tokens=8)
+    first = ARCH + "/0"
+    engine.instances[first].run_step()
+    r0 = reserved()
+    strays = engine.retire(first, strip_queue=False)
+    engine.pump(budget_s=600.0)
+    if strays or first in engine.instances or engine.has_work():
+        raise AssertionError("release: the retired instance did not drain")
+    r1 = reserved()
+    engine.fail()
+    r2 = reserved()
+    fell = (r0 - r1, r1 - r2)
+    if not (fell[0] >= pools[first] and fell[1] >= pools[ARCH + "/1"]):
+        raise AssertionError(f"release: reserved fell by {fell} bytes, KV "
+                             f"pools {pools}")
+    log(f"release: reserved device memory fell by {fell[0]} bytes after "
+        f"retire drained and closed an instance, by {fell[1]} after the "
+        f"node failed (KV pools {pools} bytes; the rest is the instances' "
+        f"graph pools and transients)")
 
 
 def profile_window(model, params, prompts, alloc, arch=ARCH,

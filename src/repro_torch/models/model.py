@@ -248,9 +248,21 @@ class Model:
                     blocks.index_select(1, torch.as_tensor(src, device=dev)))
         return cache
 
+    def copy_block(self, cache: dict, src: int, dst: int) -> dict:
+        """Copy physical page ``src`` into page ``dst`` of every leaf, in
+        place (copy-on-write: the sequence diverging from a shared
+        prompt-tail block gets its private copy before its first append,
+        model.py:414-423).  One device copy per leaf; the pools keep their
+        storage, so a captured graph that reads them sees the copy."""
+        for pages in cache.values():
+            pages[:, dst].copy_(pages[:, src])
+        return cache
+
     def gather_pages(self, cache: dict, block_row, pos) -> dict:
         """Rebuild one sequence as a contiguous batch-1 dense cache, every
-        leaf — the inverse of ``append_paged``."""
+        leaf and the scalar ``pos`` on the pools' device — the inverse of
+        ``append_paged``, and an entry ``merge_slot`` takes as it takes
+        ``gather_slot``'s."""
         out = {}
         for key, pages in cache.items():
             idx = torch.as_tensor(np.asarray(block_row, np.int64),
@@ -258,7 +270,8 @@ class Model:
             g = pages.index_select(1, idx)  # (L, M, bs, K, Dh or 1)
             l, m, bs = g.shape[:3]
             out[key] = g.reshape(l, 1, m * bs, *g.shape[3:])
-        out["pos"] = torch.as_tensor(pos, dtype=torch.int32)
+        out["pos"] = torch.as_tensor(pos, dtype=torch.int32,
+                                     device=pages.device)
         return out
 
     # -- byte accounting ---------------------------------------------------------

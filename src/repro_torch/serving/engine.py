@@ -63,9 +63,28 @@ prefill at the exact prompt length and serve continuous only (a
 caches are recurrent state and rolled sliding-window rows, not rows
 addressed by absolute position).
 
-Not ported yet (ROADMAP.md): sampling and speculation, prefix sharing
-and copy-on-write, migration (``export_slot``/``import_slot``),
-``retire``/``fail``, SLO deadlines.
+* **Prefix sharing (paged, on by default)** — admission matches a
+  prompt's chained block digests against resident pages
+  (``_plan_paged_admission``, engine.py:573-589): matched full blocks are
+  mapped read-only, an exact-prompt match shares the tail block too
+  against one reserved copy-on-write spare, and only the rest is charged
+  to the admission's block budget.  A shared prompt is still prefilled
+  whole; its staged append row sends the shared blocks to the sink, so
+  the admission graphs do not change.  Before each round ``_cow_round``
+  gives every slot about to write a shared tail block its private copy
+  (``Model.copy_block``, in place in the pools, eagerly between graph
+  launches on the replays' stream) and re-points its table row, which
+  the round graph reads from the fixed device tables.
+* **Lifecycle** — ``export_slot``/``import_slot`` move a decoding slot
+  between instances (between passes; an import writes the fixed
+  buffers in place, so the target's graphs keep replaying), a paused
+  instance dispatches nothing, ``retire`` drains an instance and closes
+  it (its graphs, pools and store reference released), ``fail`` drops a
+  whole node, and queued requests expire past their deadline except in
+  the ``guaranteed`` tier, with the ``batch`` lane queued last; the
+  node's health is the ratio of two pass-latency EWMAs.
+
+Not ported yet (ROADMAP.md): sampling and speculation, sharded pods.
 """
 
 from __future__ import annotations
@@ -88,10 +107,11 @@ from repro_torch.core.slo import SLORecorder
 from repro_torch.models.model import Model, default_kv_blocks
 from repro_torch.serving.graphs import PrefillGraphs, RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
-                                        PageTable, blocks_needed)
+                                        PageTable, blocks_needed,
+                                        prompt_digests)
 
 
-IDLE_SLEEP_S = 0.001  # pump's yield when a pass grants nothing after a lull
+IDLE_SLEEP_S = 0.001  # pump's default yield in a lull
 # The fused admission's argument buffer (int64): length, slot and ordinal
 # in the pass, then (paged) the append row, then the padded prompt.
 _LEN, _SLOT, _ORD, _ROW = 0, 1, 2, 3
@@ -119,6 +139,14 @@ class ServeRequest:
     tokens_out: list = dataclasses.field(default_factory=list)
     done: bool = False
     finished_at: float = 0.0
+    # SLO lifecycle (engine.py:137-145): absolute deadline on the engine
+    # clock (None = none), the tier it was admitted under, a typed outcome
+    # when it ends without completing (``repro_torch.core.slo``), and how
+    # many times it was re-routed after a failure.
+    deadline: Optional[float] = None
+    tier: str = "best_effort"
+    outcome: Optional[str] = None
+    attempts: int = 0
 
 
 class FunctionInstance:
@@ -127,20 +155,18 @@ class FunctionInstance:
     static batch.  ``fused=True`` (the default; never for static) runs the
     sync-free round, a CUDA graph on the card (``round_graph``);
     ``fused=False`` the host-argmax reference.  Token streams are
-    identical either way."""
+    identical either way.  ``prefill_buckets=False`` admits the dense
+    family at the exact prompt length, eagerly, with no prefill graphs;
+    ``prefix_sharing`` applies to paged instances only."""
 
     def __init__(self, inst_id: str, model: Model, store: ModelStore,
                  weights_key: str, *, device: torch.device,
                  max_batch: int = 4, max_len: int = 64,
-                 batching: str = "continuous", block_size: int = 16,
-                 n_kv_blocks: Optional[int] = None, fused: bool = True,
-                 prefix_sharing: bool = False):
+                 batching: str = "continuous", prefill_buckets: bool = True,
+                 block_size: int = 16, n_kv_blocks: Optional[int] = None,
+                 fused: bool = True, prefix_sharing: bool = True):
         if batching not in ("continuous", "static", "paged"):
             raise ValueError(f"unknown batching mode {batching!r}")
-        if prefix_sharing:
-            raise NotImplementedError(
-                "prefix sharing is not ported yet (ROADMAP.md, Queue 1 "
-                "item 4)")
         self.inst_id = inst_id
         self.model = model
         self.device = device
@@ -155,14 +181,25 @@ class FunctionInstance:
         self.queue: deque[ServeRequest] = deque()
         # Prompts are right-padded to power-of-two buckets (engine.py:
         # 518-530): O(log max_len) prefill shapes instead of one per length.
-        self.bucketed = (batching != "static"
+        self.bucketed = (batching != "static" and prefill_buckets
                          and model.supports_bucketed_prefill())
         self.steps = 0
+        self.retired = False  # draining: no new routing, slots finish
+        self.paused = False   # migrating: no admission, no round
+        # When the instance's first token reached the host (time to first
+        # token of a cold instance).
+        self.first_token_at: Optional[float] = None
+        # Prefix sharing (paged only): resident blocks mapped, and
+        # divergent appends resolved by a copy (engine.py:262-266).
+        self.prefix_sharing = prefix_sharing and batching == "paged"
+        self.shared_block_hits = 0
+        self.cow_count = 0
         self.prefills = 0  # prefill launches (telemetry)
         self.rounds = 0    # decode rounds dispatched (telemetry)
         self.slots: list[Optional[ServeRequest]] = [None] * max_batch
         self._slot_tok = np.zeros((max_batch,), np.int32)  # host mirror
         self.cache: Optional[dict] = None
+        self._kv_mem = None  # the KV pools' memory pool (the card only)
         self.active: list[ServeRequest] = []  # the static batch
         # Completions of a host-synchronous step (static, fused=False),
         # handed out by sync_step.
@@ -240,11 +277,22 @@ class FunctionInstance:
             self._active_dev = self._state_dev[n + mb:]
 
     def close(self) -> None:
-        """Return the store reference and release the paged blocks
-        (engine.py:396-401)."""
+        """Release the paged blocks and return the store reference
+        (engine.py:396-401), then drop the graphs and the KV pools, so
+        that ``torch.cuda.empty_cache()`` can return their memory."""
         if self.batching == "paged":
             self.pages.release_all()
         self.store.put_back(self.weights_key)
+        self.drop_device_state()
+
+    def drop_device_state(self) -> None:
+        """Drop the graphs (each with its memory pool), the KV pools with
+        theirs and the weights reference: a closed or failed instance
+        serves nothing more, and what it held is freed even while a caller
+        still holds the instance.  (The fused token and argument buffers,
+        a few KB, go with the instance.)"""
+        self.round_graph = self.prefill_graphs = None
+        self.cache = self.params = self._kv_mem = None
 
     # -- KV accounting ---------------------------------------------------------
 
@@ -270,7 +318,9 @@ class FunctionInstance:
         return self.allocator.bytes_high_watermark
 
     def kv_bytes_saved(self) -> int:
-        """Bytes prefix sharing saves now (0 until it is ported)."""
+        """Bytes prefix sharing saves now against the unshared paged plane:
+        extra references minus the reserved COW spares, in bytes (0 for
+        the dense modes)."""
         if self.batching != "paged":
             return 0
         return self.pages.bytes_saved(self._block_bytes)
@@ -292,6 +342,13 @@ class FunctionInstance:
         round (the final token is emitted, never cached)."""
         return int(req.prompt.shape[0]) + req.max_new_tokens - 1
 
+    def _mark_first_token(self) -> None:
+        """Record when the instance's first token reached the host (every
+        path that lands a token calls this; a fused token lands at
+        ``sync_step``)."""
+        if self.first_token_at is None:
+            self.first_token_at = time.perf_counter()
+
     # -- device-resident decode state ----------------------------------------
 
     def _upload_paged_state(self) -> None:
@@ -307,7 +364,18 @@ class FunctionInstance:
 
     def _init_cache(self) -> dict:
         """The slot pool, or the paged pools with the sink block at index
-        ``allocator.n_blocks``, which the allocator never hands out."""
+        ``allocator.n_blocks``, which the allocator never hands out.  On
+        the card they live in a memory pool of the instance's own: from
+        the default pool they could be carved out of a cached segment
+        whose other blocks hold live tensors (the weights among them), and
+        ``close`` could then not give their memory back to the device."""
+        if self.device.type != "cuda":
+            return self._make_cache()
+        self._kv_mem = torch.cuda.MemPool()
+        with torch.cuda.use_mem_pool(self._kv_mem, self.device.index):
+            return self._make_cache()
+
+    def _make_cache(self) -> dict:
         if self.batching == "paged":
             return self.model.init_paged_cache(
                 self.allocator.n_blocks + 1, self.block_size, self.device,
@@ -332,19 +400,63 @@ class FunctionInstance:
                                  device=self.device)
         return self.model.prefill(self.params, tokens, **kw)
 
-    def _map_paged_request(self, slot: int, req: ServeRequest
-                           ) -> tuple[list[int], np.ndarray]:
-        """Bind a slot's blocks; returns its block row and the mask of the
-        logical blocks its prefill entry may write (the padding blocks past
-        the blocks the request holds stay out of the pool — the
-        counterpart of the JAX drop sentinel, engine.py:625-628)."""
-        self.pages.allocate(slot, self._kv_rows_needed(req))
-        row = self.pages.row(slot, self.blocks_per_seq)
+    def _plan_paged_admission(self, req: ServeRequest) -> tuple[int, tuple]:
+        """Blocks a paged admission must allocate for ``req`` and its
+        sharing plan ``(full_digests, tail_digest, shared_full,
+        tail_block)`` (engine.py:573-589): a shared full block costs
+        nothing, a shared tail block trades its block for a reserved COW
+        spare, so the charge is ``blocks_needed - len(shared_full)``."""
+        total = blocks_needed(self._kv_rows_needed(req), self.block_size)
+        if not self.prefix_sharing:
+            return total, ([], None, [], None)
+        full, tail_digest = prompt_digests(req.prompt, self.block_size)
+        shared, tail_block = self.pages.match_prefix(full, tail_digest)
+        return total - len(shared), (full, tail_digest, shared, tail_block)
+
+    def _assert_writes_exclusive(self, append_row: np.ndarray) -> None:
+        """The paged write contract (engine.py:591-603): every block an
+        append row writes is owned by this sequence alone; the null block
+        and the sink are skipped.  Raises on a shared block."""
+        for b in np.asarray(append_row).tolist():
+            if b != NULL_BLOCK and b < self.allocator.n_blocks and \
+                    self.allocator.refcount(b) != 1:
+                raise AssertionError(
+                    f"{self.inst_id}: an append would write block {b} with "
+                    f"refcount {self.allocator.refcount(b)} (shared blocks "
+                    f"are read-only)")
+
+    def _map_paged_request(self, slot: int, req: ServeRequest, plan: tuple
+                           ) -> np.ndarray:
+        """Bind a slot's pages (the shared prefix, then private blocks),
+        publish its prompt digests, and return its append row: the slot's
+        block row with the shared blocks and the padding past the blocks
+        it holds sent to the sink (JAX's drop sentinel, engine.py:605-633).
+        Its writer checks it against the write contract."""
+        full_digests, tail_digest, shared, tail_block = plan
+        shared_all = shared + ([tail_block] if tail_block is not None
+                               else [])
+        rows = self._kv_rows_needed(req)
+        if shared_all:
+            self.pages.allocate_shared(slot, rows, shared_all,
+                                       tail_shared=tail_block is not None)
+            self.shared_block_hits += len(shared_all)
+        else:
+            self.pages.allocate(slot, rows)
+        if self.prefix_sharing:
+            self.pages.register_prefix(slot, full_digests, tail_digest)
+        return self._bind_row(slot, len(shared_all),
+                              int(req.prompt.shape[0]))
+
+    def _bind_row(self, slot: int, n_shared: int, pos: int) -> np.ndarray:
+        """Point the slot's table mirror at its blocks and its position at
+        ``pos``; return its append row (see ``_map_paged_request``)."""
+        row = np.asarray(self.pages.row(slot, self.blocks_per_seq), np.int64)
         self._tables[slot] = row
-        self._pos[slot] = int(req.prompt.shape[0])
+        self._pos[slot] = pos
         self._state_dirty = True
-        write = np.arange(self.blocks_per_seq) < len(self.pages.blocks(slot))
-        return row, write
+        idx = np.arange(self.blocks_per_seq)
+        write = (idx >= n_shared) & (idx < len(self.pages.blocks(slot)))
+        return np.where(write, row, self.allocator.n_blocks)
 
     def _admission_body(self, width: int, bucketed: bool) -> torch.Tensor:
         """One fused admission, read from ``_args`` (what a prefill graph
@@ -372,10 +484,14 @@ class FunctionInstance:
             self.model.merge_slot(self.cache, entry, slot)
         return logits
 
-    def _admit_fused(self, slot: int, req: ServeRequest, done: bool) -> None:
+    def _admit_fused(self, slot: int, req: ServeRequest, done: bool,
+                     plan: Optional[tuple] = None) -> None:
         """Stage the admission's arguments, copy them into ``_args`` and
         run the body: a prefill graph of the prompt's bucket (dense), or
-        eagerly at the exact length (rwkv6, the hybrid)."""
+        eagerly at the exact length (rwkv6, the hybrid).  Paged, the
+        staged append row (all sink for a request done at prefill) is
+        checked against the write contract before the copy; ``plan`` is
+        the paged admission's sharing plan (``_plan_paged_admission``)."""
         k = len(self._pending_prefill)
         if k >= self.max_batch:
             raise RuntimeError(f"{self.inst_id}: more than {self.max_batch} "
@@ -385,12 +501,10 @@ class FunctionInstance:
         stage = self._args_stage.numpy()[k]
         stage[_LEN], stage[_SLOT], stage[_ORD] = n, slot, k
         if self.batching == "paged":
-            sink = self.allocator.n_blocks
-            if done:
-                stage[_ROW:self._tok0] = sink
-            else:
-                row, write = self._map_paged_request(slot, req)
-                stage[_ROW:self._tok0] = np.where(write, row, sink)
+            stage[_ROW:self._tok0] = (
+                self.allocator.n_blocks if done
+                else self._map_paged_request(slot, req, plan))
+            self._assert_writes_exclusive(stage[_ROW:self._tok0])
         stage[self._tok0 + n:self._tok0 + width] = 0
         stage[self._tok0:self._tok0 + n] = req.prompt
         self._args.copy_(self._args_stage[k], non_blocking=True)
@@ -415,18 +529,18 @@ class FunctionInstance:
             if self.slots[slot] is not None or not self.queue:
                 continue
             head = self.queue[0]
+            plan = ([], None, [], None)
             if paged and head.max_new_tokens > 1:
-                need = blocks_needed(self._kv_rows_needed(head),
-                                     self.block_size)
+                need, plan = self._plan_paged_admission(head)
                 if not self.allocator.can_alloc(need):
-                    break
+                    break  # the head waits for retiring blocks
             req = self.queue.popleft()
             if self.fused:
                 if self.cache is None:
                     self.cache = self._init_cache()
                 done_at_prefill = (len(req.tokens_out) + 1
                                    >= req.max_new_tokens)
-                self._admit_fused(slot, req, done_at_prefill)
+                self._admit_fused(slot, req, done_at_prefill, plan)
                 self._pending_prefill.append(
                     (req, None if done_at_prefill else slot))
                 if done_at_prefill:
@@ -437,6 +551,7 @@ class FunctionInstance:
                 self.sync_count += 1
                 tok = int(self.model.sample_greedy(logits).cpu()[0])
                 req.tokens_out.append(tok)
+                self._mark_first_token()
                 if len(req.tokens_out) >= req.max_new_tokens:
                     req.done = True
                     finished.append(req)
@@ -444,8 +559,8 @@ class FunctionInstance:
                 if self.cache is None:
                     self.cache = self._init_cache()
                 if paged:
-                    row, write = self._map_paged_request(slot, req)
-                    self.model.append_paged(self.cache, entry, row, write)
+                    self._append(entry,
+                                 self._map_paged_request(slot, req, plan))
                 else:
                     self.model.merge_slot(self.cache, entry, slot)
                 self._slot_tok[slot] = tok
@@ -454,11 +569,20 @@ class FunctionInstance:
             self.slots[slot] = req
         return finished
 
+    def _append(self, entry: dict, append_row: np.ndarray) -> None:
+        """Scatter a batch-1 entry into the pages through an append row,
+        checked against the write contract (eagerly: the host-argmax
+        admission and ``import_slot``)."""
+        self._assert_writes_exclusive(append_row)
+        self.model.append_paged(self.cache, entry, torch.as_tensor(
+            append_row, dtype=torch.int64, device=self.device))
+
     def _advance_slot(self, slot: int, tok: int) -> Optional[ServeRequest]:
         """Land one round's token on an occupied slot; free the slot (and
         its blocks) when the request finishes.  Returns it iff finished."""
         req = self.slots[slot]
         req.tokens_out.append(tok)
+        self._mark_first_token()
         self._slot_tok[slot] = tok
         if self.batching == "paged":
             self._pos[slot] += 1  # mirrors the in-step pos + active
@@ -476,6 +600,31 @@ class FunctionInstance:
         self._tables[slot] = NULL_BLOCK
         self._pos[slot] = 0
         self._state_dirty = True
+
+    def _cow_round(self) -> None:
+        """Copy-on-write before a round's writes land (engine.py:770-804,
+        one row a round: speculation is not ported).  A slot whose next
+        row lies in a shared prompt-tail block takes that block's
+        reserved spare: the page is copied into it in place
+        (``Model.copy_block``, eagerly, on the stream the replays use,
+        after the admissions that wrote the page) and the slot's table
+        mirror re-pointed, so the round's upload refills the fixed device
+        tables before the replay.  Afterwards no block a round writes is
+        shared."""
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            pos = int(self._pos[slot])
+            block, moved = self.pages.writable_block(slot, pos)
+            if moved is not None:
+                old, new = moved
+                self.model.copy_block(self.cache, old, new)
+                self._tables[slot][pos // self.block_size] = new
+                self._state_dirty = True
+                self.cow_count += 1
+            if self.allocator.refcount(block) != 1:
+                raise AssertionError(f"{self.inst_id}: slot {slot} would "
+                                     f"write shared block {block}")
 
     def _host_argmax(self, logits: torch.Tensor) -> np.ndarray:
         """Reference sampler: the logits pulled, argmax and clip on the
@@ -526,6 +675,7 @@ class FunctionInstance:
         finished = []
         for r, t in zip(batch, self._host_argmax(logits)):
             r.tokens_out.append(int(t))
+            self._mark_first_token()
             if len(r.tokens_out) >= r.max_new_tokens:
                 r.done = True
                 finished.append(r)
@@ -593,7 +743,11 @@ class FunctionInstance:
         """Admit and dispatch one token-gated step.  The fused modes do it
         without any host synchronisation; the host-synchronous reference
         modes (static, ``fused=False``) run the step in full and stash its
-        completions.  Either way ``sync_step`` finishes the pass."""
+        completions.  Either way ``sync_step`` finishes the pass.  A
+        paused (migrating) instance dispatches nothing and returns
+        False."""
+        if self.paused:
+            return False
         self.steps += 1
         if self.batching == "static":
             if self.active:
@@ -606,6 +760,8 @@ class FunctionInstance:
             return True
         finished = self._admit()
         self.last_fill = self.n_active() + len(finished)
+        if self.prefix_sharing and self.n_active() > 0:
+            self._cow_round()  # before either round's writes
         if self.fused:
             if self.n_active() > 0:
                 self._dispatch_round()
@@ -634,6 +790,7 @@ class FunctionInstance:
         finished = []
         for (req, slot), tok in zip(self._pending_prefill, host[:n_pre]):
             req.tokens_out.append(int(tok))
+            self._mark_first_token()
             if slot is None:  # whole request served by its prefill
                 req.done = True
                 finished.append(req)
@@ -651,34 +808,116 @@ class FunctionInstance:
 
     def run_step(self) -> list[ServeRequest]:
         """``dispatch_step`` + ``sync_step`` back to back."""
-        self.dispatch_step()
+        if not self.dispatch_step():
+            return []
         return self.sync_step()
+
+    # -- migration (pause -> gather -> merge, engine.py:988-1061) -------------
+
+    def _between_passes(self, what: str) -> None:
+        if self._pending_prefill or self._round is not None:
+            raise RuntimeError(f"{self.inst_id}: {what} runs between passes "
+                               f"(after sync_step), not mid-pass")
+
+    def export_slot(self, slot: int) -> tuple[ServeRequest, dict, int]:
+        """One occupied slot's decode state, ``(request, batch-1 cache
+        entry, last token)``; paged slots are gathered into the dense
+        layout, so any instance can import them.  Between passes only:
+        the host mirrors are the pass's sync's."""
+        req = self.slots[slot]
+        if req is None:
+            raise ValueError(f"slot {slot} of {self.inst_id} is empty")
+        self._between_passes("export_slot")
+        if self.batching == "paged":
+            entry = self.model.gather_pages(self.cache, self._tables[slot],
+                                            int(self._pos[slot]))
+        else:
+            entry = self.model.gather_slot(self.cache, slot)
+        return req, entry, int(self._slot_tok[slot])
+
+    def import_slot(self, slot: int, req: ServeRequest, entry: dict,
+                    tok: int) -> None:
+        """Merge an exported slot into ``slot``, the inverse of
+        ``export_slot``: the request's later rounds give the tokens they
+        would have given at the source.  Paged, the import takes the
+        admission's worst-case blocks and re-shares FULL prompt blocks
+        only; the tail block stays private, as it already holds decode
+        rows.  Everything is written in place into the buffers the
+        instance's graphs read (pools, tables via the next upload, slot
+        token), so its graphs keep replaying."""
+        if self.batching == "static":
+            raise ValueError("static batches cannot absorb migrated slots")
+        if self.slots[slot] is not None:
+            raise ValueError(f"slot {slot} of {self.inst_id} is occupied")
+        self._between_passes("import_slot")
+        if self.cache is None:
+            self.cache = self._init_cache()
+        if self.batching == "paged":
+            full = (prompt_digests(req.prompt, self.block_size)[0]
+                    if self.prefix_sharing else [])
+            shared, _ = self.pages.match_prefix(full, None)
+            rows = self._kv_rows_needed(req)
+            if shared:
+                self.pages.allocate_shared(slot, rows, shared)
+                self.shared_block_hits += len(shared)
+            else:
+                self.pages.allocate(slot, rows)
+            if self.prefix_sharing:
+                self.pages.register_prefix(slot, full, None)
+            self._append(entry, self._bind_row(slot, len(shared),
+                                               int(entry["pos"])))
+        else:
+            self.model.merge_slot(self.cache, entry, slot)
+        self.slots[slot] = req
+        self._slot_tok[slot] = tok
+        if self.fused:
+            self._slot_tok_dev[slot] = tok  # in place: the graphs read it
 
 
 class ServingEngine:
     """One node: token scheduler + N weight-shared instances on one
     device (``None`` = the card; the CPU only when asked for)."""
 
-    def __init__(self, window: float = 0.2, device=None):
+    def __init__(self, window: float = 0.2, device=None,
+                 idle_sleep_s: float = IDLE_SLEEP_S):
         self.device = resolve_device(device)
         self.scheduler = TokenScheduler(window=window)
         self.store = ModelStore()
         self.instances: dict[str, FunctionInstance] = {}
         self.recorders: dict[str, SLORecorder] = {}
+        self.alive = True
         self._req_ids = itertools.count()
         self._inst_seq = itertools.count()
         self._t0 = time.perf_counter()
+        # What pump sleeps when a pass grants nothing after a pass that
+        # did no work (0: never sleeps).
+        self.idle_sleep_s = idle_sleep_s
+        # An injected stall per pass, inside the timed region (the chaos
+        # harness's straggler lever; 0 does nothing).
+        self.pump_delay_s = 0.0
+        # Gray-failure quarantine: routing and placement stop, occupants
+        # drain through pump.  One-way, set by a frontend.
+        self.quarantined = False
+        # Pass-latency EWMAs of the health score (engine.py:1151-1155).
+        self._lat_fast = 0.0
+        self._lat_slow = 0.0
+        self._expired: dict[str, int] = {}  # queued requests expired
+        # Called with the instance id once a retired instance has drained
+        # and closed.
+        self.on_instance_closed: Optional[Any] = None
 
     def now(self) -> float:
         return time.perf_counter() - self._t0
 
     def deploy(self, fn: str, model: Model, params: Any, alloc: Alloc, *,
                n_instances: int = 1, max_batch: int = 4, max_len: int = 64,
-               batching: str = "continuous", block_size: int = 16,
-               n_kv_blocks: Optional[int] = None, fused: bool = True,
-               prefix_sharing: bool = False) -> list[str]:
+               batching: str = "continuous", prefill_buckets: bool = True,
+               block_size: int = 16, n_kv_blocks: Optional[int] = None,
+               fused: bool = True, prefix_sharing: bool = True) -> list[str]:
         """Deploy ``n_instances`` of ``fn`` sharing one stored copy of
         ``params`` (which must already lie on the engine's device)."""
+        if not self.alive:
+            raise RuntimeError("cannot deploy to a failed node")
         for leaf in _leaves(params):
             if leaf.device != self.device:
                 raise ValueError(f"{fn}: params are on {leaf.device}, the "
@@ -693,19 +932,78 @@ class ServingEngine:
             self.instances[inst_id] = FunctionInstance(
                 inst_id, model, self.store, fn, device=self.device,
                 max_batch=max_batch, max_len=max_len, batching=batching,
-                block_size=block_size, n_kv_blocks=n_kv_blocks,
-                fused=fused, prefix_sharing=prefix_sharing)
+                prefill_buckets=prefill_buckets, block_size=block_size,
+                n_kv_blocks=n_kv_blocks, fused=fused,
+                prefix_sharing=prefix_sharing)
             self.scheduler.register(inst_id, alloc)
             ids.append(inst_id)
         return ids
 
-    def submit(self, fn: str, prompt: np.ndarray,
-               max_new_tokens: int = 8) -> ServeRequest:
+    # -- scale-down and node failure (engine.py:1227-1282) --------------------
+
+    def retire(self, inst_id: str,
+               strip_queue: bool = True) -> list[ServeRequest]:
+        """Stop routing to an instance and return its queued requests for
+        the caller to re-route (``strip_queue=False`` keeps them: the last
+        replica drains its own queue).  Occupied slots decode on under the
+        scheduler; once the instance has no work it closes and
+        ``on_instance_closed`` fires."""
+        inst = self.instances[inst_id]
+        inst.retired = True
+        strays: list[ServeRequest] = []
+        if strip_queue:
+            strays = list(inst.queue)
+            inst.queue.clear()
+        if not inst.has_work():
+            self._close(inst_id)
+        return strays
+
+    def _close(self, inst_id: str) -> None:
+        inst = self.instances.pop(inst_id)
+        self.scheduler.deregister(inst_id)
+        inst.close()
+        if self.on_instance_closed is not None:
+            self.on_instance_closed(inst_id)
+
+    def fail(self) -> list[tuple[str, ServeRequest]]:
+        """A node crash: every instance dies at once, with no drain and no
+        ``on_instance_closed``.  Returns the unfinished requests as (fn,
+        request), slot occupants with their tokens reset (their KV died
+        with the node; greedy decode reproduces the stream from the
+        prompt) and queued ones.  The instances' graphs and pools are
+        dropped, and the store is replaced by an empty one."""
+        self.alive = False
+        strays: list[tuple[str, ServeRequest]] = []
+        for inst_id, inst in self.instances.items():
+            fn = inst_id.split("/")[0]
+            occupants = (inst.active if inst.batching == "static"
+                         else inst.slots)
+            for req in occupants:
+                if req is None or req.done:
+                    continue
+                req.tokens_out = []
+                strays.append((fn, req))
+            strays.extend((fn, req) for req in inst.queue)
+            inst.drop_device_state()
+        self.instances.clear()
+        self.scheduler.pods.clear()  # a crash: tokens die mid-hold
+        self.store = ModelStore()
+        return strays
+
+    # -- routing --------------------------------------------------------------
+
+    def submit(self, fn: str, prompt: np.ndarray, max_new_tokens: int = 8,
+               deadline: Optional[float] = None, tier: str = "best_effort",
+               attempts: int = 0) -> ServeRequest:
         req = ServeRequest(req_id=next(self._req_ids), prompt=prompt,
                            max_new_tokens=max_new_tokens,
-                           submitted_at=self.now())
+                           submitted_at=self.now(), deadline=deadline,
+                           tier=tier, attempts=attempts)
+        # Join-shortest-queue over the function's live instances (retired
+        # ones drain, paused ones migrate: no new work).
         candidates = [v for k, v in self.instances.items()
-                      if k.startswith(fn + "/")]
+                      if k.startswith(fn + "/") and not v.retired
+                      and not v.paused]
         if not candidates:
             raise KeyError(f"function {fn} has no instances")
         inst = min(candidates, key=lambda i: i.load())
@@ -723,28 +1021,47 @@ class ServingEngine:
                 f"request needs {blocks_needed(rows, inst.block_size)} KV "
                 f"blocks > pool capacity {inst.allocator.capacity} of "
                 f"{inst.inst_id}")
-        inst.queue.append(req)
+        self.enqueue(inst, req)
         return req
+
+    @staticmethod
+    def enqueue(inst: FunctionInstance, req: ServeRequest) -> None:
+        """Queue ``req`` ahead of the instance's parked ``batch``-tier
+        requests unless it is one; uniform tiers queue in FIFO order."""
+        if req.tier != "batch":
+            idx = next((i for i, r in enumerate(inst.queue)
+                        if r.tier == "batch"), None)
+            if idx is not None:
+                inst.queue.insert(idx, req)
+                return
+        inst.queue.append(req)
 
     def has_work(self) -> bool:
         return any(i.has_work() for i in self.instances.values())
 
     def pump(self, budget_s: float = 1.0, *, overlap: bool = True) -> int:
-        """Run token-gated passes until idle or ``budget_s`` is spent.
+        """Run token-gated passes until idle or ``budget_s`` is spent (a
+        failed node runs none).
 
         ``overlap=True`` dispatches every granted fused instance's step
         first (kernels queue on the device and the call returns), then
         syncs each instance once, so one instance's kernels run while
         Python dispatches and pulls the others; a host-synchronous
         instance dispatches in the sync pass, just before its sync.
-        ``overlap=False`` dispatches and syncs one instance at a time."""
+        ``overlap=False`` dispatches and syncs one instance at a time.
+        Queued requests past their deadline expire before each pass; a
+        paused instance asks for no token; a retired instance closes
+        after the sync that drains it."""
+        if not self.alive:
+            return 0
         completed = 0
         deadline = time.perf_counter() + budget_s
         worked_last_pass = False
         while time.perf_counter() < deadline:
+            self._expire_queued()
             any_work = False
             for inst_id, inst in self.instances.items():
-                if inst.has_work():
+                if inst.has_work() and not inst.paused:
                     any_work = True
                     self.scheduler.request_token(inst_id, self.now())
             if not any_work:
@@ -752,12 +1069,14 @@ class ServingEngine:
             granted = self.scheduler.dispatch(self.now())
             if not granted:
                 # Quota-blocked: spin while saturated, yield in a lull.
-                if not worked_last_pass:
-                    time.sleep(IDLE_SLEEP_S)
+                if not worked_last_pass and self.idle_sleep_s > 0:
+                    time.sleep(self.idle_sleep_s)
                 worked_last_pass = False
                 continue
             worked_last_pass = True
             t_prev = time.perf_counter()
+            if self.pump_delay_s > 0:
+                time.sleep(self.pump_delay_s)  # the injected straggler
             if overlap:
                 # Only fused instances dispatch early: a host-synchronous
                 # step (static, fused=False) runs in full in dispatch_step,
@@ -774,16 +1093,63 @@ class ServingEngine:
                 finished = inst.sync_step()
                 t_now = time.perf_counter()
                 elapsed, t_prev = t_now - t_prev, t_now
+                self._observe_pass(elapsed)
                 occ = token.occ * min(inst.last_fill / inst.max_batch, 1.0)
                 self.scheduler.complete(token.pod_id, elapsed, self.now(),
                                         occ=occ)
                 fn = token.pod_id.split("/")[0]
                 for r in finished:
                     r.finished_at = self.now()
+                    met = (None if r.deadline is None
+                           else r.finished_at <= r.deadline)
                     self.recorders[fn].record(r.finished_at - r.submitted_at,
-                                              r.finished_at)
+                                              r.finished_at,
+                                              deadline_met=met)
                     completed += 1
+                if inst.retired and not inst.has_work():
+                    self._close(token.pod_id)  # drained, and synced
         return completed
+
+    def _expire_queued(self) -> None:
+        """Drop queued requests past their deadline, outside the
+        ``guaranteed`` tier, with the typed outcome ``"expired"``, before
+        they take a slot (engine.py:1427-1453)."""
+        now = self.now()
+        for inst_id, inst in self.instances.items():
+            kept, dropped = [], []
+            for r in inst.queue:
+                (dropped if r.deadline is not None and r.tier != "guaranteed"
+                 and now > r.deadline else kept).append(r)
+            if not dropped:
+                continue
+            inst.queue.clear()
+            inst.queue.extend(kept)
+            fn = inst_id.split("/")[0]
+            for r in dropped:
+                r.done = True
+                r.outcome = "expired"
+                r.finished_at = now
+                self._expired[inst_id] = self._expired.get(inst_id, 0) + 1
+                if fn in self.recorders:
+                    self.recorders[fn].record_expired()
+
+    def _observe_pass(self, elapsed: float) -> None:
+        """Feed one pass's latency into the fast and slow EWMAs."""
+        if self._lat_slow == 0.0:
+            self._lat_fast = self._lat_slow = elapsed
+            return
+        self._lat_fast = 0.6 * self._lat_fast + 0.4 * elapsed
+        self._lat_slow = 0.98 * self._lat_slow + 0.02 * elapsed
+
+    def health(self) -> float:
+        """Health in (0, 1]: slow over fast pass-latency EWMA, 1.0 while
+        passes keep their long-run latency, about 1/N when they run N
+        times slower; 0 for a failed node."""
+        if not self.alive:
+            return 0.0
+        if self._lat_fast <= self._lat_slow or self._lat_fast == 0.0:
+            return 1.0
+        return self._lat_slow / self._lat_fast
 
     def memory_bytes(self) -> int:
         """Weight bytes resident in the node's store (a shared copy is
@@ -812,13 +1178,16 @@ class ServingEngine:
         """Hot-path counters per instance: steps, host syncs, prefills,
         decode rounds, (paged) device-state uploads — ``uploads << steps``
         shows the tables and positions stay device-resident between
-        admission events — the round graph's captures and replays, and the
-        prefill graphs' (summed over buckets; 0 where admission is eager)."""
+        admission events — prefix-sharing hits, COW copies, queued
+        requests expired past their deadline, the round graph's captures
+        and replays, and the prefill graphs' (summed over buckets; 0 where
+        admission is eager)."""
         def count(graphs, what):
             return 0 if graphs is None else getattr(graphs, what)
         return {k: {"steps": v.steps, "syncs": v.sync_count,
                     "prefills": v.prefills, "rounds": v.rounds,
-                    "uploads": v.uploads,
+                    "uploads": v.uploads, "shared_hits": v.shared_block_hits,
+                    "cow": v.cow_count, "expired": self._expired.get(k, 0),
                     "captures": count(v.round_graph, "captures"),
                     "replays": count(v.round_graph, "replays"),
                     "prefill_captures": count(v.prefill_graphs, "captures"),

@@ -94,10 +94,22 @@ class RoundGraph:
                 "to the eager round")
         self.captures += 1
         graph = torch.cuda.CUDAGraph()
+        pool = self.pool if self.pool is not None else \
+            torch.cuda.graph_pool_handle()
         before = kernels.counter_values()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=pool):
                 outputs = body()
+        except BaseException:
+            # A failed capture leaves the caching allocator routing the
+            # capture stream's allocations to ``pool`` as if the capture
+            # were under way, and a later per-pool ``emptyCache`` (a
+            # ``torch.cuda.MemPool``'s teardown, as a closed instance's KV
+            # pools) then aborts the process on an internal assert: end
+            # that routing.
+            torch._C._cuda_endAllocateToPool(torch.cuda.current_device(),
+                                             pool)
+            raise
         finally:
             self._delta = [n - b for n, b in
                            zip(kernels.counter_values(), before)]

@@ -46,9 +46,11 @@ The device-side half lives in ``repro_torch.models``: paged cache layout
 (``Model.init_paged_cache``), prefill scatter (``append_paged``), the
 contiguous re-gather (``gather_pages``) and the block-table decode step
 (``decode_step_paged``).  ``FunctionInstance(batching="paged")`` in
-``repro_torch.serving.engine`` ties the two together.  The prefix-sharing
-half of this module is copied with the rest but not yet driven by the
-port's engine (its ``prefix_sharing`` stays off).
+``repro_torch.serving.engine`` ties the two together, prefix sharing
+included (on by default for paged instances): admission plans through
+``match_prefix`` / ``allocate_shared`` / ``register_prefix``, and the
+engine's ``_cow_round`` calls ``writable_block`` for every slot before a
+round and copies the page (``Model.copy_block``) when it returns a move.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@ the same greedy token streams, continuous and paged, with one host sync
 per pass (mirrors ``test_continuous_batching`` and ``test_paged_kv``).
 
 Both engines run the f32 tiny model (bf16 KV pools) on the CPU; the JAX
-side disables prefix sharing, which the port has not ported yet.  The
+side deploys with prefix sharing off, the port's paged instances share
+by default, and these random prompts share no block (sharing's own tests
+are in ``test_torch_prefix_sharing.py``).  The
 int8-KV engines (tiny, f32), the rwkv6 engines (reduced rwkv6-1.6b, f32)
 and the hybrid engines (reduced hymba-1.5b, f32) give the same streams
 too.
@@ -162,13 +164,16 @@ def test_submit_rejects_what_cannot_fit(models):
 
 
 def test_unported_modes_raise(models):
-    """Prefix sharing is not ported yet; static batching is (its tests are
-    in ``test_torch_executor.py``), and an unknown mode is refused."""
+    """Prefix sharing is ported (on by default, for paged instances only,
+    as in JAX; its tests are in ``test_torch_prefix_sharing.py``), and so
+    is static batching (``test_torch_executor.py``); an unknown mode is
+    refused."""
     _, _, tm, tp = models
     eng = ServingEngine(device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.deploy("g", tm, tp, Alloc(**FULL), batching="paged",
-                   prefix_sharing=True)
+    [paged] = eng.deploy("g", tm, tp, Alloc(**FULL), batching="paged")
+    [cont] = eng.deploy("c", tm, tp, Alloc(**FULL), prefix_sharing=True)
+    assert eng.instances[paged].prefix_sharing
+    assert not eng.instances[cont].prefix_sharing
     with pytest.raises(ValueError):
         eng.deploy("h", tm, tp, Alloc(**FULL), batching="dynamic")
 

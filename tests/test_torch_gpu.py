@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, and the
+"""The port's CUDA kernels against their plain PyTorch versions, the
 engine's decode round and bucketed admissions as CUDA graphs against
-their eager references, on the card.  Marked ``gpu``: without a card
+their eager references, and copy-on-write, migration and close under
+those graphs, on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -768,13 +769,176 @@ def test_round_graph_captures_once_and_counts_replays(cuda_device, arch,
     assert eng.telemetry()["f/0"]["replays"] == 19
 
 
+# -- prefix sharing, migration and close under the graphs ---------------------
+
+
+def _lifecycle_engine(model, params, batching, **kw):
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               batching=batching, **{**dict(max_batch=4, max_len=64,
+                                            block_size=16), **kw})
+    return eng
+
+
+def _warm_round(eng, vocab):
+    """Serve two short requests so that the instance's round graph is
+    captured (first round eager, second captured, the rest replayed) and
+    bucket 32's prefill graph too; returns the graphs."""
+    rng = np.random.default_rng(8)
+    _serve_phases(eng, [[(rng.integers(0, vocab, 20).astype(np.int32), 4)
+                         for _ in range(2)]])
+    (inst,) = eng.instances.values()
+    assert inst.round_graph.graph is not None
+    assert inst.prefill_graphs.by_bucket[32].graph is not None
+    return inst.round_graph.graph, inst.prefill_graphs.by_bucket[32].graph
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_cow_under_replay_keeps_other_blocks(cuda_device, monkeypatch, int8):
+    """Three equal 21-token prompts (one full block and a shared tail) on
+    an instance whose round graph and bucket-32 prefill graph are
+    captured: the first round after admission copies the tail block into
+    its spare, eagerly between replays, leaving every other block of
+    every leaf bit for bit as it was; later rounds replay the same graph
+    and the streams equal the unshared engine's."""
+    from repro_torch.models.model import Model
+    if int8:
+        monkeypatch.setenv("REPRO_KV_INT8", "1")
+    model, params = _serving_model("tiny", cuda_device)
+    prompt = np.random.default_rng(9).integers(0, 256, 21).astype(np.int32)
+    phase = [(prompt.copy(), 6) for _ in range(3)]
+    eng = _lifecycle_engine(model, params, "paged")
+    graphs = _warm_round(eng, 256)
+    (inst,) = eng.instances.values()
+    copy_block, copies = Model.copy_block, []
+
+    def checked(self, cache, src, dst):
+        torch.cuda.synchronize()
+        before = {k: v.clone() for k, v in cache.items()}
+        out = copy_block(self, cache, src, dst)
+        torch.cuda.synchronize()
+        for k, v in cache.items():
+            keep = [b for b in range(v.shape[1]) if b != dst]
+            assert torch.equal(v[:, keep], before[k][:, keep]), k
+            assert torch.equal(v[:, dst], before[k][:, src]), k
+        copies.append((src, dst))
+        return out
+
+    monkeypatch.setattr(Model, "copy_block", checked)
+    rounds = inst.round_graph.replays
+    got = _serve_phases(eng, [phase])
+    monkeypatch.undo()
+    # Each sharer but the last one to write gets its copy.
+    assert inst.cow_count == len(copies) == 2 and inst.shared_block_hits == 4
+    assert (inst.round_graph.graph, inst.prefill_graphs.by_bucket[32].graph
+            ) == graphs
+    assert inst.round_graph.captures == 1
+    assert inst.round_graph.replays - rounds == 5
+    if int8:
+        monkeypatch.setenv("REPRO_KV_INT8", "1")
+    ref = _lifecycle_engine(model, params, "paged", prefix_sharing=False)
+    assert got == _serve_phases(ref, [phase])
+    assert inst.allocator.blocks_in_use == 0 and inst.pages.n_spares == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src_batching,dst_batching", [
+    ("paged", "paged"), ("continuous", "continuous"),
+    ("paged", "continuous"), ("continuous", "paged")])
+def test_import_into_a_captured_instance_then_replays(cuda_device,
+                                                      src_batching,
+                                                      dst_batching):
+    """Slots exported mid-decode from one engine and imported into an
+    instance whose round graph is captured: the target's later rounds
+    are replays of that graph and the streams equal an unmigrated run's.
+    A paged export's entry lies wholly on the pools' device (its ``pos``
+    too), so a continuous target merges it as it merges a slot's."""
+    model, params = _serving_model("tiny", cuda_device)
+    rng = np.random.default_rng(10)
+    head = rng.integers(0, 256, 32)
+    phase = [(np.concatenate([head, rng.integers(0, 256, 5)]).astype(
+        np.int32), 9) for _ in range(3)]
+    stayed = _serve_phases(_lifecycle_engine(model, params, src_batching,
+                                             max_batch=2), [phase])
+    src = _lifecycle_engine(model, params, src_batching, max_batch=2)
+    dst = _lifecycle_engine(model, params, dst_batching, max_batch=2)
+    graphs = _warm_round(dst, 256)
+    (inst,), (tgt,) = src.instances.values(), dst.instances.values()
+    reqs = [src.submit("f", p, max_new_tokens=n) for p, n in phase]
+    inst.run_step()
+    inst.run_step()
+    replays, rounds = tgt.round_graph.replays, tgt.rounds
+    for slot in range(inst.max_batch):
+        entry = inst.export_slot(slot)
+        assert all(v.device == cuda_device for v in entry[1].values())
+        tgt.import_slot(slot, *entry)
+        inst.slots[slot] = None
+        if src_batching == "paged":
+            inst._release_paged(slot)
+    tgt.queue.extend(inst.queue)
+    inst.queue.clear()
+    dst.pump(budget_s=300.0)
+    assert all(r.done for r in reqs)
+    assert [r.tokens_out for r in reqs] == stayed
+    assert (tgt.round_graph.graph, tgt.prefill_graphs.by_bucket[32].graph
+            ) == graphs
+    assert tgt.round_graph.captures == 1
+    assert tgt.round_graph.replays - replays == tgt.rounds - rounds > 0
+
+
+def _private_pools() -> set:
+    """Ids of the graph memory pools that hold a device segment."""
+    return {tuple(s["segment_pool_id"]) for s in torch.cuda.memory_snapshot()
+            if tuple(s["segment_pool_id"]) != (0, 0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+@pytest.mark.parametrize("how", ["retire", "fail"])
+def test_close_returns_graph_pools_and_kv_memory(cuda_device, batching, how):
+    """After ``retire`` drains an instance (it closes), or after ``fail``,
+    ``gc.collect()`` and ``empty_cache()``: none of the memory pools its
+    graphs made holds a segment, and the reserved bytes fall by at least
+    its KV pool's."""
+    import gc
+    model, params = _serving_model("tiny", cuda_device)
+    _warm_round(_lifecycle_engine(model, params, batching), 256)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pools0 = _private_pools()
+    eng = _lifecycle_engine(model, params, batching, max_len=4096,
+                            max_batch=16)
+    _warm_round(eng, 256)
+    (iid, inst), = eng.instances.items()
+    kv = sum(v.numel() * v.element_size() for v in inst.cache.values())
+    made = _private_pools() - pools0  # the round's and the prefills' pools
+    assert made
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    if how == "retire":
+        eng.retire(iid)
+        assert iid not in eng.instances
+    else:
+        eng.fail()
+    del inst
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert not made & _private_pools()
+    assert reserved - torch.cuda.memory_reserved() >= kv > 16 << 20
+
+
 @pytest.mark.gpu
 def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
     """A round that syncs the host cannot be captured: the second round
-    raises, the launch counters are left as they were, and the instance
-    serves no further round, eagerly or otherwise.  Near the end of the
-    file, as the prefill's counterpart after it: each leaves a failed
-    capture behind."""
+    raises, the launch counters are left as they were, the instance
+    serves no further round, eagerly or otherwise, and it can be
+    dropped.  Near the end of the file, as the prefill's counterpart
+    after it: each leaves a failed capture behind."""
     from repro_torch import kernels
     from repro_torch.models.model import Model
     model, params = _serving_model("tiny", cuda_device)
@@ -804,6 +968,13 @@ def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
     rg = inst.round_graph
     assert rg.graph is None and rg.eager_rounds == 1 and rg.replays == 0
     assert torch.ones(4, device=cuda_device).sum().item() == 4.0
+    # The dead instance can be dropped: its KV pools' memory pool tears
+    # down (a per-pool emptyCache) with no capture left under way in the
+    # allocator, where it would abort the process.
+    import gc
+    del eng, inst, rg
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- the bucketed admission as CUDA graphs (serving/graphs.py) ----------------

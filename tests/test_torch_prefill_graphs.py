@@ -251,10 +251,10 @@ def test_engine_streams_across_buckets_match_fused_false_and_jax(
     first_pass = []
     admit = inst._admit_fused
 
-    def logged(slot, req, done):
+    def logged(slot, req, done, *plan):
         if not inst.steps > 1:
             first_pass.append((len(req.prompt), done))
-        return admit(slot, req, done)
+        return admit(slot, req, done, *plan)
 
     inst._admit_fused = logged
     assert _serve(fused, arrivals) == want
