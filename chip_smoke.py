@@ -76,7 +76,21 @@ place), and then:
    imported into another whose graphs are captured give the unmigrated
    streams, with every later round of the target a replay; and after
    ``retire`` drains an instance, and after ``fail``, the reserved device
-   memory falls by at least that instance's KV pool.
+   memory falls by at least that instance's KV pool;
+5. fleet phase — qwen2-7b at full width above the engine: a bare engine
+   measures an instance's pools beyond its KV charge (the
+   ``framework_bytes`` admission then charges) and gives each prompt's
+   reference stream; the FaST-Profiler's table over sm {0.25, 0.5} x
+   quota {0.4, 0.8} on a live paged instance; then a ``FunctionSpec``
+   from it reconciled by ``ControlPlane(LiveBackend(ClusterFrontend))``
+   over two nodes on the card with a ``FleetModelStore`` (pinned
+   staging, overlapped uploads), scaling 1 -> 3 -> 1 with node 1 failed
+   and the function re-placed; no request may drop, every first token
+   must equal the bare engine's, and the decision sequence must equal
+   the port's simulator replay of the same spec.  It logs the cold-start
+   tiers with their upload calls and TTFTs, fleet tokens/s, each
+   instance's admission charge beside the reserved bytes of its pools,
+   and the reserved bytes returned at scale-down and at the failure.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1273,6 +1287,7 @@ def serve_phase(rng) -> dict[str, int]:
     chat = shared_prompts(np.random.default_rng(SEED + 1), cfg.vocab_size)
     migration_phase(model, params, alloc, chat)
     release_phase(model, params, alloc, chat)
+    fleet_phase(model, params, totals)
 
     # -- rwkv6-1.6b, the same request mix, after qwen2-7b is freed --------
     del model, params
@@ -1983,6 +1998,277 @@ def release_phase(model, params, alloc, prompts) -> None:
         f"retire drained and closed an instance, by {fell[1]} after the "
         f"node failed (KV pools {pools} bytes; the rest is the instances' "
         f"graph pools and transients)")
+
+
+FLEET_TICKS = (0.5, 2.5, 2.5, 0.5, 0.5, 0.5)  # target rps / T of one pod
+FLEET_REQUESTS = (4, 12, 12, 4, 4, 4)          # requests submitted a tick
+FLEET_FAIL_TICK = 4   # node 1, which then holds the one survivor, fails
+FLEET_TOKENS = 16     # new tokens a request
+
+
+def instance_reserved(inst) -> int:
+    """Device bytes reserved in an instance's own memory pools
+    (``FunctionInstance.pool_ids``)."""
+    import torch
+    pools = inst.pool_ids()
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) in pools)
+
+
+def host_mem_available() -> int:
+    """The host's MemAvailable in bytes (Linux ``/proc/meminfo``)."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def fleet_phase(model, params, totals, device="cuda") -> None:
+    """The fleet above the engine, at full width: the FaST-Profiler's
+    table over sm {0.25, 0.5} x quota {0.4, 0.8} (paged, 8 x 1024, the
+    window sized from a measured step to hold ``STEPS_PER_WINDOW`` at
+    the lowest quota),
+    then a ``FunctionSpec`` from it
+    reconciled by ``ControlPlane(LiveBackend(ClusterFrontend))`` over two
+    nodes on the card with a ``FleetModelStore`` (host budget: one staged
+    copy).  The ramp scales 1 -> 3 -> 1 instances, node 1 fails at one
+    tick and the reconciler re-places; every tick submits 64-512-token
+    prompts and pumps.  Fails on a dropped request, a first token that
+    differs from a bare engine's prefill argmax, or a decision sequence
+    that differs from the port's simulator replay.  Launch counts are
+    set to 0 just before the profiler and read after the fleet's last
+    pump (the bare engine's reference run is outside)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.control import (ControlPlane, FunctionSpec,
+                                     LiveBackend, SimBackend,
+                                     decision_signature, ramp)
+    from repro_torch.core.cluster import Cluster
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.core.profiler import (STEPS_PER_WINDOW,
+                                           measure_engine_profile)
+    from repro_torch.core.resources import Alloc
+    from repro_torch.core.workload import ServiceCurve
+    from repro_torch.launch import serve
+    from repro_torch.serving import ClusterFrontend, FleetModelStore
+
+    t_phase = time.perf_counter()
+    cfg, fn = model.cfg, ARCH
+
+    def reserved():
+        gc.collect()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    reserved()
+    rng = np.random.default_rng(SEED)
+    ticks = [[rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+              for n in rng.integers(64, 513, k)] for k in FLEET_REQUESTS]
+    kv_bytes = model.kv_cache_bytes(batching="paged", max_batch=8,
+                                    max_len=1024, block_size=16,
+                                    kv_int8=False)
+
+    # -- the bare engine: the first-token reference and the measured
+    # per-instance footprint beside its KV pool --------------------------
+    bare = deploy(model, params, fn, Alloc(sm=1.0, quota_request=1.0,
+                                           quota_limit=1.0), "paged",
+                  n_instances=1)
+    warm(bare, fn, ticks[0][0])
+    (inst,) = bare.instances.values()
+    framework = instance_reserved(inst) - kv_bytes
+    ref, done, _ = serve.drive(bare, fn, [p for t in ticks for p in t],
+                               FLEET_TOKENS)
+    if done != sum(FLEET_REQUESTS):
+        raise AssertionError(f"fleet: the bare engine served {done}")
+    ref = [list(r.tokens_out) for r in ref]
+    log(f"fleet: bare engine instance reserves {framework + kv_bytes} "
+        f"bytes in its pools after warming every bucket: KV charge "
+        f"{kv_bytes} + measured framework_bytes {framework} (the JAX "
+        f"default is 67108864)")
+    del bare, inst
+    reserved()
+
+    # -- the FaST-Profiler on the live instance --------------------------
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    points = measure_engine_profile(
+        model, params, spatial=(0.25, 0.5), temporal=(0.4, 0.8),
+        max_batch=8, max_len=1024, batching="paged", prompt_len=256,
+        new_tokens=FLEET_TOKENS, window=0.2, n_windows=3,
+        kv_budget_bytes=kv_bytes,
+        kv_block_bytes=model.kv_block_bytes(16, False), device=device)
+    log(f"fleet: profile (8 requests of 256 + {FLEET_TOKENS} tokens a "
+        f"step, paged, 3 windows of at least {STEPS_PER_WINDOW} steps at "
+        f"the lowest quota) in {time.perf_counter() - t0:.1f}s:")
+    for p in points:
+        log(f"fleet: profile sm={p.sm:.2f} quota={p.quota:.1f} "
+            f"T={p.throughput:.3f} req/s p99={p.p99_latency:.4f}s "
+            f"kv_blocks={p.kv_blocks}")
+    by = {(p.sm, p.quota): p for p in points}
+    for sm in (0.25, 0.5):
+        log(f"fleet: profile sm={sm}: T(quota 0.8) / T(quota 0.4) = "
+            f"{by[sm, 0.8].throughput / by[sm, 0.4].throughput:.3f} "
+            f"(temporal proportionality would give 2)")
+    if any(p.throughput <= 0 or p.kv_blocks != 512 for p in points):
+        raise AssertionError(f"fleet: profile {points}")
+
+    # -- the fleet -----------------------------------------------------------
+    # The scheduler's point: sm 0.5 x quota 0.8 fills a node with two
+    # rectangles, so three instances span both nodes.  (The SM share is
+    # accounting only on the card: sm 0.25's row measures the same
+    # device and would win RPR by its rectangle alone.)
+    point = by[0.5, 0.8]
+    t_pod = point.throughput
+    wbytes = pytree_nbytes(params)
+    free, total = torch.cuda.mem_get_info()
+    mem_bytes = free // 2
+    spec = FunctionSpec(
+        name=fn, profile=(point,), target_rps=ramp(
+            [(float(i), r * t_pod) for i, r in enumerate(FLEET_TICKS)]),
+        headroom=1.0, min_instances=1, max_instances=3,
+        model_factory=lambda: (model, params), max_batch=8, max_len=1024,
+        batching="paged", block_size=16, framework_bytes=framework,
+        curve=ServiceCurve(name=fn, r_max=t_pod, sm_sat=0.5, p=1.0,
+                           weight_bytes=wbytes,
+                           framework_bytes=framework + kv_bytes))
+    alg1 = dataclasses.replace(spec, profile=tuple(points)).best_point()
+    log(f"fleet: Alg. 1 over the whole table would take (sm={alg1.sm}, "
+        f"quota={alg1.quota}) at RPR {alg1.rpr:.3f}; the spec takes "
+        f"(sm={point.sm}, quota={point.quota}) at RPR {point.rpr:.3f} by "
+        f"hand, so that three instances span both nodes")
+    store = FleetModelStore(host_budget_bytes=wbytes * 3 // 2)
+    fe = ClusterFrontend(n_nodes=2, mem_bytes=mem_bytes, window=0.2,
+                         model_store=store, device=device)
+    pinned = 2 * (1 << (wbytes - 1).bit_length())
+    avail = host_mem_available()
+    log(f"fleet: card free {free} of {total} bytes, mem_bytes {mem_bytes} "
+        f"a node; host MemAvailable {avail} bytes, about to pin up to "
+        f"{pinned} (the cold stage and one peer copy of {wbytes} weight "
+        f"bytes, each in one power-of-two pinned block)")
+    if avail < pinned + (8 << 30):
+        raise AssertionError(f"fleet: the host cannot pin {pinned} bytes "
+                             f"({avail} available)")
+    live = ControlPlane(LiveBackend(fe))
+    reqs, tokens, pump_s, charges, returned = [], 0, 0.0, {}, {}
+
+    def pump() -> float:
+        nonlocal pump_s
+        t0 = time.perf_counter()
+        fe.pump(budget_s=600.0)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        pump_s += took
+        if fe.has_work():
+            raise AssertionError("fleet: the pump left work behind")
+        return took
+
+    def submit(prompts):
+        reqs.extend(fe.submit(fn, p, max_new_tokens=FLEET_TOKENS)
+                    for p in prompts)
+
+    live.register(spec)
+    for tick, prompts in enumerate(ticks):
+        if tick == FLEET_FAIL_TICK:
+            submit(prompts)
+            for _ in range(3):
+                fe.pump(budget_s=0.01)  # a few passes: mid-decode
+            if fe.nodes_for(fn) != [1] or not fe.inflight(fn):
+                raise AssertionError(f"fleet: before the failure: nodes "
+                                     f"{fe.nodes_for(fn)}, inflight "
+                                     f"{fe.inflight(fn)}")
+            r0 = reserved()
+            lost = fe.fail_node(1)
+            returned["fail_node(1)"] = r0 - reserved()
+            log(f"fleet: t={tick} fail_node(1): {lost} instance lost, "
+                f"{len(fe._pending.get(fn, []))} requests parked")
+        if tick == 3:
+            r0 = reserved()
+        live.reconcile(now=float(tick))
+        if tick == 3:
+            returned["scale-down"] = r0 - reserved()
+        if tick != FLEET_FAIL_TICK:
+            submit(prompts)
+        took = pump()
+        fe.cold_start_events()  # TTFTs resolve while their instances live
+        if tick == 2:  # the fleet at its peak, every instance warm
+            # (a comprehension: no variable outlives it to hold an
+            # instance, and its weights, past the instance's node)
+            charges = {f"{node}:{k}": (framework + kv_bytes,
+                                       instance_reserved(inst))
+                       for node, eng in enumerate(fe.engines)
+                       for k, inst in eng.instances.items()}
+            for node, eng in enumerate(fe.engines):
+                if eng.memory_bytes() > mem_bytes:
+                    raise AssertionError(f"fleet: node {node} holds "
+                                         f"{eng.memory_bytes()} bytes")
+        nodes = [sorted(k for k in eng.instances) for eng in fe.engines]
+        captures = sum(v["captures"] + v["prefill_captures"]
+                       for eng in fe.engines
+                       for v in eng.telemetry().values())
+        log(f"fleet: t={tick} target {FLEET_TICKS[tick]:.1f} T = "
+            f"{FLEET_TICKS[tick] * t_pod:.3f} req/s, instances "
+            f"{live.instances(fn)}, placements per node {nodes}, weights "
+            f"on the card {fe.memory_bytes()} bytes; {len(prompts)} "
+            f"requests pumped in {took:.3f}s, graph captures so far by "
+            f"the live instances {captures}")
+    counts = kernels.launch_counts()
+    used = {"flash_attention", "paged_decode_attention"}
+    if any(counts[k] == 0 for k in used) or any(
+            counts[k] for k in counts if k not in used):
+        raise AssertionError(f"fleet: kernel launches {counts}")
+    for k in totals:
+        totals[k] += counts[k]
+    log(f"fleet: kernel launches (profiler and fleet) {counts}")
+
+    # -- checks ----------------------------------------------------------------
+    dropped = [r for r in reqs if not r.done or r.outcome is not None
+               or len(r.tokens_out) != FLEET_TOKENS]
+    if dropped or fe.shed or fe.lost or fe.rejected:
+        raise AssertionError(f"fleet: {len(dropped)} requests dropped "
+                             f"(shed {fe.shed}, lost {fe.lost}, rejected "
+                             f"{fe.rejected})")
+    firsts = sum(r.tokens_out[0] == want[0] for r, want in zip(reqs, ref))
+    if firsts != len(reqs):
+        raise AssertionError(f"fleet: {len(reqs) - firsts} first tokens "
+                             f"differ from the bare engine's")
+    same = sum(list(r.tokens_out) == want for r, want in zip(reqs, ref))
+    for d in live.log:
+        log(f"fleet: decision {'up' if d.direction > 0 else 'down'} at "
+            f"(sm={d.point.sm}, quota={d.point.quota}) pod {d.pod_id}")
+    cluster = Cluster(n_nodes=2, sharing=True, mem_bytes=mem_bytes)
+    sim = ControlPlane(SimBackend(cluster))
+    sim.register(spec)
+    for tick in range(len(ticks)):
+        if tick == FLEET_FAIL_TICK:
+            cluster.fail_node(1)
+        sim.reconcile(now=float(tick))
+    got, want = decision_signature(live.log), decision_signature(sim.log)
+    if got != want or not got:
+        raise AssertionError(f"fleet: live decisions {got} != the "
+                             f"simulator's {want}")
+    for e in fe.cold_start_events():
+        log(f"fleet: cold start node {e.node} tier {e.tier} ({e.mode}"
+            f"{'' if e.peer is None else f', from node {e.peer}'}): "
+            f"{e.nbytes} bytes, upload call {e.upload_s:.4f}s, TTFT "
+            f"{'none' if e.ttft_s is None else f'{e.ttft_s:.3f}s'}")
+    for handle, (charge, measured) in charges.items():
+        log(f"fleet: instance {handle}: admission charge {charge} bytes "
+            f"(framework {framework} + KV {kv_bytes}), reserved in its "
+            f"pools {measured} bytes, gap {measured - charge}")
+    n_tok = sum(len(r.tokens_out) for r in reqs)
+    log(f"fleet: {len(reqs)} requests, {n_tok} tokens in {pump_s:.3f}s of "
+        f"pumping = {n_tok / pump_s:.1f} tokens/s; zero dropped; first "
+        f"tokens equal the bare engine's prefill argmax {firsts}/"
+        f"{len(reqs)}; whole greedy streams equal the bare engine's "
+        f"{same}/{len(reqs)} (logged, not asserted: other batches); "
+        f"reserved bytes returned {returned}; decision_signature equals "
+        f"the simulator replay's ({len(got)} decisions); store "
+        f"{store.telemetry()}; phase {time.perf_counter() - t_phase:.1f}s")
+    del fe, live, store, reqs
+    reserved()
+    torch._C._host_emptyCache()  # the pinned staging buffers
 
 
 def profile_window(model, params, prompts, alloc, arch=ARCH,

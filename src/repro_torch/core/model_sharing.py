@@ -7,10 +7,14 @@ tensors; the runtime never copies it.  What remains to build is the
 *bookkeeping*: a per-node store with STORE/GET semantics, refcounts,
 eviction, and exact memory accounting (reproducing Fig. 13).
 
-``ModelStore`` is the live store used by the serving engine; it holds
-real trees (torch tensors or numpy) keyed by (function, tensor-set id).
-The closed-form ``MemoryModel`` of the JAX package arrives with the
-placement frontend (ROADMAP.md, Queue 1 item 5).
+Two layers:
+
+* ``ModelStore`` — the live store used by the serving engine; holds real
+  trees (torch tensors or numpy) keyed by (function, tensor-set id).
+* ``MemoryModel`` — closed-form per-node device-memory accounting used
+  by the scheduler's admission control and the Fig.-13 benchmark:
+  ``no_share(n) = n * (framework + weights)``;
+  ``share(n) = (weights + server_overhead) + n * framework``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,10 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+# Fixed per-model overhead of the storage-server process context measured by
+# the paper on V100 (§5.5, hatched areas of Fig. 13).
+SERVER_CONTEXT_OVERHEAD = 300 * 1024 * 1024
 
 
 def pytree_nbytes(tree: Any) -> int:
@@ -134,3 +142,70 @@ class ModelStore:
                 f"model store over capacity: need {need_bytes} more bytes but "
                 f"only {freed} evictable"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryModel:
+    """Closed-form footprint of a function's instances on one node (Fig. 13).
+
+    ``framework_bytes`` is the per-instance runtime footprint (framework,
+    activations, CUDA/XLA context); ``weight_bytes`` the parameters.
+    """
+
+    weight_bytes: int
+    framework_bytes: int
+    server_overhead: int = SERVER_CONTEXT_OVERHEAD
+
+    def footprint(self, n_instances: int, sharing: bool, *,
+                  server: bool = True) -> int:
+        """Bytes ``n_instances`` of this function occupy on a node.
+
+        ``server=False`` drops the storage-server context from the shared
+        footprint — used by :func:`node_shared_footprint` when ONE store
+        tier owns every function's weights on the node, so the context is
+        charged once per tier rather than once per function.
+        """
+        if n_instances == 0:
+            return 0
+        if not sharing:
+            return n_instances * (self.weight_bytes + self.framework_bytes)
+        server_bytes = self.server_overhead if server else 0
+        return (self.weight_bytes + server_bytes
+                + n_instances * self.framework_bytes)
+
+    def reduction(self, n_instances: int) -> float:
+        """Fractional footprint reduction from sharing at ``n_instances``."""
+        base = self.footprint(n_instances, sharing=False)
+        shared = self.footprint(n_instances, sharing=True)
+        return 1.0 - shared / base
+
+    def max_instances(self, capacity_bytes: int, sharing: bool) -> int:
+        """How many instances fit in ``capacity_bytes`` (Fig.-13 claim:
+        7 ResNeXt pods with sharing vs 4 without on a 16G V100)."""
+        n = 0
+        while self.footprint(n + 1, sharing) <= capacity_bytes:
+            n += 1
+        return n
+
+
+def node_shared_footprint(entries) -> int:
+    """Node footprint when one store TIER owns every function's weights.
+
+    The paper's Fig.-13 model charges one storage-server context per
+    shared function; with the fleet model store there is exactly one
+    server process per node, so the context is charged ONCE per node —
+    ``max`` of the participating overheads, conservatively covering the
+    largest context any function would have needed.
+
+    ``entries`` iterates ``(MemoryModel, n_instances)`` pairs for the
+    functions resident on the node (``n_instances == 0`` pairs are
+    skipped).
+    """
+    total = 0
+    overhead = 0
+    for mm, n in entries:
+        if n <= 0:
+            continue
+        total += mm.footprint(n, sharing=True, server=False)
+        overhead = max(overhead, mm.server_overhead)
+    return total + overhead

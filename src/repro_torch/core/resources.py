@@ -35,8 +35,10 @@ class Alloc:
     """A spatio-temporal allocation request.
 
     Attributes:
-      sm: spatial fraction in [0,1] (paper: ``sm_partition`` %SMs; here: chip
-        fraction of a node).
+      sm: spatial fraction in [0,1] (paper: ``sm_partition`` %SMs; here:
+        the scheduler's accounting of an SM share of the card, which
+        nothing bounds on the card yet: ROADMAP.md, "Beyond the
+        reference", item 6).
       quota_request: guaranteed temporal quota per window (paper Q_request).
       quota_limit: elastic maximum temporal quota per window (paper Q_limit).
       mem_bytes: accelerator memory demand (paper ``gpu_mem``).

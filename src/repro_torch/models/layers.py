@@ -22,13 +22,25 @@ class PSpec:
 
     shape: tuple[int, ...]
     init: str = "normal"  # normal (std 1/sqrt(fan_in)) | zeros | small
+    stacked: bool = False  # leading dim is the stacked "layers" axis
 
 
 def stack_tree(spec_tree: Any, n: int) -> Any:
     """Add a leading stacked-layers dim to every spec of a tree."""
     if isinstance(spec_tree, dict):
         return {k: stack_tree(v, n) for k, v in spec_tree.items()}
-    return PSpec((n, *spec_tree.shape), spec_tree.init)
+    return PSpec((n, *spec_tree.shape), spec_tree.init, stacked=True)
+
+
+def param_logical_names(spec_tree: Any) -> Any:
+    """PSpec tree -> logical-name-tuple tree (same structure).  The port
+    names only the stacked ``"layers"`` axis, the unit of the fleet
+    store's layer-by-layer upload; every other dim is ``None`` (the
+    sharding names arrive with sharded pods, ROADMAP.md Queue 1 item 11)."""
+    if isinstance(spec_tree, dict):
+        return {k: param_logical_names(v) for k, v in spec_tree.items()}
+    rest = (None,) * (len(spec_tree.shape) - spec_tree.stacked)
+    return ("layers",) + rest if spec_tree.stacked else rest
 
 
 def init_params(spec_tree: Any, generator: torch.Generator) -> Any:

@@ -27,7 +27,8 @@ import torch
 
 from repro_torch.models import attention, hybrid, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_params, param_count
+from repro_torch.models.layers import (init_params, param_count,
+                                      param_logical_names)
 
 _FAMILY = {"dense": transformer, "rwkv": rwkv6, "hybrid": hybrid}
 
@@ -89,6 +90,12 @@ class Model:
         """bf16 parameters from ``generator``, drawn leaf by leaf on the
         generator's device."""
         return init_params(self.specs, generator)
+
+    def param_names(self) -> Any:
+        """The logical-name tuple of every param leaf, in the params'
+        nesting (model.py:68): ``("layers", None, ...)`` for a stacked
+        leaf, all ``None`` otherwise."""
+        return param_logical_names(self.specs)
 
     def n_params(self) -> int:
         return param_count(self.specs)
@@ -288,3 +295,18 @@ class Model:
         every leaf plus the scalar int32 position, as ``cache_shapes``
         counts it (model.py:361-367)."""
         return _nbytes(self.cache_specs(batch, max_len, kv_int8)) + 4
+
+    def kv_cache_bytes(self, *, batching: str, max_batch: int, max_len: int,
+                       block_size: int = 16,
+                       n_kv_blocks: Optional[int] = None,
+                       kv_int8: Optional[bool] = None) -> int:
+        """Decode-cache bytes one instance reserves under ``batching`` —
+        what memory admission charges on top of weights and framework
+        (model.py:369-379).  The paged count leaves out the sink block a
+        paged pool holds past the allocator's blocks on the fused path."""
+        if batching == "paged":
+            n_blocks = (n_kv_blocks if n_kv_blocks is not None
+                        else default_kv_blocks(max_batch, max_len,
+                                               block_size))
+            return n_blocks * self.kv_block_bytes(block_size, kv_int8)
+        return self.dense_kv_bytes(max_batch, max_len, kv_int8)

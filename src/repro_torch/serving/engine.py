@@ -287,12 +287,29 @@ class FunctionInstance:
 
     def drop_device_state(self) -> None:
         """Drop the graphs (each with its memory pool), the KV pools with
-        theirs and the weights reference: a closed or failed instance
-        serves nothing more, and what it held is freed even while a caller
-        still holds the instance.  (The fused token and argument buffers,
-        a few KB, go with the instance.)"""
+        theirs and the weights reference, the store's too (after ``fail``
+        the failed node's store lives on only there): a closed or failed
+        instance serves nothing more, and what it held is freed even while
+        a caller still holds the instance.  (The fused token and argument
+        buffers, a few KB, go with the instance.)"""
         self.round_graph = self.prefill_graphs = None
-        self.cache = self.params = self._kv_mem = None
+        self.cache = self.params = self._kv_mem = self.store = None
+
+    def pool_ids(self) -> set[tuple[int, int]]:
+        """Ids of the memory pools that hold the instance's device state
+        on the card: its KV pools', its round graph's and its prefill
+        graphs' shared one (the few KB of fused token buffers lie outside
+        them).  ``torch.cuda.memory_snapshot()`` tags each segment with
+        its pool's id; empty on the CPU and once the state is dropped."""
+        pools = set()
+        if self._kv_mem is not None:
+            pools.add(tuple(self._kv_mem.id))
+        if self.round_graph is not None and self.round_graph.graph is not None:
+            pools.add(tuple(self.round_graph.graph.pool()))
+        if self.prefill_graphs is not None and \
+                self.prefill_graphs.pool is not None:
+            pools.add(tuple(self.prefill_graphs.pool))
+        return pools
 
     # -- KV accounting ---------------------------------------------------------
 
@@ -915,16 +932,18 @@ class ServingEngine:
                block_size: int = 16, n_kv_blocks: Optional[int] = None,
                fused: bool = True, prefix_sharing: bool = True) -> list[str]:
         """Deploy ``n_instances`` of ``fn`` sharing one stored copy of
-        ``params`` (which must already lie on the engine's device)."""
+        ``params`` (which must already lie on the engine's device).  When
+        the node's store already holds ``fn``, its copy is used and
+        ``params`` is ignored (it may be None), as in JAX."""
         if not self.alive:
             raise RuntimeError("cannot deploy to a failed node")
-        for leaf in _leaves(params):
-            if leaf.device != self.device:
-                raise ValueError(f"{fn}: params are on {leaf.device}, the "
-                                 f"engine on {self.device}")
         if fn not in self.recorders:
             self.recorders[fn] = SLORecorder(fn=fn)
         if not self.store.contains(fn):
+            for leaf in _leaves(params):
+                if leaf.device != self.device:
+                    raise ValueError(f"{fn}: params are on {leaf.device}, "
+                                     f"the engine on {self.device}")
             self.store.store(fn, params)
         ids = []
         for _ in range(n_instances):

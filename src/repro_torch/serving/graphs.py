@@ -47,6 +47,7 @@ pool the next may overwrite, in any order of replay.
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Optional
 
 import torch
@@ -97,6 +98,12 @@ class RoundGraph:
         pool = self.pool if self.pool is not None else \
             torch.cuda.graph_pool_handle()
         before = kernels.counter_values()
+        # No garbage collection inside the capture: collecting a dropped
+        # instance there tears down its KV pools' memory pool, and a
+        # per-pool ``emptyCache`` while a capture is under way aborts the
+        # process.  (``torch.cuda.graph`` collects once on entry.)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool):
                 outputs = body()
@@ -111,6 +118,8 @@ class RoundGraph:
                                              pool)
             raise
         finally:
+            if collecting:
+                gc.enable()
             self._delta = [n - b for n, b in
                            zip(kernels.counter_values(), before)]
             kernels.add_launches([-n for n in self._delta])
@@ -131,17 +140,17 @@ class PrefillGraphs:
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.by_bucket: dict[int, RoundGraph] = {}
-        self._pool: Any = None
+        self.pool: Any = None  # the buckets' shared memory pool (card)
 
     def run(self, bucket: int, body: Callable[[], Any]) -> Any:
         """One admission of ``bucket``: eager, captured then replayed, or
         replayed, as ``RoundGraph.run`` decides for that bucket."""
         graph = self.by_bucket.get(bucket)
         if graph is None:
-            if self.device.type == "cuda" and self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
+            if self.device.type == "cuda" and self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
             graph = self.by_bucket[bucket] = RoundGraph(self.device,
-                                                        self._pool)
+                                                        self.pool)
         return graph.run(body)
 
     @property

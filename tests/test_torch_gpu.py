@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
 engine's decode round and bucketed admissions as CUDA graphs against
-their eager references, and copy-on-write, migration and close under
-those graphs, on the card.  Marked ``gpu``: without a card
+their eager references, copy-on-write, migration and close under
+those graphs, and the fleet model store's upload and the frontend's
+node failure, on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -915,8 +916,8 @@ def test_close_returns_graph_pools_and_kv_memory(cuda_device, batching, how):
     _warm_round(eng, 256)
     (iid, inst), = eng.instances.items()
     kv = sum(v.numel() * v.element_size() for v in inst.cache.values())
-    made = _private_pools() - pools0  # the round's and the prefills' pools
-    assert made
+    made = inst.pool_ids()  # the KV pools', the round's, the prefills'
+    assert len(made) == 3 and made == _private_pools() - pools0
     gc.collect()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
@@ -929,6 +930,138 @@ def test_close_returns_graph_pools_and_kv_memory(cuda_device, batching, how):
     gc.collect()
     torch.cuda.empty_cache()
     assert not made & _private_pools()
+    assert reserved - torch.cuda.memory_reserved() >= kv > 16 << 20
+
+
+# -- the fleet model store's upload and the frontend's failure -------------
+
+
+class _Stacked:
+    """A stand-in model whose one param leaf is stacked over layers."""
+
+    def param_names(self):
+        return {"layers": {"w": ("layers", None, None)}}
+
+
+def _big_tree(device, layers=32, rows=4096):
+    """About 1 GiB of bf16 weights: a copy that takes tens of ms."""
+    g = torch.Generator(device=device).manual_seed(0)
+    w = torch.randn((layers, rows, 4096), generator=g, device=device)
+    return {"layers": {"w": w.to(torch.bfloat16)}}
+
+
+@pytest.mark.gpu
+def test_overlap_upload_equals_blocking_bit_for_bit(cuda_device):
+    """Both upload modes give back the staged tree bit for bit: staging
+    pins the host buffer, the overlapped copies run on a side stream and
+    the current stream waits on their event before it reads them."""
+    from repro_torch.serving.modelstore import (_flatten, stage_params,
+                                                upload_params)
+    model, params = _serving_model("tiny", cuda_device)
+    staged = stage_params(model, params)
+    assert staged.pinned
+    blocking, none = upload_params(staged, mode="blocking")
+    overlap, ready = upload_params(staged, mode="overlap")
+    assert none is None and ready is not None
+    torch.cuda.current_stream().wait_event(ready)
+    trees = [_flatten(t) for t in (params, blocking, overlap)]
+    assert [p for p, _ in trees[0]] == [p for p, _ in trees[2]]
+    for (_, a), (_, b), (_, c) in zip(*trees):
+        assert a.dtype == b.dtype == c.dtype and b.device == c.device
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+        assert torch.equal(a.view(torch.int16), c.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_overlap_upload_returns_with_the_copies_in_flight(cuda_device):
+    """``upload_params(mode="overlap")`` returns before its event has
+    completed: with 50 ms of work queued on the current stream ahead of
+    it, the call comes back in a fraction of that, its event still
+    pending, and the tree then equals the blocking upload's."""
+    import time
+    from repro_torch.serving.modelstore import stage_params, upload_params
+    params = _big_tree(cuda_device)
+    staged = stage_params(_Stacked(), params)
+    assert staged.pinned and staged.stacked == [True]
+    want, _ = upload_params(staged, mode="blocking")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # about 50 ms on the current stream
+    t0 = time.perf_counter()
+    got, ready = upload_params(staged, mode="overlap")
+    host_s = time.perf_counter() - t0
+    assert not ready.query(), "the upload waited for its copies"
+    assert host_s < 0.02, host_s
+    torch.cuda.current_stream().wait_event(ready)
+    assert torch.equal(got["layers"]["w"].view(torch.int16),
+                       want["layers"]["w"].view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_instance_on_in_flight_weights_gives_the_synced_first_tokens(
+        cuda_device):
+    """A placement sourced through the fleet store (a host hit: an
+    overlapped upload still in flight behind queued work) serves the same
+    first tokens and streams as an engine deployed on the weights after a
+    synchronize: the deploy waits on the upload's event, not the host."""
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import (ClusterFrontend, FleetModelStore,
+                                     ServingEngine, stage_params)
+    model, params = _serving_model("tiny", cuda_device)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, 256, int(n)).astype(np.int32)
+               for n in (5, 20, 33, 9)]
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    torch.cuda.synchronize()
+    ref = ServingEngine(window=0.1, device="cuda")
+    ref.deploy("f", model, params, alloc, max_batch=4, max_len=64)
+    want = [ref.submit("f", p, max_new_tokens=6) for p in prompts]
+    ref.pump(budget_s=300.0)
+    store = FleetModelStore()
+    store.cache(0).put("f", stage_params(model, params))
+    fe = ClusterFrontend(n_nodes=1, window=0.1, device="cuda",
+                         model_store=store)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # keep the upload in flight
+    handle = fe.place_instance("f", model, None, alloc, max_batch=4,
+                               max_len=64)
+    (event,) = fe.cold_start_events()
+    assert handle is not None and event.tier == "host"
+    assert event.mode == "overlap" and not event.ready.query()
+    got = [fe.submit("f", p, max_new_tokens=6) for p in prompts]
+    fe.pump(budget_s=300.0)
+    assert [r.tokens_out for r in got] == [r.tokens_out for r in want]
+    assert all(len(r.tokens_out) == 6 for r in got)
+
+
+@pytest.mark.gpu
+def test_fail_node_returns_at_least_the_nodes_kv_pools(cuda_device):
+    """``ClusterFrontend.fail_node`` on a node with two warm paged
+    instances: after ``gc.collect()`` and ``empty_cache()`` the reserved
+    bytes fall by at least both instances' KV pools."""
+    import gc
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ClusterFrontend
+    model, params = _serving_model("tiny", cuda_device)
+    fe = ClusterFrontend(n_nodes=2, window=0.1, device="cuda")
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    for _ in range(2):
+        fe.place_instance("f", model, params, alloc, max_batch=16,
+                          max_len=4096, batching="paged")
+    assert fe.nodes_for("f") == [0]
+    rng = np.random.default_rng(8)
+    reqs = [fe.submit("f", rng.integers(0, 256, 20).astype(np.int32),
+                      max_new_tokens=4) for _ in range(4)]
+    fe.pump(budget_s=300.0)
+    assert all(r.done for r in reqs)
+    kv = sum(v.numel() * v.element_size()
+             for inst in fe.engines[0].instances.values()
+             for v in inst.cache.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    assert fe.fail_node(0) == 2 and not fe.placements
+    gc.collect()
+    torch.cuda.empty_cache()
     assert reserved - torch.cuda.memory_reserved() >= kv > 16 << 20
 
 
