@@ -90,7 +90,29 @@ place), and then:
    the port's simulator replay of the same spec.  It logs the cold-start
    tiers with their upload calls and TTFTs, fleet tokens/s, each
    instance's admission charge beside the reserved bytes of its pools,
-   and the reserved bytes returned at scale-down and at the failure.
+   and the reserved bytes returned at scale-down and at the failure;
+6. speculation and sampling phase — qwen2-7b at full width speculating
+   with k = 4 (two weight-shared instances, the serve mix, continuous
+   then paged) against two 2-layer drafts whose leaves are views of the
+   target's: with a target whose layers 2-27 add nothing (copies of
+   ``layers/attn/wo`` and ``layers/mlp/w_down`` zeroed past layer 1),
+   which the draft agrees with, and with the unmodified target, which it
+   does not; beside a spec-off run of the first.  Every timed round and
+   admission is a replay, one sync a pass, exactly 32 tokens a request,
+   flash launched (28 + 2) times a prefill and the decode kernel 2 x 5
+   times a round (the draft's steps; the verify attention is plain
+   torch), the agreeing acceptance above the disagreeing one; one round
+   replayed over copies of the state equals the eager round body bit for
+   bit (out, n_emit, slot tokens, positions, key, target and draft
+   pools), and ``verify_step``'s logits at every window position are
+   within ``REF_TOL`` of 5 sequential ``decode_step`` logits.  It logs
+   acceptances, tokens per verify round, tokens/s of the three runs, how
+   many greedy streams equal spec-off ones, the verify attention's device
+   time a round and a profile window of the agreeing runs.  Then sampled
+   runs (temperature 0.8, top-k 50, top-p 0.9, seed 5; 4 requests each):
+   qwen2-7b continuous and paged here, rwkv6-1.6b and hymba-1.5b after
+   their serve modes, each through the graphs equal to a ``fused=False``
+   engine bit for bit, one sync a pass.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -1288,6 +1310,7 @@ def serve_phase(rng) -> dict[str, int]:
     migration_phase(model, params, alloc, chat)
     release_phase(model, params, alloc, chat)
     fleet_phase(model, params, totals)
+    spec_phase(model, params, alloc, prompts, streams, totals)
 
     # -- rwkv6-1.6b, the same request mix, after qwen2-7b is freed --------
     del model, params
@@ -1306,6 +1329,8 @@ def serve_phase(rng) -> dict[str, int]:
                {"wkv6_chunked", "wkv6_step"}, totals)
     profile_window(model, params, rwkv_prompts[:8], alloc, RWKV_ARCH,
                    "continuous")
+    sampled_check(model, params, RWKV_ARCH, rwkv_prompts[:SAMPLED_REQUESTS],
+                  alloc, "continuous")
 
     # -- hymba-1.5b, the same request mix, after rwkv6-1.6b is freed ------
     del model, params
@@ -1330,6 +1355,8 @@ def serve_phase(rng) -> dict[str, int]:
                totals)
     profile_window(model, params, hybrid_prompts[:8], alloc, HYBRID_ARCH,
                    "continuous")
+    sampled_check(model, params, HYBRID_ARCH,
+                  hybrid_prompts[:SAMPLED_REQUESTS], alloc, "continuous")
     return totals
 
 
@@ -1364,24 +1391,29 @@ def deploy(model, params, arch, alloc, batching, *, int8=False,
 WARM_BUCKETS = (64, 128, 256, 512)  # the buckets of 64-512-token prompts
 
 
-def warm(engine, arch, prompt) -> dict:
-    """Before any timed window, two requests of 3 tokens per instance and
-    serve bucket (64, 128, 256 and 512 tokens, cut from ``prompt`` repeated),
-    all admitted in one pass: each bucket's first admission runs eagerly
-    and its second is captured and replayed (the dense family), the first
-    round runs eagerly and the second is captured.  Returns each
-    instance's graphs, (round graph, {bucket: prefill graph}); an engine
-    without them (a checkout before them, ``--windows``) gets ``None``s."""
+def warm(engine, arch, prompt, new_tokens: int = 3) -> dict:
+    """Before any timed window, two requests of ``new_tokens`` tokens per
+    instance and serve bucket (64, 128, 256 and 512 tokens, cut from
+    ``prompt`` repeated), all admitted in one pass: each bucket's first
+    admission runs eagerly and its second is captured and replayed (the
+    dense family), the first round runs eagerly and the second is
+    captured.  3 tokens make exactly 2 rounds; a speculating instance
+    emits up to k + 1 tokens a round, so it warms with ``3 + 2k`` tokens
+    and at least 2 rounds.  Returns each instance's graphs, (round graph,
+    {bucket: prefill graph}); an engine without them (a checkout before
+    them, ``--windows``) gets ``None``s."""
     from repro_torch.launch import serve
 
     n = len(engine.instances)
     serve.drive(engine, arch, [np.resize(prompt, b) for b in WARM_BUCKETS
-                               for _ in range(2 * n)], 3)
+                               for _ in range(2 * n)], new_tokens)
     graphs = {}
     for k, inst in engine.instances.items():
         rg = getattr(inst, "round_graph", None)
+        spec = getattr(inst, "speculate", None) is not None
         if rg is not None and (rg.graph is None or rg.captures != 1
-                               or inst.rounds != 2):
+                               or (inst.rounds < 2 if spec
+                                   else inst.rounds != 2)):
             raise AssertionError(f"{k}: warm-up left {rg.captures} captures "
                                  f"after {inst.rounds} rounds")
         pg = getattr(inst, "prefill_graphs", None)
@@ -1417,7 +1449,7 @@ def same_graphs(engine, graphs, what) -> tuple[int, int]:
     return rounds, prefills
 
 
-def timed_serve(engine, arch, prompts, new_tokens) -> tuple:
+def timed_serve(engine, arch, prompts, new_tokens, warm_tokens=3) -> tuple:
     """Warm every instance through its captures, then serve ``prompts``
     with the launch counts and the peak memory set to 0 just before and
     read just after.  Returns (requests, completed, wall s, launch counts,
@@ -1428,7 +1460,7 @@ def timed_serve(engine, arch, prompts, new_tokens) -> tuple:
     from repro_torch import kernels
     from repro_torch.launch import serve
 
-    graphs = warm(engine, arch, prompts[0])
+    graphs = warm(engine, arch, prompts[0], warm_tokens)
     before = {k: dict(v) for k, v in engine.telemetry().items()}
     rounds0, prefills0 = same_graphs(engine, graphs, arch)
     torch.cuda.synchronize()
@@ -2271,22 +2303,364 @@ def fleet_phase(model, params, totals, device="cuda") -> None:
     torch._C._host_emptyCache()  # the pinned staging buffers
 
 
+# --------------------------------------------------------------------------
+# 6. qwen2-7b speculative decoding, then sampled rounds
+# --------------------------------------------------------------------------
+
+SPEC_K = 4          # draft tokens a round
+DRAFT_LAYERS = 2    # the drafts: qwen2-7b at n_layers=2
+SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=5)
+SAMPLED_REQUESTS = 4
+
+
+def draft_params(params) -> dict:
+    """The draft's tree: views of the target's embed, head, ln_f and
+    layers 0-1 (no copy)."""
+    return {**params, "layers": _tree(params["layers"],
+                                      lambda t: t[:DRAFT_LAYERS])}
+
+
+def agreeing_target(params) -> dict:
+    """A target the 2-layer draft agrees with: layers 2-27 add nothing to
+    the residual stream (copies of ``layers/attn/wo`` and
+    ``layers/mlp/w_down`` with those layers zeroed, about 4.5 GB; every
+    other leaf shared), ``benchmarks/decode_throughput.py:73-112``'s
+    construction at full width."""
+    layers = params["layers"]
+    wo = layers["attn"]["wo"].clone()
+    w_down = layers["mlp"]["w_down"].clone()
+    wo[DRAFT_LAYERS:] = 0
+    w_down[DRAFT_LAYERS:] = 0
+    return {**params, "layers": {**layers,
+                                 "attn": {**layers["attn"], "wo": wo},
+                                 "mlp": {**layers["mlp"], "w_down": w_down}}}
+
+
+def spec_mode(model, params, alloc, prompts, batching, label, kw,
+              totals) -> tuple[list, dict]:
+    """Serve ``prompts`` (32 new tokens each) on two weight-shared
+    instances, speculating when ``kw`` holds ``speculate``: every timed
+    round and prefill a replay of the warm-up's graphs, one sync a pass,
+    exactly 32 tokens a request, and the kernels of the path launched
+    once per layer and prefill (flash: the target's and the draft's) or
+    per layer and draft step (decode: k + 1 draft steps a round) or, spec
+    off, per layer and round.  Returns the streams and the numbers."""
+    spec = kw.get("speculate")
+    engine = deploy(model, params, ARCH, alloc, batching, **kw)
+    reqs, done, wall, counts, delta, (replayed, pre_replayed), peak = \
+        timed_serve(engine, ARCH, prompts, 32,
+                    3 + 2 * SPEC_K if spec else 3)
+    what = f"spec {batching} {label}"
+    if done != len(prompts) or not all(
+            r.done and len(r.tokens_out) == 32 for r in reqs):
+        raise AssertionError(f"{what}: served {done}/{len(prompts)}")
+    tele = {c: sum(v[c] for v in delta.values()) for c in
+            ("steps", "syncs", "rounds", "prefills", "spec_proposed",
+             "spec_accepted")}
+    if tele["steps"] != tele["syncs"]:
+        raise AssertionError(f"{what}: syncs {tele['syncs']} != passes "
+                             f"{tele['steps']}")
+    if (replayed, pre_replayed) != (tele["rounds"], tele["prefills"]):
+        raise AssertionError(f"{what}: replayed {replayed} of "
+                             f"{tele['rounds']} rounds, {pre_replayed} of "
+                             f"{tele['prefills']} prefills")
+    layers = model.cfg.n_layers
+    if spec:
+        want = {"flash_attention": (layers + DRAFT_LAYERS) * tele["prefills"],
+                "decode_attention": DRAFT_LAYERS * (SPEC_K + 1)
+                * tele["rounds"]}
+    else:
+        want = {"flash_attention": layers * tele["prefills"],
+                "decode_attention" if batching == "continuous"
+                else "paged_decode_attention": layers * tele["rounds"]}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    n_tok = sum(len(r.tokens_out) for r in reqs)
+    decode_tok = n_tok - len(reqs)
+    out = dict(tps=n_tok / wall, wall=wall, rounds=tele["rounds"],
+               proposed=tele["spec_proposed"],
+               accepted=tele["spec_accepted"],
+               per_round=decode_tok / max(tele["rounds"], 1))
+    acc = out["accepted"] / max(out["proposed"], 1)
+    slot_rounds = out["proposed"] // SPEC_K
+    log(f"{what}: {done} requests, {n_tok} tokens in {wall:.3f}s = "
+        f"{out['tps']:.1f} tokens/s; passes {tele['steps']}, syncs "
+        f"{tele['syncs']} (1 per pass); rounds {tele['rounds']} (all "
+        f"replayed, 1 capture per instance), prefills {tele['prefills']} "
+        f"(all replayed); decode tokens {decode_tok} = "
+        f"{out['per_round']:.2f} per round"
+        + (f"; draft tokens proposed {out['proposed']}, accepted "
+           f"{out['accepted']} (acceptance {acc:.4f}), tokens per verify "
+           f"round a slot {1 + out['accepted'] / max(slot_rounds, 1):.3f}"
+           if spec else "")
+        + f"; launches {counts}; peak device memory allocated {peak[0]}, "
+        f"reserved {peak[1]} bytes")
+    return [list(r.tokens_out) for r in reqs], out
+
+
+def _captured(model, params, alloc, prompts, batching, **kw):
+    """A one-instance engine serving ``prompts`` (32 new tokens each) after
+    three passes: admissions and the eager round, the capture, a replay;
+    returns the instance (which holds its store and graphs)."""
+    engine = deploy(model, params, ARCH, alloc, batching, n_instances=1,
+                    **kw)
+    for p in prompts:
+        engine.submit(ARCH, p, max_new_tokens=32)
+    (inst,) = engine.instances.values()
+    for _ in range(3):
+        inst.run_step()
+    return inst
+
+
+def _replay_ms(rg, n: int = 10) -> float:
+    """Mean ms of ``n`` back-to-back replays of a round graph, CUDA
+    events."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    rg.replay()
+    start.record()
+    for _ in range(n):
+        rg.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def spec_round_check(model, params, alloc, prompts, batching, spec,
+                     dparams) -> None:
+    """One speculative round replayed from the instance's graph against
+    the eager round body over the same state (copies restored between
+    them): ``out``, ``n_emit``, slot tokens, positions, key, target pools
+    and draft pool bit for bit.  Then the round's time by CUDA events
+    over 10 replays against a spec-off instance's round on the same
+    prompts, in turns (plain, spec, spec, plain).  Continuous, then on
+    the same pools: ``verify_step``'s logits at each of the k + 1 window
+    positions against k + 1 sequential ``decode_step`` logits on a copy
+    (within ``REF_TOL``: plain f32 verify attention against the decode
+    kernel)."""
+    import torch
+    inst = _captured(model, params, alloc, prompts, batching,
+                     speculate=spec, draft_params=dparams)
+    rg = inst.round_graph
+    if (rg.captures, rg.replays, inst.n_active()) != (1, 2, len(prompts)):
+        raise AssertionError(f"spec round check: {rg.captures} captures, "
+                             f"{rg.replays} replays, {inst.n_active()} live")
+    bufs = {"out": inst._out_dev, "n_emit": inst._n_emit_dev,
+            "slot tokens": inst._slot_tok_dev, "key": inst._key_dev,
+            **{f"pool {k}": v for k, v in inst.cache.items()},
+            **{f"draft {k}": v for k, v in inst.dcache.items()}}
+    if batching == "paged":
+        bufs["positions"] = inst._pos_dev
+    start = {k: v.clone() for k, v in bufs.items()}
+    rg.replay()
+    replayed = {k: v.clone() for k, v in bufs.items()}
+    for k, v in bufs.items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    diff = [k for k, v in bufs.items() if not torch.equal(v, replayed[k])]
+    if diff or torch.equal(start["key"], replayed["key"]):
+        raise AssertionError(f"spec round check {batching}: replay != "
+                             f"eager in {diff}")
+    n_emit = replayed["n_emit"].tolist()
+    log(f"spec round check {batching}: a draft-{SPEC_K} / verify-1 round "
+        f"replayed from the graph equals the eager round body bit for bit "
+        f"({len(bufs)} buffers: out, n_emit {n_emit}, slot tokens, "
+        f"positions, key, target pools, draft pool)")
+    # The plain instance stays referenced while its graph replays: the
+    # graph reads the instance's buffers, which die with it.
+    plain = _captured(model, params, alloc, prompts, batching)
+    times = [_replay_ms(g) for g in (plain.round_graph, rg, rg,
+                                     plain.round_graph)]
+    log(f"spec round time {batching} ({len(prompts)} live slots, CUDA "
+        f"events over 10 replays, plain/spec/spec/plain): "
+        f"{', '.join(f'{t:.3f}' for t in times)} ms; spec / plain "
+        f"{(times[1] + times[2]) / (times[0] + times[3]):.3f}")
+    if batching != "continuous":
+        return
+    window = torch.as_tensor(
+        np.random.default_rng(SEED).integers(
+            0, model.cfg.vocab_size, (len(prompts), SPEC_K + 1)),
+        dtype=torch.int32, device="cuda")
+    got, _ = model.verify_step(params, window, {
+        k: start[f"pool {k}"].clone() for k in inst.cache})
+    seq = {k: start[f"pool {k}"].clone() for k in inst.cache}
+    compare = Compare("verify vs sequential decode")
+    for j in range(SPEC_K + 1):
+        logits, seq = model.decode_step(params, window[:, j], seq)
+        compare(f"position {j}", got[:, j], logits.float().cpu())
+    log(f"spec verify check: verify_step's logits (B={len(prompts)}, W="
+        f"{SPEC_K + 1}) at every window position within "
+        f"{compare.worst:.5f} (limit {REF_TOL}) of {SPEC_K + 1} sequential "
+        f"decode_step logits on a copy of the same cache")
+
+
+def verify_attention_time(batching) -> float:
+    """Device ms of the verify attention of one speculative round at the
+    phase's shapes (B=8, W=k+1, 28 q / 4 kv heads, D=128, 1024 rows;
+    paged: 64 pages of 16 a sequence, gathered first), one call a layer
+    times 28 layers, by the profiler's kernel records."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, w, h, kv, d, s, bs = 8, SPEC_K + 1, 28, 4, 128, 1024, 16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q = rand(b, w, h, d)
+    lens = torch.tensor([1019, 0, 512, 59, 995, 328, 763, 124],
+                        dtype=torch.int32, device="cuda")
+    if batching == "continuous":
+        kc, vc = rand(b, s, kv, d), rand(b, s, kv, d)
+        call = lambda: ops.verify_attention(q, kc, vc, lens)  # noqa: E731
+    else:
+        n = b * (s // bs) + 1
+        kp, vp = rand(n, bs, kv, d), rand(n, bs, kv, d)
+        tables = torch.randperm(n - 1, generator=g, device="cuda")[
+            :b * (s // bs)].view(b, s // bs).to(torch.int32) + 1
+        call = lambda: ops.paged_verify_attention(  # noqa: E731
+            q, kp, vp, tables, lens)
+    return 28 * device_ms([call], label=f"verify attention ({batching})")
+
+
+def sampled_check(model, params, arch, prompts, alloc, batching) -> None:
+    """Temperature 0.8, top-k 50, top-p 0.9, seed 5: a graph-backed engine
+    and a ``fused=False`` one (the eager reference, replaying the same key
+    stream) each warm up the same way, then serve ``prompts`` for
+    ``EAGER_TOKENS`` tokens: the streams must be equal bit for bit, the
+    graph engine's syncs equal to its passes, every round after the
+    warm-up a replay, and every token in the vocab."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.speculative import SamplingConfig
+    sampling = SamplingConfig(**SAMPLING)
+    runs = {}
+    for fused in (True, False):
+        engine = deploy(model, params, arch, alloc, batching, fused=fused,
+                        sampling=sampling)
+        graphs = warm(engine, arch, prompts[0])
+        before = {k: dict(v) for k, v in engine.telemetry().items()}
+        rounds0 = same_graphs(engine, graphs, arch)[0]
+        reqs, done, _ = serve.drive(engine, arch, prompts, EAGER_TOKENS)
+        if done != len(prompts) or not all(
+                len(r.tokens_out) == EAGER_TOKENS for r in reqs):
+            raise AssertionError(f"sampled {arch} {batching}: served {done}")
+        tele = {k: {c: v[c] - before[k][c] for c in v}
+                for k, v in engine.telemetry().items()}
+        if fused:
+            rounds = sum(v["rounds"] for v in tele.values())
+            replayed = same_graphs(engine, graphs, arch)[0] - rounds0
+            if replayed != rounds or any(v["syncs"] != v["steps"]
+                                         for v in tele.values()):
+                raise AssertionError(f"sampled {arch} {batching}: "
+                                     f"{replayed} of {rounds} rounds "
+                                     f"replayed, telemetry {tele}")
+        runs[fused] = [list(r.tokens_out) for r in reqs]
+        del engine
+    vocab = model.cfg.vocab_size
+    if runs[True] != runs[False] or not all(
+            0 <= t < vocab for s in runs[True] for t in s):
+        raise AssertionError(f"sampled {arch} {batching}: the graph's "
+                             f"streams differ from fused=False's")
+    log(f"sampled {arch} {batching} ({SAMPLING}): {len(prompts)} requests x "
+        f"{EAGER_TOKENS} tokens through the graphs equal a fused=False "
+        f"engine's bit for bit (one key stream), 1 sync per pass, every "
+        f"round replayed; first stream {runs[True][0]}")
+
+
+def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
+    """qwen2-7b speculating with k = 4 on two weight-shared instances,
+    continuous then paged, with two drafts of 2 layers (views of the
+    target's leaves): against a target whose layers 2-27 add nothing
+    (``agreeing_target``) and against the unmodified target.  Checks and
+    logs per mode (``spec_mode``), the agreeing draft's acceptance above
+    the disagreeing one's, the round replay against the eager body and
+    the verify logits (``spec_round_check``), and logs how many greedy
+    streams equal the spec-off ones (``spec_off``: the serve phase's
+    streams of the unmodified target), the verify attention's device time
+    a round, and a profile window of the agreeing draft's rounds (host
+    launch calls a spec round); then the sampled qwen2-7b runs
+    (``sampled_check``), continuous and paged."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.serving.speculative import SpecConfig
+
+    t0 = time.perf_counter()
+    dcfg = dataclasses.replace(model.cfg, name=f"{ARCH}-draft{DRAFT_LAYERS}",
+                               n_layers=DRAFT_LAYERS)
+    spec = SpecConfig(draft_cfg=dcfg, k=SPEC_K)
+    dparams = draft_params(params)
+    agree = agreeing_target(params)
+    torch.cuda.synchronize()
+    log(f"spec: drafts {dcfg.name} ({DRAFT_LAYERS} layers, views of the "
+        f"target's leaves), k = {SPEC_K}; the agreeing target copies "
+        f"layers/attn/wo and layers/mlp/w_down with layers "
+        f"{DRAFT_LAYERS}-{model.cfg.n_layers - 1} zeroed")
+    for batching in ("continuous", "paged"):
+        runs = {}
+        for label, target, kw in (
+                ("spec off (agreeing target)", agree, {}),
+                ("agreeing draft", agree,
+                 dict(speculate=spec, draft_params=dparams)),
+                ("disagreeing draft", params,
+                 dict(speculate=spec, draft_params=dparams))):
+            runs[label] = spec_mode(model, target, alloc, prompts, batching,
+                                    label, kw, totals)
+        (off, off_n), (ag, ag_n), (dis, dis_n) = runs.values()
+        acc = {k: n["accepted"] / n["proposed"] for k, (_, n) in runs.items()
+               if n["proposed"]}
+        if not acc["agreeing draft"] > acc["disagreeing draft"]:
+            raise AssertionError(f"spec {batching}: acceptance {acc}")
+        same_ag = sum(a == b for a, b in zip(ag, off))
+        same_dis = sum(a == b for a, b in zip(dis, spec_off[batching]))
+        log(f"spec {batching}: acceptance agreeing "
+            f"{acc['agreeing draft']:.4f} > disagreeing "
+            f"{acc['disagreeing draft']:.4f}; tokens/s spec off "
+            f"{off_n['tps']:.1f}, agreeing {ag_n['tps']:.1f}, disagreeing "
+            f"{dis_n['tps']:.1f}; greedy streams equal to spec off: "
+            f"agreeing {same_ag}/{len(ag)}, disagreeing {same_dis}/"
+            f"{len(dis)} (logged, not asserted: a verify GEMM of B*(k+1) "
+            f"rows may round otherwise than a decode GEMM of B rows, and "
+            f"a near-tie flips; the exact check is the CPU's, in f32)")
+        spec_round_check(model, params, alloc, prompts[:8], batching, spec,
+                         dparams)
+        log(f"spec {batching}: verify attention device time per spec round "
+            f"{verify_attention_time(batching):.4f} ms (28 layers)")
+        profile_window(model, agree, prompts[:8], alloc,
+                       f"{ARCH} spec agreeing", batching, 3 + 2 * SPEC_K,
+                       speculate=spec, draft_params=dparams)
+        gc.collect()
+    del agree, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for batching in ("continuous", "paged"):
+        sampled_check(model, params, ARCH, prompts[:SAMPLED_REQUESTS], alloc,
+                      batching)
+    log(f"spec: phase took {time.perf_counter() - t0:.1f}s")
+
+
 def profile_window(model, params, prompts, alloc, arch=ARCH,
-                   batching="paged") -> None:
+                   batching="paged", warm_tokens=3, **kw) -> None:
     """Where a serve pass spends its time: device time by kernel (the
     copy kernels, casts included, also summed), the device's busy share of
     the wall time, and the host's launch calls a decode round and an
     admission make (a graph replay is one, an admission's argument copy
     one more), from ``torch.profiler`` over 8 requests x 8 tokens on one
     instance (after a warm-up that captures its round and, dense, its
-    prefill buckets).  Runs on an engine without graphs too
-    (``--windows``)."""
+    prefill buckets; ``kw`` goes to the deploy, as ``speculate``).  Runs on
+    an engine without graphs too (``--windows``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.launch import serve
 
-    engine = deploy(model, params, arch, alloc, batching, n_instances=1)
-    graphs = warm(engine, arch, prompts[0])
+    engine = deploy(model, params, arch, alloc, batching, n_instances=1,
+                    **kw)
+    graphs = warm(engine, arch, prompts[0], warm_tokens)
     replayed0 = same_graphs(engine, graphs, arch)
     (inst,) = engine.instances.values()
     cls = type(inst)

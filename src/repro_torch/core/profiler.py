@@ -169,8 +169,13 @@ def measure_engine_profile(
     is widened to hold ``STEPS_PER_WINDOW`` such steps at the lowest
     quota.
 
-    ``sampling``, ``speculate`` and ``draft_params`` are not ported yet
-    and raise ``NotImplementedError`` (ROADMAP.md, Queue 1 item 7).
+    ``speculate`` (a ``repro_torch.serving.speculative.SpecConfig``)
+    profiles the speculative draft/verify round: ``draft_params`` are
+    stored beside the target's weights and every trial drives the real
+    speculative round, so the measured throughput is already effective
+    requests/s; the points carry ``spec_k`` and the instance's measured
+    acceptance (over its warm-up and trials).  ``sampling`` (a
+    ``SamplingConfig``) profiles the sampled round instead of greedy.
     """
     import itertools
 
@@ -182,14 +187,17 @@ def measure_engine_profile(
     from repro_torch.core.model_sharing import ModelStore
     from repro_torch.serving.engine import FunctionInstance, ServeRequest
 
-    if (sampling is not None or speculate is not None
-            or draft_params is not None):
-        raise NotImplementedError(
-            "sampling and speculative decoding are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
     dev = resolve_device(device)
     store = ModelStore()
     store.store("__profile__", params)
+    draft_model = draft_key = None
+    if speculate is not None:
+        from repro_torch.models import build_model
+        if draft_params is None:
+            raise ValueError("speculate set but no draft_params staged")
+        draft_model = build_model(speculate.draft_cfg)
+        draft_key = "__profile__#draft"
+        store.store(draft_key, draft_params)
     req_ids = itertools.count()
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, model.cfg.vocab_size, prompt_len,
@@ -200,7 +208,9 @@ def measure_engine_profile(
     for sm in spatial:
         inst = FunctionInstance(
             "__profile__/0", model, store, "__profile__", device=dev,
-            max_batch=max_batch, max_len=max_len, batching=batching)
+            max_batch=max_batch, max_len=max_len, batching=batching,
+            sampling=sampling, speculate=speculate, draft_model=draft_model,
+            draft_key=draft_key)
 
         def step_fn() -> None:
             for p in prompts:
@@ -221,13 +231,17 @@ def measure_engine_profile(
                                                  n_windows=n_windows,
                                                  warmup=0))
                   for quota in temporal]
+        # The speculation axis carries the acceptance this instance
+        # measured, not a declared estimate.
+        acc = inst.acceptance_rate() if speculate is not None else 0.0
         for quota, r in trials:
             points.append(ProfilePoint(
                 sm=sm, quota=quota,
                 throughput=r.throughput * max_batch * factor,
                 p99_latency=r.p99 / max(factor, 1e-9),
                 kv_blocks=kv_blocks, kv_shared_frac=kv_shared_frac,
-                spec_k=0, acceptance=0.0))
+                spec_k=speculate.k if speculate is not None else 0,
+                acceptance=acc))
         inst.close()
     return points
 

@@ -221,6 +221,68 @@ def attn_decode_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
     return _output(params, o), k_pages, v_pages
 
 
+# --------------------------------------------------------------------------
+# Speculative verify (a W-token window against a cache, attention.py:327-389)
+# --------------------------------------------------------------------------
+
+
+def cache_write_window(cache: torch.Tensor, new: torch.Tensor,
+                       start: torch.Tensor) -> torch.Tensor:
+    """Write (B, W, K, Dh) into (B, C, K, Dh) at rows ``start ..
+    start+W-1`` (``start`` (B,)), in place: the W-row ``cache_write``.  The
+    start is clamped to ``[0, C - W]`` as XLA's ``dynamic_update_slice``
+    clamps it: a live slot's window always fits (the engine reserves the
+    ``+k`` margin at submit), but a free continuous slot's position runs
+    ahead by up to ``k + 1`` a round and must land on the last W rows."""
+    b, c = cache.shape[:2]
+    w = new.shape[1]
+    start = torch.clamp(start.long().expand(b), 0, c - w)
+    rows = start[:, None] + torch.arange(w, device=cache.device)[None, :]
+    batch = torch.arange(b, device=cache.device)[:, None]
+    cache[batch, rows] = new.to(cache.dtype)
+    return cache
+
+
+def attn_verify(params: dict, x: torch.Tensor, kc: torch.Tensor,
+                vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W-token verify attention against (and updating, in place) a dense
+    cache.  x: (B, W, D), the window [last emitted token, k draft tokens];
+    pos: (B,) (or scalar) position of the window's first token.  Writes
+    the window's K/V at rows pos..pos+W-1 and attends with the
+    per-query-row causal mask.  Returns (output (B, W, D), kc, vc)."""
+    b, w, _ = x.shape
+    pos_b = pos.reshape(-1).expand(b)
+    positions = pos_b[:, None] + torch.arange(w, device=x.device)[None, :]
+    q, k, v = _rope_qkv(params, x, positions, cfg)
+    cache_write_window(kc, k, pos_b)
+    cache_write_window(vc, v, pos_b)
+    o = ops.verify_attention(q, kc, vc, pos_b.to(torch.int32))
+    return _output(params, o), kc, vc
+
+
+def attn_verify_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, block_tables: torch.Tensor,
+                      pos: torch.Tensor, cfg: ModelConfig,
+                      active: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """W-token verify attention against (and updating, in place) a paged
+    cache: the window's rows are scattered one position at a time through
+    ``paged_cache_write`` (inactive slots write nothing new), then attended
+    with the per-query-row causal mask."""
+    w = x.shape[1]
+    positions = pos[:, None] + torch.arange(w, device=x.device)[None, :]
+    q, k, v = _rope_qkv(params, x, positions, cfg)
+    for j in range(w):
+        paged_cache_write(k_pages, k[:, j:j + 1], block_tables, pos + j,
+                          active)
+        paged_cache_write(v_pages, v[:, j:j + 1], block_tables, pos + j,
+                          active)
+    o = ops.paged_verify_attention(q, k_pages, v_pages, block_tables,
+                                   pos.to(torch.int32))
+    return _output(params, o), k_pages, v_pages
+
+
 def attn_decode_quant(params: dict, x: torch.Tensor, kc: torch.Tensor,
                       vc: torch.Tensor, ksc: torch.Tensor, vsc: torch.Tensor,
                       pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import keys
 from repro_torch.models import attention, hybrid, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_params, param_count,
@@ -141,19 +142,51 @@ class Model:
     def sample_greedy(self, logits):
         return transformer.greedy_tokens(logits, self.cfg)
 
-    def decode_step_tokens(self, params, token, cache):
+    def sample_tokens(self, logits, key, sampling):
+        """The fused sampler with a key: greedy when ``sampling`` is None,
+        else temperature / top-k / top-p (model.py:105-108)."""
+        return transformer.sampled_tokens(logits, self.cfg, key, sampling)
+
+    def decode_step_tokens(self, params, token, cache, key=None,
+                           sampling=None):
         """One round returning ((B,) int32 tokens, cache); the logits never
-        leave the device (model.py:110-128)."""
+        leave the device (model.py:110-151).  With a key buffer the round
+        advances it in place and samples, every family through the same
+        sampler, and returns the key as a third element."""
         if self.cfg.family == "dense":
             return transformer.decode_step_tokens(params, token, cache,
-                                                  self.cfg)
+                                                  self.cfg, key, sampling)
         logits, cache = self.decode_step(params, token, cache)
-        return transformer.greedy_tokens(logits, self.cfg), cache
+        if key is None:
+            return transformer.greedy_tokens(logits, self.cfg), cache
+        sub = keys.advance(key)
+        return (transformer.sampled_tokens(logits, self.cfg, sub, sampling),
+                cache, key)
 
     def decode_step_paged_tokens(self, params, token, cache, block_tables,
-                                 pos, active):
+                                 pos, active, key=None, sampling=None):
         return transformer.decode_step_paged_tokens(
-            params, token, cache, block_tables, pos, active, self.cfg)
+            params, token, cache, block_tables, pos, active, self.cfg, key,
+            sampling)
+
+    # -- speculative verify (model.py:153-163) ---------------------------------
+
+    def supports_speculative(self, kv_int8: Optional[bool] = None) -> bool:
+        """Whether the batched verify step covers this config: full-cache
+        dense, with bf16 KV (the int8 gate, or ``kv_int8``, off)."""
+        return transformer.supports_speculative(self.cfg,
+                                                self._int8(kv_int8))
+
+    def verify_step(self, params, tokens, cache):
+        """Score a (B, W) window in one forward against the dense slot
+        pool: (logits (B, W, V), cache), positions untouched."""
+        return transformer.verify_step(params, tokens, cache, self.cfg)
+
+    def verify_step_paged(self, params, tokens, cache, block_tables, pos,
+                          active=None):
+        return transformer.verify_step_paged(params, tokens, cache,
+                                             block_tables, pos, self.cfg,
+                                             active)
 
     # -- cache layouts ---------------------------------------------------------
 

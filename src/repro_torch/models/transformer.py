@@ -9,6 +9,9 @@ Decode steps update the preallocated KV pools in place — the counterpart
 of the JAX package's donated caches.  A cache made under the int8 gate
 holds int8 K/V codes beside ``k_scale``/``v_scale`` pools; the decode
 steps dispatch on what the cache holds (``"k_scale" in cache``).
+The fused steps sample greedily, or with a key buffer of
+``kernels.keys`` advanced in place; ``verify_step(_paged)`` scores a
+speculative window in one forward.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import keys, ops
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (PSpec, mlp_apply, mlp_specs, rms_norm,
@@ -293,24 +296,125 @@ def greedy_tokens(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return ops.greedy_sample(logits, cfg.vocab_size)
 
 
+def sampled_tokens(logits: torch.Tensor, cfg: ModelConfig, key, sampling
+                   ) -> torch.Tensor:
+    """The sampler every family's fused step funnels through
+    (transformer.py:643-656): greedy without a key or a sampling config,
+    else ``ops.sample_tokens`` with ``key``."""
+    if key is None or sampling is None:
+        return greedy_tokens(logits, cfg)
+    return ops.sample_tokens(logits, key, cfg.vocab_size,
+                             temperature=sampling.temperature,
+                             top_k=sampling.top_k, top_p=sampling.top_p)
+
+
 def decode_step_tokens(params: dict, token: torch.Tensor, cache: dict,
-                       cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """``decode_step`` with the greedy sampler fused in: returns ((B,)
-    int32 next tokens, cache) — the engine pulls B int32s per round
-    instead of (B, V) logits."""
+                       cfg: ModelConfig, key=None, sampling=None):
+    """``decode_step`` with the sampler fused in: returns ((B,) int32 next
+    tokens, cache) — the engine pulls B int32s per round instead of (B, V)
+    logits.  With a ``key`` (a key buffer of ``kernels.keys``) the step
+    advances it in place, samples with the split-off key, and returns the
+    key as a third element (transformer.py:659-671)."""
     logits, cache = decode_step(params, token, cache, cfg)
-    return greedy_tokens(logits, cfg), cache
+    if key is None:
+        return greedy_tokens(logits, cfg), cache
+    sub = keys.advance(key)
+    return sampled_tokens(logits, cfg, sub, sampling), cache, key
 
 
 def decode_step_paged_tokens(params: dict, token: torch.Tensor, cache: dict,
                              block_tables: torch.Tensor, pos: torch.Tensor,
-                             active: torch.Tensor, cfg: ModelConfig
-                             ) -> tuple[torch.Tensor, dict, torch.Tensor]:
-    """Fused paged round: greedy tokens, the cache, and the advanced
+                             active: torch.Tensor, cfg: ModelConfig,
+                             key=None, sampling=None):
+    """Fused paged round: the sampled tokens, the cache, and the advanced
     per-slot positions ``pos + active`` (transformer.py:674-692), so the
-    position vector stays on the device.  Free slots (``active == 0``)
-    neither write KV nor advance."""
+    position vector stays on the device; free slots (``active == 0``)
+    neither write KV nor advance.  A ``key`` is advanced in place and
+    returned as a fourth element."""
     active = active.to(torch.int32)
     logits, cache = decode_step_paged(params, token, cache, block_tables,
                                       pos, cfg, active=active)
-    return greedy_tokens(logits, cfg), cache, pos + active
+    if key is None:
+        return greedy_tokens(logits, cfg), cache, pos + active
+    sub = keys.advance(key)
+    return (sampled_tokens(logits, cfg, sub, sampling), cache, pos + active,
+            key)
+
+
+# --------------------------------------------------------------------------
+# Speculative verify — score a k+1 window in one forward
+# (transformer.py:700-790)
+# --------------------------------------------------------------------------
+
+
+def block_verify(lp: dict, x: torch.Tensor, kc: torch.Tensor,
+                 vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _, _ = attn.attn_verify(lp["attn"], h, kc, vc, pos, cfg)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
+def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
+                       vc: torch.Tensor, block_tables: torch.Tensor,
+                       pos: torch.Tensor, cfg: ModelConfig,
+                       active: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _, _ = attn.attn_verify_paged(lp["attn"], h, kc, vc, block_tables,
+                                     pos, cfg, active)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h)
+
+
+def supports_speculative(cfg: ModelConfig, kv_int8: bool = False) -> bool:
+    """The verify step addresses KV rows by absolute position and writes a
+    W-row window a round: the full-cache dense configs of the paged plane,
+    without int8 KV, whose scale pools would need a windowed quantized
+    writer (transformer.py:731-736)."""
+    return supports_paged(cfg) and not kv_int8
+
+
+def _refuse_verify(cfg: ModelConfig, cache: dict) -> None:
+    if not supports_speculative(cfg, "k_scale" in cache):
+        raise NotImplementedError(
+            f"speculative verify requires a full-cache dense config with "
+            f"bf16 KV, got {cfg.name} ({cfg.family})")
+
+
+def verify_step(params: dict, tokens: torch.Tensor, cache: dict,
+                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Score a speculative window in one forward against a dense cache.
+    tokens: (B, W) int32, [last emitted token, k draft tokens].  Writes the
+    window's KV rows at ``cache["pos"] .. pos+W-1`` in place and returns
+    (f32 logits (B, W, V), cache); ``logits[:, j]`` scores the token after
+    window position j.  ``cache["pos"]`` is left as it is: the caller
+    folds in the accepted length, and the rejected rows past it are
+    garbage the causal mask hides until they are overwritten."""
+    _refuse_verify(cfg, cache)
+    b = tokens.shape[0]
+    pos = cache["pos"].reshape(-1).expand(b).to(torch.int32)
+    x = embed_tokens(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        x = block_verify(layer_params(params, i), x, cache["k"][i],
+                         cache["v"][i], pos, cfg)
+    return lm_head(params, x, cfg), cache
+
+
+def verify_step_paged(params: dict, tokens: torch.Tensor, cache: dict,
+                      block_tables: torch.Tensor, pos: torch.Tensor,
+                      cfg: ModelConfig,
+                      active: Optional[torch.Tensor] = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """``verify_step`` against block-paged pools: the window's rows go
+    through the per-position paged scatter (inactive slots write nothing
+    new); positions stay with the caller."""
+    _refuse_verify(cfg, cache)
+    x = embed_tokens(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        x = block_verify_paged(layer_params(params, i), x, cache["k"][i],
+                               cache["v"][i], block_tables, pos, cfg, active)
+    return lm_head(params, x, cfg), cache

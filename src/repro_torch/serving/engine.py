@@ -1,7 +1,7 @@
 """Live serving engine on PyTorch: the FaST-GShare data plane over the
-port's models (counterpart of ``repro.serving.engine``: greedy
-continuous, paged and static batching, the fused round and its
-host-argmax reference).
+port's models (counterpart of ``repro.serving.engine``: continuous, paged
+and static batching, the fused round and its host-argmax reference,
+on-device sampling and speculative decoding).
 
 * **Model sharing (§3.5)** — N instances of a function share ONE param
   tree through the ``ModelStore``; the runtime never copies weights.
@@ -24,7 +24,9 @@ host-argmax reference).
   ``.cpu()`` of one gathered tensor that holds every pending prefill
   token and the round's tokens.  ``fused=False`` is the host-argmax
   reference (engine.py:736-760): the eager step, its logits pulled and
-  argmaxed on the host, one sync per round and per admitted prompt.
+  argmaxed on the host (sampled: the device sampler on the same key
+  stream, its tokens pulled), one sync per round and per admitted
+  prompt.
 * **Static batching (``batching="static"``)** — the reference batch
   that is prefilled together (its prompts share one length) and retires
   together (engine.py:1065-1115); eager, unbucketed, host argmax.
@@ -84,7 +86,26 @@ addressed by absolute position).
   the ``guaranteed`` tier, with the ``batch`` lane queued last; the
   node's health is the ratio of two pass-latency EWMAs.
 
-Not ported yet (ROADMAP.md): sampling and speculation, sharded pods.
+* **Sampling (``sampling=SamplingConfig``)** — temperature, top-k and
+  top-p on the device, with noise from the instance's key
+  (``kernels.keys``): a (2,) int64 buffer on the device, advanced in
+  place inside the admission body (one split per admitted prefill) and
+  the round body (one a round), so the graphs' replays draw what the
+  eager bodies would.  ``fused=False`` replays the same key stream
+  eagerly and gives the same tokens.
+* **Speculative decoding (``speculate=SpecConfig``)** — the round is
+  ``serving/speculative.py``'s body: k draft steps on a dense draft slot
+  pool (in the instance's KV memory pool), one verify forward of the
+  ``k + 1`` window, the on-device fold and the position advance, all in
+  place, one captured graph; the admission body prefills the draft too
+  and merges it into its pool.  Requests reserve ``k`` KV rows more
+  (``_spec_k``), copy-on-write resolves the ``1 + k`` rows a window can
+  write, and ``sync_step`` lands a window per slot.  A speculating slot
+  does not export.  The JAX refusals hold: no static batching with
+  either, no ``fused=False`` with ``speculate``, no int8 KV and no draft
+  of another vocabulary.
+
+Not ported yet (ROADMAP.md): sharded pods.
 """
 
 from __future__ import annotations
@@ -104,11 +125,17 @@ from repro_torch.core.manager import TokenScheduler
 from repro_torch.core.model_sharing import ModelStore
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import SLORecorder
+from repro_torch.kernels import keys
+from repro_torch.models import build_model
 from repro_torch.models.model import Model, default_kv_blocks
 from repro_torch.serving.graphs import PrefillGraphs, RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
                                         PageTable, blocks_needed,
                                         prompt_digests)
+from repro_torch.serving.speculative import (GREEDY, SamplingConfig,
+                                             SpecConfig,
+                                             spec_round_continuous,
+                                             spec_round_paged)
 
 
 IDLE_SLEEP_S = 0.001  # pump's default yield in a lull
@@ -128,6 +155,32 @@ def _leaves(tree: Any):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _refuse_options(model: Model, kv_int8: bool, batching: str, fused: bool,
+                    sampling, speculate, draft_model, draft_key) -> None:
+    """The JAX engine's refusals of sampling and speculation
+    (engine.py:178-183, 355-372), raised before the instance takes any
+    store reference."""
+    if sampling is not None and batching == "static":
+        raise ValueError("stochastic sampling requires a slot batching mode "
+                         "(continuous/paged)")
+    if speculate is None:
+        return
+    if not fused or batching == "static":
+        raise ValueError("speculate requires the fused continuous/paged "
+                         "round (the draft/verify loop is one round)")
+    if not model.supports_speculative(kv_int8):
+        raise ValueError(f"{model.cfg.name}: speculative verify needs a "
+                         f"full-cache dense target (no int8 KV)")
+    if draft_model is None or draft_key is None:
+        raise ValueError("speculate needs a draft model and its weights key "
+                         "(engine.deploy builds them)")
+    if not draft_model.supports_speculative(False):
+        raise ValueError(f"{draft_model.cfg.name}: the draft must be a "
+                         f"full-cache dense config")
+    if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+        raise ValueError("draft and target must share vocab_size")
 
 
 @dataclasses.dataclass
@@ -157,16 +210,26 @@ class FunctionInstance:
     ``fused=False`` the host-argmax reference.  Token streams are
     identical either way.  ``prefill_buckets=False`` admits the dense
     family at the exact prompt length, eagerly, with no prefill graphs;
-    ``prefix_sharing`` applies to paged instances only."""
+    ``prefix_sharing`` applies to paged instances only.  ``sampling``
+    samples on the device; ``speculate`` runs the draft-k / verify-1
+    round with ``draft_model``, whose weights the store holds under
+    ``draft_key``."""
 
     def __init__(self, inst_id: str, model: Model, store: ModelStore,
                  weights_key: str, *, device: torch.device,
                  max_batch: int = 4, max_len: int = 64,
                  batching: str = "continuous", prefill_buckets: bool = True,
                  block_size: int = 16, n_kv_blocks: Optional[int] = None,
-                 fused: bool = True, prefix_sharing: bool = True):
+                 fused: bool = True, prefix_sharing: bool = True,
+                 sampling: Optional[SamplingConfig] = None,
+                 speculate: Optional[SpecConfig] = None,
+                 draft_model: Optional[Model] = None,
+                 draft_key: Optional[str] = None):
         if batching not in ("continuous", "static", "paged"):
             raise ValueError(f"unknown batching mode {batching!r}")
+        kv_int8 = model.kv_int8()
+        _refuse_options(model, kv_int8, batching, fused, sampling, speculate,
+                        draft_model, draft_key)
         self.inst_id = inst_id
         self.model = model
         self.device = device
@@ -177,7 +240,7 @@ class FunctionInstance:
         self.store = store
         self.weights_key = weights_key
         self.params = store.get(weights_key)  # shared, zero-copy
-        self.kv_int8 = model.kv_int8()  # pinned for the instance's life
+        self.kv_int8 = kv_int8  # pinned for the instance's life
         self.queue: deque[ServeRequest] = deque()
         # Prompts are right-padded to power-of-two buckets (engine.py:
         # 518-530): O(log max_len) prefill shapes instead of one per length.
@@ -240,6 +303,29 @@ class FunctionInstance:
                                    NULL_BLOCK, np.int32)
             self._pos = np.zeros((max_batch,), np.int32)
             self._state_dirty = True
+        # Sampling and speculation (engine.py:335-397): the key is device
+        # state (a fixed buffer, advanced in place by the admission and
+        # round bodies, or by ``_sample`` on the host-argmax path); the
+        # draft's side pool is made with the KV pools, in their memory pool.
+        self.sampling = sampling
+        self.speculate = speculate
+        self.draft_model = draft_model
+        self.draft_key = draft_key
+        self.draft_params = None
+        self.dcache: Optional[dict] = None
+        self.spec_proposed = 0  # draft tokens proposed (telemetry)
+        self.spec_accepted = 0  # draft tokens accepted (telemetry)
+        self._key_dev: Optional[torch.Tensor] = None
+        if sampling is not None or speculate is not None:
+            seed = sampling.seed if sampling is not None else speculate.seed
+            self._key_dev = keys.new_key(seed, device)
+        if speculate is not None:
+            self.draft_params = store.get(draft_key)
+            build = (spec_round_paged if batching == "paged"
+                     else spec_round_continuous)
+            self._spec_round = build(model, draft_model, speculate.k,
+                                     sampling if sampling is not None
+                                     else GREEDY)
         if self.fused:
             self._init_fused_buffers()
 
@@ -264,6 +350,9 @@ class FunctionInstance:
         # One staging row per admission of a pass (at most max_batch).
         self._args_stage = torch.zeros((mb, width), dtype=torch.int64,
                                        pin_memory=pin)
+        if self.speculate is not None:
+            self._out_dev = torch.zeros((mb, self.speculate.k + 1), **i32)
+            self._n_emit_dev = torch.zeros((mb,), **i32)
         self.round_graph = RoundGraph(dev)
         if self.bucketed:
             self.prefill_graphs = PrefillGraphs(dev)
@@ -282,6 +371,8 @@ class FunctionInstance:
         that ``torch.cuda.empty_cache()`` can return their memory."""
         if self.batching == "paged":
             self.pages.release_all()
+        if self.draft_params is not None:
+            self.store.put_back(self.draft_key)
         self.store.put_back(self.weights_key)
         self.drop_device_state()
 
@@ -294,6 +385,7 @@ class FunctionInstance:
         buffers, a few KB, go with the instance.)"""
         self.round_graph = self.prefill_graphs = None
         self.cache = self.params = self._kv_mem = self.store = None
+        self.dcache = self.draft_params = None
 
     def pool_ids(self) -> set[tuple[int, int]]:
         """Ids of the memory pools that hold the instance's device state
@@ -315,10 +407,20 @@ class FunctionInstance:
 
     def kv_bytes_in_use(self) -> int:
         """Physical KV bytes held by live requests (paged) or reserved by
-        the allocated pool (dense slot modes)."""
+        the allocated pool (dense slot modes), plus the draft's side pool
+        once it exists."""
         if self.batching == "paged":
-            return self.pages.bytes_in_use(self._block_bytes)
-        return self.dense_kv_reserved() if self.cache is not None else 0
+            used = self.pages.bytes_in_use(self._block_bytes)
+        else:
+            used = self.dense_kv_reserved() if self.cache is not None else 0
+        return used + self.draft_kv_bytes()
+
+    def draft_kv_bytes(self) -> int:
+        """Bytes of the draft's dense side pool (0 without one)."""
+        if self.dcache is None:
+            return 0
+        return self.draft_model.dense_kv_bytes(self.max_batch, self.max_len,
+                                               False)
 
     def dense_kv_reserved(self) -> int:
         """What the dense slot pool reserves for this instance's capacity:
@@ -354,10 +456,28 @@ class FunctionInstance:
         """Queue depth + occupied slots (join-shortest-queue metric)."""
         return len(self.queue) + self.n_active()
 
+    def acceptance_rate(self) -> float:
+        """Draft tokens accepted over proposed (0 before a speculative
+        round)."""
+        if not self.spec_proposed:
+            return 0.0
+        return self.spec_accepted / self.spec_proposed
+
+    def _spec_k(self, max_new_tokens: int) -> int:
+        """KV rows a speculating request may write past ``prompt + max_new
+        - 1``: the last window starts at most at row ``prompt + max_new -
+        2`` and writes k rows beyond it; none for a request done at
+        prefill (engine.py:557-563)."""
+        if self.speculate is None or max_new_tokens <= 1:
+            return 0
+        return self.speculate.k
+
     def _kv_rows_needed(self, req: ServeRequest) -> int:
         """KV rows a request writes: the prompt plus one row per decode
-        round (the final token is emitted, never cached)."""
-        return int(req.prompt.shape[0]) + req.max_new_tokens - 1
+        round (the final token is emitted, never cached), plus the
+        speculation margin."""
+        return (int(req.prompt.shape[0]) + req.max_new_tokens - 1
+                + self._spec_k(req.max_new_tokens))
 
     def _mark_first_token(self) -> None:
         """Record when the instance's first token reached the host (every
@@ -393,6 +513,9 @@ class FunctionInstance:
             return self._make_cache()
 
     def _make_cache(self) -> dict:
+        if self.speculate is not None:  # the draft's pool, in the same pool
+            self.dcache = self.draft_model.init_slot_cache(
+                self.max_batch, self.max_len, self.device, kv_int8=False)
         if self.batching == "paged":
             return self.model.init_paged_cache(
                 self.allocator.n_blocks + 1, self.block_size, self.device,
@@ -475,23 +598,35 @@ class FunctionInstance:
         write = (idx >= n_shared) & (idx < len(self.pages.blocks(slot)))
         return np.where(write, row, self.allocator.n_blocks)
 
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The admission's and the host-argmax round's sampler on the
+        device: greedy, or sampled with a key split off the instance's key
+        (advanced in place; engine.py:664-673, 736-741)."""
+        if self.sampling is None:
+            return self.model.sample_greedy(logits)
+        return self.model.sample_tokens(logits, keys.advance(self._key_dev),
+                                        self.sampling)
+
     def _admission_body(self, width: int, bucketed: bool) -> torch.Tensor:
         """One fused admission, read from ``_args`` (what a prefill graph
         captures and replays): prefill the ``width`` prompt tokens (at the
-        true length from the buffer when bucketed), pick the greedy token,
-        write it into the pending buffer at the admission's ordinal and
-        into the slot-token vector at its slot, and merge the cache into
-        the slot or scatter it through the append row.  A request done at
-        prefill leaves its slot free: its merge lands in a free slot (which
-        the next admission there overwrites whole) and its append row is
-        all sink.  Returns the logits row (what checks compare; the engine
-        reads only the buffers)."""
+        true length from the buffer when bucketed), sample the token
+        (``_sample``), write it into the pending buffer at the admission's
+        ordinal and into the slot-token vector at its slot, merge the
+        cache into the slot or scatter it through the append row and,
+        speculating, prefill the draft and merge it into the draft's pool
+        (``_dprefill_one``/``_admit_draft``, engine.py:532-555).  A request
+        done at prefill leaves its slot free: its merges land in a free
+        slot (which the next admission there overwrites whole) and its
+        append row is all sink.  Returns the logits row (what checks
+        compare; the engine reads only the buffers)."""
         a = self._args
         tokens = a[self._tok0:self._tok0 + width].view(1, width)
+        length = a[_LEN] if bucketed else None
         logits, entry = self.model.prefill(
-            self.params, tokens, max_len=self.max_len,
-            length=a[_LEN] if bucketed else None, kv_int8=self.kv_int8)
-        tok = self.model.sample_greedy(logits)
+            self.params, tokens, max_len=self.max_len, length=length,
+            kv_int8=self.kv_int8)
+        tok = self._sample(logits)
         slot = a[_SLOT:_SLOT + 1]
         self._pending_dev.index_copy_(0, a[_ORD:_ORD + 1], tok)
         self._slot_tok_dev.index_copy_(0, slot, tok)
@@ -499,6 +634,11 @@ class FunctionInstance:
             self.model.append_paged(self.cache, entry, a[_ROW:self._tok0])
         else:
             self.model.merge_slot(self.cache, entry, slot)
+        if self.speculate is not None:
+            _, dentry = self.draft_model.prefill(
+                self.draft_params, tokens, max_len=self.max_len,
+                length=length, kv_int8=False)
+            self.draft_model.merge_slot(self.dcache, dentry, slot)
         return logits
 
     def _admit_fused(self, slot: int, req: ServeRequest, done: bool,
@@ -566,7 +706,7 @@ class FunctionInstance:
             else:
                 logits, entry = self._prefill_one(req.prompt)
                 self.sync_count += 1
-                tok = int(self.model.sample_greedy(logits).cpu()[0])
+                tok = int(self._sample(logits).cpu()[0])
                 req.tokens_out.append(tok)
                 self._mark_first_token()
                 if len(req.tokens_out) >= req.max_new_tokens:
@@ -619,34 +759,41 @@ class FunctionInstance:
         self._state_dirty = True
 
     def _cow_round(self) -> None:
-        """Copy-on-write before a round's writes land (engine.py:770-804,
-        one row a round: speculation is not ported).  A slot whose next
-        row lies in a shared prompt-tail block takes that block's
+        """Copy-on-write before a round's writes land (engine.py:770-805).
+        A slot whose next rows — one, or the ``1 + k`` of a speculative
+        window — lie in a shared prompt-tail block takes that block's
         reserved spare: the page is copied into it in place
         (``Model.copy_block``, eagerly, on the stream the replays use,
         after the admissions that wrote the page) and the slot's table
         mirror re-pointed, so the round's upload refills the fixed device
         tables before the replay.  Afterwards no block a round writes is
-        shared."""
+        shared, and a speculative rollback is a position trim."""
+        span = 1 + (self.speculate.k if self.speculate is not None else 0)
         for slot, req in enumerate(self.slots):
             if req is None:
                 continue
             pos = int(self._pos[slot])
-            block, moved = self.pages.writable_block(slot, pos)
-            if moved is not None:
-                old, new = moved
-                self.model.copy_block(self.cache, old, new)
-                self._tables[slot][pos // self.block_size] = new
-                self._state_dirty = True
-                self.cow_count += 1
-            if self.allocator.refcount(block) != 1:
-                raise AssertionError(f"{self.inst_id}: slot {slot} would "
-                                     f"write shared block {block}")
+            for idx in range(pos // self.block_size,
+                             (pos + span - 1) // self.block_size + 1):
+                block, moved = self.pages.writable_block(
+                    slot, idx * self.block_size)
+                if moved is not None:
+                    old, new = moved
+                    self.model.copy_block(self.cache, old, new)
+                    self._tables[slot][idx] = new
+                    self._state_dirty = True
+                    self.cow_count += 1
+                if self.allocator.refcount(block) != 1:
+                    raise AssertionError(f"{self.inst_id}: slot {slot} "
+                                         f"would write shared block {block}")
 
-    def _host_argmax(self, logits: torch.Tensor) -> np.ndarray:
-        """Reference sampler: the logits pulled, argmax and clip on the
-        host (one sync)."""
+    def _host_tokens(self, logits: torch.Tensor) -> np.ndarray:
+        """Reference sampler (one sync): the logits pulled, argmax and clip
+        on the host; sampled, the device sampler on the instance's key
+        stream, its tokens pulled (``_sample_host``, engine.py:736-741)."""
         self.sync_count += 1
+        if self.sampling is not None:
+            return self._sample(logits).cpu().numpy()
         tok = np.argmax(logits.cpu().numpy(), axis=-1)
         return np.minimum(tok, self.model.cfg.vocab_size - 1).astype(np.int32)
 
@@ -664,7 +811,7 @@ class FunctionInstance:
         else:
             logits, self.cache = self.model.decode_step(self.params, tok,
                                                         self.cache)
-        next_tok = self._host_argmax(logits)
+        next_tok = self._host_tokens(logits)
         finished = []
         for slot, req in enumerate(self.slots):
             if req is None:
@@ -690,7 +837,7 @@ class FunctionInstance:
         logits, self.cache = self.model.prefill(
             self.params, prompts, max_len=self.max_len, kv_int8=self.kv_int8)
         finished = []
-        for r, t in zip(batch, self._host_argmax(logits)):
+        for r, t in zip(batch, self._host_tokens(logits)):
             r.tokens_out.append(int(t))
             self._mark_first_token()
             if len(r.tokens_out) >= r.max_new_tokens:
@@ -709,7 +856,7 @@ class FunctionInstance:
         logits, self.cache = self.model.decode_step(self.params, toks,
                                                     self.cache)
         finished = []
-        for r, t in zip(self.active, self._host_argmax(logits)):
+        for r, t in zip(self.active, self._host_tokens(logits)):
             if r.done:
                 continue
             r.tokens_out.append(int(t))
@@ -731,18 +878,31 @@ class FunctionInstance:
     def _round_body(self) -> torch.Tensor:
         """The fused round (what ``round_graph`` runs, captures and
         replays): it writes every buffer that crosses rounds in place, the
-        KV pools by the decode step, then, as its last ops, the positions
-        (the slot pool's ``pos``, or the paged ones advanced by the active
-        mask) and the slot tokens, its input and its output."""
+        KV pools by the decode step, the key (sampling), then, as its last
+        ops, the positions (the slot pool's ``pos``, or the paged ones
+        advanced by the active mask) and the slot tokens, its input and its
+        output.  Speculating, it is the draft-k / verify-1 body of
+        ``serving/speculative.py``, which also writes the draft's pool,
+        ``_out_dev`` and ``_n_emit_dev``."""
         tok = self._slot_tok_dev
-        if self.batching == "paged":
+        paged = self.batching == "paged"
+        if self.speculate is not None:
+            state = ((self._tables_dev, self._pos_dev, self._active_dev)
+                     if paged else ())
+            self._spec_round(self.params, self.draft_params, tok, self.cache,
+                             self.dcache, *state, self._key_dev,
+                             self._out_dev, self._n_emit_dev)
+            return tok
+        if paged:
             new_tok, _, pos = self.model.decode_step_paged_tokens(
                 self.params, tok, self.cache, self._tables_dev,
-                self._pos_dev, self._active_dev)
+                self._pos_dev, self._active_dev, self._key_dev,
+                self.sampling)[:3]
             self._pos_dev.copy_(pos)
         else:
             new_tok, advanced = self.model.decode_step_tokens(
-                self.params, tok, self.cache)
+                self.params, tok, self.cache, self._key_dev,
+                self.sampling)[:2]
             self.cache["pos"].copy_(advanced["pos"])
         return tok.copy_(new_tok)
 
@@ -801,7 +961,8 @@ class FunctionInstance:
         n_pre = len(self._pending_prefill)
         parts = [self._pending_dev[:n_pre]]
         if self._round is not None:
-            parts.append(self._slot_tok_dev)
+            parts += ([self._out_dev.view(-1), self._n_emit_dev]
+                      if self.speculate is not None else [self._slot_tok_dev])
         self.sync_count += 1
         host = torch.cat(parts).cpu().numpy()  # the pass's single pull
         finished = []
@@ -814,13 +975,33 @@ class FunctionInstance:
             else:
                 self._slot_tok[slot] = int(tok)
         self._pending_prefill = []
-        if self._round is not None:
-            active, self._round = self._round, None
+        if self._round is None:
+            return finished
+        active, self._round = self._round, None
+        if self.speculate is None:
             toks = host[n_pre:]
             for slot in active:
                 done = self._advance_slot(slot, int(toks[slot]))
                 if done is not None:
                     finished.append(done)
+            return finished
+        # A speculative round lands a window a slot (engine.py:937-962): a
+        # slot that reaches max_new mid-window is freed at once and its
+        # surplus dropped (the device position overshot; the release resets
+        # the mirrors, and the next admission there overwrites the slot).
+        k = self.speculate.k
+        out = host[n_pre:n_pre + self.max_batch * (k + 1)].reshape(
+            self.max_batch, k + 1)
+        n_emit = host[n_pre + self.max_batch * (k + 1):]
+        for slot in active:
+            n = int(n_emit[slot])
+            self.spec_proposed += k
+            self.spec_accepted += n - 1
+            for t in out[slot, :n]:
+                done = self._advance_slot(slot, int(t))
+                if done is not None:
+                    finished.append(done)
+                    break
         return finished
 
     def run_step(self) -> list[ServeRequest]:
@@ -844,6 +1025,10 @@ class FunctionInstance:
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"slot {slot} of {self.inst_id} is empty")
+        if self.speculate is not None:
+            raise ValueError(f"{self.inst_id}: speculating slots cannot be "
+                             f"exported (the draft's side pool does not "
+                             f"travel)")
         self._between_passes("export_slot")
         if self.batching == "paged":
             entry = self.model.gather_pages(self.cache, self._tables[slot],
@@ -922,6 +1107,8 @@ class ServingEngine:
         # Called with the instance id once a retired instance has drained
         # and closed.
         self.on_instance_closed: Optional[Any] = None
+        # fn -> its draft Model, built once (engine.py:1180-1186).
+        self._draft_models: dict[str, Model] = {}
 
     def now(self) -> float:
         return time.perf_counter() - self._t0
@@ -930,21 +1117,34 @@ class ServingEngine:
                n_instances: int = 1, max_batch: int = 4, max_len: int = 64,
                batching: str = "continuous", prefill_buckets: bool = True,
                block_size: int = 16, n_kv_blocks: Optional[int] = None,
-               fused: bool = True, prefix_sharing: bool = True) -> list[str]:
+               fused: bool = True, prefix_sharing: bool = True,
+               sampling: Optional[SamplingConfig] = None,
+               speculate: Optional[SpecConfig] = None,
+               draft_params: Any = None) -> list[str]:
         """Deploy ``n_instances`` of ``fn`` sharing one stored copy of
         ``params`` (which must already lie on the engine's device).  When
         the node's store already holds ``fn``, its copy is used and
-        ``params`` is ignored (it may be None), as in JAX."""
+        ``params`` is ignored (it may be None), as in JAX.  ``speculate``
+        builds the draft model of ``speculate.draft_cfg`` (once a function
+        and node) and stores ``draft_params`` under ``"{fn}#draft"`` on
+        the first deploy (engine.py:1166-1200)."""
         if not self.alive:
             raise RuntimeError("cannot deploy to a failed node")
         if fn not in self.recorders:
             self.recorders[fn] = SLORecorder(fn=fn)
-        if not self.store.contains(fn):
-            for leaf in _leaves(params):
-                if leaf.device != self.device:
-                    raise ValueError(f"{fn}: params are on {leaf.device}, "
-                                     f"the engine on {self.device}")
-            self.store.store(fn, params)
+        self._store_weights(fn, params)
+        draft_model = draft_key = None
+        if speculate is not None:
+            draft_model = self._draft_models.get(fn)
+            if draft_model is None:
+                draft_model = self._draft_models[fn] = build_model(
+                    speculate.draft_cfg)
+            draft_key = f"{fn}#draft"
+            if not self.store.contains(draft_key) and draft_params is None:
+                raise ValueError(f"{fn}: speculate set but no draft weights "
+                                 f"staged (pass draft_params on the first "
+                                 f"deploy)")
+            self._store_weights(draft_key, draft_params)
         ids = []
         for _ in range(n_instances):
             inst_id = f"{fn}/{next(self._inst_seq)}"
@@ -953,10 +1153,23 @@ class ServingEngine:
                 max_batch=max_batch, max_len=max_len, batching=batching,
                 prefill_buckets=prefill_buckets, block_size=block_size,
                 n_kv_blocks=n_kv_blocks, fused=fused,
-                prefix_sharing=prefix_sharing)
+                prefix_sharing=prefix_sharing, sampling=sampling,
+                speculate=speculate, draft_model=draft_model,
+                draft_key=draft_key)
             self.scheduler.register(inst_id, alloc)
             ids.append(inst_id)
         return ids
+
+    def _store_weights(self, key: str, params: Any) -> None:
+        """Store ``params`` under ``key`` unless the node holds it already;
+        they must lie on the engine's device."""
+        if self.store.contains(key):
+            return
+        for leaf in _leaves(params):
+            if leaf.device != self.device:
+                raise ValueError(f"{key}: params are on {leaf.device}, the "
+                                 f"engine on {self.device}")
+        self.store.store(key, params)
 
     # -- scale-down and node failure (engine.py:1227-1282) --------------------
 
@@ -1031,8 +1244,10 @@ class ServingEngine:
         rows = inst._kv_rows_needed(req)
         if rows > inst.max_len:
             raise ValueError(
-                f"request needs {rows} KV rows > max_len {inst.max_len} of "
-                f"{inst.inst_id}")
+                f"request needs {rows} KV rows (prompt "
+                f"{int(prompt.shape[0])} + {max_new_tokens} new tokens + "
+                f"{inst._spec_k(max_new_tokens)} speculation margin) > "
+                f"max_len {inst.max_len} of {inst.inst_id}")
         if (inst.batching == "paged" and max_new_tokens > 1
                 and blocks_needed(rows, inst.block_size)
                 > inst.allocator.capacity):
@@ -1197,7 +1412,8 @@ class ServingEngine:
         """Hot-path counters per instance: steps, host syncs, prefills,
         decode rounds, (paged) device-state uploads — ``uploads << steps``
         shows the tables and positions stay device-resident between
-        admission events — prefix-sharing hits, COW copies, queued
+        admission events — prefix-sharing hits, COW copies, draft tokens
+        proposed and accepted (speculation), queued
         requests expired past their deadline, the round graph's captures
         and replays, and the prefill graphs' (summed over buckets; 0 where
         admission is eager)."""
@@ -1206,7 +1422,9 @@ class ServingEngine:
         return {k: {"steps": v.steps, "syncs": v.sync_count,
                     "prefills": v.prefills, "rounds": v.rounds,
                     "uploads": v.uploads, "shared_hits": v.shared_block_hits,
-                    "cow": v.cow_count, "expired": self._expired.get(k, 0),
+                    "cow": v.cow_count, "spec_proposed": v.spec_proposed,
+                    "spec_accepted": v.spec_accepted,
+                    "expired": self._expired.get(k, 0),
                     "captures": count(v.round_graph, "captures"),
                     "replays": count(v.round_graph, "replays"),
                     "prefill_captures": count(v.prefill_graphs, "captures"),

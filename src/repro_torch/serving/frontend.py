@@ -37,10 +37,13 @@ engines launch on, wait on the upload's event before it deploys the
 instance, so the instance's first admission and its graph captures
 follow the copies and the host never waits for them.
 
+``sampling`` and ``speculate`` deploy the engine's sampled and
+speculative rounds; the draft weights (``draft_params``) are charged with
+the function's and, with a fleet ``model_store``, ride its tiers under
+``"{fn}#draft"``.
+
 Not ported yet, and refused with ``NotImplementedError``: tensor-parallel
-pods (``shards > 1``; ROADMAP.md, Queue 1 item 11), and sampling and
-speculative decoding (``sampling=``, ``speculate=``, ``draft_params=``;
-item 7).
+pods (``shards > 1``; ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from repro_torch.core.model_sharing import (MemoryModel, node_shared_footprint,
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import (TIER_BEST_EFFORT, TIER_GUARANTEED, RetryPolicy,
                             observed_rate, record_arrival)
+from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.serving.engine import ServeRequest, ServingEngine
 from repro_torch.serving.modelstore import ColdStartEvent, FleetModelStore
@@ -82,13 +86,8 @@ def _closed(ref: weakref.ref, node: int, inst_id: str) -> None:
         frontend._instance_closed(node, inst_id)
 
 
-def _refuse_unported(sampling, speculate, draft_params, shards: int) -> None:
+def _refuse_unported(shards: int) -> None:
     """The options the port has no data plane for yet raise, never drop."""
-    if sampling is not None or speculate is not None \
-            or draft_params is not None:
-        raise NotImplementedError(
-            "sampling and speculative decoding are not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
     if shards > 1:
         raise NotImplementedError(
             "sharded pods (shards > 1) are not ported yet (ROADMAP.md, "
@@ -159,10 +158,15 @@ class ClusterFrontend:
         # Requests stranded by a node failure while their function has zero
         # live instances: re-routed as soon as a replacement deploys.
         self._pending: dict[str, list[ServeRequest]] = {}
-        # fn -> (max_len, block_size, paged block capacity or None),
+        # fn -> (max_len, block_size, paged block capacity or None, spec_k),
         # learned at placement so submissions during a podless heal window
         # can still be validated (and parked) instead of dropped.
-        self._fn_limits: dict[str, tuple[int, int, Optional[int]]] = {}
+        self._fn_limits: dict[str, tuple[int, int, Optional[int], int]] = {}
+        # Functions whose placements pinned draft weights in the fleet
+        # store (speculative decoding), so closing releases both keys.
+        self._fn_draft: set[str] = set()
+        # fn -> draft Model, built once for fleet-store staging.
+        self._draft_models: dict[str, Model] = {}
         self._req_seq = itertools.count()
         self._t0 = time.perf_counter()
         # SLO lifecycle (all dormant until ``configure_slo`` sets a
@@ -290,14 +294,21 @@ class ClusterFrontend:
         the paged pool's sink block.  An overlapped upload's event is
         waited on by the card's current stream before the deploy.
 
-        ``sampling``, ``speculate`` and ``draft_params`` (ROADMAP.md,
-        Queue 1 item 7) and ``shards > 1`` (item 11) are not ported yet
-        and raise ``NotImplementedError``.
+        ``speculate`` (a ``SpecConfig``) deploys the draft/verify round:
+        the draft weights (``draft_params``) charge the same rectangle and
+        memory admission as the target (their bytes fold into the
+        function's weight footprint), and with a fleet ``model_store``
+        they ride the same tiers under ``"{fn}#draft"``.  ``sampling`` (a
+        ``SamplingConfig``) samples on the device
+        (frontend.py:218-440 of the JAX package).
+
+        ``shards > 1`` (ROADMAP.md, Queue 1 item 11) is not ported yet and
+        raises ``NotImplementedError``.
         """
         t_start = time.perf_counter()
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        _refuse_unported(sampling, speculate, draft_params, shards)
+        _refuse_unported(shards)
         if not 0.0 <= kv_shared_frac < 1.0:
             raise ValueError(
                 f"kv_shared_frac must be in [0, 1), got {kv_shared_frac}")
@@ -327,6 +338,20 @@ class ClusterFrontend:
                 weight_bytes = pytree_nbytes(params)
         else:
             weight_bytes = pytree_nbytes(params)
+        if speculate is not None:
+            # The draft charges the same rectangle and admission as the
+            # target: its bytes fold into the function's weight footprint.
+            if draft_params is not None:
+                weight_bytes += pytree_nbytes(draft_params)
+            else:
+                staged = (self.model_store.staged_nbytes(f"{fn}#draft")
+                          if self.model_store is not None else None)
+                if staged is None:
+                    raise ValueError(
+                        f"function {fn!r} sets speculate but has no draft "
+                        f"weights (pass draft_params or stage them in the "
+                        f"fleet store)")
+                weight_bytes += staged
         created_mm = fn not in self._fn_mm
         mm = self._fn_mm.setdefault(
             fn, MemoryModel(weight_bytes=weight_bytes,
@@ -377,16 +402,31 @@ class ClusterFrontend:
             return None
         event = None
         deploy_params = params
+        deploy_draft = draft_params
+        draft_acquired = False
         if self.model_store is not None:
             deploy_params, event = self._acquire(placement.node, fn, model,
                                                  params, weights_loader)
             event.placed_at = t_start  # TTFT window opens at call entry
+            if speculate is not None:
+                # The draft rides the same tiers under "{fn}#draft".
+                dmodel = self._draft_models.get(fn)
+                if dmodel is None:
+                    dmodel = self._draft_models[fn] = build_model(
+                        speculate.draft_cfg)
+                deploy_draft, _ = self._acquire(placement.node,
+                                                f"{fn}#draft", dmodel,
+                                                draft_params, None)
+                draft_acquired = True
+                self._fn_draft.add(fn)
         try:
             inst_id = self.engines[placement.node].deploy(
                 fn, model, deploy_params, alloc, n_instances=1,
                 max_batch=max_batch, max_len=max_len, batching=batching,
                 block_size=block_size, n_kv_blocks=n_kv_blocks,
-                fused=fused, prefix_sharing=prefix_sharing)[0]
+                fused=fused, prefix_sharing=prefix_sharing,
+                sampling=sampling, speculate=speculate,
+                draft_params=deploy_draft)[0]
         except Exception:
             # The rectangle was reserved before the engine ran; a failed
             # deploy must not leak it (or a provisional memory-model entry,
@@ -394,6 +434,8 @@ class ClusterFrontend:
             self.pool.release(placement)
             if self.model_store is not None:
                 self.model_store.release(placement.node, fn)
+                if draft_acquired:
+                    self.model_store.release(placement.node, f"{fn}#draft")
             rollback_mm()
             raise
         if event is not None:
@@ -404,7 +446,8 @@ class ClusterFrontend:
         inst = self.engines[placement.node].instances[inst_id]
         self._fn_limits[fn] = (max_len, block_size,
                                inst.allocator.capacity
-                               if batching == "paged" else None)
+                               if batching == "paged" else None,
+                               speculate.k if speculate is not None else 0)
         # Requests parked while the function had zero live instances.
         for req in self._pending.pop(fn, []):
             self._enqueue(fn, req)
@@ -412,15 +455,19 @@ class ClusterFrontend:
 
     def _acquire(self, node: int, fn: str, model: Model, params: Any,
                  loader: Optional[Any]) -> tuple[Any, ColdStartEvent]:
-        """Source ``fn``'s weights for ``node`` through the fleet tier and
+        """Source the weights stored under ``fn`` (a function's, or its
+        draft's, ``"{fn}#draft"``) for ``node`` through the fleet tier and
         order the card's current stream (the engines') after an overlapped
         upload's copies.  A re-upload only ever reaches a node that holds
-        no copy, hence no instance of ``fn`` whose graphs captured one."""
+        no copy, hence no instance of the function whose graphs captured
+        one."""
         eng = self.engines[node]
         resident = eng.store.contains(fn)
-        if not resident and any(k.startswith(fn + "/")
+        owner = fn.split("#")[0]
+        if not resident and any(k.startswith(owner + "/")
                                 for k in eng.instances):
-            raise RuntimeError(f"node {node} runs {fn} without its weights")
+            raise RuntimeError(f"node {node} runs {owner} without its "
+                               f"weights")
         deploy_params, event = self.model_store.acquire(
             node, fn, model, params=params, loader=loader,
             resident=resident, mode=self.cold_start, device=eng.device)
@@ -512,8 +559,9 @@ class ClusterFrontend:
             # error: there is no config to validate against.
             if fn not in self._fn_limits:
                 raise KeyError(f"function {fn} is not deployed")
-            max_len, block_size, blocks_cap = self._fn_limits[fn]
-            rows = int(prompt.shape[0]) + max_new_tokens - 1
+            max_len, block_size, blocks_cap, spec_k = self._fn_limits[fn]
+            rows = (int(prompt.shape[0]) + max_new_tokens - 1
+                    + (spec_k if max_new_tokens > 1 else 0))
             if rows > max_len:
                 raise ValueError(
                     f"request needs {rows} KV rows > max_len {max_len} "
@@ -788,6 +836,10 @@ class ClusterFrontend:
         inst = eng.instances.get(inst_id)
         if inst is None or inst.retired or inst.batching == "static":
             return None
+        if inst.speculate is not None:
+            # The draft's side pool and the key stream do not export:
+            # speculating pods scale, they do not migrate.
+            return None
         mm = self._fn_mm.get(fn)
         # Copy-then-delete: the target must admit the instance while the
         # source still holds its memory.
@@ -817,7 +869,8 @@ class ClusterFrontend:
                 n_kv_blocks=(inst.allocator.n_blocks
                              if inst.batching == "paged" else None),
                 fused=inst.fused,
-                prefix_sharing=inst.prefix_sharing)[0]
+                prefix_sharing=inst.prefix_sharing,
+                sampling=inst.sampling)[0]
         except Exception:
             self.pool.release(placement)
             if self.model_store is not None:
@@ -857,10 +910,13 @@ class ClusterFrontend:
                     # the entry stays cached (evictable) for the next
                     # scale-up to hit warm.
                     self.model_store.release(node, p.fn)
+                    if p.fn in self._fn_draft:
+                        self.model_store.release(node, f"{p.fn}#draft")
                 if not any(q.fn == p.fn for q in self.placements):
                     # Fully drained: drop the per-function MemoryModel so a
                     # redeploy may use a different data-plane config.
                     self._fn_mm.pop(p.fn, None)
+                    self._fn_draft.discard(p.fn)
                 return
 
     # -- metrics -----------------------------------------------------------

@@ -10,8 +10,12 @@
 * greedy streams through the torch ``ClusterFrontend`` equal JAX's for
   the same placements and prompts: JSQ routing, ``evict`` mid-decode
   with zero dropped requests, ``fail_node`` re-injection, ``migrate``;
-* ``measure_engine_profile`` returns JAX's grid and stamps;
-* the options not ported yet raise ``NotImplementedError``.
+* ``measure_engine_profile`` returns JAX's grid and stamps, the
+  speculation axis (``spec_k``, the measured acceptance) included;
+* ``place_instance``/``deploy`` take ``sampling``, ``speculate`` and
+  ``draft_params`` (the draft stored under ``"{fn}#draft"`` and charged),
+  and the speculating fleet's ``decision_signature`` equals JAX's;
+* ``shards > 1``, not ported yet, raises ``NotImplementedError``.
 
 Both packages serve the tiny config on the CPU; the streams compare f32
 params (bf16 greedy streams are not portable, ROADMAP.md Queue 3).
@@ -38,6 +42,7 @@ from repro.core.workload import ServiceCurve as JaxCurve
 from repro.models import build_model as jax_build
 from repro.serving import ClusterFrontend as JaxFrontend
 from repro.serving import FleetModelStore as JaxStore
+from repro.serving.speculative import SpecConfig as JaxSpecConfig
 from repro_torch import bridge
 from repro_torch import control as tctl
 from repro_torch.core import chaos as tchaos
@@ -48,7 +53,9 @@ from repro_torch.core.scaling import ProfilePoint
 from repro_torch.core.workload import ServiceCurve
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
+from repro_torch.core.model_sharing import pytree_nbytes
 from repro_torch.serving import ClusterFrontend, FleetModelStore
+from repro_torch.serving.speculative import SamplingConfig, SpecConfig
 
 torch.set_num_threads(2)
 
@@ -349,12 +356,192 @@ def test_measure_engine_profile_grid_and_stamps_equal_jax(models,
     assert all(p.throughput > 0 for p in sized)
 
 
+# -- sampling and speculation through the fleet and the profiler ---------------
+
+
+def _spec(models, k=2):
+    return SpecConfig(draft_cfg=models["tm"].cfg, k=k)
+
+
+@pytest.mark.parametrize("store", [False, True])
+def test_place_and_deploy_accept_sampling_and_speculate(models, store):
+    """``place_instance`` and ``deploy`` take ``sampling``, ``speculate``
+    and ``draft_params``: the draft is stored under ``"{fn}#draft"`` on
+    the node (through the fleet store's tiers when there is one), its
+    bytes are charged with the function's, and the placed instances serve
+    the bare engine's greedy speculative streams."""
+    fleet_store = FleetModelStore() if store else None
+    fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu",
+                         model_store=fleet_store)
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    spec = _spec(models)
+    handle = fe.place_instance("f", models["tm"], models["tp32"], alloc,
+                               max_batch=2, max_len=32, speculate=spec,
+                               draft_params=models["tp32"])
+    more = fe.deploy("f", models["tm"], models["tp32"], alloc,
+                     n_instances=2, max_batch=2, max_len=32, speculate=spec,
+                     draft_params=models["tp32"])
+    sampled = fe.place_instance("g", models["tm"], models["tp32"], alloc,
+                                max_batch=2, max_len=32,
+                                sampling=SamplingConfig(temperature=0.7,
+                                                        seed=3))
+    assert handle and len(more) == 2 and sampled
+    nbytes = pytree_nbytes(models["tp32"])
+    assert fe._fn_mm["f"].weight_bytes == 2 * nbytes
+    assert fe._fn_mm["g"].weight_bytes == nbytes
+    for n in fe.nodes_for("f"):
+        eng = fe.engines[n]
+        assert eng.store.contains("f#draft")
+        insts = [i for k, i in eng.instances.items() if k.startswith("f/")]
+        assert all(i.speculate == spec and i.draft_key == "f#draft"
+                   for i in insts)
+        assert eng.store.refcount("f#draft") == len(insts)
+    if store:
+        assert fleet_store.staged_nbytes("f#draft") is not None
+    reqs = [fe.submit("f", p, max_new_tokens=5) for p in _prompts()]
+    fe.pump(budget_s=60.0)
+    ref, _ = _fleet(models, "torch")
+    want = [ref.submit("f", p, max_new_tokens=5) for p in _prompts()]
+    ref.pump(budget_s=60.0)
+    assert [r.tokens_out for r in reqs] == [r.tokens_out for r in want]
+    tele = [t for e in fe.engines for k, t in e.telemetry().items()
+            if k.startswith("f/")]
+    assert sum(t["spec_proposed"] for t in tele) > 0
+    assert all(t["spec_accepted"] == t["spec_proposed"] for t in tele)
+    # Closing every speculating instance releases the draft's pins too.
+    for h in [handle, *more]:
+        fe.evict(h)
+    fe.pump(budget_s=10.0)
+    assert "f" not in fe._fn_draft and not fe.nodes_for("f")
+    if store:
+        assert all(fleet_store.cache(n).pins("f#draft") == 0
+                   for n in (0, 1))
+
+
+def test_speculating_placement_needs_draft_weights(models):
+    fe = ClusterFrontend(n_nodes=1, window=0.05, device="cpu")
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    with pytest.raises(ValueError, match="no draft"):
+        fe.place_instance("f", models["tm"], models["tp32"], alloc,
+                          speculate=_spec(models))
+    assert not fe.placements and fe.pool.total_used_area() == 0
+
+
+def test_sampled_instance_migrates_with_its_sampling(models):
+    """A migrated sampling instance keeps sampling on the target (its
+    key stream starts again from the seed there: the key does not
+    travel); JAX's ``migrate`` deploys the target without ``sampling``
+    (ROADMAP.md, Queue 3)."""
+    fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    sampling = SamplingConfig(temperature=0.8, top_k=8, seed=4)
+    handle = fe.place_instance("f", models["tm"], models["tp32"], alloc,
+                               max_batch=2, max_len=32, sampling=sampling)
+    reqs = [fe.submit("f", p, max_new_tokens=6) for p in _prompts(2)]
+    _step_all(fe, 2)
+    new = fe.migrate("f", handle, models["tm"], models["tp32"], 1)
+    (inst,) = fe.engines[1].instances.values()
+    assert new is not None and inst.sampling == sampling
+    fe.pump(budget_s=30.0)
+    assert all(r.done and len(r.tokens_out) == 6 for r in reqs)
+
+
+def test_speculating_instance_does_not_migrate(models):
+    fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
+    alloc = Alloc(sm=0.5, quota_request=0.8, quota_limit=0.8)
+    handle = fe.place_instance("f", models["tm"], models["tp32"], alloc,
+                               max_batch=2, max_len=32,
+                               speculate=_spec(models),
+                               draft_params=models["tp32"])
+    fe.submit("f", _prompts(1)[0], max_new_tokens=8)
+    _step_all(fe, 1)
+    assert fe.migrate("f", handle, models["tm"], models["tp32"], 1) is None
+    assert fe.alive(handle)
+
+
+def test_measure_engine_profile_stamps_speculation_as_jax(models):
+    """The profiler takes ``sampling``, ``speculate`` and
+    ``draft_params``: every point carries ``spec_k`` and the instance's
+    measured acceptance (1.0 with draft == target, as JAX's)."""
+    kw = dict(spatial=(0.5,), temporal=(0.4, 0.8), max_batch=2, max_len=32,
+              prompt_len=6, new_tokens=4, window=0.05, n_windows=1)
+    got = tprof.measure_engine_profile(
+        models["tm"], models["tp32"], device="cpu", speculate=_spec(models),
+        draft_params=models["tp32"], **kw)
+    want = jprof.measure_engine_profile(
+        models["jm"], models["jp32"],
+        speculate=JaxSpecConfig(draft_cfg=models["jm"].cfg, k=2),
+        draft_params=models["jp32"], **kw)
+    assert [(p.sm, p.quota, p.spec_k, p.acceptance) for p in got] == \
+        [(p.sm, p.quota, p.spec_k, p.acceptance) for p in want]
+    assert got[0].spec_k == 2 and got[0].acceptance == 1.0
+    sampled = tprof.measure_engine_profile(
+        models["tm"], models["tp32"], device="cpu",
+        sampling=SamplingConfig(temperature=0.8, top_k=8, seed=1), **kw)
+    assert all(p.throughput > 0 and p.spec_k == 0 for p in sampled)
+    with pytest.raises(ValueError, match="draft_params"):
+        tprof.measure_engine_profile(models["tm"], models["tp32"],
+                                     device="cpu", speculate=_spec(models),
+                                     **kw)
+
+
+def test_sim_live_decision_signature_with_speculate(models):
+    """``test_speculative_decoding.py::test_sim_live_decision_signature_
+    with_speculate`` on the torch live fleet: its decisions equal JAX's
+    simulator's and JAX's live fleet's on the same speculating spec, and
+    the torch fleet then serves through the speculative round."""
+    def plane(pkg, live):
+        ctl, point, curve_cls, spec_cls, cfg = {
+            "torch": (tctl, ProfilePoint, ServiceCurve, SpecConfig,
+                      models["tm"].cfg),
+            "jax": (jctl, JaxPoint, JaxCurve, JaxSpecConfig,
+                    models["jm"].cfg)}[pkg]
+        model, params = ((models["tm"], models["tp32"]) if pkg == "torch"
+                         else (models["jm"], models["jp32"]))
+        profile = (point(sm=0.25, quota=0.4, throughput=2.0,
+                         p99_latency=0.05, spec_k=4, acceptance=0.8),
+                   point(sm=0.45, quota=0.8, throughput=5.0,
+                         p99_latency=0.03, spec_k=4, acceptance=0.8))
+        spec = ctl.FunctionSpec(
+            name="chat", profile=profile, slo_latency=0.1,
+            target_rps=ctl.ramp([(0.0, 1.0), (2.0, 11.0), (5.0, 1.0)]),
+            headroom=1.2, min_instances=1, max_instances=5,
+            model_factory=(lambda: (model, params)) if live else None,
+            max_batch=2, max_len=32, framework_bytes=32 * 1024 * 1024,
+            curve=curve_cls(name="chat", r_max=5.0, sm_sat=0.45, p=1.0,
+                            weight_bytes=1 << 20, framework_bytes=32 << 20),
+            speculate=spec_cls(draft_cfg=cfg, k=4),
+            draft_factory=lambda: params)
+        if live:
+            kw = {"device": "cpu"} if pkg == "torch" else {}
+            fleet = (ClusterFrontend if pkg == "torch" else JaxFrontend)(
+                n_nodes=2, window=0.1, **kw)
+            backend = ctl.LiveBackend(fleet)
+        else:
+            fleet = (tcluster if pkg == "torch" else jcluster).Cluster(
+                n_nodes=2, sharing=True)
+            backend = ctl.SimBackend(fleet)
+        cp = ctl.ControlPlane(backend)
+        cp.register(spec)
+        for tick in range(8):
+            cp.reconcile(now=float(tick))
+        return ctl.decision_signature(cp.log), fleet
+
+    got, fe = plane("torch", True)
+    assert got and got == plane("jax", False)[0] == plane("jax", True)[0]
+    rng = np.random.default_rng(0)
+    reqs = [fe.submit("chat", rng.integers(0, 64, 6, dtype=np.int32),
+                      max_new_tokens=4) for _ in range(3)]
+    fe.pump(budget_s=60.0)
+    assert all(r.done for r in reqs)
+    tele = [t for e in fe.engines for t in e.telemetry().values()]
+    assert sum(t["spec_proposed"] for t in tele) > 0
+
+
 # -- options the port does not have yet ---------------------------------------
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(sampling=object()), "item 7"), (dict(speculate=object()), "item 7"),
-    (dict(draft_params={}), "item 7"), (dict(shards=2), "item 11")])
+@pytest.mark.parametrize("option,item", [(dict(shards=2), "item 11")])
 def test_unported_options_raise(models, option, item):
     fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
     alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=0.5)
@@ -363,24 +550,17 @@ def test_unported_options_raise(models, option, item):
     with pytest.raises(NotImplementedError, match=item):
         fe.deploy("f", models["tm"], models["tp"], alloc, **option)
     assert not fe.placements and fe.pool.total_used_area() == 0
-    if "shards" not in option:
-        with pytest.raises(NotImplementedError, match=item):
-            tprof.measure_engine_profile(models["tm"], models["tp"],
-                                         device="cpu", **option)
 
 
 def test_unported_spec_axes_raise_through_the_live_backend(models):
     point = ProfilePoint(sm=0.5, quota=0.5, throughput=1.0)
-    for kw, item in ((dict(shards=2), "item 11"),
-                     (dict(speculate=type("S", (), {"k": 2})(),
-                           draft_factory=lambda: {}), "item 7")):
-        spec = tctl.FunctionSpec(
-            name="f", profile=(point,),
-            model_factory=lambda: (models["tm"], models["tp"]), **kw)
-        plane = tctl.ControlPlane(tctl.LiveBackend(
-            ClusterFrontend(n_nodes=1, device="cpu")))
-        with pytest.raises(NotImplementedError, match=item):
-            plane.register(spec)
+    spec = tctl.FunctionSpec(
+        name="f", profile=(point,), shards=2,
+        model_factory=lambda: (models["tm"], models["tp"]))
+    plane = tctl.ControlPlane(tctl.LiveBackend(
+        ClusterFrontend(n_nodes=1, device="cpu")))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        plane.register(spec)
     from repro_torch.serving.modelstore import (stage_params,
                                                 upload_params)
     staged = stage_params(models["tm"], models["tp"])

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
 engine's decode round and bucketed admissions as CUDA graphs against
 their eager references, copy-on-write, migration and close under
-those graphs, and the fleet model store's upload and the frontend's
-node failure, on the card.  Marked ``gpu``: without a card
+those graphs, the fleet model store's upload and the frontend's
+node failure, and the sampled and speculative rounds under the graphs
+(replay == eager body, sampled graph == ``fused=False``, the sampler's
+distribution and the key stream's bits on the card), on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -1065,6 +1067,149 @@ def test_fail_node_returns_at_least_the_nodes_kv_pools(cuda_device):
     assert reserved - torch.cuda.memory_reserved() >= kv > 16 << 20
 
 
+# -- sampling and speculative decoding under the round graph ------------------
+
+
+def _spec_engine(model, params, batching, draft_params, k=3, **kw):
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.speculative import SpecConfig
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               batching=batching, max_batch=4, max_len=64, block_size=16,
+               speculate=SpecConfig(draft_cfg=model.cfg, k=k),
+               draft_params=draft_params, **kw)
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_spec_round_replay_equals_eager_body(cuda_device, batching,
+                                             sampled):
+    """A draft-k / verify-1 round captured once and replayed: over one
+    state, the replay and the eager round body write the same ``out``,
+    ``n_emit``, slot tokens, positions, key, target pools and draft pool,
+    bit for bit; every request gets exactly its tokens, one sync a pass,
+    every round after the second a replay."""
+    from repro_torch.serving.speculative import SamplingConfig
+    model, params = _serving_model("tiny", cuda_device)
+    draft = model.init(torch.Generator(device=cuda_device).manual_seed(9))
+    sampling = (SamplingConfig(temperature=0.8, top_k=50, top_p=0.9, seed=5)
+                if sampled else None)
+    eng = _spec_engine(model, params, batching, draft, sampling=sampling)
+    rng = np.random.default_rng(5)
+    reqs = [eng.submit("f", rng.integers(0, 256, 20).astype(np.int32),
+                       max_new_tokens=24) for _ in range(4)]
+    (inst,) = eng.instances.values()
+    for _ in range(3):  # admissions + eager round, capture, replay
+        inst.run_step()
+    rg = inst.round_graph
+    assert rg.captures == 1 and rg.replays == 2 and inst.n_active() == 4
+
+    def state():
+        bufs = {"tok": inst._slot_tok_dev, "out": inst._out_dev,
+                "n_emit": inst._n_emit_dev, "key": inst._key_dev,
+                **{f"pool {k}": v for k, v in inst.cache.items()},
+                **{f"draft {k}": v for k, v in inst.dcache.items()}}
+        if batching == "paged":
+            bufs["pos"] = inst._pos_dev
+        return bufs
+
+    start = {k: v.clone() for k, v in state().items()}
+    rg.replay()
+    replayed = {k: v.clone() for k, v in state().items()}
+    for k, v in state().items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    diff = [k for k, v in state().items() if not torch.equal(v, replayed[k])]
+    assert not diff, diff
+    assert not torch.equal(start["key"], replayed["key"])
+    for k, v in state().items():  # back to the state the instance expects
+        v.copy_(start[k])
+    assert eng.pump(budget_s=120.0) == 4
+    assert all(r.done and len(r.tokens_out) == 24 for r in reqs)
+    # Every round after the first was a replay, plus the one above.
+    assert rg.captures == 1 and rg.replays == inst.rounds
+    assert inst.sync_count == inst.steps and inst.spec_proposed > 0
+    assert inst.spec_accepted < inst.spec_proposed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,batching", [
+    ("tiny", "continuous"), ("tiny", "paged"),
+    ("rwkv6-1.6b", "continuous"), ("hymba-1.5b", "continuous")])
+def test_sampled_graph_streams_equal_host_reference(cuda_device, arch,
+                                                    batching):
+    """Temperature 0.8, top-k 50, top-p 0.9, seed 5: the graph-backed
+    sampled round gives a ``fused=False`` engine's streams bit for bit
+    (the same key stream), with one sync a pass and one capture."""
+    from repro_torch.serving.speculative import SamplingConfig
+    model, params = _serving_model(arch, cuda_device)
+    rng = np.random.default_rng(6)
+    vocab = model.cfg.vocab_size
+    arrivals = [(rng.integers(0, vocab, l).astype(np.int32), n)
+                for l, n in [(5, 6), (20, 9), (17, 3), (9, 12), (30, 5)]]
+    sampling = SamplingConfig(temperature=0.8, top_k=50, top_p=0.9, seed=5)
+    graph, eng = _graph_engine(model, params, batching, arrivals,
+                               sampling=sampling)
+    host, _ = _graph_engine(model, params, batching, arrivals,
+                            sampling=sampling, fused=False)
+    greedy, _ = _graph_engine(model, params, batching, arrivals)
+    assert graph == host and graph != greedy
+    (inst,) = eng.instances.values()
+    assert inst.round_graph.captures == 1
+    assert inst.round_graph.replays == inst.rounds - 1
+    assert inst.sync_count == inst.steps
+
+
+@pytest.mark.gpu
+def test_sampler_distribution_on_the_card(cuda_device):
+    """``tests/test_sampling.py``'s banded frequency check with the
+    sampler on the card: 4000 rows, one draw a row."""
+    from repro_torch.kernels import keys, ops
+    rng = np.random.default_rng(11)
+    vocab, n = 8, 4000
+    logits = np.zeros((1, vocab), np.float32)
+    logits[0, :5] = rng.normal(size=5).astype(np.float32) * 1.5
+    logits[0, 5:] = -50.0
+    rows = torch.from_numpy(np.repeat(logits, n, 0)).to(cuda_device)
+    toks = ops.sample_tokens(rows, keys.new_key(11, cuda_device), vocab,
+                             temperature=1.0, top_k=6, top_p=0.95)
+    assert toks.device.type == "cuda"
+    freq = np.bincount(toks.cpu().numpy(), minlength=vocab) / n
+    filt = ops._filtered_logits(torch.from_numpy(logits), vocab, 1.0, 6,
+                                0.95)
+    p = torch.softmax(filt.double(), -1).numpy()[0]
+    tol = np.maximum(5.0 * np.sqrt(p * (1 - p) / n), 0.02)
+    assert np.all(np.abs(freq - p) <= tol), (freq, p)
+
+
+@pytest.mark.gpu
+def test_key_stream_bits_equal_the_cpus(cuda_device):
+    """The counter hash gives the card the CPU's bits: keys, splits, words
+    and uniforms equal; Gumbel noise within float32 rounding of log."""
+    from repro_torch.kernels import keys
+    for seed in (0, 5, 2**40 + 3):
+        cpu, gpu = keys.new_key(seed), keys.new_key(seed, cuda_device)
+        assert torch.equal(gpu.cpu(), cpu)
+        assert torch.equal(keys.split(gpu, 7).cpu(), keys.split(cpu, 7))
+        ctr = torch.arange(1 << 20)
+        assert torch.equal(keys.bits(gpu, ctr.to(cuda_device)).cpu(),
+                           keys.bits(cpu, ctr))
+        shape = (8, 152064)  # a qwen2-7b round's logits
+        assert torch.equal(keys.uniform(gpu, shape).cpu(),
+                           keys.uniform(cpu, shape))
+        torch.testing.assert_close(keys.gumbel(gpu, shape).cpu(),
+                                   keys.gumbel(cpu, shape), atol=1e-5,
+                                   rtol=1e-6)
+        a, b = cpu.clone(), gpu.clone()
+        subs = [(keys.advance(a), keys.advance(b).cpu()) for _ in range(8)]
+        assert all(torch.equal(x, y) for x, y in subs)
+
+
 @pytest.mark.gpu
 def test_round_graph_capture_failure_raises(cuda_device, monkeypatch):
     """A round that syncs the host cannot be captured: the second round
@@ -1268,3 +1413,40 @@ def test_prefill_capture_failure_raises(cuda_device, monkeypatch):
     assert graph.graph is None and graph.eager_rounds == 1
     assert graph.replays == 0 and graph.captures == 1
     assert torch.ones(4, device=cuda_device).sum().item() == 4.0
+
+
+@pytest.mark.gpu
+def test_sampled_round_capture_failure_raises(cuda_device, monkeypatch):
+    """A sampled round that syncs the host cannot be captured either: the
+    second round raises, the counters stay, and the next round raises
+    with no eager fallback.  Last in the file, after the prefill's: it
+    leaves a failed capture behind."""
+    from repro_torch import kernels
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.speculative import SamplingConfig
+    model, params = _serving_model("tiny", cuda_device)
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9), max_len=64,
+               sampling=SamplingConfig(temperature=0.8, seed=5))
+    eng.submit("f", np.arange(8, dtype=np.int32), max_new_tokens=6)
+    (inst,) = eng.instances.values()
+    inst.run_step()  # admission and the eager first round
+    step = Model.decode_step_tokens
+
+    def syncing(self, *args):
+        out = step(self, *args)
+        out[0][0].item()  # a host sync inside the round
+        return out
+
+    monkeypatch.setattr(Model, "decode_step_tokens", syncing)
+    before = kernels.counter_values()
+    with pytest.raises(RuntimeError):
+        inst.run_step()
+    assert kernels.counter_values() == before
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="never falls back"):
+        inst.run_step()
+    assert inst.round_graph.graph is None and inst.round_graph.replays == 0
