@@ -21,7 +21,12 @@ place), and then:
    (flash also at a short serve bucket, Sq=64, and at hymba's prefill,
    beside SDPA; bf16 paged decode at pages of 8, 16 and 32 rows and int8
    at 8, 16, 32 and 64, bit-equal to dense; all four decode kernels also
-   at starcoder2-15b's 12 query heads per kv head; flash and the four
+   at starcoder2-15b's 12 query heads per kv head; flash at gemma3-27b's
+   prefill geometry (1920 rows, 32 query heads over 16 kv heads of 128,
+   its window of 1024 and none) and at starcoder2-15b's (512 rows, 48
+   over 4), and bf16 dense decode at starcoder2's round (G = 12) and at
+   gemma3's global layers (G = 2, S = 2048), each timed beside SDPA and
+   the bound; flash and the four
    decode kernels at head dims 16 and 32, timed; an int8 code view off a
    16-byte boundary refused; chunked WKV-6 at a 512-token prefill and
    the chunked scan at hymba's 640-row prefill, each at its edge cases,
@@ -34,31 +39,50 @@ place), and then:
    model (head size 64; its 37-token prefill through chunked WKV-6) and
    a 2-layer hybrid with hymba-1.5b's head geometry (d=1600, 25 query and
    5 kv heads of 64, N=16; its 77-row prefill through the chunked scan)
-   run prefill and decode, on the card through
+   run prefill and decode, and so do a 2-layer GELU model with biases and
+   starcoder2-15b's heads (48 q / 4 kv of 128; bf16 and int8, dense and
+   paged) and a 6-layer GeGLU model on dual caches with gemma3-27b's
+   heads (32 q / 16 kv of 128, q_dim != d_model, tied and scaled
+   embeddings, 5 local layers of window 64 and 1 global; a 150-token
+   prompt), on the card through
    the kernels, against the same weights in f32 on the CPU through the
-   plain versions; then ``serve.main --reduced`` serves qwen2-7b's and
-   hymba-1.5b's reduced configs (head dim 16) on the card;
+   plain versions; then ``serve.main --reduced`` serves qwen2-7b's,
+   starcoder2-15b's, gemma3-27b's and hymba-1.5b's reduced configs (head
+   dim 16) on the card;
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
    one weight copy, continuous then paged (block size 16), with bf16 and
    then with int8 KV, 16 requests of 64-512 prompt tokens and 32 new
-   tokens each; then full-width rwkv6-1.6b (24 layers, d=2048) and
+   tokens each; then, after phases 4-6 on qwen2-7b and with it freed,
+   full-width starcoder2-15b (40 layers, d=6144, GELU
+   with biases) in the same four modes on the same mix; then full-width
+   gemma3-27b (62 layers, d=5376, 52 local layers of window 1024 and 10
+   global on dual caches) continuous at ``max_len=2048``, 8 prompts of
+   64-512 and 8 of 1100-1900 tokens, with its param count and slot-pool
+   bytes against the constants reckoned from JAX's layout, one round
+   replayed == the eager round bit for bit (tokens, positions, rolled and
+   global leaves), the round's and the rolled decode attention's device
+   time, and a sampled check; then full-width rwkv6-1.6b (24 layers,
+   d=2048) and
    full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
    1024) continuous with the same mix.  Each instance's fused decode
    round is a CUDA graph (``serving/graphs.py``), and so is each of its
-   qwen2-7b admissions, one graph per prompt bucket (64, 128, 256, 512);
+   dense full-cache admissions, one graph per prompt bucket (64, 128, 256,
+   512);
    all are captured in a warm-up before the run (two admissions of every
-   bucket per instance) and replayed in every round and every qwen2-7b
-   admission of it, never captured again (rwkv6 and hymba prefill
+   bucket per instance) and replayed in every round and every bucketed
+   admission of it, never captured again (gemma3, rwkv6 and hymba prefill
    eagerly, at the exact length); a ``fused=False`` engine (the
    host-argmax reference, eager) must give the same greedy streams on the
    same prompts, one qwen2-7b paged decode step replayed over a copy of
    the pools must equal the eager ``decode_step_paged`` bit for bit
    (logits, pools), as must the instance's own replayed round (tokens,
-   positions, pools), and in each qwen2-7b mode a replayed admission must
+   positions, pools), and in each qwen2-7b and starcoder2-15b mode a
+   replayed admission must
    equal the eager admission body bit for bit (logits, pools, slot and
    pending tokens).  Launch counts are set to 0 just before each mode and
-   read just after it.  Each model's profile window logs its wall, device
+   read just after it, and each phase logs its seconds.  Each model's
+   profile window logs its wall, device
    busy share, kernels and the host's launch calls per decode round and
    per prefill;
 4. sharing, migration and release phase — qwen2-7b at full width, paged
@@ -142,6 +166,8 @@ REF_TOL = 5e-2        # bf16 model on the card vs f32 model on the CPU,
 L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
 SEED = 0
 ARCH = "qwen2-7b"
+STARCODER_ARCH = "starcoder2-15b"
+GEMMA_ARCH = "gemma3-27b"
 RWKV_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "hymba-1.5b"
 
@@ -293,6 +319,7 @@ def kernel_phase(rng) -> dict:
     flash_logged("a short serve bucket", rand_extra(b, 64, h, d),
                  rand_extra(b, 64, kv, d), rand_extra(b, 64, kv, d))
     flash_hymba(rand, rand_extra)
+    flash_dense_configs(dev)
     io_bytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
     n = copies_for(io_bytes)
     qs = [q.clone() for _ in range(n)]
@@ -412,6 +439,7 @@ def kernel_phase(rng) -> dict:
             label="bf16 paged decode"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     wide_group_kernels(dev)
+    decode_dense_configs(dev)
     small_head_dims(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
@@ -797,9 +825,10 @@ def small_head_dims(dev) -> None:
 
 def reduced_serve() -> None:
     """``python -m repro_torch.launch.serve --reduced`` on the card:
-    qwen2-7b's and hymba-1.5b's reduced configs (head dim 16; hymba's SSM
-    state 8, its 20-row prefills through the chunked scan) through
-    ``serve.main``, with their launch counts."""
+    qwen2-7b's, starcoder2-15b's, gemma3-27b's and hymba-1.5b's reduced
+    configs (head dim 16; gemma3's 16-token prompts pass its window of 8;
+    hymba's SSM state 8, its 20-row prefills through the chunked scan)
+    through ``serve.main``, with their launch counts."""
     import contextlib
     import io
     import re
@@ -810,6 +839,7 @@ def reduced_serve() -> None:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         serve.main(["--reduced", "--arch", "qwen2-7b", "--arch",
+                    "starcoder2-15b", "--arch", "gemma3-27b", "--arch",
                     "hymba-1.5b", "--requests", "8", "--max-new-tokens", "8"])
     counts = kernels.launch_counts()
     text = buf.getvalue()
@@ -819,15 +849,24 @@ def reduced_serve() -> None:
     if any(counts[k] == 0 for k in ("flash_attention", "decode_attention",
                                     "ssm_chunked", "ssm_step")):
         raise AssertionError(f"reduced serve: kernel launches {counts}")
-    log(f"reduced serve (serve.main --reduced, qwen2-7b and hymba-1.5b, "
-        f"head dim 16) on the card: {m.group(0)}; launches {counts}")
+    log(f"reduced serve (serve.main --reduced, qwen2-7b, starcoder2-15b, "
+        f"gemma3-27b and hymba-1.5b, head dim 16) on the card: "
+        f"{m.group(0)}; launches {counts}")
+
+
+def causal_pairs(sq: int, window=None) -> int:
+    """(query, key) pairs a causal prefill of ``sq`` rows attends, within
+    ``window`` keys of each query when one is given."""
+    w = sq if window is None else min(window, sq)
+    return w * (w + 1) // 2 + (sq - w) * w
 
 
 def flash_logged(label, q, k, v, window=None) -> None:
     """The flash kernel at one more prefill shape, held against its plain
     version and timed (logged; the JSON line keeps qwen2-7b's main shape)
-    beside SDPA (causal, window not applied: at the shapes timed here
-    every causal pair lies inside the window)."""
+    beside SDPA: causal, or with a boolean mask where the window cuts
+    pairs the causal mask keeps."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
@@ -841,16 +880,100 @@ def flash_logged(label, q, k, v, window=None) -> None:
     n = copies_for(io)
     sets = [[x.clone() for x in (q, k, v)] for _ in range(n)]
     tsets = [[x.transpose(1, 2).contiguous() for x in xs] for xs in sets]
-    bnd, by = bound(4 * b * h * d * (sq * (sq + 1) // 2), io)
+    bnd, by = bound(4 * b * h * d * causal_pairs(sq, window), io)
     calls = [lambda x=x: fa.flash_attention(*x, causal=True, window=window)
              for x in sets]
-    sdpa = [lambda x=x: F.scaled_dot_product_attention(
-        *x, is_causal=True, enable_gqa=True) for x in tsets]
+    if window is not None and window < sq:
+        pos = torch.arange(sq, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        sdpa = [lambda x=x: F.scaled_dot_product_attention(
+            *x, attn_mask=mask, enable_gqa=True) for x in tsets]
+        how = "a boolean causal window mask"
+    else:
+        sdpa = [lambda x=x: F.scaled_dot_product_attention(
+            *x, is_causal=True, enable_gqa=True) for x in tsets]
+        how = "causal"
     log(f"kernel flash_attention at {label} (B={b} Sq=Sk={sq} H={h} K={kv} "
         f"D={d} window {window}): max_abs_err={err} ms={time_ms(calls)} "
         f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
-        f"library_device_ms={device_ms(sdpa)} (SDPA, causal) "
+        f"library_device_ms={device_ms(sdpa)} (SDPA, {how}) "
         f"bound_ms={bnd} ({by})")
+
+
+def flash_dense_configs(dev) -> None:
+    """The flash kernel at gemma3-27b's prefill geometry (32 query heads
+    over 16 kv heads of 128) at 1920 rows, its local layers' window of
+    1024 cutting tiles, and at its global layers' (no window); and at
+    starcoder2-15b's (48 over 4 of 128) at a 512-token prompt; each held
+    against its plain version and timed beside SDPA and the bound."""
+    import torch
+    gen = np.random.default_rng(SEED + 9)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    for label, sq, h, kv, window in (
+            ("gemma3-27b's local prefill", 1920, 32, 16, 1024),
+            ("gemma3-27b's global prefill", 1920, 32, 16, None),
+            ("starcoder2-15b's prefill", 512, 48, 4, None)):
+        flash_logged(label, rand(1, sq, h, 128), rand(1, sq, kv, 128),
+                     rand(1, sq, kv, 128), window=window)
+
+
+def decode_logged(label, q, kc, vc, lens) -> None:
+    """The bf16 dense decode kernel at one more geometry, held against its
+    plain version and timed (logged) beside SDPA with a length mask and
+    the bound: the rows ``lens`` holds, read once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+
+    b, _, h, d = q.shape
+    s, kv = kc.shape[1:3]
+    err = close(f"decode {label}", da.decode_attention(q, kc, vc, lens),
+                da.decode_attention_plain(q, kc, vc, lens))
+    rows = int(lens.clamp(max=s).sum())
+    bnd, by = bound(4 * h * d * rows,
+                    2 * rows * kv * d * 2 + 2 * q.numel() * 2 + 4 * b)
+    n = copies_for(kc.numel() * 4)
+    sets = [[x.clone() for x in (q, kc, vc)] for _ in range(n)]
+    tsets = [[x[0].reshape(b, h, 1, d)]
+             + [c.transpose(1, 2).contiguous() for c in x[1:]]
+             for x in sets]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    calls = [lambda x=x: da.decode_attention(*x, lens) for x in sets]
+    sdpa = [lambda x=x: F.scaled_dot_product_attention(
+        *x, attn_mask=mask, enable_gqa=True) for x in tsets]
+    log(f"kernel decode_attention at {label} (B={b} S={s} H={h} K={kv} "
+        f"D={d}, cache_len {lens.tolist()}): max_abs_err={err} "
+        f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
+        f"library_ms={time_ms(sdpa)} library_device_ms={device_ms(sdpa)} "
+        f"(SDPA, mask) bound_ms={bnd} ({by})")
+
+
+def decode_dense_configs(dev) -> None:
+    """The bf16 dense decode kernel at starcoder2-15b's round (B=8, S=1024,
+    48 query heads over 4 kv heads: G = 12) and at gemma3-27b's global
+    layers' (B=8, S=2048, 32 over 16: G = 2), mixed cache lengths, each
+    held against its plain version and timed."""
+    import torch
+    gen = np.random.default_rng(SEED + 11)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    for label, s, h, kv, lens in (
+            ("starcoder2-15b's round, G=12", 1024, 48, 4,
+             [1024, 1, 517, 64, 1000, 333, 768, 129]),
+            ("gemma3-27b's global layers, G=2", 2048, 32, 16,
+             [2048, 1, 1517, 64, 1900, 333, 1168, 129])):
+        decode_logged(label, rand(8, 1, h, 128), rand(8, s, kv, 128),
+                      rand(8, s, kv, 128),
+                      torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
 def flash_hymba(rand, rand_extra) -> None:
@@ -1069,8 +1192,125 @@ def reference_phase(rng) -> None:
         f"+ 8 paged decode steps from bf16 and from int8 caches on the card "
         f"within {compare.worst:.4f} (max |diff| / max |logit|, limit "
         f"{REF_TOL}) of f32 on the CPU")
+    _reference_starcoder2()
+    _reference_gemma3()
     _reference_rwkv()
     _reference_hybrid()
+
+
+def _filled(p_cpu, seed):
+    """Give every all-zero leaf (norms, biases) values, in place, so they
+    are checked too."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    for leaf in _leaves(p_cpu):
+        if not leaf.any():
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.1)
+    return p_cpu
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _reference_starcoder2() -> None:
+    """A 2-layer GELU-with-biases model with starcoder2-15b's head geometry
+    (48 query heads over 4 kv heads of 128, QKV bias; d_model 6144 ->
+    1024, d_ff 24576 -> 2048, V 49152 -> 1024): bucketed prefill of a
+    37-token prompt and 8 dense and 8 paged decode steps from bf16 and
+    from int8 caches on the card through the kernels, against the same
+    weights in f32 on the CPU through the plain versions."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="starcoder2-heads", family="dense", n_layers=2,
+                      d_model=1024, n_heads=48, n_kv_heads=4, head_dim=128,
+                      d_ff=2048, vocab_size=1024, qkv_bias=True, mlp="gelu",
+                      rope_theta=1e5)
+    model = build_model(cfg)
+    p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)), SEED + 1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _tree(p_cpu, lambda t: t.to(dev))
+    p_ref = _tree(p_cpu, lambda t: t.float())
+    max_len, n = 64, 37
+    prompt = np.zeros((1, max_len), np.int32)
+    prompt[0, :n] = np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab_size, n)
+    compare = Compare("starcoder2 reference")
+    for kv_int8 in (False, True):
+        _reference_decode(model, p_gpu, p_ref, prompt, n, max_len, kv_int8,
+                          compare)
+    log(f"reference: 2-layer GELU model with biases, starcoder2-15b's heads "
+        f"(48 q / 4 kv of 128; cut: d 6144 -> 1024, d_ff 24576 -> 2048, V "
+        f"49152 -> 1024), prefill + 8 dense + 8 paged decode steps from "
+        f"bf16 and from int8 caches on the card within {compare.worst:.4f} "
+        f"(limit {REF_TOL}) of f32 on the CPU")
+
+
+def _reference_gemma3() -> None:
+    """A 6-layer GeGLU model on dual caches with gemma3-27b's head geometry
+    (32 query heads over 16 kv heads of 128, so q_dim 4096 != d_model),
+    tied embeddings scaled by sqrt(d), 5 local layers and 1 global; cut:
+    window 1024 -> 64, d_model 5376 -> 1024, d_ff 21504 -> 2048, V 262144
+    -> 1024.  A 150-token prompt passes the window at prefill (flash with
+    the window on the local layers, none on the global one; the rolled
+    rows roll), then 3 decode steps (rolled attention on the local layers,
+    the decode kernel on the global one), bf16 on the card against f32 on
+    the CPU."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="gemma3-heads", family="dense", n_layers=6,
+                      d_model=1024, n_heads=32, n_kv_heads=16, head_dim=128,
+                      d_ff=2048, vocab_size=1024, mlp="geglu",
+                      rope_theta=1e6, tie_embeddings=True, embed_scale=True,
+                      sliding_window=64, local_global_ratio=5)
+    model = build_model(cfg)
+    p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)), SEED + 1)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _tree(p_cpu, lambda t: t.to(dev))
+    p_ref = _tree(p_cpu, lambda t: t.float())
+    prompt = np.random.default_rng(SEED + 13).integers(
+        0, cfg.vocab_size, (1, 150)).astype(np.int32)
+    compare = Compare("gemma3 reference")
+    max_len = 256
+    flash, decode = fa.flash_attention.launches, da.decode_attention.launches
+    lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev),
+                           max_len=max_len)
+    lr, cr = model.prefill(p_ref, torch.as_tensor(prompt), max_len=max_len)
+    compare("prefill", lg, lr)
+    shapes = {k: tuple(v.shape) for k, v in cg.items()}
+    if shapes != {"k": (6, 1, 64, 16, 128), "v": (6, 1, 64, 16, 128),
+                  "global_k": (1, 1, 256, 16, 128),
+                  "global_v": (1, 1, 256, 16, 128), "pos": ()} \
+            or int(cg["pos"]) != 150:
+        raise AssertionError(f"gemma3 reference: cache {shapes}")
+    tok = model.sample_greedy(lr)
+    for i in range(3):
+        lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
+        lr, cr = model.decode_step(p_ref, tok, cr)
+        compare(f"decode step {i}", lg, lr)
+        tok = model.sample_greedy(lr)
+    ran = (fa.flash_attention.launches - flash,
+           da.decode_attention.launches - decode)
+    if ran != (6, 3):
+        raise AssertionError(f"gemma3 reference: (flash, decode) launches "
+                             f"{ran}, expected 6 a prefill and 1 a step")
+    log(f"reference: 6-layer GeGLU dual-cache model, gemma3-27b's heads (32 "
+        f"q / 16 kv of 128, q_dim 4096 != d 1024, tied and scaled "
+        f"embeddings, 5 local + 1 global; cut: window 1024 -> 64, d 5376 "
+        f"-> 1024, d_ff 21504 -> 2048, V 262144 -> 1024), prefill of 150 "
+        f"tokens past the window + 3 decode steps on the card within "
+        f"{compare.worst:.4f} (limit {REF_TOL}) of f32 on the CPU; launches "
+        f"(flash, decode) {ran}")
 
 
 class Compare:
@@ -1249,6 +1489,16 @@ def _tree(tree, fn):
 HYBRID_PARAMS = 1_351_336_800    # hymba-1.5b, as the JAX package counts
 HYBRID_DENSE_BYTES = 361_758_724  # its dense_kv_bytes(8, 1024): rolled
 #                                   K/V of 1024 rows + the f32 SSM state
+STARCODER_SIZES = (15_957_145_600,  # starcoder2-15b params, as JAX counts
+                   671_088_644,     # dense_kv_bytes(8, 1024), bf16
+                   340_787_204,     # the same, int8 KV
+                   1_310_720,       # kv_block_bytes(16), bf16
+                   665_600)         # the same, int8 KV
+GEMMA_SIZES = (27_008_319_744,  # gemma3-27b params, as JAX counts
+               5_502_926_852)   # dense_kv_bytes(8, 2048): (62 rolled x 1024
+#                                 + 10 global x 2048 rows) x 8 x 16 x 128
+#                                 x 2 B x (K, V) + the int32 pos
+GEMMA_MAX_LEN = 2048
 INT8_DENSE_BYTES = 238_551_044   # Model.dense_kv_bytes(8, 1024), int8 KV
 BF16_DENSE_BYTES = 469_762_052   # the same in bf16
 INT8_BLOCK_BYTES = 465_920       # Model.kv_block_bytes(16), int8 KV
@@ -1262,7 +1512,7 @@ def serve_phase(rng) -> dict[str, int]:
     from repro_torch.core.resources import Alloc
     from repro_torch.launch import serve
 
-    t0 = time.perf_counter()
+    t_arch = t0 = time.perf_counter()
     model, params = serve.init_model(ARCH, reduced=False, seed=SEED)
     torch.cuda.synchronize()
     cfg = model.cfg
@@ -1285,19 +1535,7 @@ def serve_phase(rng) -> dict[str, int]:
             "kv_block_bytes(16)": (BF16_BLOCK_BYTES, INT8_BLOCK_BYTES)}:
         raise AssertionError(f"KV byte accounting (bf16, int8): {accounting}")
     log(f"serve: KV byte accounting (bf16, int8): {accounting}")
-    streams = {}
-    for mode, int8, kernel in [
-            ("continuous", False, "decode_attention"),
-            ("paged", False, "paged_decode_attention"),
-            ("int8 continuous", True, "decode_attention_quant"),
-            ("int8 paged", True, "paged_decode_attention_quant")]:
-        streams[mode] = serve_mode(model, params, ARCH, prompts, alloc, mode,
-                                   {"flash_attention", kernel}, totals,
-                                   int8=int8)
-    for a, b in [("continuous", "paged"), ("int8 continuous", "int8 paged")]:
-        if streams[a] != streams[b]:
-            raise AssertionError(f"{a} and {b} greedy streams differ")
-        log(f"serve: {a} and {b} emit identical greedy streams")
+    streams = dense_modes(model, params, ARCH, prompts, alloc, totals)
     same = [x == y for s8, s16 in zip(streams["int8 continuous"],
                                       streams["continuous"])
             for x, y in zip(s8, s16)]
@@ -1311,12 +1549,25 @@ def serve_phase(rng) -> dict[str, int]:
     release_phase(model, params, alloc, chat)
     fleet_phase(model, params, totals)
     spec_phase(model, params, alloc, prompts, streams, totals)
-
-    # -- rwkv6-1.6b, the same request mix, after qwen2-7b is freed --------
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    log(f"serve: {ARCH} phases took {time.perf_counter() - t_arch:.1f}s")
+
+    t_arch = time.perf_counter()
+    starcoder2_phase(prompts, alloc, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: {STARCODER_ARCH} phase took "
+        f"{time.perf_counter() - t_arch:.1f}s")
+    t_arch = time.perf_counter()
+    gemma3_phase(alloc, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: {GEMMA_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
+
+    # -- rwkv6-1.6b, the same request mix, after gemma3-27b is freed ------
+    t_arch = t0 = time.perf_counter()
     model, params = serve.init_model(RWKV_ARCH, reduced=False, seed=SEED)
     torch.cuda.synchronize()
     cfg = model.cfg
@@ -1336,7 +1587,8 @@ def serve_phase(rng) -> dict[str, int]:
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
+    log(f"serve: {RWKV_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
+    t_arch = t0 = time.perf_counter()
     model, params = serve.init_model(HYBRID_ARCH, reduced=False, seed=SEED)
     torch.cuda.synchronize()
     cfg = model.cfg
@@ -1357,7 +1609,198 @@ def serve_phase(rng) -> dict[str, int]:
                    "continuous")
     sampled_check(model, params, HYBRID_ARCH,
                   hybrid_prompts[:SAMPLED_REQUESTS], alloc, "continuous")
+    log(f"serve: {HYBRID_ARCH} phase took "
+        f"{time.perf_counter() - t_arch:.1f}s")
     return totals
+
+
+def dense_modes(model, params, arch, prompts, alloc, totals) -> dict:
+    """A full-cache dense config's four serve modes (``serve_mode``):
+    continuous, paged, int8 continuous, int8 paged; continuous and paged
+    must emit the same greedy streams, bf16 and int8 alike.  Returns the
+    streams by mode."""
+    streams = {}
+    for mode, int8, kernel in [
+            ("continuous", False, "decode_attention"),
+            ("paged", False, "paged_decode_attention"),
+            ("int8 continuous", True, "decode_attention_quant"),
+            ("int8 paged", True, "paged_decode_attention_quant")]:
+        streams[mode] = serve_mode(model, params, arch, prompts, alloc, mode,
+                                   {"flash_attention", kernel}, totals,
+                                   int8=int8)
+    for a, b in [("continuous", "paged"), ("int8 continuous", "int8 paged")]:
+        if streams[a] != streams[b]:
+            raise AssertionError(f"{arch}: {a} and {b} greedy streams differ")
+        log(f"serve {arch}: {a} and {b} emit identical greedy streams")
+    return streams
+
+
+def starcoder2_phase(qwen_prompts, alloc, totals) -> None:
+    """starcoder2-15b at full width (40 layers, d=6144, 48 q / 4 kv heads
+    of 128, GELU MLP with biases) on the serve mix, as qwen2-7b's four
+    modes run: continuous, paged, int8 continuous and int8 paged, each
+    through its graphs and against ``fused=False``; continuous and paged
+    streams equal, bf16 and int8 alike; then a profile window."""
+    import torch
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    model, params = serve.init_model(STARCODER_ARCH, reduced=False,
+                                     seed=SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    sizes = (model.n_params(), model.dense_kv_bytes(8, 1024, False),
+             model.dense_kv_bytes(8, 1024, True),
+             model.kv_block_bytes(16, False), model.kv_block_bytes(16, True))
+    if sizes != STARCODER_SIZES:
+        raise AssertionError(f"{STARCODER_ARCH} (params, dense bf16 / int8, "
+                             f"block bf16 / int8 bytes): {sizes}")
+    log(f"serve: {STARCODER_ARCH} full width ({cfg.n_layers}L "
+        f"d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}, {cfg.mlp} MLP with biases), "
+        f"{model.n_params()} params, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s; (params, dense_kv_bytes(8, 1024) "
+        f"bf16 / int8, kv_block_bytes(16) bf16 / int8) = {sizes}")
+    prompts = [p % cfg.vocab_size for p in qwen_prompts]
+    dense_modes(model, params, STARCODER_ARCH, prompts, alloc, totals)
+    round_check(model, params, STARCODER_ARCH, prompts[:8], alloc)
+    profile_window(model, params, prompts[:8], alloc, STARCODER_ARCH)
+
+
+def gemma3_prompts(vocab: int) -> list:
+    """16 prompts, short and long in turns so both instances get both: 8
+    of 64-512 tokens and 8 of 1100-1900, past the window of 1024."""
+    rng = np.random.default_rng(SEED + 10)
+    short, long = rng.integers(64, 513, 8), rng.integers(1100, 1901, 8)
+    lens = [int(n) for pair in zip(short, long) for n in pair]
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+
+
+def gemma3_phase(alloc, totals) -> None:
+    """gemma3-27b at full width (62 layers, d=5376, 32 q / 16 kv heads of
+    128, GeGLU, tied embeddings; 52 local layers of window 1024 and 10
+    global ones on dual caches), continuous, ``max_len=2048``: its param
+    count and slot-pool bytes against the constants reckoned from JAX's
+    layout, the serve run through the graphs (flash 62 times a prefill,
+    the decode kernel 10 times a round, on the global layers) against
+    ``fused=False``, one round replayed == eager bit for bit, the rolled
+    decode's and the round's device time beside the weights' bytes, a
+    profile window and a sampled check."""
+    import torch
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    model, params = serve.init_model(GEMMA_ARCH, reduced=False, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    sizes = (model.n_params(), model.dense_kv_bytes(8, 2048))
+    if sizes != GEMMA_SIZES:
+        raise AssertionError(f"{GEMMA_ARCH} (params, dense_kv_bytes(8, "
+                             f"2048)): {sizes}, reckoned {GEMMA_SIZES}")
+    n_global = sum(cfg.is_global_layer(i) for i in range(cfg.n_layers))
+    log(f"serve: {GEMMA_ARCH} full width ({cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} d_ff={cfg.d_ff} "
+        f"V={cfg.vocab_size}, {cfg.mlp}, {cfg.n_layers - n_global} local "
+        f"layers of window {cfg.sliding_window} + {n_global} global), "
+        f"{model.n_params()} params, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s; dense_kv_bytes(8, 2048) = "
+        f"{sizes[1]} (62 rolled layers x 1024 rows + 10 global x 2048, as "
+        f"JAX lays them out)")
+    prompts = gemma3_prompts(cfg.vocab_size)
+    streams = serve_mode(model, params, GEMMA_ARCH, prompts, alloc,
+                         "continuous", {"flash_attention", "decode_attention"},
+                         totals, max_len=GEMMA_MAX_LEN,
+                         layers={"decode_attention": n_global})
+    log(f"serve {GEMMA_ARCH}: distinct tokens per stream "
+        f"{[len(set(x)) for x in streams]}, the prompt's last token repeated "
+        f"in {sum(x == [int(p[-1])] * len(x) for x, p in zip(streams, prompts))}"
+        f" of {len(streams)} (logged: random tied weights, whose head scores "
+        f"the input token's own embedding highest)")
+    round_check(model, params, GEMMA_ARCH, prompts[:8], alloc,
+                max_len=GEMMA_MAX_LEN)
+    profile_window(model, params, prompts[:8], alloc, GEMMA_ARCH,
+                   "continuous", max_len=GEMMA_MAX_LEN)
+    sampled_check(model, params, GEMMA_ARCH, prompts[:SAMPLED_REQUESTS],
+                  alloc, "continuous", max_len=GEMMA_MAX_LEN)
+
+
+def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
+    """One continuous round of a one-instance engine with every slot live
+    (``prompts``; gemma3's, half of them past the window), replayed from
+    the instance's graph against the eager round body over the same state
+    (copies restored between them): slot tokens and every pool leaf
+    (positions, ``k``/``v``, and gemma3's rolled ``k``/``v`` and
+    ``global_k``/``global_v``), bit for bit.  Then the round's time by
+    CUDA events and device time over replays, beside the weights' bytes at
+    the card's rate, and for a windowed config the rolled decode
+    attention's device time at the round's shapes, times the local layers
+    that run it."""
+    import torch
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.models import attention
+
+    engine = deploy(model, params, arch, alloc, "continuous", n_instances=1,
+                    max_len=max_len)
+    for p in prompts:
+        engine.submit(arch, p, max_new_tokens=16)
+    (inst,) = engine.instances.values()
+    for _ in range(3):  # admissions + eager round, capture, replay
+        inst.run_step()
+    rg = inst.round_graph
+    if rg.captures != 1 or rg.replays != 2 or \
+            inst.n_active() != inst.max_batch:
+        raise AssertionError(f"round check: {inst.n_active()} live slots, "
+                             f"{rg.captures} captures, {rg.replays} replays")
+
+    def state():
+        return {"slot tokens": inst._slot_tok_dev, **inst.cache}
+
+    start = {k: v.clone() for k, v in state().items()}
+    rg.replay()
+    replayed = {k: v.clone() for k, v in state().items()}
+    for k, v in state().items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    diff = [k for k, v in state().items() if not torch.equal(v, replayed[k])]
+    kept = [k for k in inst.cache if torch.equal(start[k], replayed[k])]
+    if diff or kept:
+        raise AssertionError(f"round check: replay != eager in {diff}; "
+                             f"pool leaves the round did not write: {kept}")
+    log(f"round check {arch} continuous ({inst.n_active()} live slots, "
+        f"prompts of {sorted(len(p) for p in prompts)} tokens): the round "
+        f"replayed from the instance's graph equals the eager round body "
+        f"bit for bit in {sorted(state())}")
+    for k, v in state().items():
+        v.copy_(start[k])
+    replay = [rg.replay]
+    round_ms, round_dev = time_ms(replay, iters=10), device_ms(
+        replay, iters=10)
+    weight_ms = pytree_nbytes(params) / PEAK_BYTES * 1e3
+    log(f"round {arch}: {round_ms:.4f} ms a round by CUDA events, device "
+        f"{round_dev:.4f} ms, over 10 replays; the weights' "
+        f"{pytree_nbytes(params)} bytes at {PEAK_BYTES / 1e12} TB/s take "
+        f"{weight_ms:.4f} ms")
+    cfg = model.cfg
+    if not cfg.sliding_window:
+        return
+    for k, v in state().items():
+        v.copy_(start[k])
+    n_local = sum(not cfg.is_global_layer(i) for i in range(cfg.n_layers))
+    pools = inst.cache
+    gen = torch.Generator(device=pools["k"].device).manual_seed(SEED)
+    q = torch.randn((inst.max_batch, 1, cfg.n_heads, cfg.dh), generator=gen,
+                    device=pools["k"].device).to(torch.bfloat16)
+    rolled = [lambda i=i: attention._rolled_decode(
+        q, pools["k"][i], pools["v"][i], pools["pos"], cfg.sliding_window)
+        for i in range(2)]
+    rolled_dev = device_ms(rolled, label="rolled decode attention")
+    log(f"round {arch}: rolled decode attention (plain torch, B=8 "
+        f"C={pools['k'].shape[2]} H={cfg.n_heads} K={cfg.n_kv_heads} "
+        f"D={cfg.dh}) {rolled_dev:.5f} ms device a layer x {n_local} local "
+        f"layers = {rolled_dev * n_local:.4f} ms a round "
+        f"({rolled_dev * n_local / round_dev:.3f} of the round's device "
+        f"time)")
 
 
 EAGER_TOKENS = 8  # the fused=False runs serve this many tokens a request
@@ -1368,10 +1811,11 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def deploy(model, params, arch, alloc, batching, *, int8=False,
-           n_instances=2, **kw):
+           n_instances=2, max_len=1024, **kw):
     """A ``ServingEngine`` on the card with ``n_instances`` weight-shared
-    instances (``max_batch=8``, ``max_len=1024``, block size 16), the
-    int8-KV gate set for the deploy only (an instance reads it once)."""
+    instances (``max_batch=8``, ``max_len`` 1024 unless given, block size
+    16), the int8-KV gate set for the deploy only (an instance reads it
+    once)."""
     import os
     from repro_torch.serving import ServingEngine
 
@@ -1380,7 +1824,7 @@ def deploy(model, params, arch, alloc, batching, *, int8=False,
     if int8:
         os.environ["REPRO_KV_INT8"] = "1"
     engine.deploy(arch, model, params, alloc, n_instances=n_instances,
-                  max_batch=8, max_len=1024, batching=batching,
+                  max_batch=8, max_len=max_len, batching=batching,
                   block_size=16, **kw)
     os.environ.pop("REPRO_KV_INT8", None)
     if gate is not None:
@@ -1479,7 +1923,8 @@ def timed_serve(engine, arch, prompts, new_tokens, warm_tokens=3) -> tuple:
 
 
 def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
-               int8=False, new_tokens=32) -> list:
+               int8=False, new_tokens=32, max_len=1024, layers=None
+               ) -> list:
     """Serve ``prompts`` on two weight-shared instances in ``mode``, each
     through its round graph, captured in a warm-up before the run; the
     launch counts are set to 0 just before the run and read just after
@@ -1487,17 +1932,22 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     weights stored once, that every round of the run was a replay of the
     graph captured in the warm-up, that the kernels in ``used`` ran and no
     other, each once per layer and prefill (flash, chunked WKV-6, the
-    chunked scan) or round (decode, step WKV-6, the step scan), that each
-    scan dispatcher launched once per layer and pass of either shape, and
-    that a ``fused=False`` engine (the host-argmax reference, eager) on
-    the same prompts gives the same greedy streams over its
-    ``EAGER_TOKENS`` tokens.  Returns the token streams."""
+    chunked scan) or round (decode, step WKV-6, the step scan), or once
+    per ``layers[kernel]`` layers (gemma3's decode kernel: its global
+    layers), that each scan dispatcher launched once per layer and pass of
+    either shape, and that a ``fused=False`` engine (the host-argmax
+    reference, eager) on the same prompts gives the same greedy streams
+    over its ``EAGER_TOKENS`` tokens.  Returns the token streams."""
+    import gc
+    import torch
     from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.kernels import ssm_scan, wkv6
     from repro_torch.launch import serve
 
     batching = mode.split()[-1]
-    engine = deploy(model, params, arch, alloc, batching, int8=int8)
+    layers = layers or {}
+    engine = deploy(model, params, arch, alloc, batching, int8=int8,
+                    max_len=max_len)
     insts = list(engine.instances.values())
     if any(i.kv_int8 != int8 for i in insts):
         raise AssertionError(f"{arch} {mode}: instances not int8={int8}")
@@ -1535,11 +1985,11 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     for k in used:  # one launch per layer and prefill, or round
         per = prefills if k in {"flash_attention", "wkv6_chunked",
                                 "ssm_chunked"} else rounds
-        if counts[k] != model.cfg.n_layers * per:
+        n_layers = layers.get(k, model.cfg.n_layers)
+        if counts[k] != n_layers * per:
             raise AssertionError(
                 f"{arch} {mode}: {counts[k]} {k} launches for {prefills} "
-                f"prefills and {rounds} rounds of {model.cfg.n_layers} "
-                f"layers")
+                f"prefills and {rounds} rounds of {n_layers} layers")
     for scan, pair in ((wkv6.wkv6_scan, ("wkv6_chunked", "wkv6_step")),
                        (ssm_scan.ssm_scan, ("ssm_chunked", "ssm_step"))):
         if scan.launches != sum(counts[k] for k in pair):
@@ -1574,8 +2024,10 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
         totals[k] += counts[k]
     streams = [list(r.tokens_out) for r in reqs]
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     ref = deploy(model, params, arch, alloc, batching, int8=int8,
-                 fused=False)
+                 fused=False, max_len=max_len)
     host, done, _ = serve.drive(ref, arch, prompts, EAGER_TOKENS)
     if done != len(prompts) or [r.tokens_out for r in host] != [
             s[:EAGER_TOKENS] for s in streams]:
@@ -1584,6 +2036,9 @@ def serve_mode(model, params, arch, prompts, alloc, mode, used, totals, *,
     log(f"serve {arch} {mode}: the graph-backed rounds' greedy streams equal "
         f"a fused=False engine's (host argmax, eager) over their first "
         f"{EAGER_TOKENS} tokens, {len(prompts)} requests")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
     if mode == "paged":
         logit_check(model, params, arch, prompts[:8], alloc)
     if graphed:
@@ -2528,7 +2983,8 @@ def verify_attention_time(batching) -> float:
     return 28 * device_ms([call], label=f"verify attention ({batching})")
 
 
-def sampled_check(model, params, arch, prompts, alloc, batching) -> None:
+def sampled_check(model, params, arch, prompts, alloc, batching,
+                  max_len=1024) -> None:
     """Temperature 0.8, top-k 50, top-p 0.9, seed 5: a graph-backed engine
     and a ``fused=False`` one (the eager reference, replaying the same key
     stream) each warm up the same way, then serve ``prompts`` for
@@ -2541,7 +2997,7 @@ def sampled_check(model, params, arch, prompts, alloc, batching) -> None:
     runs = {}
     for fused in (True, False):
         engine = deploy(model, params, arch, alloc, batching, fused=fused,
-                        sampling=sampling)
+                        sampling=sampling, max_len=max_len)
         graphs = warm(engine, arch, prompts[0])
         before = {k: dict(v) for k, v in engine.telemetry().items()}
         rounds0 = same_graphs(engine, graphs, arch)[0]
@@ -2963,9 +3419,16 @@ def main(argv: list[str]) -> int:
     ptxas_report((lib.parent / "ptxas.log").read_text())
     hmma_report(lib)
     rng = np.random.default_rng(SEED)
-    results = kernel_phase(rng)
-    reference_phase(rng)
+    for name, phase in (("kernel", kernel_phase), ("reference",
+                                                   reference_phase)):
+        t0 = time.perf_counter()
+        out = phase(rng)
+        log(f"{name} phase took {time.perf_counter() - t0:.1f}s")
+        if name == "kernel":
+            results = out
+    t0 = time.perf_counter()
     reduced_serve()
+    log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
     launches = serve_phase(rng)
     extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],

@@ -1,8 +1,9 @@
 """Configs the port serves.  ``get_config(name, reduced=...)``.
 
-Registered so far: qwen2-7b (dense), rwkv6-1.6b and hymba-1.5b (hybrid);
-the other architectures of ``repro.configs`` arrive with their model
-families (ROADMAP.md, Queue 1).
+Registered so far: the dense qwen2-7b, starcoder2-15b, gemma3-27b and
+qwen1.5-110b, rwkv6-1.6b, and hymba-1.5b (hybrid); the other
+architectures of ``repro.configs`` arrive with their model families
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -11,11 +12,13 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("qwen2_7b", "rwkv6_1_6b", "hymba_1_5b")
+ARCHS = ("qwen2_7b", "gemma3_27b", "starcoder2_15b", "qwen1_5_110b",
+         "rwkv6_1_6b", "hymba_1_5b")
 
 # CLI ids (--arch <id>) -> module names.
-ALIASES = {"qwen2-7b": "qwen2_7b", "rwkv6-1.6b": "rwkv6_1_6b",
-           "hymba-1.5b": "hymba_1_5b"}
+ALIASES = {"qwen2-7b": "qwen2_7b", "gemma3-27b": "gemma3_27b",
+           "starcoder2-15b": "starcoder2_15b", "qwen1.5-110b": "qwen1_5_110b",
+           "rwkv6-1.6b": "rwkv6_1_6b", "hymba-1.5b": "hymba_1_5b"}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

@@ -7,19 +7,23 @@ drives a batch of requests, and reports throughput, latency, utilization,
 occupancy and the model-sharing memory ledger.  The full-width config is
 served on the card by default; ``--reduced`` serves the smoke cut and
 ``--device cpu`` runs the plain PyTorch path on the CPU.  ``--arch`` takes
-qwen2-7b (the default), rwkv6-1.6b and hymba-1.5b; ``REPRO_KV_INT8=1`` in
-the environment serves the dense family from int8 KV caches.
+qwen2-7b (the default), starcoder2-15b, gemma3-27b, qwen1.5-110b,
+rwkv6-1.6b and hymba-1.5b; ``REPRO_KV_INT8=1`` in the environment serves
+the full-cache dense configs from int8 KV caches.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   REPRO_KV_INT8=1 PYTHONPATH=src python -m repro_torch.launch.serve
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
 On the card a config whose head dim the attention kernels are not built
-for (they take 16, 32, 64 and 128), or whose SSM state size the scan
-kernel does not take (8 or 16), is refused before any weight is drawn.
+for (they take 16, 32, 64 and 128; qwen1.5-110b's reduced head dim is 8),
+or whose SSM state size the scan kernel does not take (8 or 16), is
+refused before any weight is drawn.
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", action="append", default=None,
                     help="repeatable; each arch is served: qwen2-7b "
-                         "(default), rwkv6-1.6b or hymba-1.5b")
+                         "(default), starcoder2-15b, gemma3-27b, "
+                         "qwen1.5-110b, rwkv6-1.6b or hymba-1.5b")
     ap.add_argument("--instances", type=int, default=2,
                     help="instances per function (share one weight copy)")
     ap.add_argument("--requests", type=int, default=24)
@@ -126,6 +131,8 @@ def main(argv: Optional[list[str]] = None) -> None:
         kv = "int8" if model.kv_int8() else {
             "rwkv": "recurrent state",
             "hybrid": "rolled bf16 KV + SSM state"}.get(cfg.family, "bf16")
+        if cfg.family == "dense" and cfg.sliding_window:
+            kv = "rolled + global bf16"
         print(f"[deploy] {arch}: {args.instances} instances sharing "
               f"{nbytes / 1e6:.1f} MB of weights ({cfg.n_layers}L "
               f"d={cfg.d_model}, {kv} cache) on {engine.device}")

@@ -64,7 +64,7 @@ def block_specs(cfg: ModelConfig) -> dict[str, Any]:
         "ssm": ssm_specs(cfg),
         "ln_ssm": PSpec((d,), init="zeros"),
         "ln2": PSpec((d,), init="zeros"),
-        "mlp": mlp_specs(d, cfg.d_ff),
+        "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp),
     }
 
 
@@ -131,7 +131,7 @@ def _block_full(lp: dict, x: torch.Tensor, state0: torch.Tensor,
     m = _ssm_path(lp["ssm"], h, state0, cfg, state_out)
     x = x + _fuse(lp, a, m, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h), k, v
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp), k, v
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -186,5 +186,5 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
         m = _ssm_path(lp["ssm"], h, state, cfg, state)
         x = x + _fuse(lp, a, m, cfg)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h)
+        x = x + mlp_apply(lp["mlp"], h, cfg.mlp)
     return lm_head(params, x, cfg)[:, 0], dict(cache, pos=pos + 1)

@@ -119,14 +119,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # --------------------------------------------------------------------------
 
 
-def mlp_specs(d: int, f: int) -> dict[str, PSpec]:
-    return {"w_gate": PSpec((d, f)), "w_up": PSpec((d, f)),
-            "w_down": PSpec((f, d))}
+def mlp_specs(d: int, f: int, kind: str) -> dict[str, PSpec]:
+    """The MLP's leaves (layers.py:153-165): gated (``swiglu``, ``geglu``)
+    ``w_gate``/``w_up``/``w_down``, or ``gelu`` ``w_up``/``w_down`` with
+    zero-initialised biases."""
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": PSpec((d, f)), "w_up": PSpec((d, f)),
+                "w_down": PSpec((f, d))}
+    return {"w_up": PSpec((d, f)), "b_up": PSpec((f,), init="zeros"),
+            "w_down": PSpec((f, d)), "b_down": PSpec((d,), init="zeros")}
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP; the activation runs in f32 and casts back
-    (layers.py:174)."""
-    gate = x @ params["w_gate"]
-    up = x @ params["w_up"]
-    return (F.silu(gate.float()).to(x.dtype) * up) @ params["w_down"]
+def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU, GeGLU or GELU-with-biases MLP; the activation runs in f32
+    and casts back (layers.py:168-180).  GELU is the tanh approximation,
+    as JAX's ``gelu(approximate=True)``: the exact erf form differs by
+    about 1e-3, enough to flip greedy near-ties."""
+    if kind in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"]
+        up = x @ params["w_up"]
+        act = (F.silu(gate.float()) if kind == "swiglu"
+               else F.gelu(gate.float(), approximate="tanh"))
+        return (act.to(x.dtype) * up) @ params["w_down"]
+    h = x @ params["w_up"] + params["b_up"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ params["w_down"] + params["b_down"]

@@ -1,12 +1,14 @@
 """``Model``: family dispatch, steps and cache factories (counterpart of
-``repro.models.model.Model`` for the families ported so far: the
-full-cache dense SwiGLU family, RWKV-6 and the Hymba hybrid).
+``repro.models.model.Model`` for the families ported so far: the dense
+family, RWKV-6 and the Hymba hybrid).
 
 Cache leaves follow ``cache_shapes``/``paged_cache_shapes`` of the JAX
 package (model.py:169-232, 316-342): bf16 K/V, or under the int8 gate
-int8 codes plus (…, K, 1) bf16 scales; for rwkv an f32 ``wkv`` state and
-bf16 token-shift rows; for the hybrid rolled bf16 K/V and an f32 ``ssm``
-state (the int8 gate never applies to either).  The int8 gate
+int8 codes plus (…, K, 1) bf16 scales; for a dual-cache dense config
+(gemma3) rolled bf16 K/V for every layer plus full-length bf16
+``global_k``/``global_v`` for its global layers; for rwkv an f32 ``wkv``
+state and bf16 token-shift rows; for the hybrid rolled bf16 K/V and an
+f32 ``ssm`` state (the int8 gate never applies to a rolled cache).  The int8 gate
 (``REPRO_KV_INT8``) is read where a cache is made — ``prefill``,
 ``init_slot_cache``, ``init_paged_cache`` — unless the caller pins it with
 ``kv_int8=``, as a serving instance does.
@@ -70,12 +72,11 @@ class Model:
 
     def __post_init__(self) -> None:
         cfg = self.cfg
-        if cfg.family not in _FAMILY or (
-                cfg.family == "dense" and not transformer.supports_paged(cfg)):
+        if cfg.family not in _FAMILY:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves the full-cache dense SwiGLU "
-                f"family, rwkv6 and the hybrid so far (others: ROADMAP.md, "
-                f"Queue 1)")
+                f"{cfg.name}: the port serves the dense family, rwkv6 and "
+                f"the hybrid so far ({cfg.family}: ROADMAP.md, Queue 1, "
+                f"items 9-10)")
 
     @functools.cached_property
     def specs(self) -> Any:

@@ -1,5 +1,8 @@
 """Decoder-only transformer, dense family (counterpart of the dense paths
-of ``repro.models.transformer``).
+of ``repro.models.transformer``): SwiGLU, GeGLU and GELU MLPs, full
+caches, and gemma3's local:global interleave on dual caches — rolled
+(L, B, C, K, Dh) ``k``/``v`` leaves for every layer plus full-length
+``global_k``/``global_v`` leaves for the global layers.
 
 JAX scans over a stacked ``layers`` axis; the port keeps that layout and
 loops over it in Python (PyTorch runs eagerly; on the card the serving
@@ -31,7 +34,7 @@ def block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
     return {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
             "ln2": PSpec((d,), init="zeros"),
-            "mlp": mlp_specs(d, cfg.d_ff)}
+            "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp)}
 
 
 def decoder_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -61,24 +64,28 @@ def layer_params(params: dict, i: int) -> dict:
 
 
 def block_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor
+               positions: torch.Tensor, window: Optional[int] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence block. Returns (x, k, v)."""
+    """Full-sequence block, attending within ``window`` when one is given.
+    Returns (x, k, v)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, k, v = attn.attn_full(lp["attn"], h, cfg, positions=positions)
+    a, k, v = attn.attn_full(lp["attn"], h, cfg, positions=positions,
+                             window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h), k, v
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp), k, v
 
 
 def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
-                 vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig
+                 vc: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig, *,
+                 rolled: bool = False, window: Optional[int] = None
                  ) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-    a, _, _ = attn.attn_decode(lp["attn"], h, kc, vc, pos, cfg)
+    a, _, _ = attn.attn_decode(lp["attn"], h, kc, vc, pos, cfg,
+                               rolled=rolled, window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -87,7 +94,7 @@ def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn.attn_decode_quant(lp["attn"], h, kc, vc, ksc, vsc, pos, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -100,7 +107,7 @@ def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     x = x + attn.attn_decode_paged_quant(lp["attn"], h, kc, vc, ksc, vsc,
                                          block_tables, pos, cfg, active)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -113,7 +120,7 @@ def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 # --------------------------------------------------------------------------
@@ -137,8 +144,29 @@ def lm_head(params: dict, x: torch.Tensor, cfg: ModelConfig
 
 
 # --------------------------------------------------------------------------
-# Prefill — forward + emit decode caches
+# Layer pattern (transformer.py:217-242)
 # --------------------------------------------------------------------------
+
+
+def global_slots(cfg: ModelConfig) -> list[Optional[int]]:
+    """Per layer, its index into the ``global_k``/``global_v`` leaves, or
+    None for a local layer: the global layers of a dual-cache config in
+    order (``_layer_flags``).  Without dual caches every layer is None."""
+    out, g = [], 0
+    for i in range(cfg.n_layers):
+        glob = _dual(cfg) and cfg.is_global_layer(i)
+        out.append(g if glob else None)
+        g += glob
+    return out
+
+
+def n_global_layers(cfg: ModelConfig) -> int:
+    return sum(cfg.is_global_layer(i) for i in range(cfg.n_layers))
+
+
+def _dual(cfg: ModelConfig) -> bool:
+    """Local:global interleave with windowed locals (gemma3)."""
+    return cfg.local_global_ratio > 0 and cfg.sliding_window is not None
 
 
 def local_cache_len(cfg: ModelConfig, max_len: int) -> int:
@@ -146,6 +174,11 @@ def local_cache_len(cfg: ModelConfig, max_len: int) -> int:
     the cache never holds that many (transformer.py:235-237)."""
     w = cfg.sliding_window
     return min(w, max_len) if w else max_len
+
+
+# --------------------------------------------------------------------------
+# Prefill — forward + emit decode caches
+# --------------------------------------------------------------------------
 
 
 def _windowed_cache(k: torch.Tensor, w: int, max_len: int) -> torch.Tensor:
@@ -192,19 +225,36 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     K/V, or under ``kv_int8`` (default: the ``REPRO_KV_INT8`` gate) int8
     codes and bf16 scales of the post-rope K/V (transformer.py:430-445),
     zero past the prompt.  Attention itself runs on the unquantized K/V.
+    A sliding-window config attends within the window on its local
+    layers and keeps every layer's K/V rolled (``_windowed_cache``); a
+    dual-cache config's global layers attend in full and also write their
+    full-length K/V into ``global_k``/``global_v``, bf16 whatever the
+    params' dtype (transformer.py:341-463).  Windowed caches fold pad rows
+    into real ones, so they refuse ``length``.
     """
     b, s = tokens.shape
     max_len = max_len or s
+    w = cfg.sliding_window
+    if length is not None and w is not None:
+        raise NotImplementedError(
+            "length-masked prefill requires full (non-windowed) caches")
     quant = attn.kv_int8_enabled(cfg) if kv_int8 is None else kv_int8
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)
     cache = {key: torch.zeros(shape, dtype=dtype, device=x.device)
              for key, (shape, dtype) in cache_specs(cfg, b, max_len,
                                                     quant).items()}
-    for i in range(cfg.n_layers):
+    lc = local_cache_len(cfg, max_len)
+    for i, g in enumerate(global_slots(cfg)):
         x, k, v = block_full(layer_params(params, i), x, cfg,
-                             positions=positions)
+                             positions=positions,
+                             window=w if g is None else None)
         for key, t in (("k", k), ("v", v)):
+            if w is not None:
+                cache[key][i] = _windowed_cache(t, lc, max_len)
+                if g is not None:
+                    cache[f"global_{key}"][g, :, :s] = t
+                continue
             if quant:
                 t, scale = attn.kv_quantize(t)
                 cache[f"{key}_scale"][i, :, :s] = scale
@@ -229,36 +279,58 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     """token: (B,) int32. Returns (logits (B, V), cache).  The KV pools of
     ``cache`` are written in place; the returned dict holds the same pools
     and the advanced position ``pos + 1`` (every slot advances, as in
-    transformer.py:560)."""
+    transformer.py:560).  Windowed layers attend their rolled rows; a
+    dual-cache config's global layers attend their slot of
+    ``global_k``/``global_v`` through the decode kernel and leave their
+    rolled rows as they are (transformer.py:526-568)."""
     pos = cache["pos"]
     x = embed_tokens(params, token[:, None], cfg)
-    for i in range(cfg.n_layers):
+    w = cfg.sliding_window
+    rolled = w is not None and cache["k"].shape[2] <= w
+    for i, g in enumerate(global_slots(cfg)):
         lp = layer_params(params, i)
-        if "k_scale" in cache:
+        if g is not None:
+            x = block_decode(lp, x, cache["global_k"][g],
+                             cache["global_v"][g], pos, cfg)
+        elif "k_scale" in cache:
             x = block_decode_quant(lp, x, cache["k"][i], cache["v"][i],
                                    cache["k_scale"][i], cache["v_scale"][i],
                                    pos, cfg)
         else:
-            x = block_decode(lp, x, cache["k"][i], cache["v"][i], pos, cfg)
+            x = block_decode(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
+                             rolled=rolled, window=w)
     return lm_head(params, x, cfg)[:, 0], dict(cache, pos=pos + 1)
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """The slice covers full-cache dense SwiGLU configs: every KV row is
-    addressed by absolute position, so block tables substitute directly
-    (``Model`` refuses any other config)."""
-    return (cfg.family == "dense" and cfg.mlp == "swiglu"
-            and cfg.sliding_window is None and cfg.local_global_ratio == 0)
+    """Full-cache dense configs: every KV row is addressed by absolute
+    position, so block tables substitute directly.  Rolled and dual
+    caches fold positions (row = pos mod C) and would alias rows across
+    blocks (transformer.py:571-578)."""
+    return (cfg.family == "dense" and cfg.sliding_window is None
+            and cfg.local_global_ratio == 0)
 
 
 def cache_specs(cfg: ModelConfig, batch: int, rows: int, kv_int8: bool
                 ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """KV leaves of a cache of ``batch`` sequences (or pages) of ``rows``
     rows: bf16 K/V, or int8 codes plus (…, K, 1) bf16 scales
-    (model.py:212-227, 329-342)."""
-    kv = (cfg.n_layers, batch, rows, cfg.n_kv_heads, cfg.dh)
+    (model.py:212-227, 329-342).  A windowed config's ``k``/``v`` hold
+    ``local_cache_len`` rolled rows for every layer, and a dual-cache
+    config adds bf16 ``global_k``/``global_v`` of ``rows`` rows for its
+    global layers, as JAX's ``cache_shapes`` lays them out."""
+    if kv_int8 and cfg.sliding_window is not None:
+        raise ValueError(f"{cfg.name}: int8 KV needs full caches, not "
+                         f"rolled ones (attention.py:90-97)")
+    kv = (cfg.n_layers, batch, local_cache_len(cfg, rows), cfg.n_kv_heads,
+          cfg.dh)
     if not kv_int8:
-        return {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+        specs = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+        if _dual(cfg):
+            gkv = (n_global_layers(cfg), batch, rows, cfg.n_kv_heads, cfg.dh)
+            specs.update(global_k=(gkv, torch.bfloat16),
+                         global_v=(gkv, torch.bfloat16))
+        return specs
     sc = (*kv[:-1], 1)
     return {"k": (kv, torch.int8), "v": (kv, torch.int8),
             "k_scale": (sc, torch.bfloat16), "v_scale": (sc, torch.bfloat16)}
@@ -354,7 +426,7 @@ def block_verify(lp: dict, x: torch.Tensor, kc: torch.Tensor,
     a, _, _ = attn.attn_verify(lp["attn"], h, kc, vc, pos, cfg)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -367,7 +439,7 @@ def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h)
+    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
 
 
 def supports_speculative(cfg: ModelConfig, kv_int8: bool = False) -> bool:

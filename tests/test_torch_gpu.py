@@ -2,9 +2,11 @@
 engine's decode round and bucketed admissions as CUDA graphs against
 their eager references, copy-on-write, migration and close under
 those graphs, the fleet model store's upload and the frontend's
-node failure, and the sampled and speculative rounds under the graphs
+node failure, the sampled and speculative rounds under the graphs
 (replay == eager body, sampled graph == ``fused=False``, the sampler's
-distribution and the key stream's bits on the card), on the card.  Marked ``gpu``: without a card
+distribution and the key stream's bits on the card), and the dense
+configs' geometries (starcoder2-15b's and gemma3-27b's heads, gemma3's
+dual caches), on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -576,6 +578,41 @@ def test_flash_kernel_hymba_geometry(cuda_device, sq):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,window", [(32, 16, 64), (32, 16, None),
+                                         (48, 4, 64), (48, 4, None)])
+def test_flash_kernel_dense_config_geometry(cuda_device, h, kv, window):
+    """gemma3-27b's heads (32 over 16 of 128) and starcoder2-15b's (48 over
+    4) at a 300-row prefill, with a window of 64 that cuts tiles and
+    without one."""
+    rng = np.random.default_rng(h + kv)
+    q = _cuda_rand(rng, (1, 300, h, 128), cuda_device)
+    k = _cuda_rand(rng, (1, 300, kv, 128), cuda_device)
+    v = _cuda_rand(rng, (1, 300, kv, 128), cuda_device)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,s", [(48, 4, 1024), (32, 16, 2048)])
+def test_decode_kernel_dense_config_geometry(cuda_device, h, kv, s):
+    """The bf16 dense decode kernel at starcoder2-15b's round (G = 12) and
+    at gemma3-27b's global layers (G = 2, 2048 rows), mixed cache lengths
+    and a free slot past the end."""
+    rng = np.random.default_rng(h + s)
+    lens = torch.tensor([s, 1, s // 2 + 5, 64, s + 40, 333, 17, s - 1],
+                        dtype=torch.int32, device=cuda_device)
+    q = _cuda_rand(rng, (8, 1, h, 128), cuda_device)
+    kc = _cuda_rand(rng, (8, s, kv, 128), cuda_device)
+    vc = _cuda_rand(rng, (8, s, kv, 128), cuda_device)
+    torch.testing.assert_close(
+        da.decode_attention(q, kc, vc, lens).float(),
+        da.decode_attention_plain(q, kc, vc, lens).float(), atol=2e-2,
+        rtol=2e-2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("case", [  # (B, Sq, Sk, causal, window, q_offset)
     (1, 512, 512, True, None, 0), (2, 37, 37, True, None, 0),
@@ -669,7 +706,7 @@ def test_ssm_kernel_state_size_8(cuda_device, s):
 def _serving_model(arch, device):
     """A model and its bf16 weights drawn on the card: ``tiny`` is a
     2-layer dense config at head dim 16 (the kernels take 16-128), the
-    others the reduced rwkv6-1.6b and hymba-1.5b."""
+    others a reduced config (rwkv6-1.6b, hymba-1.5b, gemma3-27b)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.config import ModelConfig
@@ -682,14 +719,14 @@ def _serving_model(arch, device):
     return model, model.init(torch.Generator(device=device).manual_seed(0))
 
 
-def _graph_engine(model, params, batching, arrivals, **kw):
+def _graph_engine(model, params, batching, arrivals, max_batch=2, **kw):
     from repro_torch.core.resources import Alloc
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(window=0.1, device="cuda")
     eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
                                          quota_limit=0.9),
-               batching=batching, max_batch=2, max_len=64, block_size=16,
-               **kw)
+               batching=batching, max_batch=max_batch, max_len=64,
+               block_size=16, **kw)
     reqs = [eng.submit("f", p, max_new_tokens=n) for p, n in arrivals]
     assert eng.pump(budget_s=300.0) == len(reqs)
     assert all(r.done and len(r.tokens_out) == n
@@ -1450,3 +1487,106 @@ def test_sampled_round_capture_failure_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="never falls back"):
         inst.run_step()
     assert inst.round_graph.graph is None and inst.round_graph.replays == 0
+
+
+# -- gemma3's dual caches on the card -------------------------------------------
+
+
+@pytest.mark.gpu
+def test_gemma3_geometry_model_matches_cpu(cuda_device):
+    """A 6-layer GeGLU model on dual caches with gemma3-27b's heads (32 q /
+    16 kv of 128, q_dim 4096 != d_model 512), tied and scaled embeddings,
+    5 local layers of window 32 and 1 global: a 90-token prefill past the
+    window and 3 decode steps in bf16 on the card through the kernels,
+    against the same weights in f32 on the CPU, within 5e-2 of the largest
+    logit (``chip_smoke.REF_TOL``: bf16 weights and activations against
+    f32)."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="gemma3-heads", family="dense", n_layers=6,
+                      d_model=512, n_heads=32, n_kv_heads=16, head_dim=128,
+                      d_ff=1024, vocab_size=512, mlp="geglu",
+                      rope_theta=1e6, tie_embeddings=True, embed_scale=True,
+                      sliding_window=32, local_global_ratio=5)
+    model = build_model(cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    for leaf in p_cpu["layers"].values():  # the zero-initialised norms
+        if isinstance(leaf, torch.Tensor):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.1)
+    p_gpu, p_ref = _to(p_cpu, cuda_device), _to(p_cpu, None, torch.float32)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 512, (1, 90)).astype(np.int32))
+
+    def close(got, want):
+        rel = (got.float().cpu() - want).abs().max() / want.abs().max()
+        assert torch.isfinite(got).all() and rel < 5e-2, rel
+
+    before = dmod.decode_attention.launches
+    lg, cg = model.prefill(p_gpu, prompt.to(cuda_device), max_len=128)
+    lr, cr = model.prefill(p_ref, prompt, max_len=128)
+    close(lg, lr)
+    assert cg["k"].shape[2] == 32 and cg["global_k"].shape[:3] == (1, 1, 128)
+    tok = model.sample_greedy(lr)
+    for _ in range(3):
+        lg, cg = model.decode_step(p_gpu, tok.to(cuda_device), cg)
+        lr, cr = model.decode_step(p_ref, tok, cr)
+        close(lg, lr)
+        tok = model.sample_greedy(lr)
+    assert dmod.decode_attention.launches == before + 3  # the global layer
+
+
+def _to(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_gemma3_reduced_round_replay_equals_eager_body(cuda_device):
+    """gemma3-27b's reduced config (window 8, 2 global layers of 6), four
+    live slots with prompts past the window: the captured round, replayed,
+    and the eager round body over the same state write the same slot
+    tokens, positions, rolled ``k``/``v`` and ``global_k``/``global_v``,
+    bit for bit; later rounds replay and the streams equal a
+    ``fused=False`` engine's."""
+    model, params = _serving_model("gemma3-27b", cuda_device)
+    rng = np.random.default_rng(8)
+    arrivals = [(rng.integers(0, 256, l).astype(np.int32), 12)
+                for l in (5, 13, 20, 9)]
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(window=0.1, device="cuda")
+    eng.deploy("f", model, params, Alloc(sm=1.0, quota_request=0.9,
+                                         quota_limit=0.9),
+               max_batch=4, max_len=64)
+    reqs = [eng.submit("f", p, max_new_tokens=n) for p, n in arrivals]
+    (inst,) = eng.instances.values()
+    for _ in range(3):  # admissions + eager round, capture, replay
+        inst.run_step()
+    rg = inst.round_graph
+    assert rg.captures == 1 and rg.replays == 2 and inst.n_active() == 4
+    assert set(inst.cache) == {"k", "v", "global_k", "global_v", "pos"}
+
+    def state():
+        return {"tok": inst._slot_tok_dev, **inst.cache}
+
+    start = {k: v.clone() for k, v in state().items()}
+    rg.replay()
+    replayed = {k: v.clone() for k, v in state().items()}
+    for k, v in state().items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    assert not [k for k, v in state().items()
+                if not torch.equal(v, replayed[k])]
+    assert not [k for k in inst.cache
+                if torch.equal(start[k], replayed[k])]
+    for k, v in state().items():  # back to the state the instance expects
+        v.copy_(start[k])
+    assert eng.pump(budget_s=120.0) == 4
+    assert rg.captures == 1 and rg.replays == inst.rounds
+    host, _ = _graph_engine(model, params, "continuous", arrivals,
+                            fused=False, max_batch=4)
+    assert [r.tokens_out for r in reqs] == host

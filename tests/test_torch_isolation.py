@@ -62,7 +62,7 @@ def test_unported_arch_raises_naming_roadmap():
     from repro_torch.configs import get_config
 
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("gemma3-27b")
+        get_config("mixtral-8x7b")
     assert get_config("qwen2-7b").d_model == 3584
 
 
@@ -78,9 +78,12 @@ def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
-    for arch in ("qwen2-7b", "hymba-1.5b", "rwkv6-1.6b"):
+    for arch in ("qwen2-7b", "hymba-1.5b", "rwkv6-1.6b", "starcoder2-15b",
+                 "gemma3-27b"):
         assert serve.head_dim_refusal(get_config(arch, reduced=True)) is None
         assert serve.head_dim_refusal(get_config(arch)) is None
+    assert "head dim 8" in serve.head_dim_refusal(
+        get_config("qwen1.5-110b", reduced=True))
     narrow = dataclasses.replace(get_config("qwen2-7b", reduced=True),
                                  head_dim=8)
     assert narrow.dh == 8
