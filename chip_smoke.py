@@ -46,9 +46,15 @@ place), and then:
    embeddings, 5 local layers of window 64 and 1 global; a 150-token
    prompt), on the card through
    the kernels, against the same weights in f32 on the CPU through the
-   plain versions; then ``serve.main --reduced`` serves qwen2-7b's,
-   starcoder2-15b's, gemma3-27b's and hymba-1.5b's reduced configs (head
-   dim 16) on the card;
+   plain versions; a 2-layer MoE model of qwen2-moe-a2.7b's widths (60
+   experts top-4 of d_ff 1408, 4 shared, an f32 router) has its expert
+   block held layer by layer from identical inputs (routing equal where
+   the top-k gate margin exceeds 1e-4, outputs within 2e-2 where routing
+   agrees, ``dest``/``keep`` equal at an overflowing 512-token shape);
+   then ``serve.main --reduced`` serves qwen2-7b's, starcoder2-15b's,
+   gemma3-27b's and hymba-1.5b's reduced configs (head dim 16) on the
+   card, and qwen2-moe-a2.7b's and mixtral-8x7b's (24-token prompts, past
+   mixtral's window of 16);
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
    one weight copy, continuous then paged (block size 16), with bf16 and
@@ -62,8 +68,16 @@ place), and then:
    bytes against the constants reckoned from JAX's layout, one round
    replayed == the eager round bit for bit (tokens, positions, rolled and
    global leaves), the round's and the rolled decode attention's device
-   time, and a sampled check; then full-width rwkv6-1.6b (24 layers,
-   d=2048) and
+   time, and a sampled check; then full-width qwen2-moe-a2.7b (24
+   layers, d=2048, 60 routed experts top-4 and 4 shared) in qwen2-7b's
+   four modes with its params, weight bytes and slot-pool bytes against
+   JAX's, one round replayed == eager, the round's device time beside the
+   bytes of every weight it reads, of the experts and of the active
+   weights, split into the expert FFN, the dispatch and the rest, a
+   profile window, speculation (the 2-layer draft of views against an
+   agreeing target, whose routed and shared ``w_down`` of layers 2-23 are
+   zeroed, and the unmodified one) and sampled checks, continuous and
+   paged; then full-width rwkv6-1.6b (24 layers, d=2048) and
    full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
    1024) continuous with the same mix.  Each instance's fused decode
    round is a CUDA graph (``serving/graphs.py``), and so is each of its
@@ -166,6 +180,7 @@ REF_TOL = 5e-2        # bf16 model on the card vs f32 model on the CPU,
 L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
 SEED = 0
 ARCH = "qwen2-7b"
+MOE_ARCH = "qwen2-moe-a2.7b"
 STARCODER_ARCH = "starcoder2-15b"
 GEMMA_ARCH = "gemma3-27b"
 RWKV_ARCH = "rwkv6-1.6b"
@@ -438,7 +453,7 @@ def kernel_phase(rng) -> dict:
                 qs[i], kps[i], vps[i], tables, lens) for i in range(n)],
             label="bf16 paged decode"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
-    wide_group_kernels(dev)
+    decode_geometries(dev)
     decode_dense_configs(dev)
     small_head_dims(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
@@ -584,51 +599,55 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
     return out
 
 
-def wide_group_kernels(dev) -> None:
+def decode_geometries(dev) -> None:
     """All four decode kernels at starcoder2-15b's attention geometry (48
-    query heads over 4 kv heads of 128: G = 12), B=8, S=1024, mixed
-    cache_len, against their plain versions; each paged kernel (pages of
-    16 rows) bit-equal to its dense one."""
+    query heads over 4 kv heads of 128: G = 12) and at qwen2-moe-a2.7b's
+    (16 over 16 of 128: G = 1), B=8, S=1024, mixed cache_len, against
+    their plain versions; each paged kernel (pages of 16 rows) bit-equal
+    to its dense one."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models.attention import kv_quantize
 
     rng = np.random.default_rng(SEED + 8)
-    b, s, h, kv, d = 8, 1024, 48, 4, 128
+    b, s, d = 8, 1024, 128
 
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(dev).to(torch.bfloat16)
 
-    q, kc, vc = rand(b, 1, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
-    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
-                        dtype=torch.int32, device=dev)
-    k8, ks, v8, vs = kv_quantize(kc) + kv_quantize(vc)
-    (kp, vp), tables = scatter_pages((kc, vc), 16, rng)
-    pools, tables8 = scatter_pages((k8, v8, ks, vs), 16, rng)
-    errs = {}
-    for name, dense, paged in [
-            ("bf16", (da.decode_attention, da.decode_attention_plain,
-                      (q, kc, vc, lens)),
-             (da.paged_decode_attention, da.paged_decode_attention_plain,
-              (q, kp, vp, tables, lens))),
-            ("int8", (da.decode_attention_quant,
-                      da.decode_attention_quant_plain,
-                      (q, k8, v8, ks, vs, lens)),
-             (da.paged_decode_attention_quant,
-              da.paged_decode_attention_quant_plain,
-              (q, *pools, tables8, lens)))]:
-        outs = []
-        for label, (kernel, plain, args) in (("dense", dense),
-                                             ("paged", paged)):
-            outs.append(kernel(*args))
-            errs[f"{name} {label}"] = close(f"{name} {label} decode G=12",
-                                            outs[-1], plain(*args))
-        if not torch.equal(outs[0], outs[1]):
-            raise AssertionError(f"{name} paged and dense decode differ at "
-                                 f"G=12 on identical K/V")
-    log(f"decode at G=12 (B=8 S=1024 H=48 K=4 D=128): max_abs_err {errs}; "
-        f"paged == dense, bit for bit, in bf16 and int8")
+    for arch, h, kv in ((STARCODER_ARCH, 48, 4), (MOE_ARCH, 16, 16)):
+        g = h // kv
+        q, kc, vc = rand(b, 1, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
+        lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                            dtype=torch.int32, device=dev)
+        k8, ks, v8, vs = kv_quantize(kc) + kv_quantize(vc)
+        (kp, vp), tables = scatter_pages((kc, vc), 16, rng)
+        pools, tables8 = scatter_pages((k8, v8, ks, vs), 16, rng)
+        errs = {}
+        for name, dense, paged in [
+                ("bf16", (da.decode_attention, da.decode_attention_plain,
+                          (q, kc, vc, lens)),
+                 (da.paged_decode_attention, da.paged_decode_attention_plain,
+                  (q, kp, vp, tables, lens))),
+                ("int8", (da.decode_attention_quant,
+                          da.decode_attention_quant_plain,
+                          (q, k8, v8, ks, vs, lens)),
+                 (da.paged_decode_attention_quant,
+                  da.paged_decode_attention_quant_plain,
+                  (q, *pools, tables8, lens)))]:
+            outs = []
+            for label, (kernel, plain, args) in (("dense", dense),
+                                                 ("paged", paged)):
+                outs.append(kernel(*args))
+                errs[f"{name} {label}"] = close(
+                    f"{name} {label} decode G={g}", outs[-1], plain(*args))
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{name} paged and dense decode differ "
+                                     f"at G={g} on identical K/V")
+        log(f"decode at {arch}'s G={g} (B={b} S={s} H={h} K={kv} D={d}): "
+            f"max_abs_err {errs}; paged == dense, bit for bit, in bf16 and "
+            f"int8")
 
 
 def wkv6_kernel(rng, dev) -> dict:
@@ -828,30 +847,37 @@ def reduced_serve() -> None:
     qwen2-7b's, starcoder2-15b's, gemma3-27b's and hymba-1.5b's reduced
     configs (head dim 16; gemma3's 16-token prompts pass its window of 8;
     hymba's SSM state 8, its 20-row prefills through the chunked scan)
-    through ``serve.main``, with their launch counts."""
+    through ``serve.main``, then qwen2-moe-a2.7b's and mixtral-8x7b's
+    (24-token prompts, past mixtral's window of 16), with their launch
+    counts."""
     import contextlib
     import io
     import re
     from repro_torch import kernels
     from repro_torch.launch import serve
 
-    kernels.reset_launch_counts()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        serve.main(["--reduced", "--arch", "qwen2-7b", "--arch",
-                    "starcoder2-15b", "--arch", "gemma3-27b", "--arch",
-                    "hymba-1.5b", "--requests", "8", "--max-new-tokens", "8"])
-    counts = kernels.launch_counts()
-    text = buf.getvalue()
-    m = re.search(r"completed (\d+)/(\d+) requests", text)
-    if not m or m.group(1) != m.group(2) or m.group(2) != "8":
-        raise AssertionError(f"reduced serve: {text[-2000:]}")
-    if any(counts[k] == 0 for k in ("flash_attention", "decode_attention",
-                                    "ssm_chunked", "ssm_step")):
-        raise AssertionError(f"reduced serve: kernel launches {counts}")
-    log(f"reduced serve (serve.main --reduced, qwen2-7b, starcoder2-15b, "
-        f"gemma3-27b and hymba-1.5b, head dim 16) on the card: "
-        f"{m.group(0)}; launches {counts}")
+    for archs, extra, used in (
+            (("qwen2-7b", "starcoder2-15b", "gemma3-27b", "hymba-1.5b"), [],
+             ("flash_attention", "decode_attention", "ssm_chunked",
+              "ssm_step")),
+            (("qwen2-moe-a2.7b", "mixtral-8x7b"), ["--prompt-len", "24"],
+             ("flash_attention", "decode_attention"))):
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(["--reduced", *[a for arch in archs
+                                       for a in ("--arch", arch)],
+                        "--requests", "8", "--max-new-tokens", "8", *extra])
+        counts = kernels.launch_counts()
+        text = buf.getvalue()
+        m = re.search(r"completed (\d+)/(\d+) requests", text)
+        if not m or m.group(1) != m.group(2) or m.group(2) != "8":
+            raise AssertionError(f"reduced serve: {text[-2000:]}")
+        if any(counts[k] == 0 for k in used):
+            raise AssertionError(f"reduced serve: kernel launches {counts}")
+        log(f"reduced serve (serve.main --reduced {' '.join(extra)}, "
+            f"{', '.join(archs)}, head dim 16) on the card: {m.group(0)}; "
+            f"launches {counts}")
 
 
 def causal_pairs(sq: int, window=None) -> int:
@@ -904,9 +930,10 @@ def flash_logged(label, q, k, v, window=None) -> None:
 def flash_dense_configs(dev) -> None:
     """The flash kernel at gemma3-27b's prefill geometry (32 query heads
     over 16 kv heads of 128) at 1920 rows, its local layers' window of
-    1024 cutting tiles, and at its global layers' (no window); and at
-    starcoder2-15b's (48 over 4 of 128) at a 512-token prompt; each held
-    against its plain version and timed beside SDPA and the bound."""
+    1024 cutting tiles, and at its global layers' (no window); at
+    starcoder2-15b's (48 over 4 of 128) and qwen2-moe-a2.7b's (16 over 16
+    of 128: G = 1) at a 512-token prompt; each held against its plain
+    version and timed beside SDPA and the bound."""
     import torch
     gen = np.random.default_rng(SEED + 9)
 
@@ -917,7 +944,8 @@ def flash_dense_configs(dev) -> None:
     for label, sq, h, kv, window in (
             ("gemma3-27b's local prefill", 1920, 32, 16, 1024),
             ("gemma3-27b's global prefill", 1920, 32, 16, None),
-            ("starcoder2-15b's prefill", 512, 48, 4, None)):
+            ("starcoder2-15b's prefill", 512, 48, 4, None),
+            ("qwen2-moe-a2.7b's prefill", 512, 16, 16, None)):
         flash_logged(label, rand(1, sq, h, 128), rand(1, sq, kv, 128),
                      rand(1, sq, kv, 128), window=window)
 
@@ -956,8 +984,9 @@ def decode_logged(label, q, kc, vc, lens) -> None:
 
 def decode_dense_configs(dev) -> None:
     """The bf16 dense decode kernel at starcoder2-15b's round (B=8, S=1024,
-    48 query heads over 4 kv heads: G = 12) and at gemma3-27b's global
-    layers' (B=8, S=2048, 32 over 16: G = 2), mixed cache lengths, each
+    48 query heads over 4 kv heads: G = 12), at gemma3-27b's global
+    layers' (B=8, S=2048, 32 over 16: G = 2) and at qwen2-moe-a2.7b's
+    round (B=8, S=1024, 16 over 16: G = 1), mixed cache lengths, each
     held against its plain version and timed."""
     import torch
     gen = np.random.default_rng(SEED + 11)
@@ -970,7 +999,9 @@ def decode_dense_configs(dev) -> None:
             ("starcoder2-15b's round, G=12", 1024, 48, 4,
              [1024, 1, 517, 64, 1000, 333, 768, 129]),
             ("gemma3-27b's global layers, G=2", 2048, 32, 16,
-             [2048, 1, 1517, 64, 1900, 333, 1168, 129])):
+             [2048, 1, 1517, 64, 1900, 333, 1168, 129]),
+            ("qwen2-moe-a2.7b's round, G=1", 1024, 16, 16,
+             [1024, 1, 517, 64, 1000, 333, 768, 129])):
         decode_logged(label, rand(8, 1, h, 128), rand(8, s, kv, 128),
                       rand(8, s, kv, 128),
                       torch.tensor(lens, dtype=torch.int32, device=dev))
@@ -1194,6 +1225,7 @@ def reference_phase(rng) -> None:
         f"{REF_TOL}) of f32 on the CPU")
     _reference_starcoder2()
     _reference_gemma3()
+    _reference_moe()
     _reference_rwkv()
     _reference_hybrid()
 
@@ -1311,6 +1343,185 @@ def _reference_gemma3() -> None:
         f"tokens past the window + 3 decode steps on the card within "
         f"{compare.worst:.4f} (limit {REF_TOL}) of f32 on the CPU; launches "
         f"(flash, decode) {ran}")
+
+
+MOE_MARGIN = 1e-4  # a top-k gate margin above this must route the same
+#                    on the card as on the CPU
+
+
+def _reference_moe() -> None:
+    """A 2-layer MoE model with qwen2-moe-a2.7b's widths (d 2048, 16 q / 16
+    kv heads of 128, QKV bias, 60 experts of d_ff 1408 top-4 and 4 shared;
+    cut: 24 layers -> 2, V 151936 -> 1024), bf16 on the card against f32
+    on the CPU, layer by layer from identical inputs (``_moe_forward``):
+    a 300-token prefill (the flash kernel; capacity 41), 2 decode steps of
+    8 slots on its cache (the decode kernel; 8 rows, capacity 8) and a
+    speculative verify window of 8 slots x 5 (the verify attention; 40
+    rows share capacity 8, so pairs drop).  Then ``top_e``, ``dest`` and
+    ``keep`` at 512 tokens and capacity factor 0.5 (overflowing) equal
+    the CPU's as integers, on integer features and an integer router
+    (exact logits on both devices, ties included)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="qwen2-moe-widths", family="moe", n_layers=2,
+                      d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1408,
+                      vocab_size=1024, qkv_bias=True, rope_theta=1e6,
+                      n_experts=60, top_k=4, n_shared_experts=4,
+                      moe_d_ff=1408)
+    model = build_model(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _filled(model.init(torch.Generator(device=dev).manual_seed(SEED)),
+                    SEED + 1)
+    p_ref = _tree(p_gpu, lambda t: t.float().cpu())
+    if p_gpu["layers"]["moe"]["router"].dtype != torch.float32:
+        raise AssertionError("moe reference: the router is not f32")
+    rng = np.random.default_rng(SEED + 14)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 300)).astype(np.int32)
+    stats = dict(attention={}, dropped={}, experts=0.0, flips=0, near=0,
+                 rows=0, checked=0)
+    planes = (p_gpu, p_ref)
+    _moe_forward(cfg, planes, prompt, lambda a, h, i, plane: attn.attn_full(
+        a, h, cfg, positions=torch.arange(300, device=h.device))[0],
+        "prefill", stats)
+    _, cache = model.prefill(p_ref, torch.as_tensor(prompt), max_len=320)
+    rows = {k: cache[k].repeat(1, 8, 1, 1, 1) for k in ("k", "v")}
+
+    def both(rows):
+        """Both planes' caches: the CPU's rows so far, rounded to bf16."""
+        return ({k: v.to(torch.bfloat16).to(dev) for k, v in rows.items()},
+                {k: v.to(torch.bfloat16).float() for k, v in rows.items()})
+
+    for step in range(2):
+        caches, at = both(rows), torch.tensor(300 + step, dtype=torch.int32)
+        _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size, (8, 1)),
+                     lambda a, h, i, plane: attn.attn_decode(
+                         a, h, caches[plane]["k"][i], caches[plane]["v"][i],
+                         at.to(h.device), cfg)[0], f"decode step {step}",
+                     stats)
+        rows = caches[1]
+    caches, at = both(rows), torch.full((8,), 302, dtype=torch.int32)
+    _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size,
+                                           (8, SPEC_K + 1)),
+                 lambda a, h, i, plane: attn.attn_verify(
+                     a, h, caches[plane]["k"][i], caches[plane]["v"][i],
+                     at.to(h.device), cfg)[0], "verify", stats)
+    # Exact logits: integer features and router, so routing is exact.
+    irng = np.random.default_rng(SEED + 15)
+    xi = irng.integers(-2, 3, (512, cfg.d_model)).astype(np.float32)
+    ri = irng.integers(-3, 4, (cfg.d_model, cfg.n_experts)).astype(np.float32)
+    cap_i = moe._capacity(512, cfg, 0.5)
+    got = moe.route(torch.as_tensor(ri, device=dev),
+                    torch.as_tensor(xi, device=dev).to(torch.bfloat16), cfg,
+                    cap_i)
+    want = moe.route(torch.from_numpy(ri), torch.from_numpy(xi), cfg, cap_i)
+    for key in ("top_e", "dest", "keep"):
+        if not torch.equal(got[key].cpu(), want[key]):
+            raise AssertionError(f"moe reference: {key} at T=512, cf 0.5 "
+                                 f"differs from the CPU's")
+    dropped = int((~want["keep"]).sum())
+    if not dropped:
+        raise AssertionError("moe reference: T=512 at cf 0.5 dropped none")
+    log(f"reference: 2-layer MoE model, qwen2-moe-a2.7b's widths (d 2048, "
+        f"16 q / 16 kv of 128, 60 experts top-4 of d_ff 1408 + 4 shared, "
+        f"f32 router; cut: 24 layers -> 2, V 151936 -> 1024), layer by "
+        f"layer from the CPU's inputs rounded to bf16, through a 300-token "
+        f"prefill, 2 decode steps of 8 slots and a verify window of 8 x "
+        f"{SPEC_K + 1}: the attention half within "
+        f"{max(stats['attention'].values()):.4f} (limit {TOL}; by step "
+        f"{ {k: round(v, 4) for k, v in stats['attention'].items()} }) "
+        f"of f32 on the CPU at every position; the expert block routed the "
+        f"same wherever the top-k margin > {MOE_MARGIN} ({stats['near']} "
+        f"of {stats['rows']} token-layers at or below it; flips "
+        f"{stats['flips']}; pairs dropped on the CPU by step "
+        f"{stats['dropped']}), outputs of the {stats['checked']} "
+        f"token-layers routed the same within {stats['experts']:.4f} (limit {TOL}); top_e, dest and "
+        f"keep at T=512, cf 0.5 (cap {cap_i}, {dropped} of "
+        f"{512 * cfg.top_k} pairs dropped) equal the CPU's")
+
+
+def _moe_forward(cfg, planes, tokens, attend, label, stats) -> None:
+    """One forward of the card's bf16 and the CPU's f32 ``planes`` (their
+    params), layer by layer from identical inputs.  Layer i's input on the
+    CPU, rounded to bf16, goes through the attention half on both planes
+    (``attend(attention params, normed input, i, plane)``, plane 0 the
+    card's); the card's output must be within ``TOL`` of the CPU's (max
+    |diff| / max |reference|).  Then the CPU's expert-block input,
+    rounded to bf16, goes through ``_moe_block``; the CPU's stream goes on
+    in f32 from there."""
+    import torch
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import rms_norm
+
+    dev = planes[0]["embed"].device
+    x = transformer.embed_tokens(planes[1], torch.as_tensor(tokens), cfg)
+    for i in range(cfg.n_layers):
+        lps = [transformer.layer_params(p, i) for p in planes]
+        xb = x.to(torch.bfloat16)
+        ins = (xb.to(dev), xb.float())
+        outs = [attend(lp["attn"], rms_norm(xi, lp["ln1"], cfg.norm_eps), i,
+                       plane)
+                for plane, (lp, xi) in enumerate(zip(lps, ins))]
+        rel = _rel_err(f"moe reference {label} layer {i} attention", *outs)
+        stats["attention"][label] = max(stats["attention"].get(label, 0.0),
+                                        rel)
+        mid = ins[1] + outs[1]
+        h = rms_norm(mid, lps[1]["ln2"], cfg.norm_eps)
+        stats["dropped"][label] = stats["dropped"].get(label, 0) + \
+            _moe_block(cfg, lps[0]["moe"], lps[1]["moe"],
+                       h.to(torch.bfloat16), f"{label} layer {i}", stats)
+        x = mid + moe.moe_apply(lps[1]["moe"], h, cfg, cfg.moe_cf_eval)[0]
+
+
+def _moe_block(cfg, lg, lc, hb, label, stats) -> int:
+    """The expert block on the card (``lg``, bf16) and on the CPU (``lc``,
+    f32) from the same bf16 input ``hb`` (B, S, D), at the serving
+    capacity of B * S rows: the chosen experts must agree wherever the
+    k-th gate's margin over the (k+1)-th exceeds ``MOE_MARGIN`` (flips
+    below it are counted), and the outputs within ``TOL`` of the largest
+    on every row whose experts and kept pairs agree.  Returns the pairs
+    the CPU dropped."""
+    import torch
+    from repro_torch.models import moe
+
+    t, k = hb.shape[0] * hb.shape[1], cfg.top_k
+    cap = moe._capacity(t, cfg, cfg.moe_cf_eval)
+    xg = hb.to(lg["router"].device).reshape(t, -1)
+    xc = hb.float().reshape(t, -1)
+    rg = moe.route(lg["router"], xg, cfg, cap)
+    rc = moe.route(lc["router"], xc, cfg, cap)
+    gates = rc["gates"].sort(-1, descending=True).values
+    margin = gates[:, k - 1] - gates[:, k]
+    same = (rg["top_e"].cpu().sort(-1).values
+            == rc["top_e"].sort(-1).values).all(-1)
+    if not same[margin > MOE_MARGIN].all():
+        raise AssertionError(f"moe reference {label}: experts differ at "
+                             f"margins {margin[~same].tolist()}")
+    agree = same & (rg["keep"].cpu().view(t, k)
+                    == rc["keep"].view(t, k)).all(-1)
+    yg = moe.moe_apply(lg, xg[None], cfg, cfg.moe_cf_eval)[0][0]
+    yc = moe.moe_apply(lc, xc[None], cfg, cfg.moe_cf_eval)[0][0]
+    stats["experts"] = max(stats["experts"], _rel_err(
+        f"moe reference {label} experts", yg.float().cpu()[agree],
+        yc[agree]))
+    stats["flips"] += int((~same).sum())
+    stats["near"] += int((margin <= MOE_MARGIN).sum())
+    stats["rows"] += t
+    stats["checked"] += int(agree.sum())
+    return int((~rc["keep"]).sum())
+
+
+def _rel_err(name, got, ref) -> float:
+    """max |got - ref| / max |ref| (``got`` finite), asserted within
+    ``TOL``."""
+    import torch
+    got = got.float().cpu()
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not torch.isfinite(got).all() or not rel <= TOL:
+        raise AssertionError(f"{name}: rel err {rel} > {TOL}")
+    return rel
 
 
 class Compare:
@@ -1499,6 +1710,9 @@ GEMMA_SIZES = (27_008_319_744,  # gemma3-27b params, as JAX counts
 #                                 + 10 global x 2048 rows) x 8 x 16 x 128
 #                                 x 2 B x (K, V) + the int32 pos
 GEMMA_MAX_LEN = 2048
+MOE_SIZES = (14_315_784_192,  # qwen2-moe-a2.7b params, as JAX's specs count
+             28_637_466_624,  # its weight bytes (bf16, the f32 router)
+             1_610_612_740)   # dense_kv_bytes(8, 1024), bf16
 INT8_DENSE_BYTES = 238_551_044   # Model.dense_kv_bytes(8, 1024), int8 KV
 BF16_DENSE_BYTES = 469_762_052   # the same in bf16
 INT8_BLOCK_BYTES = 465_920       # Model.kv_block_bytes(16), int8 KV
@@ -1565,6 +1779,11 @@ def serve_phase(rng) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve: {GEMMA_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
+    t_arch = time.perf_counter()
+    qwen2_moe_phase(prompts, alloc, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: {MOE_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
 
     # -- rwkv6-1.6b, the same request mix, after gemma3-27b is freed ------
     t_arch = t0 = time.perf_counter()
@@ -1724,6 +1943,109 @@ def gemma3_phase(alloc, totals) -> None:
                   alloc, "continuous", max_len=GEMMA_MAX_LEN)
 
 
+def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
+    """qwen2-moe-a2.7b at full width (24 layers, d=2048, 16 q / 16 kv heads
+    of 128, 60 routed experts top-4 of d_ff 1408 and 4 shared, an f32
+    router) on the serve mix, with its param count, weight bytes and
+    slot-pool bytes against the constants reckoned from JAX's specs: the
+    four modes of qwen2-7b (``dense_modes``: continuous == paged, graph ==
+    ``fused=False``), one round replayed == eager bit for bit with the
+    round's device time beside three bounds and split into the expert
+    FFN, the dispatch and the rest (``round_check``), a paged profile
+    window, speculation continuous and paged with the 2-layer draft of
+    views (``spec_phase``), and the sampled checks."""
+    import torch
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    model, params = serve.init_model(MOE_ARCH, reduced=False, seed=SEED)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    sizes = (model.n_params(), pytree_nbytes(params),
+             model.dense_kv_bytes(8, 1024, False))
+    if sizes != MOE_SIZES:
+        raise AssertionError(f"{MOE_ARCH} (params, weight bytes, "
+                             f"dense_kv_bytes(8, 1024)): {sizes}, reckoned "
+                             f"{MOE_SIZES}")
+    log(f"serve: {MOE_ARCH} full width ({cfg.n_layers}L d={cfg.d_model} "
+        f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} V={cfg.vocab_size}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.expert_d_ff} "
+        f"+ {cfg.n_shared_experts} shared, router "
+        f"{params['layers']['moe']['router'].dtype}), {sizes[0]} params, "
+        f"{sizes[1]} bytes, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s; dense_kv_bytes(8, 1024) bf16 / "
+        f"int8 {sizes[2]} / {model.dense_kv_bytes(8, 1024, True)}, "
+        f"kv_block_bytes(16) bf16 / int8 {model.kv_block_bytes(16, False)} "
+        f"/ {model.kv_block_bytes(16, True)}")
+    prompts = [p % cfg.vocab_size for p in qwen_prompts]
+    streams = dense_modes(model, params, MOE_ARCH, prompts, alloc, totals)
+    round_check(model, params, MOE_ARCH, prompts[:8], alloc)
+    profile_window(model, params, prompts[:8], alloc, MOE_ARCH)
+    spec_phase(model, params, alloc, prompts, streams, totals, MOE_ARCH)
+
+
+def moe_round(model, params, round_dev: float) -> None:
+    """A moe round's device time beside three bounds at the card's rate:
+    every weight the round reads (all but the embedding table), the
+    expert weights alone (the batched product reads every expert whatever
+    the routing) and the active weights (``active_param_count``: top-k
+    routed plus shared).  Then its split: the expert FFN (three batched
+    products and the activation) and the dispatch (router, rank, bucket
+    scatter, gather, combine and the aux loss), each timed alone at the
+    round's shapes (B = 8 tokens, capacity 8) on every layer's weights,
+    and the rest."""
+    import functools
+    import torch
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.models import moe, transformer
+
+    cfg, n = model.cfg, model.cfg.n_layers
+    blocks = params["layers"]["moe"]
+    nbytes = {"every weight a round reads (all but the embedding)":
+              pytree_nbytes(params) - pytree_nbytes(params["embed"]),
+              "the expert weights": sum(pytree_nbytes(blocks[k]) for k in
+                                        ("w_gate", "w_up", "w_down")),
+              "the active weights (2 x active_param_count)":
+              2 * cfg.active_param_count()}
+    log(f"round {model.cfg.name}: device {round_dev:.4f} ms against " +
+        "; ".join(f"{name} {b} bytes: {b / PEAK_BYTES * 1e3:.4f} ms "
+                  f"({round_dev / (b / PEAK_BYTES * 1e3):.2f}x)"
+                  for name, b in nbytes.items()))
+    t = 8
+    cap = moe._capacity(t, cfg, cfg.moe_cf_eval)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xt = torch.randn((t, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    lps = [transformer.layer_params(params, i)["moe"] for i in range(n)]
+    ins = [moe.dispatch(xt, moe.route(lp["router"], xt, cfg, cap), cfg, cap)
+           for lp in lps]
+    flats = [moe.experts(lp, e_in) for lp, e_in in zip(lps, ins)]
+
+    def dispatch(i):
+        r = moe.route(lps[i]["router"], xt, cfg, cap)
+        moe.dispatch(xt, r, cfg, cap)
+        moe.aux_loss(r, cfg)
+        return moe.combine(flats[i], r)
+
+    parts = {
+        "expert FFN": [functools.partial(moe.experts, lps[i], ins[i])
+                       for i in range(n)],
+        "dispatch": [functools.partial(dispatch, i) for i in range(n)],
+        "shared experts": [functools.partial(moe._shared, lps[i]["shared"],
+                                             xt) for i in range(n)]}
+    ms = {name: n * device_ms(calls, iters=2 * n,
+                              label=f"{name} (one layer)")
+          for name, calls in parts.items()}
+    rest = round_dev - ms["expert FFN"] - ms["dispatch"]
+    log(f"round {model.cfg.name} split (device ms a round, each part "
+        f"timed alone on all {n} layers at T={t}, cap {cap}): " +
+        "; ".join(f"{name} {v:.4f} ({v / round_dev:.3f})"
+                  for name, v in ms.items()) +
+        f"; the rest (attention, norms, head, shared experts, launches) "
+        f"{rest:.4f} ({rest / round_dev:.3f})")
+
+
 def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
     """One continuous round of a one-instance engine with every slot live
     (``prompts``; gemma3's, half of them past the window), replayed from
@@ -1782,6 +2104,8 @@ def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
         f"{pytree_nbytes(params)} bytes at {PEAK_BYTES / 1e12} TB/s take "
         f"{weight_ms:.4f} ms")
     cfg = model.cfg
+    if cfg.family == "moe":
+        moe_round(model, params, round_dev)
     if not cfg.sliding_window:
         return
     for k, v in state().items():
@@ -2759,11 +3083,11 @@ def fleet_phase(model, params, totals, device="cuda") -> None:
 
 
 # --------------------------------------------------------------------------
-# 6. qwen2-7b speculative decoding, then sampled rounds
+# 6. qwen2-7b speculative decoding, then sampled rounds (and qwen2-moe's)
 # --------------------------------------------------------------------------
 
 SPEC_K = 4          # draft tokens a round
-DRAFT_LAYERS = 2    # the drafts: qwen2-7b at n_layers=2
+DRAFT_LAYERS = 2    # the drafts: the target's config at n_layers=2
 SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9, seed=5)
 SAMPLED_REQUESTS = 4
 
@@ -2776,23 +3100,34 @@ def draft_params(params) -> dict:
 
 
 def agreeing_target(params) -> dict:
-    """A target the 2-layer draft agrees with: layers 2-27 add nothing to
-    the residual stream (copies of ``layers/attn/wo`` and
-    ``layers/mlp/w_down`` with those layers zeroed, about 4.5 GB; every
-    other leaf shared), ``benchmarks/decode_throughput.py:73-112``'s
+    """A target the 2-layer draft agrees with: its layers past the draft's
+    add nothing to the residual stream (copies of ``layers/attn/wo`` and
+    of the FFN's ``w_down`` — ``layers/mlp/w_down``, or the routed and the
+    shared experts' ``w_down`` of ``layers/moe`` — with those layers
+    zeroed, about 4.5 GB for qwen2-7b and 7.8 GB for qwen2-moe-a2.7b;
+    every other leaf shared), ``benchmarks/decode_throughput.py:73-112``'s
     construction at full width."""
+    def zeroed(t):
+        t = t.clone()
+        t[DRAFT_LAYERS:] = 0
+        return t
+
     layers = params["layers"]
-    wo = layers["attn"]["wo"].clone()
-    w_down = layers["mlp"]["w_down"].clone()
-    wo[DRAFT_LAYERS:] = 0
-    w_down[DRAFT_LAYERS:] = 0
-    return {**params, "layers": {**layers,
-                                 "attn": {**layers["attn"], "wo": wo},
-                                 "mlp": {**layers["mlp"], "w_down": w_down}}}
+    out = {**layers, "attn": {**layers["attn"],
+                              "wo": zeroed(layers["attn"]["wo"])}}
+    if "mlp" in layers:
+        out["mlp"] = {**layers["mlp"],
+                      "w_down": zeroed(layers["mlp"]["w_down"])}
+    else:
+        moe = layers["moe"]
+        out["moe"] = {**moe, "w_down": zeroed(moe["w_down"]),
+                      "shared": {**moe["shared"], "w_down":
+                                 zeroed(moe["shared"]["w_down"])}}
+    return {**params, "layers": out}
 
 
 def spec_mode(model, params, alloc, prompts, batching, label, kw,
-              totals) -> tuple[list, dict]:
+              totals, arch=ARCH) -> tuple[list, dict]:
     """Serve ``prompts`` (32 new tokens each) on two weight-shared
     instances, speculating when ``kw`` holds ``speculate``: every timed
     round and prefill a replay of the warm-up's graphs, one sync a pass,
@@ -2801,11 +3136,11 @@ def spec_mode(model, params, alloc, prompts, batching, label, kw,
     per layer and draft step (decode: k + 1 draft steps a round) or, spec
     off, per layer and round.  Returns the streams and the numbers."""
     spec = kw.get("speculate")
-    engine = deploy(model, params, ARCH, alloc, batching, **kw)
+    engine = deploy(model, params, arch, alloc, batching, **kw)
     reqs, done, wall, counts, delta, (replayed, pre_replayed), peak = \
-        timed_serve(engine, ARCH, prompts, 32,
+        timed_serve(engine, arch, prompts, 32,
                     3 + 2 * SPEC_K if spec else 3)
-    what = f"spec {batching} {label}"
+    what = f"spec {arch} {batching} {label}"
     if done != len(prompts) or not all(
             r.done and len(r.tokens_out) == 32 for r in reqs):
         raise AssertionError(f"{what}: served {done}/{len(prompts)}")
@@ -2855,14 +3190,14 @@ def spec_mode(model, params, alloc, prompts, batching, label, kw,
     return [list(r.tokens_out) for r in reqs], out
 
 
-def _captured(model, params, alloc, prompts, batching, **kw):
+def _captured(model, params, alloc, prompts, batching, arch=ARCH, **kw):
     """A one-instance engine serving ``prompts`` (32 new tokens each) after
     three passes: admissions and the eager round, the capture, a replay;
     returns the instance (which holds its store and graphs)."""
-    engine = deploy(model, params, ARCH, alloc, batching, n_instances=1,
+    engine = deploy(model, params, arch, alloc, batching, n_instances=1,
                     **kw)
     for p in prompts:
-        engine.submit(ARCH, p, max_new_tokens=32)
+        engine.submit(arch, p, max_new_tokens=32)
     (inst,) = engine.instances.values()
     for _ in range(3):
         inst.run_step()
@@ -2885,7 +3220,7 @@ def _replay_ms(rg, n: int = 10) -> float:
 
 
 def spec_round_check(model, params, alloc, prompts, batching, spec,
-                     dparams) -> None:
+                     dparams, arch=ARCH) -> None:
     """One speculative round replayed from the instance's graph against
     the eager round body over the same state (copies restored between
     them): ``out``, ``n_emit``, slot tokens, positions, key, target pools
@@ -2895,9 +3230,12 @@ def spec_round_check(model, params, alloc, prompts, batching, spec,
     the same pools: ``verify_step``'s logits at each of the k + 1 window
     positions against k + 1 sequential ``decode_step`` logits on a copy
     (within ``REF_TOL``: plain f32 verify attention against the decode
-    kernel)."""
+    kernel).  Not for a moe config: the verify's B * (k + 1) rows share
+    the experts' capacity, where a decode step's B rows never overflow, so
+    the two forwards are different functions wherever a pair drops
+    (``_reference_moe`` holds the verify forward against the CPU)."""
     import torch
-    inst = _captured(model, params, alloc, prompts, batching,
+    inst = _captured(model, params, alloc, prompts, batching, arch,
                      speculate=spec, draft_params=dparams)
     rg = inst.round_graph
     if (rg.captures, rg.replays, inst.n_active()) != (1, 2, len(prompts)):
@@ -2918,23 +3256,32 @@ def spec_round_check(model, params, alloc, prompts, batching, spec,
     torch.cuda.synchronize()
     diff = [k for k, v in bufs.items() if not torch.equal(v, replayed[k])]
     if diff or torch.equal(start["key"], replayed["key"]):
-        raise AssertionError(f"spec round check {batching}: replay != "
-                             f"eager in {diff}")
+        raise AssertionError(f"spec round check {arch} {batching}: replay "
+                             f"!= eager in {diff}")
     n_emit = replayed["n_emit"].tolist()
-    log(f"spec round check {batching}: a draft-{SPEC_K} / verify-1 round "
+    log(f"spec round check {arch} {batching}: a draft-{SPEC_K} / verify-1 "
+        f"round "
         f"replayed from the graph equals the eager round body bit for bit "
         f"({len(bufs)} buffers: out, n_emit {n_emit}, slot tokens, "
         f"positions, key, target pools, draft pool)")
     # The plain instance stays referenced while its graph replays: the
     # graph reads the instance's buffers, which die with it.
-    plain = _captured(model, params, alloc, prompts, batching)
+    plain = _captured(model, params, alloc, prompts, batching, arch)
     times = [_replay_ms(g) for g in (plain.round_graph, rg, rg,
                                      plain.round_graph)]
-    log(f"spec round time {batching} ({len(prompts)} live slots, CUDA "
+    log(f"spec round time {arch} {batching} ({len(prompts)} live slots, CUDA "
         f"events over 10 replays, plain/spec/spec/plain): "
         f"{', '.join(f'{t:.3f}' for t in times)} ms; spec / plain "
         f"{(times[1] + times[2]) / (times[0] + times[3]):.3f}")
     if batching != "continuous":
+        return
+    if model.cfg.family == "moe":
+        log(f"spec verify check {arch}: not against sequential decode steps "
+            f"(a verify window's {len(prompts) * (SPEC_K + 1)} rows share "
+            f"the experts' capacity, which a decode step's "
+            f"{len(prompts)} rows never fill, so the two differ wherever "
+            f"a pair drops); the verify forward is held layer by layer "
+            f"against f32 on the CPU in the moe reference")
         return
     window = torch.as_tensor(
         np.random.default_rng(SEED).integers(
@@ -2947,21 +3294,23 @@ def spec_round_check(model, params, alloc, prompts, batching, spec,
     for j in range(SPEC_K + 1):
         logits, seq = model.decode_step(params, window[:, j], seq)
         compare(f"position {j}", got[:, j], logits.float().cpu())
-    log(f"spec verify check: verify_step's logits (B={len(prompts)}, W="
-        f"{SPEC_K + 1}) at every window position within "
+    log(f"spec verify check {arch}: verify_step's logits (B={len(prompts)}, "
+        f"W={SPEC_K + 1}) at every window position within "
         f"{compare.worst:.5f} (limit {REF_TOL}) of {SPEC_K + 1} sequential "
         f"decode_step logits on a copy of the same cache")
 
 
-def verify_attention_time(batching) -> float:
+def verify_attention_time(batching, cfg) -> float:
     """Device ms of the verify attention of one speculative round at the
-    phase's shapes (B=8, W=k+1, 28 q / 4 kv heads, D=128, 1024 rows;
-    paged: 64 pages of 16 a sequence, gathered first), one call a layer
-    times 28 layers, by the profiler's kernel records."""
+    phase's shapes (B=8, W=k+1, ``cfg``'s heads (qwen2-7b: 28 q / 4 kv of
+    128), 1024 rows; paged: 64 pages of 16 a sequence, gathered first),
+    one call a layer times ``cfg``'s layers, by the profiler's kernel
+    records."""
     import torch
     from repro_torch.kernels import ops
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    b, w, h, kv, d, s, bs = 8, SPEC_K + 1, 28, 4, 128, 1024, 16
+    b, w, s, bs = 8, SPEC_K + 1, 1024, 16
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.dh
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device="cuda").to(
@@ -2980,7 +3329,8 @@ def verify_attention_time(batching) -> float:
             :b * (s // bs)].view(b, s // bs).to(torch.int32) + 1
         call = lambda: ops.paged_verify_attention(  # noqa: E731
             q, kp, vp, tables, lens)
-    return 28 * device_ms([call], label=f"verify attention ({batching})")
+    return cfg.n_layers * device_ms([call],
+                                    label=f"verify attention ({batching})")
 
 
 def sampled_check(model, params, arch, prompts, alloc, batching,
@@ -3028,18 +3378,20 @@ def sampled_check(model, params, arch, prompts, alloc, batching,
         f"round replayed; first stream {runs[True][0]}")
 
 
-def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
-    """qwen2-7b speculating with k = 4 on two weight-shared instances,
-    continuous then paged, with two drafts of 2 layers (views of the
-    target's leaves): against a target whose layers 2-27 add nothing
-    (``agreeing_target``) and against the unmodified target.  Checks and
+def spec_phase(model, params, alloc, prompts, spec_off, totals,
+               arch=ARCH) -> None:
+    """``arch`` (qwen2-7b, or qwen2-moe-a2.7b) speculating with k = 4 on
+    two weight-shared instances, continuous then paged, with two drafts of
+    2 layers (views of the target's leaves): against a target whose
+    layers past the draft's add nothing (``agreeing_target``) and against
+    the unmodified target.  Checks and
     logs per mode (``spec_mode``), the agreeing draft's acceptance above
     the disagreeing one's, the round replay against the eager body and
     the verify logits (``spec_round_check``), and logs how many greedy
     streams equal the spec-off ones (``spec_off``: the serve phase's
     streams of the unmodified target), the verify attention's device time
     a round, and a profile window of the agreeing draft's rounds (host
-    launch calls a spec round); then the sampled qwen2-7b runs
+    launch calls a spec round); then the sampled runs
     (``sampled_check``), continuous and paged."""
     import dataclasses
     import gc
@@ -3047,7 +3399,7 @@ def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
     from repro_torch.serving.speculative import SpecConfig
 
     t0 = time.perf_counter()
-    dcfg = dataclasses.replace(model.cfg, name=f"{ARCH}-draft{DRAFT_LAYERS}",
+    dcfg = dataclasses.replace(model.cfg, name=f"{arch}-draft{DRAFT_LAYERS}",
                                n_layers=DRAFT_LAYERS)
     spec = SpecConfig(draft_cfg=dcfg, k=SPEC_K)
     dparams = draft_params(params)
@@ -3055,7 +3407,7 @@ def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
     torch.cuda.synchronize()
     log(f"spec: drafts {dcfg.name} ({DRAFT_LAYERS} layers, views of the "
         f"target's leaves), k = {SPEC_K}; the agreeing target copies "
-        f"layers/attn/wo and layers/mlp/w_down with layers "
+        f"layers/attn/wo and the FFN's w_down with layers "
         f"{DRAFT_LAYERS}-{model.cfg.n_layers - 1} zeroed")
     for batching in ("continuous", "paged"):
         runs = {}
@@ -3066,15 +3418,16 @@ def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
                 ("disagreeing draft", params,
                  dict(speculate=spec, draft_params=dparams))):
             runs[label] = spec_mode(model, target, alloc, prompts, batching,
-                                    label, kw, totals)
+                                    label, kw, totals, arch)
         (off, off_n), (ag, ag_n), (dis, dis_n) = runs.values()
         acc = {k: n["accepted"] / n["proposed"] for k, (_, n) in runs.items()
                if n["proposed"]}
         if not acc["agreeing draft"] > acc["disagreeing draft"]:
-            raise AssertionError(f"spec {batching}: acceptance {acc}")
+            raise AssertionError(f"spec {arch} {batching}: acceptance "
+                                 f"{acc}")
         same_ag = sum(a == b for a, b in zip(ag, off))
         same_dis = sum(a == b for a, b in zip(dis, spec_off[batching]))
-        log(f"spec {batching}: acceptance agreeing "
+        log(f"spec {arch} {batching}: acceptance agreeing "
             f"{acc['agreeing draft']:.4f} > disagreeing "
             f"{acc['disagreeing draft']:.4f}; tokens/s spec off "
             f"{off_n['tps']:.1f}, agreeing {ag_n['tps']:.1f}, disagreeing "
@@ -3082,22 +3435,24 @@ def spec_phase(model, params, alloc, prompts, spec_off, totals) -> None:
             f"agreeing {same_ag}/{len(ag)}, disagreeing {same_dis}/"
             f"{len(dis)} (logged, not asserted: a verify GEMM of B*(k+1) "
             f"rows may round otherwise than a decode GEMM of B rows, and "
-            f"a near-tie flips; the exact check is the CPU's, in f32)")
+            f"a near-tie flips, and a moe verify window shares the "
+            f"experts' capacity; the exact check is the CPU's, in f32)")
         spec_round_check(model, params, alloc, prompts[:8], batching, spec,
-                         dparams)
-        log(f"spec {batching}: verify attention device time per spec round "
-            f"{verify_attention_time(batching):.4f} ms (28 layers)")
+                         dparams, arch)
+        log(f"spec {arch} {batching}: verify attention device time per "
+            f"spec round {verify_attention_time(batching, model.cfg):.4f} "
+            f"ms ({model.cfg.n_layers} layers)")
         profile_window(model, agree, prompts[:8], alloc,
-                       f"{ARCH} spec agreeing", batching, 3 + 2 * SPEC_K,
+                       f"{arch} spec agreeing", batching, 3 + 2 * SPEC_K,
                        speculate=spec, draft_params=dparams)
         gc.collect()
     del agree, dparams
     gc.collect()
     torch.cuda.empty_cache()
     for batching in ("continuous", "paged"):
-        sampled_check(model, params, ARCH, prompts[:SAMPLED_REQUESTS], alloc,
+        sampled_check(model, params, arch, prompts[:SAMPLED_REQUESTS], alloc,
                       batching)
-    log(f"spec: phase took {time.perf_counter() - t0:.1f}s")
+    log(f"spec {arch}: phase took {time.perf_counter() - t0:.1f}s")
 
 
 def profile_window(model, params, prompts, alloc, arch=ARCH,

@@ -8,13 +8,16 @@ occupancy and the model-sharing memory ledger.  The full-width config is
 served on the card by default; ``--reduced`` serves the smoke cut and
 ``--device cpu`` runs the plain PyTorch path on the CPU.  ``--arch`` takes
 qwen2-7b (the default), starcoder2-15b, gemma3-27b, qwen1.5-110b,
-rwkv6-1.6b and hymba-1.5b; ``REPRO_KV_INT8=1`` in the environment serves
-the full-cache dense configs from int8 KV caches.
+qwen2-moe-a2.7b, mixtral-8x7b, rwkv6-1.6b and hymba-1.5b;
+``REPRO_KV_INT8=1`` in the environment serves the full-cache dense and moe
+configs from int8 KV caches.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --arch mixtral-8x7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   REPRO_KV_INT8=1 PYTHONPATH=src python -m repro_torch.launch.serve
@@ -59,7 +62,7 @@ def init_model(arch: str, *, reduced: bool, seed: int,
 def head_dim_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the card's attention kernels cannot serve ``cfg``, or None: a
     plain function of the config, checked before any weight is drawn."""
-    if cfg.family in ("dense", "hybrid") and cfg.dh not in HEAD_DIMS:
+    if cfg.family in ("dense", "moe", "hybrid") and cfg.dh not in HEAD_DIMS:
         return (f"{cfg.name}: head dim {cfg.dh}, but the attention kernels "
                 f"take head dims {HEAD_DIMS} only; serve it with "
                 f"--device cpu")
@@ -87,7 +90,8 @@ def main(argv: Optional[list[str]] = None) -> None:
     ap.add_argument("--arch", action="append", default=None,
                     help="repeatable; each arch is served: qwen2-7b "
                          "(default), starcoder2-15b, gemma3-27b, "
-                         "qwen1.5-110b, rwkv6-1.6b or hymba-1.5b")
+                         "qwen1.5-110b, qwen2-moe-a2.7b, mixtral-8x7b, "
+                         "rwkv6-1.6b or hymba-1.5b")
     ap.add_argument("--instances", type=int, default=2,
                     help="instances per function (share one weight copy)")
     ap.add_argument("--requests", type=int, default=24)
@@ -131,8 +135,9 @@ def main(argv: Optional[list[str]] = None) -> None:
         kv = "int8" if model.kv_int8() else {
             "rwkv": "recurrent state",
             "hybrid": "rolled bf16 KV + SSM state"}.get(cfg.family, "bf16")
-        if cfg.family == "dense" and cfg.sliding_window:
-            kv = "rolled + global bf16"
+        if cfg.sliding_window and cfg.family in ("dense", "moe"):
+            kv = ("rolled + global bf16" if cfg.local_global_ratio
+                  else "rolled bf16")
         print(f"[deploy] {arch}: {args.instances} instances sharing "
               f"{nbytes / 1e6:.1f} MB of weights ({cfg.n_layers}L "
               f"d={cfg.d_model}, {kv} cache) on {engine.device}")

@@ -23,13 +23,15 @@ class PSpec:
     shape: tuple[int, ...]
     init: str = "normal"  # normal (std 1/sqrt(fan_in)) | zeros | small
     stacked: bool = False  # leading dim is the stacked "layers" axis
+    dtype: torch.dtype = torch.bfloat16  # the MoE router is f32
 
 
 def stack_tree(spec_tree: Any, n: int) -> Any:
     """Add a leading stacked-layers dim to every spec of a tree."""
     if isinstance(spec_tree, dict):
         return {k: stack_tree(v, n) for k, v in spec_tree.items()}
-    return PSpec((n, *spec_tree.shape), spec_tree.init, stacked=True)
+    return dataclasses.replace(spec_tree, shape=(n, *spec_tree.shape),
+                               stacked=True)
 
 
 def param_logical_names(spec_tree: Any) -> Any:
@@ -44,14 +46,16 @@ def param_logical_names(spec_tree: Any) -> Any:
 
 
 def init_params(spec_tree: Any, generator: torch.Generator) -> Any:
-    """Materialize bf16 parameters from a PSpec tree, one leaf at a time,
-    on the generator's device, with the init rules of ``repro.models.
+    """Materialize parameters from a PSpec tree, one leaf at a time, each
+    in its spec's dtype (bf16 but the MoE router's f32), on the
+    generator's device, with the init rules of ``repro.models.
     layers.init_params`` (normal with std 1/sqrt(fan_in), ``small`` std
     0.02, zeros).  Stacked leaves are drawn one layer slice at a time so
     the f32 draw never holds more than one slice."""
-    device, dtype = generator.device, torch.bfloat16
+    device = generator.device
 
     def one(spec: PSpec) -> torch.Tensor:
+        dtype = spec.dtype
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dtype, device=device)
         shape = spec.shape

@@ -1,6 +1,6 @@
 """``Model``: family dispatch, steps and cache factories (counterpart of
 ``repro.models.model.Model`` for the families ported so far: the dense
-family, RWKV-6 and the Hymba hybrid).
+and MoE families, RWKV-6 and the Hymba hybrid).
 
 Cache leaves follow ``cache_shapes``/``paged_cache_shapes`` of the JAX
 package (model.py:169-232, 316-342): bf16 K/V, or under the int8 gate
@@ -33,7 +33,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_params, param_count,
                                       param_logical_names)
 
-_FAMILY = {"dense": transformer, "rwkv": rwkv6, "hybrid": hybrid}
+_FAMILY = {"dense": transformer, "moe": transformer, "rwkv": rwkv6,
+           "hybrid": hybrid}
 
 
 def default_kv_blocks(max_batch: int, max_len: int, block_size: int) -> int:
@@ -74,9 +75,9 @@ class Model:
         cfg = self.cfg
         if cfg.family not in _FAMILY:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves the dense family, rwkv6 and "
-                f"the hybrid so far ({cfg.family}: ROADMAP.md, Queue 1, "
-                f"items 9-10)")
+                f"{cfg.name}: the port serves the dense and moe families, "
+                f"rwkv6 and the hybrid so far ({cfg.family}: ROADMAP.md, "
+                f"Queue 1, item 10)")
 
     @functools.cached_property
     def specs(self) -> Any:
@@ -89,8 +90,9 @@ class Model:
     # -- params -----------------------------------------------------------
 
     def init(self, generator: torch.Generator) -> Any:
-        """bf16 parameters from ``generator``, drawn leaf by leaf on the
-        generator's device."""
+        """Parameters from ``generator``, drawn leaf by leaf on the
+        generator's device, each in its spec's dtype (bf16; the MoE
+        router f32)."""
         return init_params(self.specs, generator)
 
     def param_names(self) -> Any:
@@ -127,7 +129,8 @@ class Model:
         """Right-padded prompts need full per-position caches: pad tokens
         would enter an rwkv or SSM recurrence, and a sliding-window cache
         is not addressed by absolute position (model.py:88-92)."""
-        return self.cfg.family == "dense" and self.cfg.sliding_window is None
+        return (self.cfg.family in ("dense", "moe")
+                and self.cfg.sliding_window is None)
 
     def supports_paged(self) -> bool:
         return transformer.supports_paged(self.cfg)
@@ -154,7 +157,7 @@ class Model:
         leave the device (model.py:110-151).  With a key buffer the round
         advances it in place and samples, every family through the same
         sampler, and returns the key as a third element."""
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             return transformer.decode_step_tokens(params, token, cache,
                                                   self.cfg, key, sampling)
         logits, cache = self.decode_step(params, token, cache)
@@ -174,7 +177,7 @@ class Model:
 
     def supports_speculative(self, kv_int8: Optional[bool] = None) -> bool:
         """Whether the batched verify step covers this config: full-cache
-        dense, with bf16 KV (the int8 gate, or ``kv_int8``, off)."""
+        dense or moe, with bf16 KV (the int8 gate, or ``kv_int8``, off)."""
         return transformer.supports_speculative(self.cfg,
                                                 self._int8(kv_int8))
 
@@ -207,7 +210,8 @@ class Model:
         """{leaf: (shape, dtype)} of the paged pools (model.py:316-342)."""
         if not self.supports_paged():
             raise NotImplementedError(
-                f"{self.cfg.name}: paged KV needs a full-cache dense config")
+                f"{self.cfg.name}: paged KV needs a full-cache dense/moe "
+                f"config")
         return transformer.cache_specs(self.cfg, n_blocks, block_size,
                                        self._int8(kv_int8))
 

@@ -1,0 +1,158 @@
+"""Mixture-of-Experts block: top-k routing with capacity-bucketed dispatch
+(counterpart of ``repro.models.moe``'s single-device path,
+``_moe_apply_global``, moe.py:184-241).
+
+Tokens pick their top-k experts; each (token, expert) pair takes the next
+row of its expert's capacity bucket in token-major order, overflow past
+the capacity is dropped to a trash row, the buckets go through a batched
+(E, C, D) x (E, D, F) product, and the pair outputs come back weighted by
+their gates.  The mesh path (``_moe_apply_shardmap``) needs a device mesh
+and arrives with sharded pods (ROADMAP.md, Queue 1 item 11).
+
+The body runs inside the captured decode round and admission graphs
+(``serving/graphs.py``), so nothing in it syncs the host or takes a
+data-dependent shape: a pair's rank within its expert is a cumulative
+sum over the one-hot of the pair experts (JAX's stable argsort rank with
+no sort), top-k is a stable descending sort (JAX's lower-index-first tie
+order, which ``torch.topk`` does not promise), and the combine adds a
+token's k pair outputs in ascending expert order in ``x.dtype`` — the
+order JAX's scatter-add applies them in — with no float atomics, so a
+replayed round equals its eager body bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import PSpec
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The block's leaves (moe.py:34-50): an f32 router, stacked expert
+    matrices, and the shared experts with their sigmoid gate."""
+    d, fe, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    s = {"router": PSpec((d, e), dtype=torch.float32),
+         "w_gate": PSpec((e, d, fe)), "w_up": PSpec((e, d, fe)),
+         "w_down": PSpec((e, fe, d))}
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * fe
+        s["shared"] = {"w_gate": PSpec((d, fs)), "w_up": PSpec((d, fs)),
+                       "w_down": PSpec((fs, d)), "gate": PSpec((d, 1))}
+    return s
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig, factor: float) -> int:
+    """Rows of each expert's bucket (moe.py:53-60), clamped to
+    ``n_tokens``: an expert takes at most one pair a token."""
+    c = int(n_tokens * cfg.top_k * factor / cfg.n_experts) + 1
+    return min(max(c, cfg.top_k, 8), max(n_tokens, 1))
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
+          cap: int) -> dict:
+    """Routing of the (T, D) tokens ``xt``, in token-major pair order
+    (pair ``t * k + j`` is token t's j-th choice): ``gates`` (T, E) f32,
+    ``top_w`` / ``top_e`` (T, k) renormalised gate weights and experts in
+    descending gate order, ``keep`` (T * k,) whether the pair's rank in
+    its expert (the earlier pairs with the same expert) is below ``cap``,
+    ``dest`` its bucket row ``e * cap + rank`` or the trash row
+    ``E * cap``, and ``counts`` (E,) pairs an expert."""
+    e, k = cfg.n_experts, cfg.top_k
+    gates = torch.softmax(xt.float() @ router.float(), dim=-1)
+    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
+    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    pair_e = top_e.reshape(-1)
+    # (E, T * k): the scan runs along the contiguous dim, one row an
+    # expert (a scan down the T * k rows of the transpose is serial).
+    onehot = (torch.arange(e, device=xt.device)[:, None] == pair_e).to(
+        torch.int32)
+    seen = onehot.cumsum(1, dtype=torch.int32)  # inclusive, per expert
+    rank = seen.gather(0, pair_e[None])[0] - 1
+    keep = rank < cap
+    dest = torch.where(keep, pair_e * cap + rank,
+                       torch.full_like(pair_e, e * cap))
+    return dict(gates=gates, top_w=top_w, top_e=top_e, keep=keep, dest=dest,
+                counts=seen[:, -1])
+
+
+def _shared(sp: dict, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts times their sigmoid gate (moe.py:233-239); the
+    gate's logits in f32, as JAX promotes ``f32 @ bf16``."""
+    g = F.silu((xt @ sp["w_gate"]).float()).to(xt.dtype)
+    out = (g * (xt @ sp["w_up"])) @ sp["w_down"]
+    mix = torch.sigmoid(xt.float() @ sp["gate"].float())
+    return out * mix.to(xt.dtype)
+
+
+def dispatch(xt: torch.Tensor, r: dict, cfg: ModelConfig,
+             cap: int) -> torch.Tensor:
+    """Each kept pair's token into its bucket row: (E, cap, D), zero where
+    a bucket is not full.  Dropped pairs all write the trash row, which is
+    cut off (moe.py:218-219)."""
+    t, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    buckets = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    buckets.index_copy_(0, r["dest"], xt[:, None].expand(t, k, d)
+                        .reshape(t * k, d))
+    return buckets[:-1].view(e, cap, d)
+
+
+def experts(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
+    """Every expert's SiLU-gated FFN over its bucket, the activation in f32
+    (moe.py:222-225): the (E * cap, D) outputs, then a zero row that
+    dropped pairs read."""
+    e, cap, d = expert_in.shape
+    h_gate = torch.bmm(expert_in, params["w_gate"])
+    h_up = torch.bmm(expert_in, params["w_up"])
+    h = F.silu(h_gate.float()).to(expert_in.dtype) * h_up
+    flat = torch.empty((e * cap + 1, d), dtype=expert_in.dtype,
+                       device=expert_in.device)
+    torch.bmm(h, params["w_down"], out=flat[:-1].view(e, cap, d))
+    flat[-1].zero_()
+    return flat
+
+
+def combine(flat: torch.Tensor, r: dict) -> torch.Tensor:
+    """(T, D): a token's pair outputs in ascending expert order, weighted by
+    (gate * keep) in the outputs' dtype, added in turn, as JAX's
+    scatter-add applies them (moe.py:226-231)."""
+    t, k = r["top_e"].shape
+    order = torch.argsort(r["top_e"], dim=-1)
+    dest = r["dest"].view(t, k).gather(1, order)
+    w = (r["top_w"] * r["keep"].view(t, k)).gather(1, order).to(flat.dtype)
+    pair_out = flat.index_select(0, dest.reshape(-1)).view(t, k, -1) * \
+        w[..., None]
+    y = pair_out[:, 0]
+    for j in range(1, k):
+        y = y + pair_out[:, j]
+    return y
+
+
+def aux_loss(r: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The Switch load-balancing loss (f32 scalar, moe.py:199-202): E times
+    the sum over experts of the mean gate and the share of pairs."""
+    t = r["gates"].shape[0]
+    ce = r["counts"].float() / (t * cfg.top_k)
+    return cfg.n_experts * torch.sum(r["gates"].mean(0) * ce)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+              capacity_factor: float = 1.25
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, D) -> ((B, S, D), aux): the routed experts' combine plus the
+    shared experts, and the Switch load-balancing loss (``aux_loss``; the
+    transformer drops it).  Every one of the B * S rows takes capacity:
+    free decode slots, prompt padding and every row of a verify window
+    (``_capacity`` of B * S)."""
+    b, s, d = x.shape
+    t = b * s
+    cap = _capacity(t, cfg, capacity_factor)
+    xt = x.reshape(t, d)
+    r = route(params["router"], xt, cfg, cap)
+    y = combine(experts(params, dispatch(xt, r, cfg, cap)), r)
+    if "shared" in params:
+        y = y + _shared(params["shared"], xt)
+    return y.view(b, s, d), aux_loss(r, cfg)

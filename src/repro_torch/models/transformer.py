@@ -1,8 +1,10 @@
-"""Decoder-only transformer, dense family (counterpart of the dense paths
-of ``repro.models.transformer``): SwiGLU, GeGLU and GELU MLPs, full
-caches, and gemma3's local:global interleave on dual caches — rolled
-(L, B, C, K, Dh) ``k``/``v`` leaves for every layer plus full-length
-``global_k``/``global_v`` leaves for the global layers.
+"""Decoder-only transformer, dense and MoE families (counterpart of the
+dense and moe paths of ``repro.models.transformer``): SwiGLU, GeGLU and
+GELU MLPs or the expert block of ``models/moe.py``, full caches, a rolled
+cache on every layer (mixtral's window), and gemma3's local:global
+interleave on dual caches — rolled (L, B, C, K, Dh) ``k``/``v`` leaves
+for every layer plus full-length ``global_k``/``global_v`` leaves for the
+global layers.
 
 JAX scans over a stacked ``layers`` axis; the port keeps that layout and
 loops over it in Python (PyTorch runs eagerly; on the card the serving
@@ -28,13 +30,18 @@ from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (PSpec, mlp_apply, mlp_specs, rms_norm,
                                        stack_tree)
+from repro_torch.models.moe import moe_apply, moe_specs
 
 
 def block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
-            "ln2": PSpec((d,), init="zeros"),
-            "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp)}
+    s = {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
+         "ln2": PSpec((d,), init="zeros")}
+    if cfg.family == "moe":
+        s["moe"] = moe_specs(cfg)
+    else:
+        s["mlp"] = mlp_specs(d, cfg.d_ff, cfg.mlp)
+    return s
 
 
 def decoder_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -63,6 +70,14 @@ def layer_params(params: dict, i: int) -> dict:
 # --------------------------------------------------------------------------
 
 
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP, or for the moe family the expert block at the serving
+    capacity factor ``moe_cf_eval`` (transformer.py:89-94)."""
+    if cfg.family == "moe":
+        return moe_apply(lp["moe"], x, cfg, cfg.moe_cf_eval)[0]
+    return mlp_apply(lp["mlp"], x, cfg.mlp)
+
+
 def block_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                positions: torch.Tensor, window: Optional[int] = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -73,7 +88,7 @@ def block_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, *,
                              window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp), k, v
+    return x + _ffn(lp, h, cfg), k, v
 
 
 def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -85,7 +100,7 @@ def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                rolled=rolled, window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -94,7 +109,7 @@ def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn.attn_decode_quant(lp["attn"], h, kc, vc, ksc, vsc, pos, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -107,7 +122,7 @@ def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     x = x + attn.attn_decode_paged_quant(lp["attn"], h, kc, vc, ksc, vsc,
                                          block_tables, pos, cfg, active)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -120,7 +135,7 @@ def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -303,11 +318,11 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """Full-cache dense configs: every KV row is addressed by absolute
-    position, so block tables substitute directly.  Rolled and dual
-    caches fold positions (row = pos mod C) and would alias rows across
-    blocks (transformer.py:571-578)."""
-    return (cfg.family == "dense" and cfg.sliding_window is None
+    """Full-cache dense and moe configs: every KV row is addressed by
+    absolute position, so block tables substitute directly.  Rolled and
+    dual caches fold positions (row = pos mod C) and would alias rows
+    across blocks (transformer.py:571-578)."""
+    return (cfg.family in ("dense", "moe") and cfg.sliding_window is None
             and cfg.local_global_ratio == 0)
 
 
@@ -426,7 +441,7 @@ def block_verify(lp: dict, x: torch.Tensor, kc: torch.Tensor,
     a, _, _ = attn.attn_verify(lp["attn"], h, kc, vc, pos, cfg)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -439,22 +454,22 @@ def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(lp["mlp"], h, cfg.mlp)
+    return x + _ffn(lp, h, cfg)
 
 
 def supports_speculative(cfg: ModelConfig, kv_int8: bool = False) -> bool:
     """The verify step addresses KV rows by absolute position and writes a
-    W-row window a round: the full-cache dense configs of the paged plane,
-    without int8 KV, whose scale pools would need a windowed quantized
-    writer (transformer.py:731-736)."""
+    W-row window a round: the full-cache dense and moe configs of the
+    paged plane, without int8 KV, whose scale pools would need a windowed
+    quantized writer (transformer.py:731-736)."""
     return supports_paged(cfg) and not kv_int8
 
 
 def _refuse_verify(cfg: ModelConfig, cache: dict) -> None:
     if not supports_speculative(cfg, "k_scale" in cache):
         raise NotImplementedError(
-            f"speculative verify requires a full-cache dense config with "
-            f"bf16 KV, got {cfg.name} ({cfg.family})")
+            f"speculative verify requires a full-cache dense/moe config "
+            f"with bf16 KV, got {cfg.name} ({cfg.family})")
 
 
 def verify_step(params: dict, tokens: torch.Tensor, cache: dict,

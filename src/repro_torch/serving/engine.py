@@ -47,8 +47,9 @@ pending buffer, and the cache's merge into the slot (continuous) or its
 scatter into the pages (paged), all driven by one argument buffer on
 the device (length, slot, ordinal, append row, padded tokens) that one
 ``copy_`` fills from a pinned staging row before each admission.  The
-dense family's bucketed admissions run it as ``graphs.PrefillGraphs``,
-one CUDA graph per (instance, bucket) on the card, the counterpart of
+dense and moe families' bucketed admissions run it as
+``graphs.PrefillGraphs``, one CUDA graph per (instance, bucket) on the
+card, the counterpart of
 JAX's ``_prefill_len`` -> ``_greedy`` -> ``_merge``/``_append`` ->
 ``_SET_TOK``; RWKV-6 and the hybrid prefill at the exact length and run
 the body eagerly.  Paged pools hold one block past the allocator's, a
@@ -58,9 +59,10 @@ sentinel, engine.py:625-633).
 An instance reads the int8-KV gate (``REPRO_KV_INT8``) once, when it is
 built, and passes it to every prefill, pool and byte count it makes, so
 it stays int8 (or bf16) whatever the variable does later; paged
-admission then charges the int8 block bytes.  The dense family, RWKV-6
-and the Hymba hybrid serve through the same paths; RWKV-6 and the hybrid
-prefill at the exact prompt length and serve continuous only (a
+admission then charges the int8 block bytes.  The dense and moe
+families, RWKV-6 and the Hymba hybrid serve through the same paths; a
+windowed config (mixtral, gemma3), RWKV-6 and the hybrid prefill at the
+exact prompt length and serve continuous only (a
 ``batching="paged"`` deploy raises ``ValueError``, as in JAX: their
 caches are recurrent state and rolled sliding-window rows, not rows
 addressed by absolute position).
@@ -172,13 +174,13 @@ def _refuse_options(model: Model, kv_int8: bool, batching: str, fused: bool,
                          "round (the draft/verify loop is one round)")
     if not model.supports_speculative(kv_int8):
         raise ValueError(f"{model.cfg.name}: speculative verify needs a "
-                         f"full-cache dense target (no int8 KV)")
+                         f"full-cache dense/moe target (no int8 KV)")
     if draft_model is None or draft_key is None:
         raise ValueError("speculate needs a draft model and its weights key "
                          "(engine.deploy builds them)")
     if not draft_model.supports_speculative(False):
         raise ValueError(f"{draft_model.cfg.name}: the draft must be a "
-                         f"full-cache dense config")
+                         f"full-cache dense/moe config")
     if draft_model.cfg.vocab_size != model.cfg.vocab_size:
         raise ValueError("draft and target must share vocab_size")
 
@@ -209,7 +211,8 @@ class FunctionInstance:
     sync-free round, a CUDA graph on the card (``round_graph``);
     ``fused=False`` the host-argmax reference.  Token streams are
     identical either way.  ``prefill_buckets=False`` admits the dense
-    family at the exact prompt length, eagerly, with no prefill graphs;
+    and moe families at the exact prompt length, eagerly, with no prefill
+    graphs;
     ``prefix_sharing`` applies to paged instances only.  ``sampling``
     samples on the device; ``speculate`` runs the draft-k / verify-1
     round with ``draft_model``, whose weights the store holds under
@@ -282,7 +285,7 @@ class FunctionInstance:
         if batching == "paged":
             if not model.supports_paged():
                 raise ValueError(f"{model.cfg.name}: batching='paged' needs "
-                                 f"a full-cache dense config")
+                                 f"a full-cache dense/moe config")
             if block_size <= 0 or max_len % block_size:
                 raise ValueError(
                     "block_size must be positive and divide max_len")

@@ -34,7 +34,7 @@ instance's sync reads them.
 - On the CPU, where CUDA graphs do not exist, every round runs eagerly.
 
 ``PrefillGraphs`` applies the same rules to an instance's admissions of
-the dense family, one ``RoundGraph`` per prefill bucket (JAX compiles
+the dense and moe families, one ``RoundGraph`` per prefill bucket (JAX compiles
 ``_prefill_len`` once per bucket shape): the first admission of a bucket
 runs eagerly, the second is captured and replayed, later ones replay.
 The bucket graphs of one instance share one memory pool: they never run

@@ -356,14 +356,25 @@ def test_gemma3_migration_gives_the_unmigrated_streams():
     assert [list(r.tokens_out) for r in reqs] == unmigrated == jstreams
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "seamless-m4t-large-v2",
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
                                   "llama-3.2-vision-11b"])
 def test_unported_families_raise_naming_roadmap(arch):
-    """Every dense config builds; moe, encdec and vlm still raise, naming
-    the Queue 1 items that port them."""
+    """Every dense and moe config builds; encdec and vlm still raise,
+    naming the Queue 1 item that ports them."""
     cfg = ModelConfig(**dataclasses.asdict(jax_config(arch, reduced=True)))
-    with pytest.raises(NotImplementedError, match="items 9-10"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x7b"])
+def test_moe_configs_build(arch):
+    """The moe configs build at full width and reduced, from the port's
+    registry, with the expert block in every layer's specs."""
+    for reduced in (False, True):
+        model = build_model(get_config(arch, reduced=reduced))
+        assert set(model.specs["layers"]) == {"ln1", "attn", "ln2", "moe"}
+        assert model.n_params() == jax_build(
+            jax_config(arch, reduced=reduced)).n_params()
 
 
 def test_gemma3_paged_and_speculating_deploys_raise():

@@ -6,7 +6,8 @@ node failure, the sampled and speculative rounds under the graphs
 (replay == eager body, sampled graph == ``fused=False``, the sampler's
 distribution and the key stream's bits on the card), and the dense
 configs' geometries (starcoder2-15b's and gemma3-27b's heads, gemma3's
-dual caches), on the card.  Marked ``gpu``: without a card
+dual caches), and the MoE block (deterministic, captured, routed as on
+the CPU), on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -704,9 +705,10 @@ def test_ssm_kernel_state_size_8(cuda_device, s):
 
 
 def _serving_model(arch, device):
-    """A model and its bf16 weights drawn on the card: ``tiny`` is a
-    2-layer dense config at head dim 16 (the kernels take 16-128), the
-    others a reduced config (rwkv6-1.6b, hymba-1.5b, gemma3-27b)."""
+    """A model and its weights drawn on the card: ``tiny`` is a 2-layer
+    dense config at head dim 16 (the kernels take 16-128), the others a
+    reduced config (rwkv6-1.6b, hymba-1.5b, gemma3-27b, qwen2-moe-a2.7b,
+    mixtral-8x7b)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.config import ModelConfig
@@ -739,6 +741,8 @@ def _graph_engine(model, params, batching, arrivals, max_batch=2, **kw):
     ("tiny", "continuous", False), ("tiny", "paged", False),
     ("tiny", "continuous", True), ("tiny", "paged", True),
     ("rwkv6-1.6b", "continuous", False), ("hymba-1.5b", "continuous", False),
+    ("qwen2-moe-a2.7b", "continuous", False),
+    ("qwen2-moe-a2.7b", "paged", True), ("mixtral-8x7b", "continuous", False),
 ])
 def test_round_graph_streams_equal_host_argmax(cuda_device, monkeypatch,
                                                arch, batching, int8):
@@ -1590,3 +1594,97 @@ def test_gemma3_reduced_round_replay_equals_eager_body(cuda_device):
     host, _ = _graph_engine(model, params, "continuous", arrivals,
                             fused=False, max_batch=4)
     assert [r.tokens_out for r in reqs] == host
+
+
+# -- the MoE block: deterministic, captured, routed as on the CPU -------------
+
+
+def _moe_block(device):
+    """One expert block with qwen2-moe-a2.7b's routing (60 experts, top-4,
+    4 shared) at d = 256, expert d_ff 128, on ``device``: (cfg, params)."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.models.layers import init_params
+    cfg = ModelConfig(name="moe-block", family="moe", n_layers=1,
+                      d_model=256, n_heads=2, n_kv_heads=2, d_ff=128,
+                      vocab_size=256, n_experts=60, top_k=4,
+                      n_shared_experts=4, moe_d_ff=128)
+    gen = torch.Generator(device=device).manual_seed(0)
+    return cfg, init_params(moe.moe_specs(cfg), gen)
+
+
+MOE_SHAPES = [(8, 1, 2.0), (8, 5, 2.0), (1, 512, 0.5), (1, 512, 2.0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,cf", MOE_SHAPES)
+def test_moe_apply_eager_twice_bit_equal(cuda_device, b, s, cf):
+    """A decode round (8 tokens), a verify window (8 x 5) and a 512-token
+    prefill, with and without drops: two eager calls on the same inputs
+    give the same output bit for bit (no float atomics in the combine)."""
+    from repro_torch.models import moe
+    cfg, params = _moe_block(cuda_device)
+    x = _cuda_rand(np.random.default_rng(b * s), (b, s, cfg.d_model),
+                   cuda_device)
+    y1, aux1 = moe.moe_apply(params, x, cfg, cf)
+    y2, aux2 = moe.moe_apply(params, x, cfg, cf)
+    assert torch.isfinite(y1.float()).all()
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,cf", MOE_SHAPES)
+def test_moe_apply_captures_and_replay_equals_eager(cuda_device, b, s, cf):
+    """The block captures into a CUDA graph (no host sync, no
+    data-dependent shape) and a replay on new inputs equals the eager
+    call on them bit for bit."""
+    from repro_torch.models import moe
+    from repro_torch.serving.graphs import RoundGraph
+    cfg, params = _moe_block(cuda_device)
+    rng = np.random.default_rng(s)
+    x = _cuda_rand(rng, (b, s, cfg.d_model), cuda_device)
+    out = torch.empty_like(x)
+
+    def body():
+        return out.copy_(moe.moe_apply(params, x, cfg, cf)[0])
+
+    rg = RoundGraph(cuda_device)
+    rg.run(body)  # eager
+    rg.run(body)  # captured, replayed
+    x.copy_(_cuda_rand(rng, (b, s, cfg.d_model), cuda_device))
+    rg.replay()
+    torch.cuda.synchronize()
+    want = moe.moe_apply(params, x, cfg, cf)[0]
+    assert rg.captures == 1 and rg.replays == 2
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [0.5, 2.0])
+def test_moe_routing_equals_cpu(cuda_device, cf):
+    """512 tokens with integer features and an integer router, so the
+    logits are exact on both devices and ties are common: the card's
+    ``top_e``, ``dest`` and ``keep`` equal the CPU's as integers (drops at
+    capacity factor 0.5), and its bf16 output is within 2e-2 of the
+    CPU's f32 run on the same weights."""
+    from repro_torch.models import moe
+    cfg, params = _moe_block(cuda_device)
+    rng = np.random.default_rng(12)
+    x_np = rng.integers(-2, 3, (1, 512, cfg.d_model)).astype(np.float32)
+    router = rng.integers(-3, 4, (cfg.d_model, cfg.n_experts))
+    params["router"] = torch.as_tensor(router, dtype=torch.float32,
+                                       device=cuda_device)
+    x = torch.as_tensor(x_np, device=cuda_device).to(torch.bfloat16)
+    cpu = {k: (v.cpu().float() if torch.is_tensor(v) else
+               {k2: v2.cpu().float() for k2, v2 in v.items()})
+           for k, v in params.items()}
+    cap = moe._capacity(512, cfg, cf)
+    got = moe.route(params["router"], x[0], cfg, cap)
+    want = moe.route(cpu["router"], torch.from_numpy(x_np[0]), cfg, cap)
+    for key in ("top_e", "dest", "keep"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert (not want["keep"].all()) == (cf < 1)
+    y = moe.moe_apply(params, x, cfg, cf)[0].float().cpu()
+    ref = moe.moe_apply(cpu, torch.from_numpy(x_np), cfg, cf)[0]
+    assert torch.isfinite(y).all()
+    assert ((y - ref).abs().max() / ref.abs().max()).item() < 2e-2

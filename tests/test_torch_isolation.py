@@ -62,8 +62,9 @@ def test_unported_arch_raises_naming_roadmap():
     from repro_torch.configs import get_config
 
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+        get_config("seamless-m4t-large-v2")
     assert get_config("qwen2-7b").d_model == 3584
+    assert get_config("mixtral-8x7b").family == "moe"
 
 
 def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,

@@ -9,8 +9,8 @@ shared-prefix mixes holds the streams and the write contract.
 Both packages run f32 params of the tiny config on the CPU (bf16 or int8
 KV pools; the port's admissions run their graphs' body eagerly here).
 Tolerance: identical tokens and counts; ``copy_block`` pools bit for bit.
-MoE waits for its port (ROADMAP Queue 1 item 9), so the families here are
-dense and int8-KV dense.
+The families are dense, MoE (4 experts, top-2) and int8-KV dense, as
+``test_prefix_sharing.py`` runs them.
 """
 
 import dataclasses
@@ -37,13 +37,14 @@ from repro_torch.serving.engine import _ROW
 torch.set_num_threads(2)
 
 FULL = dict(sm=1.0, quota_request=0.9, quota_limit=0.9)
+MOE_KW = dict(family="moe", n_experts=4, top_k=2)
 
 
-def _pair(name, seed=0):
+def _pair(name, seed=0, **over):
     """JAX and port models of the tiny config under ``name`` (one name per
     int8 variant, so no JAX trace made under the other gate is reused),
     f32 params bridged."""
-    jcfg = tiny_config(name=name)
+    jcfg = tiny_config(name=name, **over)
     jm = jax_build(jcfg)
     jp = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32),
                                 jm.init(jax.random.key(seed)))
@@ -96,7 +97,7 @@ def _jax(jm, jp, batching, arrivals, **kw):
 # -- streams and counts against the JAX engine -------------------------------
 
 
-@pytest.mark.parametrize("family", ["dense", "kv-int8"])
+@pytest.mark.parametrize("family", ["dense", "moe", "kv-int8"])
 def test_shared_tokens_bit_identical_across_planes(family, monkeypatch,
                                                    repro_rng):
     """Shared paged == unshared paged == static in the port == the JAX
@@ -104,7 +105,8 @@ def test_shared_tokens_bit_identical_across_planes(family, monkeypatch,
     block high watermark, and a smaller peak than unshared."""
     int8 = family == "kv-int8"
     monkeypatch.setenv("REPRO_KV_INT8", "1" if int8 else "0")
-    jm, jp, tm, tp = _pair(f"tiny-share-{family}")
+    jm, jp, tm, tp = _pair(f"tiny-share-{family}",
+                           **(MOE_KW if family == "moe" else {}))
     arrivals = _shared_arrivals(rng=repro_rng)
     want, jinst = _jax(jm, jp, "paged", arrivals)
     shared, inst_s = _port(tm, tp, "paged", arrivals)
