@@ -26,7 +26,12 @@ place), and then:
    its window of 1024 and none) and at starcoder2-15b's (512 rows, 48
    over 4), and bf16 dense decode at starcoder2's round (G = 12) and at
    gemma3's global layers (G = 2, S = 2048), each timed beside SDPA and
-   the bound; flash and the four
+   the bound; flash with ``causal=False`` at seamless-m4t-large-v2's
+   encoder (1024 rows, 16 heads of 64) and cross prefill (512 over 1024
+   rows) and at llama-3.2-vision-11b's cross prefill (512 over 1600 rows,
+   32 q / 8 kv of 128), and the decode kernel with every row at
+   ``cache_len = S`` (S=1024, G=1, D=64; S=1600, G=4, D=128), each timed
+   beside SDPA with no mask; flash and the four
    decode kernels at head dims 16 and 32, timed; an int8 code view off a
    16-byte boundary refused; chunked WKV-6 at a 512-token prefill and
    the chunked scan at hymba's 640-row prefill, each at its edge cases,
@@ -50,11 +55,19 @@ place), and then:
    experts top-4 of d_ff 1408, 4 shared, an f32 router) has its expert
    block held layer by layer from identical inputs (routing equal where
    the top-k gate margin exceeds 1e-4, outputs within 2e-2 where routing
-   agrees, ``dest``/``keep`` equal at an overflowing 512-token shape);
+   agrees, ``dest``/``keep`` equal at an overflowing 512-token shape); a
+   2 + 2-layer encoder-decoder at seamless-m4t-large-v2's widths (a
+   1024-frame context) and one vision group (2 self + 1 gated cross
+   layer) at llama-3.2-vision-11b's heads (a 1600-row context), gates,
+   norms and biases filled, run prefill and 8 decode steps against f32 on
+   the CPU;
    then ``serve.main --reduced`` serves qwen2-7b's, starcoder2-15b's,
    gemma3-27b's and hymba-1.5b's reduced configs (head dim 16) on the
    card, and qwen2-moe-a2.7b's and mixtral-8x7b's (24-token prompts, past
-   mixtral's window of 16);
+   mixtral's window of 16), and seamless-m4t-large-v2's and
+   llama-3.2-vision-11b's reduced configs through ``ContextLoop``, the
+   model-level continuous loop those families are served by (their
+   prefill needs a context, which no engine request carries);
 3. serve phase — full-width qwen2-7b (28 layers, d=3584; random bf16
    weights from a seed) on one ``ServingEngine``, two instances sharing
    one weight copy, continuous then paged (block size 16), with bf16 and
@@ -77,7 +90,17 @@ place), and then:
    profile window, speculation (the 2-layer draft of views against an
    agreeing target, whose routed and shared ``w_down`` of layers 2-23 are
    zeroed, and the unmodified one) and sampled checks, continuous and
-   paged; then full-width rwkv6-1.6b (24 layers, d=2048) and
+   paged; then full-width seamless-m4t-large-v2 (24 encoder and 24
+   decoder layers, d=1024) and llama-3.2-vision-11b (40 self layers and
+   8 gated cross layers, d=4096) through ``ContextLoop``: 16 requests of
+   the mix, each with its own random context, 32 tokens each on 8 slots,
+   every round a graph replay, with their params and slot-pool bytes
+   against JAX's, each first token the greedy pick of its prefill, one
+   round replayed == eager bit for bit (tokens, positions, ``k``, ``v``,
+   ``cross_k``, ``cross_v``), the round's device time beside the bytes
+   it reads, prefill ms by length, two requests alone at batch 1 against
+   the pool's streams and a profile window; then full-width rwkv6-1.6b
+   (24 layers, d=2048) and
    full-width hymba-1.5b (32 layers, d=1600, 128 meta tokens, window
    1024) continuous with the same mix.  Each instance's fused decode
    round is a CUDA graph (``serving/graphs.py``), and so is each of its
@@ -177,6 +200,9 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
 TOL = 2e-2            # bf16 kernel vs plain version (tests/test_kernels.py)
 REF_TOL = 5e-2        # bf16 model on the card vs f32 model on the CPU,
 #                       as max |diff| / max |reference logit|
+SLOT_TOL = 3e-2       # a pool slot vs its request alone at batch 1 on the
+#                       card, the same measure (context_slots): a little
+#                       above what sound full-width runs read (PERF.md)
 L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
 SEED = 0
 ARCH = "qwen2-7b"
@@ -455,6 +481,7 @@ def kernel_phase(rng) -> dict:
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     decode_geometries(dev)
     decode_dense_configs(dev)
+    context_attention(dev)
     small_head_dims(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
     out.update(ssm_kernel(np.random.default_rng(SEED + 4), dev))
@@ -887,29 +914,35 @@ def causal_pairs(sq: int, window=None) -> int:
     return w * (w + 1) // 2 + (sq - w) * w
 
 
-def flash_logged(label, q, k, v, window=None) -> None:
+def flash_logged(label, q, k, v, window=None, causal=True) -> None:
     """The flash kernel at one more prefill shape, held against its plain
     version and timed (logged; the JSON line keeps qwen2-7b's main shape)
     beside SDPA: causal, or with a boolean mask where the window cuts
-    pairs the causal mask keeps."""
+    pairs the causal mask keeps, or (``causal=False``: an encoder, or a
+    cross layer over a context of Sk rows) with no mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, h, d = q.shape
-    kv = k.shape[2]
+    sk, kv = k.shape[1:3]
     err = close(f"flash {label}",
-                fa.flash_attention(q, k, v, causal=True, window=window),
-                fa.flash_attention_plain(q, k, v, causal=True,
+                fa.flash_attention(q, k, v, causal=causal, window=window),
+                fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window))
     io = 2 * (q.numel() * 2 + k.numel() + v.numel())
     n = copies_for(io)
     sets = [[x.clone() for x in (q, k, v)] for _ in range(n)]
     tsets = [[x.transpose(1, 2).contiguous() for x in xs] for xs in sets]
-    bnd, by = bound(4 * b * h * d * causal_pairs(sq, window), io)
-    calls = [lambda x=x: fa.flash_attention(*x, causal=True, window=window)
-             for x in sets]
-    if window is not None and window < sq:
+    pairs = causal_pairs(sq, window) if causal else sq * sk
+    bnd, by = bound(4 * b * h * d * pairs, io)
+    calls = [lambda x=x: fa.flash_attention(*x, causal=causal,
+                                            window=window) for x in sets]
+    if not causal:
+        sdpa = [lambda x=x: F.scaled_dot_product_attention(
+            *x, enable_gqa=True) for x in tsets]
+        how = "no mask"
+    elif window is not None and window < sq:
         pos = torch.arange(sq, device=q.device)
         mask = ((pos[None, :] <= pos[:, None])
                 & (pos[None, :] > pos[:, None] - window))
@@ -920,8 +953,9 @@ def flash_logged(label, q, k, v, window=None) -> None:
         sdpa = [lambda x=x: F.scaled_dot_product_attention(
             *x, is_causal=True, enable_gqa=True) for x in tsets]
         how = "causal"
-    log(f"kernel flash_attention at {label} (B={b} Sq=Sk={sq} H={h} K={kv} "
-        f"D={d} window {window}): max_abs_err={err} ms={time_ms(calls)} "
+    log(f"kernel flash_attention at {label} (B={b} Sq={sq} Sk={sk} H={h} "
+        f"K={kv} D={d} causal {causal} window {window}): max_abs_err={err} "
+        f"ms={time_ms(calls)} "
         f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
         f"library_device_ms={device_ms(sdpa)} (SDPA, {how}) "
         f"bound_ms={bnd} ({by})")
@@ -931,8 +965,10 @@ def flash_dense_configs(dev) -> None:
     """The flash kernel at gemma3-27b's prefill geometry (32 query heads
     over 16 kv heads of 128) at 1920 rows, its local layers' window of
     1024 cutting tiles, and at its global layers' (no window); at
-    starcoder2-15b's (48 over 4 of 128) and qwen2-moe-a2.7b's (16 over 16
-    of 128: G = 1) at a 512-token prompt; each held against its plain
+    starcoder2-15b's (48 over 4 of 128), qwen2-moe-a2.7b's (16 over 16
+    of 128: G = 1), seamless-m4t-large-v2's decoder self layers' (16 over
+    16 of 64) and llama-3.2-vision-11b's self layers' (32 over 8 of 128:
+    G = 4), causal at a 512-token prompt; each held against its plain
     version and timed beside SDPA and the bound."""
     import torch
     gen = np.random.default_rng(SEED + 9)
@@ -941,19 +977,23 @@ def flash_dense_configs(dev) -> None:
         return torch.from_numpy(gen.standard_normal(shape).astype(
             np.float32)).to(dev).to(torch.bfloat16)
 
-    for label, sq, h, kv, window in (
-            ("gemma3-27b's local prefill", 1920, 32, 16, 1024),
-            ("gemma3-27b's global prefill", 1920, 32, 16, None),
-            ("starcoder2-15b's prefill", 512, 48, 4, None),
-            ("qwen2-moe-a2.7b's prefill", 512, 16, 16, None)):
-        flash_logged(label, rand(1, sq, h, 128), rand(1, sq, kv, 128),
-                     rand(1, sq, kv, 128), window=window)
+    for label, sq, h, kv, d, window in (
+            ("gemma3-27b's local prefill", 1920, 32, 16, 128, 1024),
+            ("gemma3-27b's global prefill", 1920, 32, 16, 128, None),
+            ("starcoder2-15b's prefill", 512, 48, 4, 128, None),
+            ("qwen2-moe-a2.7b's prefill", 512, 16, 16, 128, None),
+            ("seamless-m4t-large-v2's decoder prefill", 512, 16, 16, 64,
+             None),
+            ("llama-3.2-vision-11b's self prefill", 512, 32, 8, 128, None)):
+        flash_logged(label, rand(1, sq, h, d), rand(1, sq, kv, d),
+                     rand(1, sq, kv, d), window=window)
 
 
 def decode_logged(label, q, kc, vc, lens) -> None:
     """The bf16 dense decode kernel at one more geometry, held against its
-    plain version and timed (logged) beside SDPA with a length mask and
-    the bound: the rows ``lens`` holds, read once."""
+    plain version and timed (logged) beside SDPA with a length mask (none
+    where every row is at ``cache_len = S``, as a cross layer's context
+    cache) and the bound: the rows ``lens`` holds, read once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
@@ -970,8 +1010,9 @@ def decode_logged(label, q, kc, vc, lens) -> None:
     tsets = [[x[0].reshape(b, h, 1, d)]
              + [c.transpose(1, 2).contiguous() for c in x[1:]]
              for x in sets]
-    mask = (torch.arange(s, device=q.device)[None, :]
-            < lens[:, None])[:, None, None, :]
+    full = bool((lens == s).all())
+    mask = None if full else (torch.arange(s, device=q.device)[None, :]
+                              < lens[:, None])[:, None, None, :]
     calls = [lambda x=x: da.decode_attention(*x, lens) for x in sets]
     sdpa = [lambda x=x: F.scaled_dot_product_attention(
         *x, attn_mask=mask, enable_gqa=True) for x in tsets]
@@ -979,15 +1020,17 @@ def decode_logged(label, q, kc, vc, lens) -> None:
         f"D={d}, cache_len {lens.tolist()}): max_abs_err={err} "
         f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
         f"library_ms={time_ms(sdpa)} library_device_ms={device_ms(sdpa)} "
-        f"(SDPA, mask) bound_ms={bnd} ({by})")
+        f"(SDPA, {'no mask' if full else 'mask'}) bound_ms={bnd} ({by})")
 
 
 def decode_dense_configs(dev) -> None:
     """The bf16 dense decode kernel at starcoder2-15b's round (B=8, S=1024,
-    48 query heads over 4 kv heads: G = 12), at gemma3-27b's global
-    layers' (B=8, S=2048, 32 over 16: G = 2) and at qwen2-moe-a2.7b's
-    round (B=8, S=1024, 16 over 16: G = 1), mixed cache lengths, each
-    held against its plain version and timed."""
+    48 query heads over 4 kv heads of 128: G = 12), at gemma3-27b's global
+    layers' (B=8, S=2048, 32 over 16: G = 2), at qwen2-moe-a2.7b's round
+    (B=8, S=1024, 16 over 16: G = 1), and at the self layers' rounds of
+    seamless-m4t-large-v2 (B=8, S=1024, 16 over 16 of 64: G = 1) and
+    llama-3.2-vision-11b (B=8, S=1024, 32 over 8 of 128: G = 4), mixed
+    cache lengths, each held against its plain version and timed."""
     import torch
     gen = np.random.default_rng(SEED + 11)
 
@@ -995,16 +1038,50 @@ def decode_dense_configs(dev) -> None:
         return torch.from_numpy(gen.standard_normal(shape).astype(
             np.float32)).to(dev).to(torch.bfloat16)
 
-    for label, s, h, kv, lens in (
-            ("starcoder2-15b's round, G=12", 1024, 48, 4,
-             [1024, 1, 517, 64, 1000, 333, 768, 129]),
-            ("gemma3-27b's global layers, G=2", 2048, 32, 16,
+    mixed = [1024, 1, 517, 64, 1000, 333, 768, 129]
+    for label, s, h, kv, d, lens in (
+            ("starcoder2-15b's round, G=12", 1024, 48, 4, 128, mixed),
+            ("gemma3-27b's global layers, G=2", 2048, 32, 16, 128,
              [2048, 1, 1517, 64, 1900, 333, 1168, 129]),
-            ("qwen2-moe-a2.7b's round, G=1", 1024, 16, 16,
-             [1024, 1, 517, 64, 1000, 333, 768, 129])):
-        decode_logged(label, rand(8, 1, h, 128), rand(8, s, kv, 128),
-                      rand(8, s, kv, 128),
+            ("qwen2-moe-a2.7b's round, G=1", 1024, 16, 16, 128, mixed),
+            ("seamless-m4t-large-v2's self round, G=1", 1024, 16, 16, 64,
+             mixed),
+            ("llama-3.2-vision-11b's self round, G=4", 1024, 32, 8, 128,
+             mixed)):
+        decode_logged(label, rand(8, 1, h, d), rand(8, s, kv, d),
+                      rand(8, s, kv, d),
                       torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def context_attention(dev) -> None:
+    """The attention of the encoder-decoder and vision families: flash with
+    ``causal=False`` at seamless-m4t-large-v2's encoder (B=1, S=1024,
+    H=K=16, D=64), its cross prefill (a 512-token prompt over the 1024
+    encoder rows) and llama-3.2-vision-11b's cross prefill (512 over 1600
+    image rows, 32 q / 8 kv of 128: 25 tiles of 64), and the bf16 dense
+    decode kernel with every row at ``cache_len = S``, a cross layer's
+    round: S=1024, G=1, D=64 and S=1600, G=4, D=128, B=8; each held
+    against its plain version and timed beside SDPA (no mask) and the
+    bound."""
+    import torch
+    gen = np.random.default_rng(SEED + 14)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    for label, sq, sk, h, kv, d in (
+            ("seamless-m4t-large-v2's encoder", 1024, 1024, 16, 16, 64),
+            ("seamless-m4t-large-v2's cross prefill", 512, 1024, 16, 16, 64),
+            ("llama-3.2-vision-11b's cross prefill", 512, 1600, 32, 8, 128)):
+        flash_logged(label, rand(1, sq, h, d), rand(1, sk, kv, d),
+                     rand(1, sk, kv, d), causal=False)
+    for label, s, h, kv, d in (
+            ("seamless-m4t-large-v2's cross round, G=1", 1024, 16, 16, 64),
+            ("llama-3.2-vision-11b's cross round, G=4", 1600, 32, 8, 128)):
+        decode_logged(label, rand(8, 1, h, d), rand(8, s, kv, d),
+                      rand(8, s, kv, d),
+                      torch.full((8,), s, dtype=torch.int32, device=dev))
 
 
 def flash_hymba(rand, rand_extra) -> None:
@@ -1226,6 +1303,7 @@ def reference_phase(rng) -> None:
     _reference_starcoder2()
     _reference_gemma3()
     _reference_moe()
+    _reference_context()
     _reference_rwkv()
     _reference_hybrid()
 
@@ -1579,6 +1657,79 @@ def _reference_decode(model, p_gpu, p_ref, prompt, n, max_len, kv_int8,
         tok = model.sample_greedy(lr)
 
 
+def _reference_context() -> None:
+    """A 2 + 2-layer encoder-decoder at seamless-m4t-large-v2's widths
+    (d=1024, 16 heads of 64, d_ff 8192 with GELU biases, a 1024-frame
+    context; V 256206 -> 1024) and a one-group vision model at
+    llama-3.2-vision-11b's heads (2 self layers and 1 gated cross layer,
+    32 q / 8 kv of 128, a 1600-row context; d 4096 -> 1024, d_ff 14336 ->
+    2048, V 128256 -> 1024), norms, biases and gates filled, unit-normal
+    contexts: a 37-token prefill and 8 decode steps (teacher-forced on the
+    CPU's greedy picks) in bf16 on the card through flash (non-causal over
+    the encoder and the contexts) and the decode kernel (the cross layers
+    at ``cache_len = S_ctx``), against f32 on the CPU through the plain
+    versions."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for cfg, what in (
+            (ModelConfig(name="seamless-heads", family="encdec", n_layers=2,
+                         encoder_layers=2, d_model=1024, n_heads=16,
+                         n_kv_heads=16, d_ff=8192, vocab_size=1024,
+                         mlp="gelu", n_context_tokens=1024),
+             "2 + 2-layer encoder-decoder, seamless-m4t-large-v2's widths "
+             "(d 1024, 16 heads of 64, d_ff 8192, GELU with biases; cut: "
+             "24 + 24 layers -> 2 + 2, V 256206 -> 1024), a 1024-frame "
+             "context"),
+            (ModelConfig(name="vision-heads", family="vlm", n_layers=2,
+                         d_model=1024, n_heads=32, n_kv_heads=8,
+                         head_dim=128, d_ff=2048, vocab_size=1024,
+                         mlp="swiglu", rope_theta=5e5, cross_attn_every=2,
+                         n_context_tokens=1600),
+             "one vision group (2 self + 1 gated cross layer), "
+             "llama-3.2-vision-11b's heads (32 q / 8 kv of 128; cut: 40 + "
+             "8 layers -> 2 + 1, d 4096 -> 1024, d_ff 14336 -> 2048, V "
+             "128256 -> 1024), a 1600-row context")):
+        model = build_model(cfg)
+        p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)),
+                        SEED + 1)
+        p_gpu = _tree(p_cpu, lambda t: t.to(dev))
+        p_ref = _tree(p_cpu, lambda t: t.float())
+        rng = np.random.default_rng(SEED + 18)
+        prompt = rng.integers(0, cfg.vocab_size, (1, 37)).astype(np.int32)
+        ctx = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_context_tokens, cfg.d_model)).astype(np.float32))
+        ctx_gpu = ctx.to(dev).to(torch.bfloat16)
+        ctx_ref = ctx_gpu.cpu().float()  # the same values, widened
+        compare = Compare(f"{cfg.name} reference")
+        flash, decode = (fa.flash_attention.launches,
+                         da.decode_attention.launches)
+        lg, cg = model.prefill(p_gpu, torch.as_tensor(prompt, device=dev),
+                               max_len=64, ctx=ctx_gpu)
+        lr, cr = model.prefill(p_ref, torch.as_tensor(prompt), max_len=64,
+                               ctx=ctx_ref)
+        compare("prefill", lg, lr)
+        tok = model.sample_greedy(lr)
+        for i in range(8):
+            lg, cg = model.decode_step(p_gpu, tok.to(dev), cg)
+            lr, cr = model.decode_step(p_ref, tok, cr)
+            compare(f"decode step {i}", lg, lr)
+            tok = model.sample_greedy(lr)
+        per_prefill, per_round = context_launches(cfg)
+        ran = (fa.flash_attention.launches - flash,
+               da.decode_attention.launches - decode)
+        if ran != (per_prefill, 8 * per_round):
+            raise AssertionError(f"{cfg.name} reference: (flash, decode) "
+                                 f"launches {ran}")
+        log(f"reference: {what}, prefill of 37 tokens + 8 decode steps on "
+            f"the card within {compare.worst:.4f} (limit {REF_TOL}) of f32 "
+            f"on the CPU; launches (flash, decode) {ran}")
+
+
 def _reference_rwkv() -> None:
     """A 2-layer RWKV-6 model with head size 64 (4 heads): prefill at the
     prompt's exact length (37 tokens: the chunked WKV-6 kernel) and 8
@@ -1784,6 +1935,10 @@ def serve_phase(rng) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve: {MOE_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
+    for arch in (SEAMLESS_ARCH, VISION_ARCH):
+        context_phase(arch, prompts, totals)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # -- rwkv6-1.6b, the same request mix, after gemma3-27b is freed ------
     t_arch = t0 = time.perf_counter()
@@ -2044,6 +2199,441 @@ def moe_round(model, params, round_dev: float) -> None:
                   for name, v in ms.items()) +
         f"; the rest (attention, norms, head, shared experts, launches) "
         f"{rest:.4f} ({rest / round_dev:.3f})")
+
+
+# --------------------------------------------------------------------------
+# The encoder-decoder and vision families: JAX's model-level continuous
+# loop (their prefill needs a context, and no engine request carries one)
+# --------------------------------------------------------------------------
+
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+VISION_ARCH = "llama-3.2-vision-11b"
+CONTEXT_SIZES = {  # (params, dense_kv_bytes(8, 1024)), as JAX's layout counts
+    # 24 layers x 8 slots x (1024 self + 1024 cross rows) x 16 x 64 x 2 B
+    # x (K, V) + the int32 pos
+    SEAMLESS_ARCH: (1_632_675_840, 1_610_612_740),
+    # (40 layers x 1024 self rows + 8 cross layers x 1600 rows) x 8 slots
+    # x 8 x 128 x 2 B x (K, V) + the int32 pos
+    VISION_ARCH: (11_520_053_264, 1_761_607_684)}
+CONTEXT_SCALE = 0.02  # a context's scale, as tests/test_smoke_archs.py:20-27
+
+
+def contexts(cfg, n: int, seed: int, scale: float = CONTEXT_SCALE) -> list:
+    """``n`` random bf16 contexts (n_context_tokens, d_model) on the card
+    from a numpy seed, one a request: the stubbed frontends' output."""
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(
+        (cfg.n_context_tokens, cfg.d_model)) * scale).astype(np.float32)
+    ).to("cuda").to(torch.bfloat16) for _ in range(n)]
+
+
+def context_launches(cfg) -> tuple[int, int]:
+    """(flash launches a prefill, decode launches a round): seamless's
+    encoder, decoder self and cross layers, then its self and cross
+    layers; the vision model's self and cross layers, twice."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    n = cfg.n_layers + cfg.n_layers // cfg.cross_attn_every
+    return n, n
+
+
+class ContextLoop:
+    """The model-level continuous loop of JAX's ``Model`` API for a model
+    whose prefill needs a context: each request prefills alone at batch 1
+    with its own context (exact length, eager: neither family buckets),
+    is merged into a free slot of one ``max_batch``-slot pool, and
+    ``decode_step_tokens`` rounds run over the pool with per-slot
+    positions; a slot frees when its request has its tokens and refills
+    at the next admission.  The rounds go through one ``RoundGraph``
+    (``serving/graphs.py``: the first eager, the second captured, the rest
+    replayed), and the host syncs once a round, to read its tokens."""
+
+    def __init__(self, model, params, max_batch: int = 8,
+                 max_len: int = 1024):
+        import torch
+        from repro_torch.serving.graphs import RoundGraph
+        dev = params["embed"].device
+        self.model, self.params, self.max_len = model, params, max_len
+        self.pool = model.init_slot_cache(max_batch, max_len, dev)
+        self.tok = torch.zeros(max_batch, dtype=torch.int32, device=dev)
+        self.graph = RoundGraph(dev)
+
+    def body(self):
+        """One round over fixed buffers, written in place: the pools, the
+        positions and the slot tokens."""
+        new, advanced = self.model.decode_step_tokens(self.params, self.tok,
+                                                      self.pool)
+        self.pool["pos"].copy_(advanced["pos"])
+        return self.tok.copy_(new)
+
+    def state(self) -> dict:
+        return {"slot tokens": self.tok, **self.pool}
+
+    def admit(self, slot: int, prompt, ctx):
+        """Prefill ``prompt`` ((S,) int32 on the card) over ``ctx`` into
+        ``slot``; returns its logits (1, V) and first token (1,), on the
+        card."""
+        logits, entry = self.model.prefill(self.params, prompt[None],
+                                           max_len=self.max_len,
+                                           ctx=ctx[None])
+        first = self.model.sample_greedy(logits)
+        self.model.merge_slot(self.pool, entry, slot)
+        self.tok[slot:slot + 1].copy_(first)
+        return logits, first
+
+    def serve(self, prompts, ctxs, new_tokens: int) -> tuple:
+        """Serve every request, ``new_tokens`` tokens each (its prefill's,
+        then one a round).  Returns (streams, prefill logits, (prompt
+        length, start event, end event) of each prefill, rounds)."""
+        import torch
+        b = len(self.tok)
+        queue = list(range(len(prompts)))
+        slots = [None] * b
+        rest = [[] for _ in prompts]
+        firsts, logits, timing, rounds = [], [None] * len(prompts), [], 0
+        while queue or any(r is not None for r in slots):
+            for slot in range(b):
+                if slots[slot] is None and queue:
+                    r = queue.pop(0)
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    logits[r], first = self.admit(slot, prompts[r], ctxs[r])
+                    end.record()
+                    firsts.append((r, first))
+                    timing.append((len(prompts[r]), start, end))
+                    slots[slot] = r if new_tokens > 1 else None
+            if all(r is None for r in slots):
+                continue
+            self.graph.run(self.body)
+            rounds += 1
+            got = self.tok.tolist()  # the round's one sync
+            for slot, r in enumerate(slots):
+                if r is not None:
+                    rest[r].append(got[slot])
+                    if len(rest[r]) == new_tokens - 1:
+                        slots[slot] = None
+        first = dict(zip([r for r, _ in firsts],
+                         torch.cat([f for _, f in firsts]).tolist()))
+        return ([[first[r]] + x for r, x in enumerate(rest)], logits, timing,
+                rounds)
+
+
+def check_streams(label, model, streams, logits, new_tokens) -> None:
+    """Every stream has ``new_tokens`` tokens of the vocabulary, and its
+    first is the greedy pick of its prefill logits (the argmax over the
+    padded width, clipped to the vocabulary, as ``greedy_tokens``)."""
+    vocab = model.cfg.vocab_size
+    for i, (stream, lg) in enumerate(zip(streams, logits)):
+        row = lg[0].float().cpu().numpy()
+        if not np.isfinite(row).all():
+            raise AssertionError(f"{label}: request {i}'s prefill logits "
+                                 f"are not finite")
+        pick = min(int(np.argmax(row)), vocab - 1)
+        if (len(stream) != new_tokens or stream[0] != pick
+                or min(stream) < 0 or max(stream) >= vocab):
+            raise AssertionError(f"{label}: request {i}'s stream {stream} "
+                                 f"(its prefill's greedy pick {pick})")
+
+
+def reduced_context_serve() -> None:
+    """seamless-m4t-large-v2's and llama-3.2-vision-11b's reduced configs
+    (head dim 16, a 12-row context) on the card through ``ContextLoop``:
+    6 requests of 8-20 tokens, 8 tokens each, on 4 slots (two refill),
+    norms, biases and gates filled; the first tokens equal the prefills'
+    greedy picks and the kernels ran once a layer and prefill or round;
+    then 4 of the requests in one pool against each alone at batch 1,
+    with a planted fault (``context_slots``)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    rng = np.random.default_rng(SEED + 16)
+    for arch in (SEAMLESS_ARCH, VISION_ARCH):
+        model, params = serve.init_model(arch, reduced=True, seed=SEED)
+        _filled(params, SEED + 1)
+        cfg = model.cfg
+        prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                   dtype=torch.int32, device="cuda")
+                   for n in rng.integers(8, 21, 6)]
+        loop = ContextLoop(model, params, max_batch=4, max_len=64)
+        kernels.reset_launch_counts()
+        ctxs = contexts(cfg, 6, SEED + 17, scale=1.0)
+        streams, logits, _, rounds = loop.serve(prompts, ctxs, 8)
+        counts = kernels.launch_counts()
+        check_streams(f"reduced {arch}", model, streams, logits, 8)
+        per_prefill, per_round = context_launches(cfg)
+        want = {k: 0 for k in counts}
+        want.update(flash_attention=6 * per_prefill,
+                    decode_attention=rounds * per_round)
+        if counts != want or loop.graph.captures != 1:
+            raise AssertionError(f"reduced {arch}: launches {counts}, "
+                                 f"{loop.graph.captures} captures")
+        log(f"reduced serve {arch} (head dim {cfg.dh}, context "
+            f"{cfg.n_context_tokens} rows) on the card through the "
+            f"model-level loop: 6 requests x 8 tokens on 4 slots, {rounds} "
+            f"rounds ({loop.graph.replays} replayed); launches flash "
+            f"{counts['flash_attention']}, decode "
+            f"{counts['decode_attention']}")
+        context_slots(model, params, f"reduced {arch}", prompts[:4],
+                      ctxs[:4], 6, 64)
+
+
+def context_round_bytes(params, pool, pos) -> dict:
+    """What one round reads: the decoder's weights and head (not the
+    embedding table, of which it reads 8 rows, nor the encoder or the
+    cross layers' ``wk``/``wv``, which only prefill reads), each self
+    layer's rows up to ``pos + 1`` and the whole context caches."""
+    from repro_torch.core.model_sharing import pytree_nbytes
+    weights = pytree_nbytes(params) - pytree_nbytes(params["embed"])
+    for key in ("enc_layers", "enc_ln"):
+        weights -= pytree_nbytes(params.get(key, {}))
+    cross = (params["layers"]["xattn"] if "xattn" in params["layers"]
+             else params["cross_layers"]["attn"])
+    weights -= pytree_nbytes(cross["wk"]) + pytree_nbytes(cross["wv"])
+    l, _, s, kv, dh = pool["k"].shape
+    rows = int((pos.long() + 1).clamp(max=s).sum())
+    return {"weights": weights, "self K/V rows": 2 * l * rows * kv * dh * 2,
+            "context caches": pytree_nbytes(pool["cross_k"])
+            + pytree_nbytes(pool["cross_v"])}
+
+
+def context_round(loop, arch, prompts, ctxs) -> None:
+    """Every slot of ``loop`` live (``prompts``): one round replayed from
+    the loop's graph, and the eager round over the same state (copies
+    restored between them), write the same slot tokens, positions, ``k``
+    and ``v`` bit for bit and leave ``cross_k``/``cross_v`` as prefill
+    wrote them.  Then the round's time by CUDA events and device time
+    over 10 replays, beside the bytes it reads at the card's rate."""
+    import torch
+
+    for slot, (p, c) in enumerate(zip(prompts, ctxs)):
+        loop.admit(slot, p, c)
+    loop.graph.run(loop.body)
+    start = {k: v.clone() for k, v in loop.state().items()}
+    loop.graph.replay()
+    replayed = {k: v.clone() for k, v in loop.state().items()}
+    for k, v in loop.state().items():
+        v.copy_(start[k])
+    loop.body()
+    torch.cuda.synchronize()
+    diff = [k for k, v in loop.state().items()
+            if not torch.equal(v, replayed[k])]
+    written = sorted(k for k in loop.pool
+                     if not torch.equal(start[k], replayed[k]))
+    if diff or written != ["k", "pos", "v"]:
+        raise AssertionError(f"round check {arch}: replay != eager in "
+                             f"{diff}; leaves the round wrote: {written}")
+    log(f"round check {arch} (8 live slots, prompts of "
+        f"{sorted(len(p) for p in prompts)} tokens): the round replayed "
+        f"from the loop's graph equals the eager round bit for bit in "
+        f"{sorted(loop.state())}; cross_k and cross_v unwritten")
+    for k, v in loop.state().items():
+        v.copy_(start[k])
+    nbytes = context_round_bytes(loop.params, loop.pool, start["pos"])
+    total = sum(nbytes.values())
+    replay = [loop.graph.replay]
+    round_ms = time_ms(replay, iters=10)
+    round_dev = device_ms(replay, iters=10, label=f"a {arch} round")
+    bound_ms = total / PEAK_BYTES * 1e3
+    log(f"round {arch}: {round_ms:.4f} ms a round by CUDA events, device "
+        f"{round_dev:.4f} ms, over 10 replays; it reads {total} bytes ("
+        + ", ".join(f"{k} {v}" for k, v in nbytes.items())
+        + f"): {bound_ms:.4f} ms at {PEAK_BYTES / 1e12} TB/s, device time "
+        f"{round_dev / bound_ms:.2f}x that")
+
+
+def slot_logits(model, params, entries, streams, max_len: int,
+                own=None, swap: bool = False):
+    """Logits (n, steps, V) of ``len(entries)`` prefilled requests decoded
+    teacher-forced on ``streams`` ((n, steps) tokens) in one pool of n
+    slots.  With ``own`` the pool holds request ``own`` in every slot, only
+    its slot's rows are returned ((1, steps, V)), and its row of
+    ``streams`` past the first token is written with its greedy picks.
+    ``swap`` plants a pool fault: slots 0 and 1 read each other's
+    ``cross_k``/``cross_v``."""
+    import torch
+    n, dev = len(entries), params["embed"].device
+    pool = model.init_slot_cache(n, max_len, dev)
+    for slot in range(n):
+        model.merge_slot(pool, entries[slot if own is None else own], slot)
+    if swap:
+        for key in ("cross_k", "cross_v"):
+            pool[key][:, [0, 1]] = pool[key][:, [1, 0]]
+    rows = []
+    for step in range(streams.shape[1]):
+        tok = (streams[:, step] if own is None
+               else streams[own, step].expand(n).contiguous())
+        logits, pool = model.decode_step(params, tok, pool)
+        if own is not None:
+            logits = logits[own:own + 1]
+            if step + 1 < streams.shape[1]:
+                streams[own, step + 1] = model.sample_greedy(logits)[0]
+        rows.append(logits)
+    return torch.stack(rows, 1)[:, :, :model.cfg.vocab_size].float()
+
+
+def context_slots(model, params, label, prompts, ctxs, steps: int,
+                  max_len: int) -> None:
+    """Every slot of a pool reads its own context and positions.  Each
+    request is prefilled at batch 1 and decoded ``steps`` rounds,
+    teacher-forced on its own greedy stream, three ways: in one pool with
+    the others (the loop's pool); in a pool of the same size holding only
+    copies of it (its ``own`` pool: the same shapes, so the same kernels
+    and summation order); and alone at batch 1.  Its slot of the shared
+    pool must equal its own pool's bit for bit, and stay within
+    ``SLOT_TOL`` of batch 1 (which sums in another order).  Then slots 0
+    and 1 of the shared pool read each other's context caches, a planted
+    fault that the bitwise comparison must see in both."""
+    import torch
+    n = len(prompts)
+    entries, first = [], []
+    for p, c in zip(prompts, ctxs):
+        logits, entry = model.prefill(params, p[None], max_len=max_len,
+                                      ctx=c[None])
+        entries.append(entry)
+        first.append(model.sample_greedy(logits))
+    streams = torch.zeros(n, steps, dtype=torch.int32,
+                          device=params["embed"].device)
+    streams[:, 0] = torch.cat(first)
+    own = torch.cat([slot_logits(model, params, entries, streams, max_len,
+                                 own=r) for r in range(n)])
+    alone = []
+    for r in range(n):
+        cache = _tree(entries[r], lambda t: t.clone())
+        rows = []
+        for step in range(steps):
+            logits, cache = model.decode_step(
+                params, streams[r, step:step + 1], cache)
+            rows.append(logits[0, :model.cfg.vocab_size].float())
+        alone.append(torch.stack(rows))
+    alone = torch.stack(alone)
+    shared = slot_logits(model, params, entries, streams, max_len)
+    fault = slot_logits(model, params, entries, streams, max_len, swap=True)
+
+    def rel(x, ref):  # per slot, the largest over its steps
+        return ((x - ref).abs().amax((1, 2))
+                / ref.abs().amax((1, 2))).tolist()
+
+    exact = [torch.equal(shared[r], own[r]) for r in range(n)]
+    batch1 = rel(shared, alone)
+    planted = rel(fault, own)
+    if not all(exact) or max(batch1) > SLOT_TOL:
+        raise AssertionError(
+            f"{label}: slots equal to their own pools {exact}, "
+            f"(shared - own) {rel(shared, own)}; against batch 1 "
+            f"{batch1} (limit {SLOT_TOL})")
+    if min(planted[:2]) == 0 or max(planted[2:]) != 0:
+        raise AssertionError(f"{label}: with slots 0 and 1's contexts "
+                             f"swapped the slots read {planted} from their "
+                             f"own pools: the check cannot see the fault")
+    log(f"slots {label}: {n} requests in one pool, {steps} teacher-forced "
+        f"rounds: every slot's logits equal its own pool's (the request in "
+        f"all {n} slots) bit for bit; against batch 1 at most "
+        f"{max(batch1):.6f} of the largest logit (limit {SLOT_TOL}; per "
+        f"slot {[round(x, 6) for x in batch1]}); planted fault (slots 0 "
+        f"and 1 swap cross_k/cross_v): they read "
+        f"{[round(x, 6) for x in planted[:2]]} from their own pools "
+        f"({int((fault[:2] != own[:2]).sum())} of {own[:2].numel()} logits "
+        f"differ), the others 0, and "
+        f"{[round(x, 6) for x in rel(fault, alone)[:2]]} from batch 1")
+
+
+def context_phase(arch, qwen_prompts, totals) -> None:
+    """seamless-m4t-large-v2 or llama-3.2-vision-11b at full width, random
+    bf16 weights from the seed with the zero-initialised norms, biases and
+    gates filled, through ``ContextLoop``: its params and slot-pool bytes
+    against the constants reckoned from JAX's layout; a warm-up that
+    captures the round; 16 requests (the serve mix's prompts, each with
+    its own random context) x 32 tokens on 8 slots with ``max_len=1024``,
+    with the launch counts and the peak memory reset just before and read
+    just after (every round a replay; flash once a layer and prefill,
+    the decode kernel once a layer and round); each first token the
+    greedy pick of its prefill logits; one round replayed == eager
+    (``context_round``); 8 requests in one pool against each in its own
+    pool and alone at batch 1, with a planted fault (``context_slots``);
+    a profile window (8 requests x 8 tokens)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    t_arch = t0 = time.perf_counter()
+    model, params = serve.init_model(arch, reduced=False, seed=SEED)
+    _filled(params, SEED + 1)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    sizes = (model.n_params(), model.dense_kv_bytes(8, 1024))
+    if sizes != CONTEXT_SIZES[arch]:
+        raise AssertionError(f"{arch} (params, dense_kv_bytes(8, 1024)): "
+                             f"{sizes}, reckoned {CONTEXT_SIZES[arch]}")
+    log(f"serve: {arch} full width ({cfg.family}: {cfg.n_layers}L"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers
+           else f", a cross layer after every {cfg.cross_attn_every}")
+        + f", d={cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}, {cfg.mlp}, context "
+        f"{cfg.n_context_tokens} x {cfg.d_model}), {sizes[0]} params, drawn "
+        f"on the card in {time.perf_counter() - t0:.1f}s; "
+        f"dense_kv_bytes(8, 1024) = {sizes[1]}")
+    prompts = [torch.as_tensor(p % cfg.vocab_size, device="cuda")
+               for p in qwen_prompts]
+    ctxs = contexts(cfg, len(prompts), SEED + 15)
+    loop = ContextLoop(model, params)
+    loop.serve(prompts[:8], ctxs[:8], 3)  # an eager round, then a capture
+    if loop.graph.captures != 1 or loop.graph.eager_rounds != 1:
+        raise AssertionError(f"{arch}: warm-up left {loop.graph.captures} "
+                             f"captures")
+    replays0 = loop.graph.replays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams, logits, timing, rounds = loop.serve(prompts, ctxs, 32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = (torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+    replayed = loop.graph.replays - replays0
+    per_prefill, per_round = context_launches(cfg)
+    want = {k: 0 for k in counts}
+    want.update(flash_attention=len(prompts) * per_prefill,
+                decode_attention=rounds * per_round)
+    if counts != want or replayed != rounds or loop.graph.captures != 1:
+        raise AssertionError(f"{arch}: launches {counts}, expected {want}; "
+                             f"{replayed} of {rounds} rounds replayed")
+    check_streams(arch, model, streams, logits, 32)
+    for k in totals:
+        totals[k] += counts[k]
+    prefill_ms = sorted((n, round(a.elapsed_time(b), 3))
+                        for n, a, b in timing)
+    n_tok = sum(len(x) for x in streams)
+    log(f"serve {arch}: {len(streams)} requests, {n_tok} tokens in "
+        f"{wall:.3f}s = {n_tok / wall:.1f} tokens/s; {rounds} rounds, all "
+        f"replayed (1 capture, in the warm-up), 1 sync a round; launches a "
+        f"prefill: flash {per_prefill}; a round: flash 0, decode "
+        f"{per_round}; launches {counts}; peak device memory allocated "
+        f"{peak[0]}, reserved {peak[1]} bytes; each first token the greedy "
+        f"pick of its prefill logits")
+    log(f"serve {arch}: prefill ms by prompt length (CUDA events; exact "
+        f"length, eager, the context encoded or projected each time): "
+        f"{prefill_ms}")
+    log(f"serve {arch}: distinct tokens per stream "
+        f"{[len(set(x)) for x in streams]} (logged: random weights)")
+    context_round(loop, arch, prompts[:8], ctxs[:8])
+    context_slots(model, params, arch, prompts[:8], ctxs[:8], 4, 1024)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.serve(prompts[:8], ctxs[:8], 8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernel_profile(prof, arch, "8 requests x 8 tokens through the "
+                   "model-level loop (8 eager prefills, 7 replayed rounds)",
+                   wall)
+    log(f"serve: {arch} phase took {time.perf_counter() - t_arch:.1f}s")
 
 
 def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
@@ -3524,6 +4114,19 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
                    f"{in_admit / max(prefills, 1):.1f} per prefill"
                    if calls else
                    "host launch calls not measured (no runtime events)")
+    log(f"profile {arch}: rounds {rounds} ({n_spans} profiled), replayed "
+        f"{replayed[0]}; prefills {prefills}, replayed {replayed[1]}; "
+        f"{launch_text}")
+    kernel_profile(prof, arch, f"8 requests x 8 tokens, {batching}, 1 "
+                   f"instance", wall)
+
+
+def kernel_profile(prof, arch, what, wall) -> None:
+    """Logs a profile window's device time by kernel: the device's busy
+    share of the ``wall`` seconds, the port's kernels, cuBLAS and the rest,
+    the copy kernels (casts included) and the ten longest kernels."""
+    from torch.autograd import DeviceType
+
     # Device-side (kernel) events only: the CPU-side op events carry the
     # same device time again as their children's.
     rows = [(e.self_device_time_total, e.count, e.key)
@@ -3531,9 +4134,6 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
             if e.device_type != DeviceType.CPU
             and e.self_device_time_total > 0
             and e.key not in LABELS.values()]
-    log(f"profile {arch}: rounds {rounds} ({n_spans} profiled), replayed "
-        f"{replayed[0]}; prefills {prefills}, replayed {replayed[1]}; "
-        f"{launch_text}")
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
@@ -3547,7 +4147,7 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
             groups["cuBLAS matmuls"] += t
         else:
             groups["other torch kernels"] += t
-    log(f"profile {arch}: 8 requests x 8 tokens, {batching}, 1 instance: "
+    log(f"profile {arch}: {what}: "
         f"wall {wall * 1e3:.1f} ms (profiler on), device busy "
         f"{busy_us / 1e3:.1f} ms = {busy_us / 1e6 / wall:.3f} of wall, "
         f"{sum(n for _, n, _ in rows)} kernel launches")
@@ -3783,6 +4383,7 @@ def main(argv: list[str]) -> int:
             results = out
     t0 = time.perf_counter()
     reduced_serve()
+    reduced_context_serve()
     log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
     launches = serve_phase(rng)
     extra = ("shape", "device_ms", "library_device_ms")  # logged above

@@ -26,7 +26,9 @@ Usage:
 On the card a config whose head dim the attention kernels are not built
 for (they take 16, 32, 64 and 128; qwen1.5-110b's reduced head dim is 8),
 or whose SSM state size the scan kernel does not take (8 or 16), is
-refused before any weight is drawn.
+refused before any weight is drawn; so are seamless-m4t-large-v2 and
+llama-3.2-vision-11b on any device, whose prefill needs a context that no
+request carries (``Model.prefill(ctx=)`` serves them).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ from repro_torch.kernels.build import HEAD_DIMS
 from repro_torch.kernels.ssm_scan import STATE_SIZES
 from repro_torch.models import Model, build_model
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.engine import ServeRequest, ServingEngine
+from repro_torch.serving.engine import (ServeRequest, ServingEngine,
+                                       context_refusal)
 
 
 def init_model(arch: str, *, reduced: bool, seed: int,
@@ -62,7 +65,8 @@ def init_model(arch: str, *, reduced: bool, seed: int,
 def head_dim_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why the card's attention kernels cannot serve ``cfg``, or None: a
     plain function of the config, checked before any weight is drawn."""
-    if cfg.family in ("dense", "moe", "hybrid") and cfg.dh not in HEAD_DIMS:
+    if (cfg.family in ("dense", "moe", "hybrid", "vlm", "encdec")
+            and cfg.dh not in HEAD_DIMS):
         return (f"{cfg.name}: head dim {cfg.dh}, but the attention kernels "
                 f"take head dims {HEAD_DIMS} only; serve it with "
                 f"--device cpu")
@@ -110,12 +114,13 @@ def main(argv: Optional[list[str]] = None) -> None:
                     help="serve the reduced smoke config of each arch")
     args = ap.parse_args(argv)
     archs = args.arch or ["qwen2-7b"]
-    if torch.device(args.device).type != "cpu":
-        for arch in archs:
-            refusal = head_dim_refusal(get_config(arch,
-                                                  reduced=args.reduced))
-            if refusal:
-                ap.error(refusal)
+    for arch in archs:
+        cfg = get_config(arch, reduced=args.reduced)
+        refusal = context_refusal(cfg) or (
+            head_dim_refusal(cfg)
+            if torch.device(args.device).type != "cpu" else None)
+        if refusal:
+            ap.error(refusal)
 
     engine = ServingEngine(window=args.window, device=args.device)
     rng = np.random.default_rng(args.seed)

@@ -5,7 +5,9 @@ the self-attention paths of the dense and hybrid families).
 Cache conventions: a full cache is (B, S_max, K, Dh) with write row =
 position; a rolled (sliding-window) cache is (B, C, K, Dh) with write row
 = position mod C; paged pools are (N, bs, K, Dh) physical blocks.  Rotary
-embeddings are applied before caching.  Where JAX returns an updated
+embeddings are applied before caching; cross-attention (the encoder-decoder
+and vision families) attends a projected context cache without rope or
+mask.  Where JAX returns an updated
 (donated) cache, the port writes the preallocated cache IN PLACE and
 returns the same tensor — the counterpart of XLA donation.  An int8 cache
 holds codes in the K/V pools beside (…, K, 1) bf16 scale pools.
@@ -24,11 +26,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import PSpec, apply_rope
 
 
-def attn_specs(cfg: ModelConfig) -> dict[str, PSpec]:
+def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict[str, PSpec]:
+    """The projections; a cross layer takes no qkv bias
+    (attention.py:74-86)."""
     d, hq, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
     s = {"wq": PSpec((d, hq)), "wk": PSpec((d, kv)), "wv": PSpec((d, kv)),
          "wo": PSpec((hq, d))}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = PSpec((hq,), init="zeros")
         s["bk"] = PSpec((kv,), init="zeros")
         s["bv"] = PSpec((kv,), init="zeros")
@@ -72,14 +76,33 @@ def _output(params: dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_full(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              positions: torch.Tensor, window: Optional[int] = None
+              positions: torch.Tensor, window: Optional[int] = None,
+              causal: bool = True
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal self-attention over the whole sequence through the flash
-    kernel, optionally within a sliding ``window`` (attention.py:131-146).
-    Returns (output, k, v) — k/v post-rope, for the caller to cache."""
+    """Self-attention over the whole sequence through the flash kernel:
+    causal, optionally within a sliding ``window``, or bidirectional
+    (``causal=False``, the encoder) (attention.py:131-146).  Returns
+    (output, k, v) — k/v post-rope, for the caller to cache."""
     q, k, v = _rope_qkv(params, x, positions, cfg)
-    o = ops.flash_attention(q, k, v, causal=True, window=window)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
     return _output(params, o), k, v
+
+
+def cross_attn_full(params: dict, x: torch.Tensor, ctx_kv: tuple,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of every position of ``x`` to a projected context
+    (k, v) (B, S_ctx, K, Dh): no rope, no mask, through the flash kernel
+    with ``causal=False`` (attention.py:149-156)."""
+    k, v = ctx_kv
+    o = ops.flash_attention(_project_q(params, x, cfg), k, v, causal=False)
+    return _output(params, o)
+
+
+def context_kv(params: dict, ctx: torch.Tensor, cfg: ModelConfig
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's k/v of the encoder output or image context: what the
+    cross caches hold (attention.py:159-162)."""
+    return _project_kv(params, ctx, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -319,4 +342,16 @@ def attn_decode_paged_quant(params: dict, x: torch.Tensor,
     cache_len = (pos + 1).to(torch.int32)
     o = ops.paged_decode_attention_quant(q, k_pages, v_pages, ks_pages,
                                          vs_pages, block_tables, cache_len)
+    return _output(params, o)
+
+
+def cross_attn_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
+                      cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One-token cross-attention against a context cache (B, S_ctx, K,
+    Dh): the decode kernel with ``cache_len = S_ctx`` for every row
+    (attention.py:447-456)."""
+    b = x.shape[0]
+    cache_len = torch.full((b,), ck.shape[1], dtype=torch.int32,
+                           device=x.device)
+    o = ops.decode_attention(_project_q(params, x, cfg), ck, cv, cache_len)
     return _output(params, o)

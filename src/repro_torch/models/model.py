@@ -1,6 +1,6 @@
 """``Model``: family dispatch, steps and cache factories (counterpart of
-``repro.models.model.Model`` for the families ported so far: the dense
-and MoE families, RWKV-6 and the Hymba hybrid).
+``repro.models.model.Model`` for every family: dense, MoE, vision,
+encoder-decoder, RWKV-6 and the Hymba hybrid).
 
 Cache leaves follow ``cache_shapes``/``paged_cache_shapes`` of the JAX
 package (model.py:169-232, 316-342): bf16 K/V, or under the int8 gate
@@ -8,7 +8,9 @@ int8 codes plus (…, K, 1) bf16 scales; for a dual-cache dense config
 (gemma3) rolled bf16 K/V for every layer plus full-length bf16
 ``global_k``/``global_v`` for its global layers; for rwkv an f32 ``wkv``
 state and bf16 token-shift rows; for the hybrid rolled bf16 K/V and an
-f32 ``ssm`` state (the int8 gate never applies to a rolled cache).  The int8 gate
+f32 ``ssm`` state (the int8 gate never applies to a rolled cache); for the
+vision and encoder-decoder families bf16 full-length K/V plus the bf16
+context caches ``cross_k``/``cross_v``.  The int8 gate
 (``REPRO_KV_INT8``) is read where a cache is made — ``prefill``,
 ``init_slot_cache``, ``init_paged_cache`` — unless the caller pins it with
 ``kv_int8=``, as a serving instance does.
@@ -28,13 +30,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import keys
-from repro_torch.models import attention, hybrid, rwkv6, transformer
+from repro_torch.models import attention, encdec, hybrid, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_params, param_count,
                                       param_logical_names)
 
-_FAMILY = {"dense": transformer, "moe": transformer, "rwkv": rwkv6,
-           "hybrid": hybrid}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "encdec": encdec, "rwkv": rwkv6, "hybrid": hybrid}
 
 
 def default_kv_blocks(max_batch: int, max_len: int, block_size: int) -> int:
@@ -74,10 +76,7 @@ class Model:
     def __post_init__(self) -> None:
         cfg = self.cfg
         if cfg.family not in _FAMILY:
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves the dense and moe families, "
-                f"rwkv6 and the hybrid so far ({cfg.family}: ROADMAP.md, "
-                f"Queue 1, item 10)")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
     @functools.cached_property
     def specs(self) -> Any:
@@ -85,6 +84,8 @@ class Model:
             return rwkv6.rwkv_specs(self.cfg)
         if self.cfg.family == "hybrid":
             return hybrid.hybrid_specs(self.cfg)
+        if self.cfg.family == "encdec":
+            return encdec.encdec_specs(self.cfg)
         return transformer.decoder_specs(self.cfg)
 
     # -- params -----------------------------------------------------------
@@ -113,17 +114,30 @@ class Model:
     def _int8(self, kv_int8: Optional[bool]) -> bool:
         return self.kv_int8() if kv_int8 is None else kv_int8
 
-    def prefill(self, params, tokens, *, max_len=None, length=None,
-                kv_int8: Optional[bool] = None):
-        if self.cfg.family in ("rwkv", "hybrid"):
+    def prefill(self, params, tokens, *, max_len=None, ctx=None,
+                length=None, kv_int8: Optional[bool] = None):
+        """(last-position logits (B, V), a cache of ``max_len`` rows).  The
+        vision and encoder-decoder families need ``ctx``, the stubbed
+        frontend's (B, n_context_tokens, d_model) embeddings in the
+        params' dtype on their device (``ctx_shape``); the others refuse
+        it (model.py:84-88)."""
+        family = self.cfg.family
+        if (ctx is not None) != self.needs_ctx():
+            raise ValueError(
+                f"{self.cfg.name}: prefill needs a context of shape "
+                f"{self.ctx_shape(1)[0]} a prompt"
+                if self.needs_ctx() else
+                f"{self.cfg.name}: a {family} model takes no context")
+        if family in ("rwkv", "hybrid", "encdec"):
             if length is not None:
                 raise NotImplementedError(
-                    f"{self.cfg.family} prefill runs at the exact prompt "
-                    f"length")
-            return _FAMILY[self.cfg.family].prefill(params, tokens, self.cfg,
-                                                    max_len=max_len)
+                    f"{family} prefill runs at the exact prompt length")
+            kw = {"ctx": ctx} if ctx is not None else {}
+            return _FAMILY[family].prefill(params, tokens, self.cfg,
+                                           max_len=max_len, **kw)
         return transformer.prefill(params, tokens, self.cfg, max_len=max_len,
-                                   length=length, kv_int8=self._int8(kv_int8))
+                                   length=length, kv_int8=self._int8(kv_int8),
+                                   ctx=ctx)
 
     def supports_bucketed_prefill(self) -> bool:
         """Right-padded prompts need full per-position caches: pad tokens
@@ -157,7 +171,7 @@ class Model:
         leave the device (model.py:110-151).  With a key buffer the round
         advances it in place and samples, every family through the same
         sampler, and returns the key as a third element."""
-        if self.cfg.family in ("dense", "moe"):
+        if self.cfg.family in ("dense", "moe", "vlm"):
             return transformer.decode_step_tokens(params, token, cache,
                                                   self.cfg, key, sampling)
         logits, cache = self.decode_step(params, token, cache)
@@ -202,6 +216,11 @@ class Model:
             return rwkv6.cache_specs(self.cfg, batch)
         if self.cfg.family == "hybrid":
             return hybrid.cache_specs(self.cfg, batch, max_len)
+        if self.cfg.family == "encdec":
+            if kv_int8:
+                raise ValueError(f"{self.cfg.name}: int8 KV covers the dense "
+                                 f"and moe families only")
+            return encdec.cache_specs(self.cfg, batch, max_len)
         return transformer.cache_specs(self.cfg, batch, max_len,
                                        self._int8(kv_int8))
 
@@ -348,3 +367,18 @@ class Model:
                                                block_size))
             return n_blocks * self.kv_block_bytes(block_size, kv_int8)
         return self.dense_kv_bytes(max_batch, max_len, kv_int8)
+
+    # -- stubbed modality frontends (model.py:443-451) -------------------------
+
+    def needs_ctx(self) -> bool:
+        """Whether ``prefill`` takes a context: the encoder-decoder's audio
+        frames or the vision model's image patches."""
+        return self.cfg.family in ("encdec", "vlm")
+
+    def ctx_shape(self, batch: int) -> Optional[tuple[tuple[int, ...],
+                                                      torch.dtype]]:
+        """(shape, dtype) of the context of ``batch`` prompts, or None."""
+        if not self.needs_ctx():
+            return None
+        return ((batch, self.cfg.n_context_tokens, self.cfg.d_model),
+                torch.bfloat16)

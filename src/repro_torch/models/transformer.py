@@ -1,10 +1,13 @@
-"""Decoder-only transformer, dense and MoE families (counterpart of the
-dense and moe paths of ``repro.models.transformer``): SwiGLU, GeGLU and
-GELU MLPs or the expert block of ``models/moe.py``, full caches, a rolled
-cache on every layer (mixtral's window), and gemma3's local:global
-interleave on dual caches — rolled (L, B, C, K, Dh) ``k``/``v`` leaves
-for every layer plus full-length ``global_k``/``global_v`` leaves for the
-global layers.
+"""Decoder-only transformer, dense, MoE and vision families (counterpart
+of ``repro.models.transformer``): SwiGLU, GeGLU and GELU MLPs or the
+expert block of ``models/moe.py``, full caches, a rolled cache on every
+layer (mixtral's window), gemma3's local:global interleave on dual
+caches — rolled (L, B, C, K, Dh) ``k``/``v`` leaves for every layer plus
+full-length ``global_k``/``global_v`` leaves for the global layers — and
+llama-3.2-vision's cross-attention interleave: groups of
+``cross_attn_every`` self layers, each followed by one gated
+cross-attention layer over a context cache ``cross_k``/``cross_v``
+(G, B, S_ctx, K, Dh) written once at prefill.
 
 JAX scans over a stacked ``layers`` axis; the port keeps that layout and
 loops over it in Python (PyTorch runs eagerly; on the card the serving
@@ -44,6 +47,26 @@ def block_specs(cfg: ModelConfig) -> dict[str, Any]:
     return s
 
 
+def cross_block_specs(cfg: ModelConfig) -> dict[str, Any]:
+    """A gated cross-attention layer (transformer.py:55-64): the gates are
+    0-d and zero-initialised, so a fresh model ignores its context."""
+    d = cfg.d_model
+    return {"ln1": PSpec((d,), init="zeros"),
+            "attn": attn.attn_specs(cfg, cross=True),
+            "gate_attn": PSpec((), init="zeros"),
+            "ln2": PSpec((d,), init="zeros"),
+            "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp),
+            "gate_mlp": PSpec((), init="zeros")}
+
+
+def n_cross_layers(cfg: ModelConfig) -> int:
+    """The vision family's cross layers: one after every
+    ``cross_attn_every`` self layers."""
+    if cfg.n_layers % cfg.cross_attn_every:
+        raise ValueError("n_layers must divide cross_attn_every groups")
+    return cfg.n_layers // cfg.cross_attn_every
+
+
 def decoder_specs(cfg: ModelConfig) -> dict[str, Any]:
     d, v, l = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     specs: dict[str, Any] = {
@@ -53,16 +76,20 @@ def decoder_specs(cfg: ModelConfig) -> dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["head"] = PSpec((d, v))
+    if cfg.family == "vlm":
+        specs["cross_layers"] = stack_tree(cross_block_specs(cfg),
+                                           n_cross_layers(cfg))
     return specs
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i`` of the stacked ``layers`` tree (views, no copy)."""
+def layer_params(params: dict, i: int, stack: str = "layers") -> dict:
+    """Layer ``i`` of a stacked tree, ``layers`` or another (``enc_layers``,
+    ``cross_layers``): views, no copy."""
     def pick(tree):
         if isinstance(tree, dict):
             return {k: pick(v) for k, v in tree.items()}
         return tree[i]
-    return pick(params["layers"])
+    return pick(params[stack])
 
 
 # --------------------------------------------------------------------------
@@ -136,6 +163,38 @@ def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + _ffn(lp, h, cfg)
+
+
+def _gated(x: torch.Tensor, gate: torch.Tensor, y: torch.Tensor
+           ) -> torch.Tensor:
+    """``x + tanh(gate) * y``, the tanh in f32 and cast back to x's dtype
+    (transformer.py:175)."""
+    return x + torch.tanh(gate.float()).to(x.dtype) * y
+
+
+def cross_block_full(lp: dict, x: torch.Tensor, ctx: torch.Tensor,
+                     cfg: ModelConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gated cross-attention block over the context (transformer.py:
+    165-179).  Returns (x, ck, cv): the projected context, for the cross
+    caches."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    ck, cv = attn.context_kv(lp["attn"], ctx, cfg)
+    x = _gated(x, lp["gate_attn"], attn.cross_attn_full(lp["attn"], h,
+                                                        (ck, cv), cfg))
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return _gated(x, lp["gate_mlp"], mlp_apply(lp["mlp"], h, cfg.mlp)), ck, cv
+
+
+def cross_block_decode(lp: dict, x: torch.Tensor, ck: torch.Tensor,
+                       cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``cross_block_full`` for one token against the layer's context
+    cache (transformer.py:182-189)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = _gated(x, lp["gate_attn"],
+               attn.cross_attn_decode(lp["attn"], h, ck, cv, cfg))
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    return _gated(x, lp["gate_mlp"], mlp_apply(lp["mlp"], h, cfg.mlp))
 
 
 # --------------------------------------------------------------------------
@@ -223,7 +282,8 @@ def _full_cache(k: torch.Tensor, max_len: int) -> torch.Tensor:
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             max_len: Optional[int] = None, length: Optional[int] = None,
-            kv_int8: Optional[bool] = None) -> tuple[torch.Tensor, dict]:
+            kv_int8: Optional[bool] = None,
+            ctx: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, dict]:
     """Run the prompt; returns (last-position logits (B, V), cache dict).
 
     ``length`` enables length-masked prefill for bucketed padding:
@@ -245,15 +305,19 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     dual-cache config's global layers attend in full and also write their
     full-length K/V into ``global_k``/``global_v``, bf16 whatever the
     params' dtype (transformer.py:341-463).  Windowed caches fold pad rows
-    into real ones, so they refuse ``length``.
+    into real ones, so they refuse ``length``; so does the vision family,
+    as JAX's does (transformer.py:356-359).  The vision family needs the
+    context ``ctx`` (B, n_context_tokens, d_model) (``_prefill_vlm``).
     """
     b, s = tokens.shape
     max_len = max_len or s
     w = cfg.sliding_window
-    if length is not None and w is not None:
+    if length is not None and (cfg.family == "vlm" or w is not None):
         raise NotImplementedError(
             "length-masked prefill requires full (non-windowed) caches")
     quant = attn.kv_int8_enabled(cfg) if kv_int8 is None else kv_int8
+    if cfg.family == "vlm":
+        return _prefill_vlm(params, tokens, cfg, max_len, ctx, quant)
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(s, device=tokens.device)
     cache = {key: torch.zeros(shape, dtype=dtype, device=x.device)
@@ -284,6 +348,42 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     return lm_head(params, last, cfg)[:, 0], cache
 
 
+def _groups(cfg: ModelConfig):
+    """(group, [its self layers]) of the vision family: JAX reshapes the
+    stacked (L, ...) leaves into (G, every, ...), so layer i is self layer
+    i mod every of group i // every."""
+    every = cfg.cross_attn_every
+    return [(g, range(g * every, (g + 1) * every))
+            for g in range(n_cross_layers(cfg))]
+
+
+def _prefill_vlm(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 max_len: int, ctx: torch.Tensor, kv_int8: bool
+                 ) -> tuple[torch.Tensor, dict]:
+    """The vision family's prefill (transformer.py:366-391): each group's
+    causal self layers, then its cross layer over ``ctx``.  The self K/V go
+    into full-length ``k``/``v`` leaves, each cross layer's projected
+    context into ``cross_k``/``cross_v`` (G, B, S_ctx, K, Dh), bf16."""
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(s, device=tokens.device)
+    cache = {key: torch.zeros(shape, dtype=dtype, device=x.device)
+             for key, (shape, dtype) in cache_specs(cfg, b, max_len,
+                                                    kv_int8).items()}
+    for g, layers in _groups(cfg):
+        for i in layers:
+            x, k, v = block_full(layer_params(params, i), x, cfg,
+                                 positions=positions)
+            cache["k"][i, :, :s] = k
+            cache["v"][i, :, :s] = v
+        x, ck, cv = cross_block_full(layer_params(params, g, "cross_layers"),
+                                     x, ctx, cfg)
+        cache["cross_k"][g] = ck
+        cache["cross_v"][g] = cv
+    cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
+    return lm_head(params, x[:, -1:], cfg)[:, 0], cache
+
+
 # --------------------------------------------------------------------------
 # Decode — one token against the cache
 # --------------------------------------------------------------------------
@@ -300,6 +400,8 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
     rolled rows as they are (transformer.py:526-568)."""
     pos = cache["pos"]
     x = embed_tokens(params, token[:, None], cfg)
+    if cfg.family == "vlm":
+        return _decode_vlm(params, x, cache, cfg)
     w = cfg.sliding_window
     rolled = w is not None and cache["k"].shape[2] <= w
     for i, g in enumerate(global_slots(cfg)):
@@ -314,6 +416,22 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict,
         else:
             x = block_decode(lp, x, cache["k"][i], cache["v"][i], pos, cfg,
                              rolled=rolled, window=w)
+    return lm_head(params, x, cfg)[:, 0], dict(cache, pos=pos + 1)
+
+
+def _decode_vlm(params: dict, x: torch.Tensor, cache: dict,
+                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """The vision family's step (transformer.py:477-506): each group's self
+    layers against their full caches through the decode kernel, then its
+    cross layer against its context cache at ``cache_len = S_ctx``."""
+    pos = cache["pos"]
+    for g, layers in _groups(cfg):
+        for i in layers:
+            x = block_decode(layer_params(params, i), x, cache["k"][i],
+                             cache["v"][i], pos, cfg)
+        x = cross_block_decode(layer_params(params, g, "cross_layers"), x,
+                               cache["cross_k"][g], cache["cross_v"][g],
+                               cfg)
     return lm_head(params, x, cfg)[:, 0], dict(cache, pos=pos + 1)
 
 
@@ -333,10 +451,15 @@ def cache_specs(cfg: ModelConfig, batch: int, rows: int, kv_int8: bool
     (model.py:212-227, 329-342).  A windowed config's ``k``/``v`` hold
     ``local_cache_len`` rolled rows for every layer, and a dual-cache
     config adds bf16 ``global_k``/``global_v`` of ``rows`` rows for its
-    global layers, as JAX's ``cache_shapes`` lays them out."""
+    global layers, as JAX's ``cache_shapes`` lays them out.  The vision
+    family adds bf16 ``cross_k``/``cross_v`` (G, batch, S_ctx, K, Dh) for
+    its cross layers (model.py:202-211)."""
     if kv_int8 and cfg.sliding_window is not None:
         raise ValueError(f"{cfg.name}: int8 KV needs full caches, not "
                          f"rolled ones (attention.py:90-97)")
+    if kv_int8 and cfg.family == "vlm":
+        raise ValueError(f"{cfg.name}: int8 KV covers the dense and moe "
+                         f"families only (attention.py:170-177)")
     kv = (cfg.n_layers, batch, local_cache_len(cfg, rows), cfg.n_kv_heads,
           cfg.dh)
     if not kv_int8:
@@ -345,6 +468,11 @@ def cache_specs(cfg: ModelConfig, batch: int, rows: int, kv_int8: bool
             gkv = (n_global_layers(cfg), batch, rows, cfg.n_kv_heads, cfg.dh)
             specs.update(global_k=(gkv, torch.bfloat16),
                          global_v=(gkv, torch.bfloat16))
+        if cfg.family == "vlm":
+            ckv = (n_cross_layers(cfg), batch, cfg.n_context_tokens,
+                   cfg.n_kv_heads, cfg.dh)
+            specs.update(cross_k=(ckv, torch.bfloat16),
+                         cross_v=(ckv, torch.bfloat16))
         return specs
     sc = (*kv[:-1], 1)
     return {"k": (kv, torch.int8), "v": (kv, torch.int8),

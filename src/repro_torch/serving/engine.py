@@ -129,6 +129,7 @@ from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import SLORecorder
 from repro_torch.kernels import keys
 from repro_torch.models import build_model
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, default_kv_blocks
 from repro_torch.serving.graphs import PrefillGraphs, RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
@@ -1079,6 +1080,21 @@ class FunctionInstance:
             self._slot_tok_dev[slot] = tok  # in place: the graphs read it
 
 
+def context_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the engine does not serve ``cfg``, or None: a vision or
+    encoder-decoder model prefills with a context, and a request carries
+    none — nor does the reference's engine, which prefills with the prompt
+    alone (engine.py:215-217) and fails on the family's assert at the
+    first admission."""
+    if cfg.family not in ("encdec", "vlm"):
+        return None
+    return (f"{cfg.name}: a {cfg.family} model prefills with a context "
+            f"(B, {cfg.n_context_tokens}, {cfg.d_model}), and a ServeRequest "
+            f"carries none, as the reference engine's requests carry none "
+            f"(repro/serving/engine.py:215-217); drive it through the "
+            f"Model API: prefill(ctx=), merge_slot, decode_step_tokens")
+
+
 class ServingEngine:
     """One node: token scheduler + N weight-shared instances on one
     device (``None`` = the card; the CPU only when asked for)."""
@@ -1133,6 +1149,9 @@ class ServingEngine:
         the first deploy (engine.py:1166-1200)."""
         if not self.alive:
             raise RuntimeError("cannot deploy to a failed node")
+        refusal = context_refusal(model.cfg)
+        if refusal:
+            raise ValueError(refusal)
         if fn not in self.recorders:
             self.recorders[fn] = SLORecorder(fn=fn)
         self._store_weights(fn, params)

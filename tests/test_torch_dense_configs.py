@@ -356,14 +356,25 @@ def test_gemma3_migration_gives_the_unmigrated_streams():
     assert [list(r.tokens_out) for r in reqs] == unmigrated == jstreams
 
 
+def _spec_tree(tree):
+    """(shape, init) of every leaf of a PSpec tree, in its nesting."""
+    if isinstance(tree, dict):
+        return {k: _spec_tree(v) for k, v in tree.items()}
+    return (tuple(tree.shape), tree.init)
+
+
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
                                   "llama-3.2-vision-11b"])
-def test_unported_families_raise_naming_roadmap(arch):
-    """Every dense and moe config builds; encdec and vlm still raise,
-    naming the Queue 1 item that ports them."""
-    cfg = ModelConfig(**dataclasses.asdict(jax_config(arch, reduced=True)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_model(cfg)
+def test_context_families_build(arch):
+    """The encoder-decoder and vision configs build from the port's
+    registry at full width and reduced, with JAX's spec tree: the same
+    leaves in the same nesting, of the same shapes and inits."""
+    for reduced in (False, True):
+        model = build_model(get_config(arch, reduced=reduced))
+        jm = jax_build(jax_config(arch, reduced=reduced))
+        assert _spec_tree(model.specs) == _spec_tree(jm.specs)
+        assert model.n_params() == jm.n_params()
+        assert model.needs_ctx()
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mixtral-8x7b"])

@@ -6,8 +6,10 @@ node failure, the sampled and speculative rounds under the graphs
 (replay == eager body, sampled graph == ``fused=False``, the sampler's
 distribution and the key stream's bits on the card), and the dense
 configs' geometries (starcoder2-15b's and gemma3-27b's heads, gemma3's
-dual caches), and the MoE block (deterministic, captured, routed as on
-the CPU), on the card.  Marked ``gpu``: without a card
+dual caches), the MoE block (deterministic, captured, routed as on
+the CPU), and the encoder-decoder and vision families' attention
+(non-causal flash over a context, decode over a full context cache) and
+a vision round under a graph, on the card.  Marked ``gpu``: without a card
 each test skips at run time (the kernels have no CPU mode).  Imports torch and numpy only, so the file
 runs on the card's machine, which has no JAX:
 
@@ -1688,3 +1690,108 @@ def test_moe_routing_equals_cpu(cuda_device, cf):
     ref = moe.moe_apply(cpu, torch.from_numpy(x_np), cfg, cf)[0]
     assert torch.isfinite(y).all()
     assert ((y - ref).abs().max() / ref.abs().max()).item() < 2e-2
+
+
+# -- the encoder-decoder and vision families: non-causal flash over a
+#    context, decode over a full context cache, the round under a graph ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,h,kv,d", [
+    (1024, 1024, 16, 16, 64),  # seamless's encoder (bidirectional)
+    (512, 1024, 16, 16, 64),   # seamless's cross prefill, G = 1
+    (512, 1600, 32, 8, 128),   # vision's cross prefill, 25 tiles of 64
+    (9, 12, 4, 4, 16),         # the reduced configs: a sub-tile context
+    (9, 12, 4, 2, 16)])
+def test_flash_kernel_non_causal_context(cuda_device, sq, sk, h, kv, d):
+    """Flash with ``causal=False`` over a context whose length differs
+    from the query's (the encoder's own 1024 rows too), at the full
+    configs' heads and the reduced ones' 12-row context."""
+    rng = np.random.default_rng(sq + sk + d)
+    q = _cuda_rand(rng, (1, sq, h, d), cuda_device)
+    k = _cuda_rand(rng, (1, sk, kv, d), cuda_device)
+    v = _cuda_rand(rng, (1, sk, kv, d), cuda_device)
+    got = fa.flash_attention(q, k, v, causal=False)
+    want = fa.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,kv,d", [(12, 4, 2, 16), (1024, 16, 16, 64),
+                                      (1600, 32, 8, 128)])
+def test_decode_kernel_full_context_cache(cuda_device, s, h, kv, d):
+    """The dense decode kernel with every row at ``cache_len = S``, as a
+    cross layer attends its context cache each round: the reduced
+    configs' 12 rows (under one tile), seamless's 1024 (G = 1) and
+    vision's 1600 (G = 4), B = 8."""
+    rng = np.random.default_rng(s + d)
+    q = _cuda_rand(rng, (8, 1, h, d), cuda_device)
+    kc = _cuda_rand(rng, (8, s, kv, d), cuda_device)
+    vc = _cuda_rand(rng, (8, s, kv, d), cuda_device)
+    lens = torch.full((8,), s, dtype=torch.int32, device=cuda_device)
+    torch.testing.assert_close(
+        da.decode_attention(q, kc, vc, lens).float(),
+        da.decode_attention_plain(q, kc, vc, lens).float(), atol=2e-2,
+        rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_vlm_reduced_round_replay_equals_eager_body(cuda_device):
+    """llama-3.2-vision's reduced config (a cross layer after every 2 of 4
+    self layers), gates and norms filled, three live slots of four with
+    their own contexts: the round captured through ``RoundGraph`` and
+    replayed, and the eager round over the same state, write the same
+    slot tokens, positions, ``k`` and ``v`` bit for bit and leave
+    ``cross_k``/``cross_v`` as prefill wrote them; the round launches the
+    decode kernel 4 + 2 times."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving.graphs import RoundGraph
+
+    model = build_model(get_config("llama-3.2-vision-11b", reduced=True))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = model.init(gen)
+    for leaf in (params["cross_layers"]["gate_attn"],
+                 params["cross_layers"]["gate_mlp"]):
+        leaf.fill_(0.7)
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    pool = model.init_slot_cache(4, 64, cuda_device)
+    tok = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    for slot, n in ((0, 5), (1, 17), (3, 9)):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                                 dtype=torch.int32, device=cuda_device)
+        ctx = _cuda_rand(rng, (1, cfg.n_context_tokens, cfg.d_model),
+                         cuda_device)
+        logits, entry = model.prefill(params, prompt, max_len=64, ctx=ctx)
+        model.merge_slot(pool, entry, slot)
+        tok[slot] = model.sample_greedy(logits)[0]
+
+    def body():
+        new, advanced = model.decode_step_tokens(params, tok, pool)
+        pool["pos"].copy_(advanced["pos"])
+        return tok.copy_(new)
+
+    rg = RoundGraph(cuda_device)
+    for _ in range(3):  # eager, captured and replayed, replayed
+        rg.run(body)
+    assert rg.captures == 1 and rg.replays == 2
+
+    def state():
+        return {"tok": tok, **pool}
+
+    start = {k: v.clone() for k, v in state().items()}
+    kernels.reset_launch_counts()
+    rg.replay()
+    assert kernels.launch_counts()["decode_attention"] == 6
+    replayed = {k: v.clone() for k, v in state().items()}
+    for k, v in state().items():
+        v.copy_(start[k])
+    body()
+    torch.cuda.synchronize()
+    assert not [k for k, v in state().items()
+                if not torch.equal(v, replayed[k])]
+    assert [k for k in pool if torch.equal(start[k], replayed[k])] == \
+        ["cross_k", "cross_v"]

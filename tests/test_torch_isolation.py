@@ -58,13 +58,19 @@ def test_default_device_entry_points_raise_without_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_arch_raises_naming_roadmap():
-    from repro_torch.configs import get_config
+def test_registry_holds_every_reference_arch():
+    """The port registers every architecture of the JAX package's
+    registry, under the same ids in the same order; an unknown id raises
+    ``KeyError``."""
+    from repro.configs import all_arch_ids as jax_arch_ids
+    from repro_torch.configs import all_arch_ids, get_config
 
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("seamless-m4t-large-v2")
+    assert all_arch_ids() == jax_arch_ids()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch")
     assert get_config("qwen2-7b").d_model == 3584
-    assert get_config("mixtral-8x7b").family == "moe"
+    assert get_config("seamless-m4t-large-v2").family == "encdec"
+    assert get_config("llama-3.2-vision-11b").family == "vlm"
 
 
 def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
@@ -80,7 +86,8 @@ def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
     from repro_torch.launch import serve
 
     for arch in ("qwen2-7b", "hymba-1.5b", "rwkv6-1.6b", "starcoder2-15b",
-                 "gemma3-27b"):
+                 "gemma3-27b", "seamless-m4t-large-v2",
+                 "llama-3.2-vision-11b"):
         assert serve.head_dim_refusal(get_config(arch, reduced=True)) is None
         assert serve.head_dim_refusal(get_config(arch)) is None
     assert "head dim 8" in serve.head_dim_refusal(
@@ -90,6 +97,10 @@ def test_serve_refuses_head_dims_the_kernels_do_not_take(monkeypatch,
     assert narrow.dh == 8
     refusal = serve.head_dim_refusal(narrow)
     assert "(16, 32, 64, 128)" in refusal and "--device cpu" in refusal
+    for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-11b"):
+        narrow_ctx = dataclasses.replace(get_config(arch, reduced=True),
+                                         head_dim=8)
+        assert "head dim 8" in serve.head_dim_refusal(narrow_ctx)
     small_state = dataclasses.replace(get_config("hymba-1.5b", reduced=True),
                                       ssm_state=4)
     assert "(8, 16)" in serve.head_dim_refusal(small_state)
