@@ -173,7 +173,39 @@ place), and then:
    runs (temperature 0.8, top-k 50, top-p 0.9, seed 5; 4 requests each):
    qwen2-7b continuous and paged here, rwkv6-1.6b and hymba-1.5b after
    their serve modes, each through the graphs equal to a ``fused=False``
-   engine bit for bit, one sync a pass.
+   engine bit for bit, one sync a pass;
+7. sharded pods phase — qwen2-7b at full width through
+   ``ClusterFrontend(n_nodes=4)`` with a ``FleetModelStore`` (the weights
+   staged once, each pod's members' slices uploaded straight to them) as
+   one instance and as 2- and 4-member pods whose members share the card
+   (and, on a machine with two cards or more, a 2-member pod spanning
+   two, which runs eagerly), 16 requests x 32 tokens, continuous and
+   then paged (16-row pages; one page table for every member, each
+   holding its kv heads of every page): every timed round and admission
+   a replay,
+   each kernel launched once a layer, member and prefill or round, first
+   tokens equal to one instance's (a bf16 token may flip only where the
+   one-instance logits' top two lie within twice the pod's deviation
+   from them or two bf16 steps of each other), a round's logits over 8
+   live slots (fed one instance's tokens; paged, over 8 slots' pages)
+   within ``REF_TOL`` of one instance's of the same batching, one
+   replayed round equal to its eager body bit for bit (tokens, every
+   member's ``k`` and ``v`` and, continuous, ``pos``; paged, every
+   member's pages and the page tables, positions and active mask);
+   per-member weight and KV bytes beside one instance's, tokens/s, a
+   replayed round's device time, kernels and host launch calls; after
+   the continuous 2-member pod, a secondary member fails and the
+   stranded request finishes on a one-instance replacement with the
+   one-instance stream.  Before it, the
+   reduced configs (qwen2-7b's smoke cut, head dim 16, and a 2-layer
+   model of qwen2-7b's heads, 7 q over 1 kv of 128, whose kv head does
+   not divide a pod) serve the same greedy and sampled streams at 1, 2
+   and 4 members, continuous and paged, in bf16 (the attention kernels
+   take bf16 only; the check holds exactly because at these shapes
+   cuBLAS's products over a member's columns came out bit-equal to the
+   full product's, ``scripts/pod_exactness_probe.py``).  The kernel phase holds
+   flash, dense and paged decode at the members' geometries (14 q over 2
+   kv heads, 7 over 1, of 128).
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -187,6 +219,7 @@ from __future__ import annotations
 
 import bisect
 import json
+import math
 import subprocess
 import sys
 import time
@@ -481,6 +514,7 @@ def kernel_phase(rng) -> dict:
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     decode_geometries(dev)
     decode_dense_configs(dev)
+    member_geometries(dev)
     context_attention(dev)
     small_head_dims(dev)
     out.update(wkv6_kernel(np.random.default_rng(SEED + 3), dev))
@@ -1051,6 +1085,72 @@ def decode_dense_configs(dev) -> None:
         decode_logged(label, rand(8, 1, h, d), rand(8, s, kv, d),
                       rand(8, s, kv, d),
                       torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def paged_logged(label, q, kc, vc, lens, page=16) -> None:
+    """The bf16 paged decode kernel at one more geometry: ``kc``/``vc``
+    scattered over ``page``-row pages in a random order, held against the
+    plain paged version and timed beside SDPA over the dense layout (with
+    a length mask) and the bound: the rows ``lens`` holds and their table
+    entries, read once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+
+    b, _, h, d = q.shape
+    s, kv = kc.shape[1:3]
+    (kp, vp), tables = scatter_pages((kc, vc), page,
+                                     np.random.default_rng(SEED + 13))
+    err = close(f"paged {label}",
+                da.paged_decode_attention(q, kp, vp, tables, lens),
+                da.paged_decode_attention_plain(q, kp, vp, tables, lens))
+    rows = int(lens.sum())
+    entries = int((-(-lens // page)).sum())
+    bnd, by = bound(4 * h * d * rows, 2 * rows * kv * d * 2
+                    + 2 * q.numel() * 2 + 4 * b + 4 * entries)
+    n = copies_for(kp.numel() * 4)
+    sets = [[x.clone() for x in (q, kp, vp)] for _ in range(n)]
+    calls = [lambda x=x: da.paged_decode_attention(*x, tables, lens)
+             for x in sets]
+    dense = [[q.reshape(b, h, 1, d).clone()]
+             + [c.transpose(1, 2).contiguous() for c in (kc, vc)]
+             for _ in range(n)]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    sdpa = [lambda x=x: F.scaled_dot_product_attention(
+        *x, attn_mask=mask, enable_gqa=True) for x in dense]
+    log(f"kernel paged_decode_attention at {label} (B={b} pages of {page} "
+        f"rows, M={tables.shape[1]} H={h} K={kv} D={d}, cache_len "
+        f"{lens.tolist()}): max_abs_err={err} ms={time_ms(calls)} "
+        f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
+        f"library_device_ms={device_ms(sdpa)} (SDPA over the dense "
+        f"layout, mask) bound_ms={bnd} ({by})")
+
+
+def member_geometries(dev) -> None:
+    """The three kernels of a qwen2-7b pod at its members' geometries: a
+    2-member pod's member attends 14 q heads over 2 kv heads of 128, a
+    4-member pod's 7 over 1 (G = 7 either way).  Flash causal at a
+    512-token prompt (B=1); dense decode at B=8, S=1024 with mixed cache
+    lengths; paged decode over pages of 16 rows; each held against its
+    plain version and timed beside SDPA and the bound."""
+    import torch
+    gen = np.random.default_rng(SEED + 12)
+
+    def rand(*shape):
+        return torch.from_numpy(gen.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=dev)
+    for shards, h, kv in ((2, 14, 2), (4, 7, 1)):
+        label = f"a {shards}-member qwen2-7b pod's member, G=7"
+        flash_logged(label, rand(1, 512, h, 128), rand(1, 512, kv, 128),
+                     rand(1, 512, kv, 128))
+        q, kc, vc = (rand(8, 1, h, 128), rand(8, 1024, kv, 128),
+                     rand(8, 1024, kv, 128))
+        decode_logged(label, q, kc, vc, lens)
+        paged_logged(label, q, kc, vc, lens)
 
 
 def context_attention(dev) -> None:
@@ -1914,6 +2014,7 @@ def serve_phase(rng) -> dict[str, int]:
     release_phase(model, params, alloc, chat)
     fleet_phase(model, params, totals)
     spec_phase(model, params, alloc, prompts, streams, totals)
+    pod_phase(model, params, prompts, totals)
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4045,6 +4146,408 @@ def spec_phase(model, params, alloc, prompts, spec_off, totals,
     log(f"spec {arch}: phase took {time.perf_counter() - t0:.1f}s")
 
 
+POD_TOKENS = 32   # new tokens a request, as the serve modes
+POD_REDUCED = dict(max_batch=4, max_len=128, block_size=16)
+POD_SAMPLING = dict(temperature=0.8, top_k=8, seed=7)
+
+
+def pod_frontend(store=None, devices=None):
+    """Four logical nodes on the card (or on ``devices``, one a node), 40
+    GiB of admission budget each."""
+    from repro_torch.serving import ClusterFrontend
+    return ClusterFrontend(n_nodes=4, mem_bytes=40 << 30, window=0.2,
+                           model_store=store, devices=devices)
+
+
+def pod_of(fe):
+    """The frontend's one placement, its primary engine and instance."""
+    (p,) = fe.placements
+    eng = fe.engines[p.node]
+    return p, eng, eng.instances[p.inst_id]
+
+
+def pod_reduced() -> None:
+    """The reduced configs as 1-, 2- and 4-member pods on the card: qwen2-7b's
+    smoke cut (4 q over 2 kv heads of 16: a 2-member pod splits its heads,
+    a 4-member one replicates its pool) and a 2-layer model of qwen2-7b's
+    heads (7 q over 1 kv of 128, d=896: the kv head never divides, and at
+    4 members each member's q columns end mid-head), bf16 weights with
+    their zero norms and biases filled, 6 requests of 5-40 tokens x 8 new
+    tokens on 4 slots.  Greedy and sampled (temperature 0.8, top-k 8, seed
+    7), continuous and paged: each pod's streams must equal one
+    instance's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serving.speculative import SamplingConfig
+
+    t0 = time.perf_counter()
+    alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
+    heads = ModelConfig(name="qwen2-7b-heads", family="dense", n_layers=2,
+                        d_model=896, n_heads=7, n_kv_heads=1, head_dim=128,
+                        d_ff=1024, vocab_size=1024, qkv_bias=True,
+                        mlp="swiglu", rope_theta=1e6)
+    rng = np.random.default_rng(SEED + 14)
+    for cfg in (get_config(ARCH, reduced=True), heads):
+        model = build_model(cfg)
+        p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)),
+                        SEED + 1)
+        params = _tree(p_cpu, lambda t: t.cuda())
+        prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+                   for n in rng.integers(5, 41, 6)]
+        checked = []
+        for batching in ("continuous", "paged"):
+            for sampling in (None, SamplingConfig(**POD_SAMPLING)):
+                streams = {}
+                for shards in (1, 2, 4):
+                    fe = pod_frontend()
+                    fe.place_instance(cfg.name, model, params, alloc,
+                                      batching=batching, sampling=sampling,
+                                      shards=shards, **POD_REDUCED)
+                    reqs = [fe.submit(cfg.name, q, max_new_tokens=8)
+                            for q in prompts]
+                    fe.pump(budget_s=120.0)
+                    _, _, inst = pod_of(fe)
+                    if not all(r.done for r in reqs) or \
+                            inst.round_graph.captures != 1:
+                        raise AssertionError(
+                            f"pod {cfg.name} x{shards} {batching}: served "
+                            f"{sum(r.done for r in reqs)}/{len(reqs)}, "
+                            f"{inst.round_graph.captures} round captures")
+                    streams[shards] = [list(r.tokens_out) for r in reqs]
+                what = (f"{batching} "
+                        f"{'sampled' if sampling else 'greedy'}")
+                if not streams[1] == streams[2] == streams[4]:
+                    raise AssertionError(
+                        f"pod {cfg.name} {what}: streams at 1/2/4 members "
+                        f"{streams}")
+                checked.append(what)
+        log(f"pod reduced {cfg.name} (H={cfg.n_heads} K={cfg.n_kv_heads} "
+            f"D={cfg.dh} d={cfg.d_model}, bf16): streams at 1, 2 and 4 "
+            f"members equal in {', '.join(checked)}, {len(prompts)} "
+            f"requests x 8 tokens, every round of a pod a graph replay")
+    log(f"pod reduced phase took {time.perf_counter() - t0:.1f}s")
+
+
+def round_state(inst) -> dict:
+    """Every buffer a fused round reads and writes: the slot tokens, each
+    member's pool leaves (one member without a group; paged, its pages)
+    and, paged, the page tables, positions and active mask."""
+    pools = inst.cache if inst.group is not None else [inst.cache]
+    out = {"slot tokens": inst._slot_tok_dev}
+    if inst.batching == "paged":
+        out["page tables, positions, active"] = inst._state_dev
+    for m, pool in enumerate(pools):
+        out.update({f"member {m} {k}": v for k, v in pool.items()})
+    return out
+
+
+def pod_round_check(eng, inst, prompts) -> tuple[float, str]:
+    """One round with 8 live slots replayed from the pod's
+    graph against its eager body over the same state (copies restored
+    between them), bit for bit; then the replay's device time over 10
+    replays and, from the profiler over 3 replays, its host launch calls
+    and device kernels a round.  Returns (device ms, what it logged)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    for q in prompts:
+        eng.submit(ARCH, q, max_new_tokens=16)
+    for _ in range(2):  # admissions and a replayed round
+        inst.run_step()
+    rg = inst.round_graph
+    if rg.captures != 1 or inst.n_active() != inst.max_batch:
+        raise AssertionError(f"pod round check: {inst.n_active()} live "
+                             f"slots, {rg.captures} captures")
+    start = {k: v.clone() for k, v in round_state(inst).items()}
+    rg.replay()
+    replayed = {k: v.clone() for k, v in round_state(inst).items()}
+    for k, v in round_state(inst).items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    diff = [k for k, v in round_state(inst).items()
+            if not torch.equal(v, replayed[k])]
+    if diff:
+        raise AssertionError(f"pod round check: replay != eager in {diff}")
+    for k, v in round_state(inst).items():
+        v.copy_(start[k])
+    dev_ms = device_ms([rg.replay], iters=10)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            rg.replay()
+        torch.cuda.synchronize()
+    events = prof.events()
+    calls = sum(e.name in LAUNCH_CALLS for e in events)
+    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    for k, v in round_state(inst).items():
+        v.copy_(start[k])
+    eng.pump(budget_s=120.0)  # the 8 requests finish from the restored state
+    return dev_ms, (f"replay == eager bit for bit over {len(start)} "
+                    f"buffers; a replayed round {dev_ms:.4f} ms device, "
+                    f"{calls / 3:.1f} host launch calls and "
+                    f"{kernels / 3:.0f} device kernels a round")
+
+
+def pod_logits(inst, prompts, first=None) -> tuple:
+    """Exact-length prefill logits of every prompt and, over a fresh pool
+    holding ``prompts[:8]`` (8 slots, or paged 8 sequences' pages through
+    one page table), one round's logits from the tokens ``first``
+    (default: the prefills' greedy picks; a pod takes one instance's, so a
+    near-tie pick cannot change a round's input), eager, through the
+    instance's runner.  Returns (prefill logits, round logits, the
+    round's tokens)."""
+    import torch
+    run, dev = inst.runner, inst.device
+    paged = inst.batching == "paged"
+    if paged:
+        per = inst.max_len // inst.block_size
+        pool = run.init_paged_cache(8 * per + 1, inst.block_size, dev,
+                                    kv_int8=False)
+        tables = (1 + torch.arange(8 * per, dtype=torch.int32,
+                                   device=dev)).view(8, per)
+    else:
+        pool = run.init_slot_cache(8, inst.max_len, dev, kv_int8=False)
+    pre = []
+    for slot, q in enumerate(prompts):
+        tokens = torch.as_tensor(q[None], device=dev)
+        logits, entry = run.prefill(inst.params, tokens,
+                                    max_len=inst.max_len, kv_int8=False)
+        pre.append(logits[0].float())
+        if slot < 8 and paged:
+            run.append_paged(pool, entry, tables[slot].long())
+        elif slot < 8:
+            run.merge_slot(pool, entry, slot)
+    if first is None:
+        first = torch.stack([torch.argmax(x).to(torch.int32)
+                             for x in pre[:8]])
+    if paged:
+        pos = torch.as_tensor([len(q) for q in prompts[:8]],
+                              dtype=torch.int32, device=dev)
+        round_logits, _ = run.decode_step_paged(inst.params, first, pool,
+                                                tables, pos)
+    else:
+        round_logits, _ = run.decode_step(inst.params, first, pool)
+    return torch.stack(pre), round_logits.float(), first
+
+
+def pod_phase(model, params, prompts, totals) -> None:
+    """qwen2-7b at full width as one instance and as 2- and 4-member pods,
+    continuous and then paged (see the module docstring, phase 7), all on
+    four logical nodes of the card through one ``FleetModelStore``."""
+    import torch
+    from repro_torch.core.resources import Alloc
+    from repro_torch.serving import FleetModelStore
+
+    t_phase = time.perf_counter()
+    alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
+    store = FleetModelStore(host_budget_bytes=40 << 30)
+    one = {b: pod_widths(model, params, prompts, totals, alloc, store, b)
+           for b in ("continuous", "paged")}
+    if torch.cuda.device_count() >= 2:
+        pod_spread(model, params, alloc, store, prompts, one["continuous"])
+    log(f"pod phase took {time.perf_counter() - t_phase:.1f}s")
+
+
+def pod_widths(model, params, prompts, totals, alloc, store,
+               batching) -> dict:
+    """The request mix on one instance and on 2- and 4-member pods in
+    ``batching``, one placement at a time, each held against the one
+    instance (phase 7); after the continuous 2-member pod, a secondary
+    member's failure.  Returns the one instance's readings."""
+    import gc
+    import torch
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.distributed.sharding import per_member_bytes
+
+    cfg = model.cfg
+    decode = ("decode_attention" if batching == "continuous"
+              else "paged_decode_attention")
+    one = {}
+    for shards in (1, 2, 4):
+        t0 = time.perf_counter()
+        fe = pod_frontend(store)
+        fe.place_instance(ARCH, model, params, alloc, max_batch=8,
+                          max_len=1024, batching=batching, shards=shards)
+        p, eng, inst = pod_of(fe)
+        event = fe.cold_start_events()[0]
+        placed = time.perf_counter() - t0
+        label = f"x{shards} {batching}"
+        if (inst.group is None) != (shards == 1) or \
+                inst.round_graph.always_eager:
+            raise AssertionError(f"pod {label}: group {inst.group}, eager "
+                                 f"{inst.round_graph.always_eager}")
+        reqs, done, wall, counts, delta, (replayed, pre_replayed), peak = \
+            timed_serve(eng, ARCH, prompts, POD_TOKENS)
+        (tel,) = delta.values()
+        prefills, rounds = tel["prefills"], tel["rounds"]
+        if done != len(prompts) or not all(
+                len(r.tokens_out) == POD_TOKENS for r in reqs):
+            raise AssertionError(f"pod {label}: served {done}")
+        if (replayed, pre_replayed) != (rounds, prefills):
+            raise AssertionError(f"pod {label}: replayed {replayed}/"
+                                 f"{rounds} rounds, {pre_replayed}/"
+                                 f"{prefills} prefills")
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = shards * cfg.n_layers * prefills
+        want[decode] = shards * cfg.n_layers * rounds
+        if counts != want:
+            raise AssertionError(f"pod {label}: launches {counts}, "
+                                 f"expected {want}")
+        for k in totals:
+            totals[k] += counts[k]
+        first = [r.tokens_out[0] for r in reqs]
+        streams = [list(r.tokens_out) for r in reqs]
+        pre, rnd, fed = pod_logits(inst, prompts, one.get("fed"))
+        members = inst.hbm_bytes_by_member()
+        weights = (per_member_bytes(inst.group, inst.params)
+                   if inst.group is not None
+                   else {p.node: pytree_nbytes(inst.params)})
+        n_tok = len(prompts) * POD_TOKENS
+        if shards == 1:
+            one = dict(first=first, streams=streams, pre=pre, rnd=rnd,
+                       fed=fed, bytes=sum(members.values()),
+                       tps=n_tok / wall)
+            flips = ""
+        else:
+            flips = pod_against_one(label, one, first, streams, pre, rnd,
+                                    members, n_tok)
+        _, check = pod_round_check(eng, inst, prompts[:8])
+        log(f"pod {ARCH} {label}: placed on nodes {p.all_nodes()} in "
+            f"{placed:.2f}s (store tier {event.tier}, upload call "
+            f"{event.upload_s:.2f}s); weights a member {weights}, weights "
+            f"and KV pool a member {members} bytes (one instance "
+            f"{one['bytes']}; the params {pytree_nbytes(params)}); "
+            f"{done} requests x {POD_TOKENS} tokens in {wall:.3f}s = "
+            f"{n_tok / wall:.1f} tokens/s ({n_tok / wall / one['tps']:.3f}"
+            f" of one instance's); prefills {prefills}, rounds {rounds}, "
+            f"replayed {pre_replayed} and {replayed}; launches {counts}; "
+            f"peak allocated {peak[0]} bytes{flips}; round check: {check}; "
+            f"{time.perf_counter() - t0:.1f}s in all")
+        if shards == 2 and batching == "continuous":
+            pod_failure(fe, model, params, alloc, prompts[0],
+                        one["streams"][0])
+        del fe, eng, inst
+        gc.collect()
+        torch.cuda.empty_cache()
+    return one
+
+
+def pod_against_one(label, one, first, streams, pre, rnd, members,
+                    n_tok) -> str:
+    """A pod's logits, first tokens and member bytes held against the one
+    instance's readings ``one``; returns what to log."""
+    import torch
+    scale = float(one["rnd"].abs().max())
+    rel = float((rnd - one["rnd"]).abs().max()) / scale
+    pre_rel = float((pre - one["pre"]).abs().max()) / float(
+        one["pre"].abs().max())
+    if rel > REF_TOL or pre_rel > REF_TOL:
+        raise AssertionError(f"pod {label}: logits {pre_rel:.4f} "
+                             f"(prefill) {rel:.4f} (round) of "
+                             f"one instance's, limit {REF_TOL}")
+    # A served first token may differ only at a near-tie of one
+    # instance's logits: top two within twice the pod's measured
+    # deviation, or within two bf16 steps of the top logit (the
+    # logits are bf16 products, so closer values tie in bf16).
+    top2 = torch.topk(one["pre"], 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    dev = (pre - one["pre"]).abs().amax(dim=-1).tolist()
+    step = [2.0 ** (math.floor(math.log2(abs(t))) - 7)
+            for t in top2[:, 0].tolist()]
+    differ = [i for i, (a, b) in enumerate(zip(first, one["first"]))
+              if a != b]
+    bad = [i for i in differ if margin[i] > max(2 * dev[i], 2 * step[i])]
+    if bad:
+        raise AssertionError(
+            f"pod {label}: first tokens of requests {bad} differ "
+            f"from one instance's with top-2 margins "
+            f"{[margin[i] for i in bad]} above twice the logits' "
+            f"deviation {[dev[i] for i in bad]} and two bf16 steps "
+            f"{[2 * step[i] for i in bad]}")
+    if any(b >= one["bytes"] for b in members.values()):
+        raise AssertionError(f"pod {label}: member bytes {members} not "
+                             f"below one instance's {one['bytes']}")
+    same = sum(a == b for s_, o in zip(streams, one["streams"])
+               for a, b in zip(s_, o))
+    ties = ", ".join(f"request {i}: margin {margin[i]:.4f}, "
+                     f"deviation {dev[i]:.4f}" for i in differ)
+    return (f"; first tokens equal one instance's on "
+            f"{len(first) - len(differ)}/{len(first)} requests "
+            f"({len(differ)} near-ties{': ' + ties if ties else ''}), "
+            f"logits within {pre_rel:.5f} (prefills) and {rel:.5f} (a "
+            f"round of 8 slots) of one instance's (max |diff| / max "
+            f"|logit|, limit {REF_TOL}); {same}/{n_tok} stream tokens "
+            f"equal (logged: bf16 decode kernels split S by kv heads a "
+            f"member)")
+
+
+def pod_spread(model, params, alloc, store, prompts, one) -> None:
+    """A 2-member pod whose members lie on two cards (nodes on cuda:0 and
+    cuda:1 in turn): declared eager at deploy (no graph is captured), it
+    serves the request mix; its first tokens are counted against one
+    instance's (logged)."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+
+    fe = pod_frontend(store, [f"cuda:{i % 2}" for i in range(4)])
+    fe.place_instance(ARCH, model, params, alloc, max_batch=8, max_len=1024,
+                      shards=2)
+    p, eng, inst = pod_of(fe)
+    if not inst.round_graph.always_eager or inst.group.one_device:
+        raise AssertionError(f"pod across cards: devices "
+                             f"{inst.group.devices}, eager "
+                             f"{inst.round_graph.always_eager}")
+    serve.drive(eng, ARCH, prompts[:2], 3)  # the kernel libraries, cuBLAS
+    reqs, done, wall = serve.drive(eng, ARCH, prompts, POD_TOKENS)
+    first = [r.tokens_out[0] for r in reqs]
+    same = sum(a == b for a, b in zip(first, one["first"]))
+    if done != len(prompts) or inst.round_graph.captures:
+        raise AssertionError(f"pod across cards: served {done}, "
+                             f"{inst.round_graph.captures} captures")
+    n_tok = len(prompts) * POD_TOKENS
+    log(f"pod {ARCH} x2 continuous across 2 cards {inst.group.devices}: "
+        f"eager rounds and admissions (declared), {n_tok / wall:.1f} "
+        f"tokens/s; first tokens equal one instance's on {same}/"
+        f"{len(first)}; weights and KV a member "
+        f"{inst.hbm_bytes_by_member()} bytes")
+    del fe, eng, inst
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pod_failure(fe, model, params, alloc, prompt, reference) -> None:
+    """A 2-member pod's secondary member fails mid-request: the pod folds
+    (its primary's instance killed, every rectangle released), the
+    stranded request parks, and a one-instance replacement serves it the
+    one-instance stream from the prompt."""
+    p, eng, inst = pod_of(fe)
+    stranded = fe.submit(ARCH, prompt, max_new_tokens=POD_TOKENS)
+    for _ in range(3):
+        inst.run_step()
+    emitted = len(stranded.tokens_out)
+    if fe.fail_node(p.member_nodes[1]) != 1 or fe.placements or \
+            p.inst_id in eng.instances:
+        raise AssertionError("pod failure: the pod did not fold")
+    fe.place_instance(ARCH, model, params, alloc, max_batch=8, max_len=1024)
+    fe.pump(budget_s=120.0)
+    if not stranded.done or list(stranded.tokens_out) != reference:
+        raise AssertionError(f"pod failure: the stranded request gave "
+                             f"{stranded.tokens_out}, one instance "
+                             f"{reference}")
+    log(f"pod failure: node {p.member_nodes[1]} (a secondary member) "
+        f"failed after {emitted} tokens; the pod folded, and the stranded "
+        f"request re-ran from its prompt on a one-instance replacement on "
+        f"node {fe.placements[0].node} and gave the one-instance stream, "
+        f"{POD_TOKENS} tokens")
+
+
 def profile_window(model, params, prompts, alloc, arch=ARCH,
                    batching="paged", warm_tokens=3, **kw) -> None:
     """Where a serve pass spends its time: device time by kernel (the
@@ -4385,6 +4888,7 @@ def main(argv: list[str]) -> int:
     reduced_serve()
     reduced_context_serve()
     log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
+    pod_reduced()
     launches = serve_phase(rng)
     extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],

@@ -4,8 +4,8 @@
 [arXiv:2401.04088; hf]: a rolled cache of the window on every layer,
 continuous batching with exact-length prefills.  The same two configs as
 ``repro.configs.mixtral_8x7b``.  The full width (93.4 GB in bf16) does
-not fit one card; it waits for sharded pods (ROADMAP.md, Queue 1 item
-11).
+not fit one card; it waits for moe pods over several cards (ROADMAP.md,
+Queue 1 item 11b).
 """
 
 from repro_torch.models.config import ModelConfig

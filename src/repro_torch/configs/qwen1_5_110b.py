@@ -2,7 +2,8 @@
 
 SwiGLU with QKV bias [hf:Qwen/Qwen1.5-110B family].  The same two configs
 as ``repro.configs.qwen1_5_110b``: the full-width model, which needs more
-than one card in bf16 (sharded pods, ROADMAP.md Queue 1 item 11), and a
+than one card in bf16 (a sharded pod over several cards, ROADMAP.md
+Queue 1 item 11b), and a
 3-layer smoke cut of head dim 8, which the card's attention kernels are
 not built for (``launch/serve.py`` refuses it there; it runs on the CPU).
 """

@@ -37,6 +37,8 @@ def pytree_nbytes(tree: Any) -> int:
     ``jax.tree_util`` walk)."""
     if isinstance(tree, dict):
         return sum(pytree_nbytes(v) for v in tree.values())
+    if isinstance(tree, list):  # a sharded pod's member trees
+        return sum(pytree_nbytes(v) for v in tree)
     if isinstance(tree, torch.Tensor):
         return tree.numel() * tree.element_size()
     return int(np.asarray(tree).nbytes)

@@ -20,22 +20,23 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.sharding import TPGroup, gather_cols
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec, apply_rope
+from repro_torch.models.layers import COL, ROW, PSpec, apply_rope
 
 
 def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict[str, PSpec]:
     """The projections; a cross layer takes no qkv bias
     (attention.py:74-86)."""
     d, hq, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    s = {"wq": PSpec((d, hq)), "wk": PSpec((d, kv)), "wv": PSpec((d, kv)),
-         "wo": PSpec((hq, d))}
+    s = {"wq": PSpec((d, hq), COL), "wk": PSpec((d, kv), COL),
+         "wv": PSpec((d, kv), COL), "wo": PSpec((hq, d), ROW)}
     if cfg.qkv_bias and not cross:
-        s["bq"] = PSpec((hq,), init="zeros")
-        s["bk"] = PSpec((kv,), init="zeros")
-        s["bv"] = PSpec((kv,), init="zeros")
+        s["bq"] = PSpec((hq,), ("tp",), init="zeros")
+        s["bk"] = PSpec((kv,), ("tp",), init="zeros")
+        s["bv"] = PSpec((kv,), ("tp",), init="zeros")
     return s
 
 
@@ -355,3 +356,48 @@ def cross_attn_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,
                            device=x.device)
     o = ops.decode_attention(_project_q(params, x, cfg), ck, cv, cache_len)
     return _output(params, o)
+
+
+# --------------------------------------------------------------------------
+# Sharded pods: column-parallel q/k/v, heads gathered before wo
+# (attention.py:111-123 under ``serve_pspec``)
+# --------------------------------------------------------------------------
+
+
+def attn_tp(lps: list, hs: list, cfg: ModelConfig, group: TPGroup,
+            positions: list, split: bool, attend) -> list:
+    """Self-attention of a sharded pod.  ``lps``: each member's attention
+    leaves (its columns of ``wq``/``wk``/``wv`` and the biases, the whole
+    ``wo``); ``hs``: each member's normed input (B, S, D); ``positions``:
+    each member's rope positions; ``attend(m, q, k, v)``: member m's
+    attention over its heads (rope'd q, k; it writes m's cache), (B, S,
+    h, Dh).  ``split``: each member's pool holds its share of the kv
+    heads, so it attends its own heads (the G q heads that read a kv head
+    stay together: q head i reads kv head i // G).  Otherwise the pools
+    are replicated: the q/k/v columns are gathered before the reshape
+    into heads (a column split may fall mid-head) and every member
+    attends every head.  The heads are gathered in member order before
+    ``wo``, which every member runs whole; returns each member's (B, S,
+    D)."""
+    b, s, _ = hs[0].shape
+    q, k, v = [], [], []
+    for lp, h in zip(lps, hs):
+        qm, km, vm = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+        if "bq" in lp:
+            qm, km, vm = qm + lp["bq"], km + lp["bk"], vm + lp["bv"]
+        q.append(qm)
+        k.append(km)
+        v.append(vm)
+    if not split:
+        q = gather_cols(q, group, cfg.q_dim)
+        k = gather_cols(k, group, cfg.kv_dim)
+        v = gather_cols(v, group, cfg.kv_dim)
+    outs = []
+    for m in range(group.n):
+        heads = (b, s, -1, cfg.dh)
+        qm = apply_rope(q[m].reshape(heads), positions[m], cfg.rope_theta)
+        km = apply_rope(k[m].reshape(heads), positions[m], cfg.rope_theta)
+        outs.append(attend(m, qm, km, v[m].reshape(heads)).reshape(b, s, -1))
+    if split:
+        outs = gather_cols(outs, group, cfg.q_dim)
+    return [o @ lp["wo"] for o, lp in zip(outs, lps)]

@@ -20,36 +20,38 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (PSpec, mlp_apply, mlp_specs, rms_norm,
-                                       stack_tree)
+from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec, mlp_apply,
+                                       mlp_specs, rms_norm, stack_tree)
 from repro_torch.models.transformer import embed_tokens, layer_params, lm_head
 
 
 def enc_block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
-            "ln2": PSpec((d,), init="zeros"),
+    return {"ln1": PSpec((d,), NORM, init="zeros"),
+            "attn": attn.attn_specs(cfg),
+            "ln2": PSpec((d,), NORM, init="zeros"),
             "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp)}
 
 
 def dec_block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
-            "ln_x": PSpec((d,), init="zeros"),
+    return {"ln1": PSpec((d,), NORM, init="zeros"),
+            "attn": attn.attn_specs(cfg),
+            "ln_x": PSpec((d,), NORM, init="zeros"),
             "xattn": attn.attn_specs(cfg, cross=True),
-            "ln2": PSpec((d,), init="zeros"),
+            "ln2": PSpec((d,), NORM, init="zeros"),
             "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp)}
 
 
 def encdec_specs(cfg: ModelConfig) -> dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
-    return {"embed": PSpec((v, d), init="small"),
+    return {"embed": PSpec((v, d), EMBED, init="small"),
             "enc_layers": stack_tree(enc_block_specs(cfg),
                                      cfg.encoder_layers),
-            "enc_ln": PSpec((d,), init="zeros"),
+            "enc_ln": PSpec((d,), NORM, init="zeros"),
             "layers": stack_tree(dec_block_specs(cfg), cfg.n_layers),
-            "ln_f": PSpec((d,), init="zeros"),
-            "head": PSpec((d, v))}
+            "ln_f": PSpec((d,), NORM, init="zeros"),
+            "head": PSpec((d, v), HEAD)}
 
 
 def encode(params: dict, ctx: torch.Tensor, cfg: ModelConfig

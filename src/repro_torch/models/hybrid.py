@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (PSpec, mlp_apply, mlp_specs, rms_norm,
+from repro_torch.models.layers import (COL, EMBED, HEAD, NORM, ROW, PSpec,
+                                       mlp_apply, mlp_specs, rms_norm,
                                        stack_tree)
 from repro_torch.models.transformer import (_full_cache, _windowed_cache,
                                             layer_params, lm_head,
@@ -45,25 +46,25 @@ def ssm_specs(cfg: ModelConfig) -> dict[str, PSpec]:
     d, n = cfg.d_model, cfg.ssm_state
     h, dh = cfg.n_heads, cfg.dh
     return {
-        "w_in": PSpec((d, h * dh)),
-        "w_dt": PSpec((d, h)),
-        "dt_bias": PSpec((h,), init="small"),
-        "a_log": PSpec((h, n), init="small"),
-        "w_b": PSpec((d, h * n)),
-        "w_c": PSpec((d, h * n)),
-        "w_out": PSpec((h * dh, d)),
+        "w_in": PSpec((d, h * dh), COL),
+        "w_dt": PSpec((d, h), ("fsdp", None)),
+        "dt_bias": PSpec((h,), NORM, init="small"),
+        "a_log": PSpec((h, n), (None, None), init="small"),
+        "w_b": PSpec((d, h * n), ("fsdp", None)),
+        "w_c": PSpec((d, h * n), ("fsdp", None)),
+        "w_out": PSpec((h * dh, d), ROW),
     }
 
 
 def block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
     return {
-        "ln1": PSpec((d,), init="zeros"),
+        "ln1": PSpec((d,), NORM, init="zeros"),
         "attn": attn.attn_specs(cfg),
-        "ln_attn": PSpec((d,), init="zeros"),
+        "ln_attn": PSpec((d,), NORM, init="zeros"),
         "ssm": ssm_specs(cfg),
-        "ln_ssm": PSpec((d,), init="zeros"),
-        "ln2": PSpec((d,), init="zeros"),
+        "ln_ssm": PSpec((d,), NORM, init="zeros"),
+        "ln2": PSpec((d,), NORM, init="zeros"),
         "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp),
     }
 
@@ -75,11 +76,11 @@ def n_meta(cfg: ModelConfig) -> int:
 def hybrid_specs(cfg: ModelConfig) -> dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
     return {
-        "embed": PSpec((v, d), init="small"),
-        "meta": PSpec((n_meta(cfg), d), init="small"),
+        "embed": PSpec((v, d), EMBED, init="small"),
+        "meta": PSpec((n_meta(cfg), d), (None, None), init="small"),
         "layers": stack_tree(block_specs(cfg), cfg.n_layers),
-        "ln_f": PSpec((d,), init="zeros"),
-        "head": PSpec((d, v)),
+        "ln_f": PSpec((d,), NORM, init="zeros"),
+        "head": PSpec((d, v), HEAD),
     }
 
 

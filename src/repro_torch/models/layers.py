@@ -10,20 +10,30 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import TPGroup, gather_cols
+
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
-    """Declaration of one parameter tensor."""
+    """Declaration of one parameter tensor: its shape, the logical name of
+    each dim (``repro_torch.distributed.sharding``: ``"tp"`` for a
+    projection's split dim, ``"vocab"``, ``"fsdp"``, ``"layers"`` for the
+    stacked axis, ...), exactly as the JAX package declares them
+    (layers.py:31)."""
 
     shape: tuple[int, ...]
+    names: tuple[Optional[str], ...]
     init: str = "normal"  # normal (std 1/sqrt(fan_in)) | zeros | small
-    stacked: bool = False  # leading dim is the stacked "layers" axis
     dtype: torch.dtype = torch.bfloat16  # the MoE router is f32
+
+    def __post_init__(self) -> None:
+        if len(self.shape) != len(self.names):
+            raise ValueError(f"rank mismatch {self.shape} vs {self.names}")
 
 
 def stack_tree(spec_tree: Any, n: int) -> Any:
@@ -31,18 +41,25 @@ def stack_tree(spec_tree: Any, n: int) -> Any:
     if isinstance(spec_tree, dict):
         return {k: stack_tree(v, n) for k, v in spec_tree.items()}
     return dataclasses.replace(spec_tree, shape=(n, *spec_tree.shape),
-                               stacked=True)
+                               names=("layers", *spec_tree.names))
 
 
 def param_logical_names(spec_tree: Any) -> Any:
-    """PSpec tree -> logical-name-tuple tree (same structure).  The port
-    names only the stacked ``"layers"`` axis, the unit of the fleet
-    store's layer-by-layer upload; every other dim is ``None`` (the
-    sharding names arrive with sharded pods, ROADMAP.md Queue 1 item 11)."""
+    """PSpec tree -> logical-name-tuple tree (same structure): what a
+    sharded pod's placement resolves, and the fleet store's unit of
+    upload (a leading ``"layers"`` dim is uploaded layer by layer)."""
     if isinstance(spec_tree, dict):
         return {k: param_logical_names(v) for k, v in spec_tree.items()}
-    rest = (None,) * (len(spec_tree.shape) - spec_tree.stacked)
-    return ("layers",) + rest if spec_tree.stacked else rest
+    return spec_tree.names
+
+
+# The names of the two projection layouts: column-parallel (d_in, d_out)
+# and row-parallel (d_out, d_in) (layers.py:156-164).
+COL = ("fsdp", "tp")
+ROW = ("tp", "fsdp")
+NORM = (None,)
+EMBED = ("vocab", "fsdp")
+HEAD = ("fsdp", "vocab")
 
 
 def init_params(spec_tree: Any, generator: torch.Generator) -> Any:
@@ -128,10 +145,31 @@ def mlp_specs(d: int, f: int, kind: str) -> dict[str, PSpec]:
     ``w_gate``/``w_up``/``w_down``, or ``gelu`` ``w_up``/``w_down`` with
     zero-initialised biases."""
     if kind in ("swiglu", "geglu"):
-        return {"w_gate": PSpec((d, f)), "w_up": PSpec((d, f)),
-                "w_down": PSpec((f, d))}
-    return {"w_up": PSpec((d, f)), "b_up": PSpec((f,), init="zeros"),
-            "w_down": PSpec((f, d)), "b_down": PSpec((d,), init="zeros")}
+        return {"w_gate": PSpec((d, f), COL), "w_up": PSpec((d, f), COL),
+                "w_down": PSpec((f, d), ROW)}
+    return {"w_up": PSpec((d, f), COL),
+            "b_up": PSpec((f,), ("tp",), init="zeros"),
+            "w_down": PSpec((f, d), ROW),
+            "b_down": PSpec((d,), NORM, init="zeros")}
+
+
+def _mlp_act(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The column-parallel half of the MLP: the up (and gate) projections
+    and the activation, (…, d_ff) or a member's columns of it."""
+    if kind in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"]
+        up = x @ params["w_up"]
+        act = (F.silu(gate.float()) if kind == "swiglu"
+               else F.gelu(gate.float(), approximate="tanh"))
+        return act.to(x.dtype) * up
+    h = x @ params["w_up"] + params["b_up"]
+    return F.gelu(h.float(), approximate="tanh").to(x.dtype)
+
+
+def _mlp_down(params: dict, h: torch.Tensor, kind: str) -> torch.Tensor:
+    """The row-parallel half: ``w_down`` over the whole of d_ff."""
+    out = h @ params["w_down"]
+    return out if kind in ("swiglu", "geglu") else out + params["b_down"]
 
 
 def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -139,12 +177,16 @@ def mlp_apply(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
     and casts back (layers.py:168-180).  GELU is the tanh approximation,
     as JAX's ``gelu(approximate=True)``: the exact erf form differs by
     about 1e-3, enough to flip greedy near-ties."""
-    if kind in ("swiglu", "geglu"):
-        gate = x @ params["w_gate"]
-        up = x @ params["w_up"]
-        act = (F.silu(gate.float()) if kind == "swiglu"
-               else F.gelu(gate.float(), approximate="tanh"))
-        return (act.to(x.dtype) * up) @ params["w_down"]
-    h = x @ params["w_up"] + params["b_up"]
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return h @ params["w_down"] + params["b_down"]
+    return _mlp_down(params, _mlp_act(params, x, kind), kind)
+
+
+def mlp_tp(lps: list, hs: list, kind: str, group: TPGroup, d_ff: int
+           ) -> list:
+    """The MLP of a sharded pod: each member's columns of the activation
+    (its slices of ``w_gate``/``w_up``/``b_up``), gathered in member order
+    before ``w_down``, which each member runs whole (layers.py:168-180
+    under ``serve_pspec``).  lps, hs: each member's leaves and input;
+    returns each member's output."""
+    acts = gather_cols([_mlp_act(lp, h, kind) for lp, h in zip(lps, hs)],
+                       group, d_ff)
+    return [_mlp_down(lp, a, kind) for lp, a in zip(lps, acts)]

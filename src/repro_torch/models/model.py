@@ -29,12 +29,15 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (Sharding, TPGroup, on_members,
+                                              resolve_pspec)
 from repro_torch.kernels import keys
 from repro_torch.models import attention, encdec, hybrid, rwkv6, transformer
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (init_params, param_count,
                                       param_logical_names)
 
+_KV_NAMES = ("layers", "batch", "seq", "kv_heads", None)
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
            "encdec": encdec, "rwkv": rwkv6, "hybrid": hybrid}
 
@@ -98,8 +101,7 @@ class Model:
 
     def param_names(self) -> Any:
         """The logical-name tuple of every param leaf, in the params'
-        nesting (model.py:68): ``("layers", None, ...)`` for a stacked
-        leaf, all ``None`` otherwise."""
+        nesting, as JAX's specs declare them (model.py:68)."""
         return param_logical_names(self.specs)
 
     def n_params(self) -> int:
@@ -233,6 +235,27 @@ class Model:
                 f"config")
         return transformer.cache_specs(self.cfg, n_blocks, block_size,
                                        self._int8(kv_int8))
+
+    def cache_names(self, batch: int, max_len: int) -> dict[str, tuple]:
+        """The logical dim names of every cache leaf, ``pos`` included
+        (model.py:234-251): what a sharded pod's pools resolve."""
+        if self.cfg.family == "rwkv":
+            return {"wkv": ("layers", "batch", "heads", None, None),
+                    "tm_x": ("layers", "batch", None),
+                    "cm_x": ("layers", "batch", None), "pos": ()}
+        names = {key: (("layers", "batch", "heads", None, None)
+                       if key == "ssm" else _KV_NAMES)
+                 for key in self.cache_specs(batch, max_len)}
+        names["pos"] = ()
+        return names
+
+    def paged_cache_names(self, n_blocks: int, block_size: int
+                          ) -> dict[str, tuple]:
+        """The paged pools' dim names (model.py:344-351): the kv heads
+        split over a pod's members when they divide it, the physical
+        blocks never do."""
+        return {key: ("layers", None, None, "kv_heads", None)
+                for key in self.paged_cache_specs(n_blocks, block_size)}
 
     # -- slot caches (continuous batching) ---------------------------------
 
@@ -382,3 +405,117 @@ class Model:
             return None
         return ((batch, self.cfg.n_context_tokens, self.cfg.d_model),
                 torch.bfloat16)
+
+
+class PodModel:
+    """A ``Model`` served as a sharded pod over ``group``: params and
+    caches are lists of member trees, primary first (params as
+    ``shard_put`` places them by ``serve_pspec``, pools by their
+    ``cache_names``), while logits, the sampled tokens and the key stream
+    live on the primary.  It answers the calls the serving engine makes of
+    a ``Model`` on params and caches, so an instance runs a pod through
+    the same admission and round bodies as one device.  The full-cache
+    dense family only (``transformer.tp_refusal``); a pod neither
+    speculates nor migrates, so it has no verify step and no slot
+    export."""
+
+    def __init__(self, model: Model, group: TPGroup, kv_int8: bool):
+        why = transformer.tp_refusal(model.cfg, kv_int8)
+        if why:
+            raise NotImplementedError(why)
+        self.model, self.cfg, self.group = model, model.cfg, group
+
+    def _pools(self, specs: dict, names: dict) -> list:
+        """Each member's zeroed leaves of ``specs``, resolved by
+        ``names`` against the group."""
+        out = [{} for _ in self.group.devices]
+        for key, (shape, dtype) in specs.items():
+            sh = Sharding(self.group, resolve_pspec(names[key], shape,
+                                                    self.group.axis_sizes))
+            for m, dev in enumerate(self.group.devices):
+                out[m][key] = torch.zeros(sh.shape(shape), dtype=dtype,
+                                          device=dev)
+        return out
+
+    def init_slot_cache(self, n_slots: int, max_len: int, device=None,
+                        kv_int8: Optional[bool] = None) -> list:
+        """Each member's slot pool, with its own per-slot positions
+        (``device`` is the primary's; every member's is its own)."""
+        caches = self._pools(self.model.cache_specs(n_slots, max_len, False),
+                             self.model.cache_names(n_slots, max_len))
+        for c, dev in zip(caches, self.group.devices):
+            c["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        return caches
+
+    def init_paged_cache(self, n_blocks: int, block_size: int, device=None,
+                         kv_int8: Optional[bool] = None) -> list:
+        """Each member's pages: its kv heads of every physical block."""
+        return self._pools(
+            self.model.paged_cache_specs(n_blocks, block_size, False),
+            self.model.paged_cache_names(n_blocks, block_size))
+
+    def prefill(self, params, tokens, *, max_len=None, length=None,
+                kv_int8: Optional[bool] = None, ctx=None):
+        b, s = tokens.shape
+        entries = self._pools(self.model.cache_specs(b, max_len or s, False),
+                              self.model.cache_names(b, max_len or s))
+        return transformer.prefill_tp(params, tokens, self.cfg, self.group,
+                                      entries, length=length)
+
+    def merge_slot(self, caches: list, entries: list, slot) -> list:
+        slots = (on_members(slot, self.group) if torch.is_tensor(slot)
+                 else [slot] * self.group.n)
+        for c, e, sl in zip(caches, entries, slots):
+            self.model.merge_slot(c, e, sl)
+        return caches
+
+    def append_paged(self, caches: list, entries: list, block_row,
+                     write=None) -> list:
+        rows = (on_members(block_row, self.group)
+                if torch.is_tensor(block_row) else [block_row] * self.group.n)
+        for c, e, row in zip(caches, entries, rows):
+            self.model.append_paged(c, e, row, write)
+        return caches
+
+    def copy_block(self, caches: list, src: int, dst: int) -> list:
+        """Copy-on-write in every member's pool: each holds its own kv
+        heads of the page."""
+        for c in caches:
+            self.model.copy_block(c, src, dst)
+        return caches
+
+    def decode_step(self, params, token, caches):
+        return transformer.decode_step_tp(params, token, caches, self.cfg,
+                                          self.group)
+
+    def decode_step_paged(self, params, token, caches, block_tables, pos):
+        return transformer.decode_step_paged_tp(
+            params, token, caches, block_tables, pos, self.cfg, self.group)
+
+    def sample_greedy(self, logits):
+        return self.model.sample_greedy(logits)
+
+    def sample_tokens(self, logits, key, sampling):
+        return self.model.sample_tokens(logits, key, sampling)
+
+    def _sampled(self, logits, key, sampling):
+        if key is None:
+            return self.model.sample_greedy(logits)
+        return self.model.sample_tokens(logits, keys.advance(key), sampling)
+
+    def decode_step_tokens(self, params, token, caches, key=None,
+                           sampling=None):
+        """One fused round: (the tokens, each member's cache with its
+        advanced ``pos``[, the key]), sampled once, on the primary."""
+        logits, caches = self.decode_step(params, token, caches)
+        tok = self._sampled(logits, key, sampling)
+        return (tok, caches) if key is None else (tok, caches, key)
+
+    def decode_step_paged_tokens(self, params, token, caches, block_tables,
+                                 pos, active, key=None, sampling=None):
+        active = active.to(torch.int32)
+        logits, caches = transformer.decode_step_paged_tp(
+            params, token, caches, block_tables, pos, self.cfg, self.group,
+            active)
+        out = (self._sampled(logits, key, sampling), caches, pos + active)
+        return out if key is None else out + (key,)

@@ -6,8 +6,8 @@ Tokens pick their top-k experts; each (token, expert) pair takes the next
 row of its expert's capacity bucket in token-major order, overflow past
 the capacity is dropped to a trash row, the buckets go through a batched
 (E, C, D) x (E, D, F) product, and the pair outputs come back weighted by
-their gates.  The mesh path (``_moe_apply_shardmap``) needs a device mesh
-and arrives with sharded pods (ROADMAP.md, Queue 1 item 11).
+their gates.  The mesh path (``_moe_apply_shardmap``) needs a training
+mesh; a moe pod (``shards > 1``) is ROADMAP.md, Queue 1 item 11b.
 
 The body runs inside the captured decode round and admission graphs
 (``serving/graphs.py``), so nothing in it syncs the host or takes a
@@ -26,20 +26,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec
+from repro_torch.models.layers import COL, ROW, PSpec
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
     """The block's leaves (moe.py:34-50): an f32 router, stacked expert
     matrices, and the shared experts with their sigmoid gate."""
     d, fe, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
-    s = {"router": PSpec((d, e), dtype=torch.float32),
-         "w_gate": PSpec((e, d, fe)), "w_up": PSpec((e, d, fe)),
-         "w_down": PSpec((e, fe, d))}
+    s = {"router": PSpec((d, e), ("fsdp", None), dtype=torch.float32),
+         "w_gate": PSpec((e, d, fe), (None, *COL)),
+         "w_up": PSpec((e, d, fe), (None, *COL)),
+         "w_down": PSpec((e, fe, d), (None, *ROW))}
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * fe
-        s["shared"] = {"w_gate": PSpec((d, fs)), "w_up": PSpec((d, fs)),
-                       "w_down": PSpec((fs, d)), "gate": PSpec((d, 1))}
+        s["shared"] = {"w_gate": PSpec((d, fs), COL),
+                       "w_up": PSpec((d, fs), COL),
+                       "w_down": PSpec((fs, d), ROW),
+                       "gate": PSpec((d, 1), ("fsdp", None))}
     return s
 
 

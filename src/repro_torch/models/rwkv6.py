@@ -22,7 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec, rms_norm, stack_tree
+from repro_torch.models.layers import (COL, EMBED, HEAD, NORM, ROW, PSpec,
+                                       rms_norm, stack_tree)
 
 DECAY_LORA = 64
 HEAD_SIZE = 64
@@ -38,34 +39,37 @@ def time_mix_specs(cfg: ModelConfig) -> dict[str, PSpec]:
     d = cfg.d_model
     h, dh = _heads(cfg)
     return {
-        "ln": PSpec((d,), init="zeros"),
+        "ln": PSpec((d,), NORM, init="zeros"),
         # token-shift interpolation vectors for r, k, v, w, g
-        "mu": PSpec((5, d), init="small"),
-        "w_r": PSpec((d, d)), "w_k": PSpec((d, d)), "w_v": PSpec((d, d)),
-        "w_g": PSpec((d, d)), "w_o": PSpec((d, d)),
+        "mu": PSpec((5, d), (None, None), init="small"),
+        "w_r": PSpec((d, d), COL), "w_k": PSpec((d, d), COL),
+        "w_v": PSpec((d, d), COL), "w_g": PSpec((d, d), COL),
+        "w_o": PSpec((d, d), ROW),
         # data-dependent decay: w = exp(-exp(w0 + tanh(x@a)@b))
-        "decay_w0": PSpec((d,), init="small"),
-        "decay_a": PSpec((d, DECAY_LORA)),
-        "decay_b": PSpec((DECAY_LORA, d)),
-        "bonus_u": PSpec((h, dh), init="small"),
-        "gn": PSpec((d,), init="zeros"),  # per-head group norm scale
+        "decay_w0": PSpec((d,), NORM, init="small"),
+        "decay_a": PSpec((d, DECAY_LORA), ("fsdp", None)),
+        "decay_b": PSpec((DECAY_LORA, d), (None, "fsdp")),
+        "bonus_u": PSpec((h, dh), (None, None), init="small"),
+        "gn": PSpec((d,), NORM, init="zeros"),  # per-head group norm scale
     }
 
 
 def channel_mix_specs(cfg: ModelConfig) -> dict[str, PSpec]:
     d, f = cfg.d_model, cfg.d_ff
-    return {"ln": PSpec((d,), init="zeros"), "mu": PSpec((2, d), init="small"),
-            "w_k": PSpec((d, f)), "w_v": PSpec((f, d)), "w_r": PSpec((d, d))}
+    return {"ln": PSpec((d,), NORM, init="zeros"),
+            "mu": PSpec((2, d), (None, None), init="small"),
+            "w_k": PSpec((d, f), COL), "w_v": PSpec((f, d), ROW),
+            "w_r": PSpec((d, d), ("fsdp", None))}
 
 
 def rwkv_specs(cfg: ModelConfig) -> dict[str, Any]:
     d, v = cfg.d_model, cfg.padded_vocab
     layer = {"tm": time_mix_specs(cfg), "cm": channel_mix_specs(cfg)}
-    return {"embed": PSpec((v, d), init="small"),
-            "ln_in": PSpec((d,), init="zeros"),
+    return {"embed": PSpec((v, d), EMBED, init="small"),
+            "ln_in": PSpec((d,), NORM, init="zeros"),
             "layers": stack_tree(layer, cfg.n_layers),
-            "ln_f": PSpec((d,), init="zeros"),
-            "head": PSpec((d, v))}
+            "ln_f": PSpec((d,), NORM, init="zeros"),
+            "head": PSpec((d, v), HEAD)}
 
 
 def cache_specs(cfg: ModelConfig, batch: int

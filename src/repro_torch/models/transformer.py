@@ -28,18 +28,21 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import TPGroup, on_members
 from repro_torch.kernels import keys, ops
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (PSpec, mlp_apply, mlp_specs, rms_norm,
+from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec, mlp_apply,
+                                       mlp_specs, mlp_tp, rms_norm,
                                        stack_tree)
 from repro_torch.models.moe import moe_apply, moe_specs
 
 
 def block_specs(cfg: ModelConfig) -> dict[str, Any]:
     d = cfg.d_model
-    s = {"ln1": PSpec((d,), init="zeros"), "attn": attn.attn_specs(cfg),
-         "ln2": PSpec((d,), init="zeros")}
+    s = {"ln1": PSpec((d,), NORM, init="zeros"),
+         "attn": attn.attn_specs(cfg),
+         "ln2": PSpec((d,), NORM, init="zeros")}
     if cfg.family == "moe":
         s["moe"] = moe_specs(cfg)
     else:
@@ -51,12 +54,12 @@ def cross_block_specs(cfg: ModelConfig) -> dict[str, Any]:
     """A gated cross-attention layer (transformer.py:55-64): the gates are
     0-d and zero-initialised, so a fresh model ignores its context."""
     d = cfg.d_model
-    return {"ln1": PSpec((d,), init="zeros"),
+    return {"ln1": PSpec((d,), NORM, init="zeros"),
             "attn": attn.attn_specs(cfg, cross=True),
-            "gate_attn": PSpec((), init="zeros"),
-            "ln2": PSpec((d,), init="zeros"),
+            "gate_attn": PSpec((), (), init="zeros"),
+            "ln2": PSpec((d,), NORM, init="zeros"),
             "mlp": mlp_specs(d, cfg.d_ff, cfg.mlp),
-            "gate_mlp": PSpec((), init="zeros")}
+            "gate_mlp": PSpec((), (), init="zeros")}
 
 
 def n_cross_layers(cfg: ModelConfig) -> int:
@@ -70,12 +73,12 @@ def n_cross_layers(cfg: ModelConfig) -> int:
 def decoder_specs(cfg: ModelConfig) -> dict[str, Any]:
     d, v, l = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     specs: dict[str, Any] = {
-        "embed": PSpec((v, d), init="small"),
-        "ln_f": PSpec((d,), init="zeros"),
+        "embed": PSpec((v, d), EMBED, init="small"),
+        "ln_f": PSpec((d,), NORM, init="zeros"),
         "layers": stack_tree(block_specs(cfg), l),
     }
     if not cfg.tie_embeddings:
-        specs["head"] = PSpec((d, v))
+        specs["head"] = PSpec((d, v), HEAD)
     if cfg.family == "vlm":
         specs["cross_layers"] = stack_tree(cross_block_specs(cfg),
                                            n_cross_layers(cfg))
@@ -633,3 +636,174 @@ def verify_step_paged(params: dict, tokens: torch.Tensor, cache: dict,
         x = block_verify_paged(layer_params(params, i), x, cache["k"][i],
                                cache["v"][i], block_tables, pos, cfg, active)
     return lm_head(params, x, cfg), cache
+
+
+# --------------------------------------------------------------------------
+# Sharded pods: column-only exact tensor parallelism over a member group
+# (src/repro/distributed/README.md:37-85).  Every member runs the whole
+# layer on its own copies of the replicated leaves; only the
+# column-parallel results cross members, by exact gathers.
+# --------------------------------------------------------------------------
+
+
+def tp_refusal(cfg: ModelConfig, kv_int8: bool) -> Optional[str]:
+    """Why a sharded pod cannot serve ``cfg`` yet, or None: the port runs
+    the full-cache dense family in bf16 KV; the rest, which JAX runs
+    under a mesh through XLA, is ROADMAP.md Queue 1 item 11b."""
+    why = None
+    if cfg.family != "dense":
+        why = f"the {cfg.family} family"
+    elif kv_int8:
+        why = "int8 KV"
+    elif cfg.sliding_window is not None or cfg.local_global_ratio:
+        why = "windowed and dual caches"
+    if why is None:
+        return None
+    return (f"{cfg.name}: sharded pods (shards > 1) of {why} are not ported "
+            f"yet (ROADMAP.md, Queue 1 item 11b)")
+
+
+def embed_tokens_tp(members: list, tokens: torch.Tensor, cfg: ModelConfig,
+                    group: TPGroup) -> list:
+    """Each member's embeddings of ``tokens``: every member looks the
+    tokens up in its vocab rows, and each token's row is taken from the
+    member that holds it (a masked gather: a selection, exact).  Members
+    on one device share the result."""
+    toks = on_members(tokens, group)
+    rows = members[0]["embed"].shape[0]
+    if rows == cfg.padded_vocab:  # the vocab did not divide: replicated
+        return [embed_tokens(p, t, cfg) for p, t in zip(members, toks)]
+    parts, owned = [], []
+    for j, (p, t) in enumerate(zip(members, toks)):
+        local = t.long() - j * rows
+        owned.append((local >= 0) & (local < rows))
+        parts.append(p["embed"][local.clamp(0, rows - 1)])
+    by_dev: dict = {}
+    for dev in group.devices:
+        if dev in by_dev:
+            continue
+        x = parts[0].to(dev, non_blocking=True)
+        for part, own in zip(parts[1:], owned[1:]):
+            x = torch.where(own.to(dev, non_blocking=True)[..., None],
+                            part.to(dev, non_blocking=True), x)
+        if cfg.embed_scale:
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+        by_dev[dev] = x
+    return [by_dev[dev] for dev in group.devices]
+
+
+def lm_head_tp(members: list, xs: list, cfg: ModelConfig, group: TPGroup
+               ) -> torch.Tensor:
+    """Full f32 logits on the primary: each member's vocab columns of the
+    head (or of the tied embedding's transpose), gathered in member
+    order."""
+    if members[0]["embed"].shape[0] == cfg.padded_vocab:
+        return lm_head(members[0], xs[0], cfg)
+    return torch.cat([lm_head(p, x, cfg).to(group.primary, non_blocking=True)
+                      for p, x in zip(members, xs)], dim=-1)
+
+
+def _blocks_tp(members: list, xs: list, caches: list, cfg: ModelConfig,
+               group: TPGroup, positions: list, attend_at) -> list:
+    """Every layer over the members: ``attend_at(i)`` is layer i's
+    ``attn_tp`` callback.  Whether a member attends only its own heads is
+    read off the pools it writes (``caches``): split by kv head, or
+    replicated, as the pod's placement made them."""
+    eps = cfg.norm_eps
+    split = caches[0]["k"].shape[-2] < cfg.n_kv_heads
+    for i in range(cfg.n_layers):
+        lps = [layer_params(p, i) for p in members]
+        hs = [rms_norm(x, lp["ln1"], eps) for x, lp in zip(xs, lps)]
+        a = attn.attn_tp([lp["attn"] for lp in lps], hs, cfg, group,
+                         positions, split, attend_at(i))
+        xs = [x + y for x, y in zip(xs, a)]
+        hs = [rms_norm(x, lp["ln2"], eps) for x, lp in zip(xs, lps)]
+        f = mlp_tp([lp["mlp"] for lp in lps], hs, cfg.mlp, group, cfg.d_ff)
+        xs = [x + y for x, y in zip(xs, f)]
+    return xs
+
+
+def prefill_tp(members: list, tokens: torch.Tensor, cfg: ModelConfig,
+               group: TPGroup, caches: list, *, length=None
+               ) -> tuple[torch.Tensor, list]:
+    """``prefill`` of a sharded pod into ``caches``, each member's zeroed
+    bf16 ``k``/``v`` of its kv heads (``PodModel`` makes them as it makes
+    the pools): returns (the last position's logits on the primary, the
+    caches, each with its own ``pos``).  ``tokens`` and a tensor
+    ``length`` lie on the primary."""
+    s = tokens.shape[1]
+    xs = embed_tokens_tp(members, tokens, cfg, group)
+    positions = on_members(torch.arange(s, device=tokens.device), group)
+
+    def attend_at(i):
+        def attend(m, q, k, v):
+            caches[m]["k"][i, :, :s] = k
+            caches[m]["v"][i, :, :s] = v
+            return ops.flash_attention(q, k, v, causal=True)
+        return attend
+
+    xs = _blocks_tp(members, xs, caches, cfg, group, positions, attend_at)
+    lasts = []
+    for c, x, dev in zip(caches, xs, group.devices):
+        if torch.is_tensor(length):
+            n = length.to(dev, torch.int32, non_blocking=True, copy=True)
+            c["pos"] = n
+            lasts.append(x.index_select(1, (n - 1).reshape(1).long()))
+        else:
+            n = s if length is None else int(length)
+            c["pos"] = torch.tensor(n, dtype=torch.int32, device=dev)
+            lasts.append(x[:, n - 1:n])
+    return lm_head_tp(members, lasts, cfg, group)[:, 0], caches
+
+
+def decode_step_tp(members: list, token: torch.Tensor, caches: list,
+                   cfg: ModelConfig, group: TPGroup
+                   ) -> tuple[torch.Tensor, list]:
+    """``decode_step`` of a sharded pod: each member writes and attends
+    its pool at its own ``pos``; returns (logits on the primary, the
+    caches with every member's ``pos + 1``)."""
+    b = token.shape[0]
+    pos_b = [c["pos"].reshape(-1).expand(b) for c in caches]
+    xs = embed_tokens_tp(members, token[:, None], cfg, group)
+
+    def attend_at(i):
+        def attend(m, q, k, v):
+            kc, vc = caches[m]["k"][i], caches[m]["v"][i]
+            attn.cache_write(kc, k, pos_b[m])
+            attn.cache_write(vc, v, pos_b[m])
+            return ops.decode_attention(q, kc, vc,
+                                        (pos_b[m] + 1).to(torch.int32))
+        return attend
+
+    xs = _blocks_tp(members, xs, caches, cfg, group,
+                    [p[:, None] for p in pos_b], attend_at)
+    return (lm_head_tp(members, xs, cfg, group)[:, 0],
+            [dict(c, pos=c["pos"] + 1) for c in caches])
+
+
+def decode_step_paged_tp(members: list, token: torch.Tensor, caches: list,
+                         block_tables: torch.Tensor, pos: torch.Tensor,
+                         cfg: ModelConfig, group: TPGroup,
+                         active: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, list]:
+    """``decode_step_paged`` of a sharded pod: one page table (on the
+    primary) addresses every member's pool, which holds the member's kv
+    heads of every page."""
+    tables = on_members(block_tables, group)
+    poss = on_members(pos, group)
+    acts = (on_members(active, group) if active is not None
+            else [None] * group.n)
+    xs = embed_tokens_tp(members, token[:, None], cfg, group)
+
+    def attend_at(i):
+        def attend(m, q, k, v):
+            kp, vp = caches[m]["k"][i], caches[m]["v"][i]
+            attn.paged_cache_write(kp, k, tables[m], poss[m], acts[m])
+            attn.paged_cache_write(vp, v, tables[m], poss[m], acts[m])
+            return ops.paged_decode_attention(
+                q, kp, vp, tables[m], (poss[m] + 1).to(torch.int32))
+        return attend
+
+    xs = _blocks_tp(members, xs, caches, cfg, group,
+                    [p[:, None] for p in poss], attend_at)
+    return lm_head_tp(members, xs, cfg, group)[:, 0], caches

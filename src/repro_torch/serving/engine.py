@@ -107,7 +107,22 @@ addressed by absolute position).
   either, no ``fused=False`` with ``speculate``, no int8 KV and no draft
   of another vocabulary.
 
-Not ported yet (ROADMAP.md): sharded pods.
+* **Sharded pods (``group=``, a ``TPGroup`` of ``shards > 1``
+  members)** — one instance over several member devices, the
+  counterpart of JAX's one-controller ``tp_mesh``
+  (engine.py:175-202, 488-513): the instance holds one param tree and
+  one KV pool per member (``PodModel``; the weights column-sharded by
+  ``serve_pspec`` under ``TPGroup.weights_key``, the pools split by kv
+  head when the heads divide the group), and its admission and round
+  bodies drive every member and gather their columns exactly, so a
+  pod's f32 streams on the CPU are one device's (on the card only where
+  cuBLAS's column-slice products are bit-equal to the full product's
+  slices, ``distributed.sharding``).  The paged pools share one page
+  table and allocator; a COW copy touches every member's pool.  A pod
+  whose members share one device captures its round and admissions as
+  graphs like any instance; one whose members span devices runs them
+  eagerly, a mode declared at deploy.  A pod neither speculates nor
+  exports slots.  ``group=None`` is the single-device path, unchanged.
 """
 
 from __future__ import annotations
@@ -124,13 +139,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.manager import TokenScheduler
-from repro_torch.core.model_sharing import ModelStore
+from repro_torch.core.model_sharing import ModelStore, pytree_nbytes
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import SLORecorder
+from repro_torch.distributed.sharding import (TPGroup, per_member_bytes,
+                                              serve_pspec, shard_put)
 from repro_torch.kernels import keys
 from repro_torch.models import build_model
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, default_kv_blocks
+from repro_torch.models.model import Model, PodModel, default_kv_blocks
 from repro_torch.serving.graphs import PrefillGraphs, RoundGraph
 from repro_torch.serving.paging import (NULL_BLOCK, KVPageAllocator,
                                         PageTable, blocks_needed,
@@ -217,7 +234,8 @@ class FunctionInstance:
     ``prefix_sharing`` applies to paged instances only.  ``sampling``
     samples on the device; ``speculate`` runs the draft-k / verify-1
     round with ``draft_model``, whose weights the store holds under
-    ``draft_key``."""
+    ``draft_key``.  ``group`` makes the instance a sharded pod over its
+    members (the store then holds a list of member trees)."""
 
     def __init__(self, inst_id: str, model: Model, store: ModelStore,
                  weights_key: str, *, device: torch.device,
@@ -228,12 +246,22 @@ class FunctionInstance:
                  sampling: Optional[SamplingConfig] = None,
                  speculate: Optional[SpecConfig] = None,
                  draft_model: Optional[Model] = None,
-                 draft_key: Optional[str] = None):
+                 draft_key: Optional[str] = None,
+                 group: Optional[TPGroup] = None):
         if batching not in ("continuous", "static", "paged"):
             raise ValueError(f"unknown batching mode {batching!r}")
         kv_int8 = model.kv_int8()
+        if group is not None and speculate is not None:
+            raise ValueError("speculate cannot ride a sharded pod: the "
+                             "draft/verify round is not tensor-parallel")
         _refuse_options(model, kv_int8, batching, fused, sampling, speculate,
                         draft_model, draft_key)
+        # The pod's runner (raises for what pods do not serve yet), or
+        # the model itself: every call on params and caches goes through
+        # ``self.runner``.
+        self.group = group
+        self.runner = (model if group is None
+                       else PodModel(model, group, kv_int8))
         self.inst_id = inst_id
         self.model = model
         self.device = device
@@ -357,9 +385,12 @@ class FunctionInstance:
         if self.speculate is not None:
             self._out_dev = torch.zeros((mb, self.speculate.k + 1), **i32)
             self._n_emit_dev = torch.zeros((mb,), **i32)
-        self.round_graph = RoundGraph(dev)
+        # A pod spanning devices runs its bodies eagerly (a CUDA graph is
+        # captured on one device's stream): declared here, never a fallback.
+        eager = self.group is not None and not self.group.one_device
+        self.round_graph = RoundGraph(dev, eager=eager)
         if self.bucketed:
-            self.prefill_graphs = PrefillGraphs(dev)
+            self.prefill_graphs = PrefillGraphs(dev, eager=eager)
         if self.batching == "paged":
             n = mb * self.blocks_per_seq
             self._state_dev = torch.zeros((n + 2 * mb,), **i32)
@@ -406,6 +437,16 @@ class FunctionInstance:
                 self.prefill_graphs.pool is not None:
             pools.add(tuple(self.prefill_graphs.pool))
         return pools
+
+    def hbm_bytes_by_member(self) -> dict[int, int]:
+        """Bytes of the instance's weights and KV pools each member holds,
+        keyed by the member's node (engine.py:508-513,
+        ``hbm_bytes_by_device``; by node, since members may share a
+        device); a one-device instance is one member, node 0."""
+        if self.group is None:
+            return {0: pytree_nbytes(self.params)
+                    + pytree_nbytes(self.cache or {})}
+        return per_member_bytes(self.group, self.params, self.cache)
 
     # -- KV accounting ---------------------------------------------------------
 
@@ -516,16 +557,16 @@ class FunctionInstance:
         with torch.cuda.use_mem_pool(self._kv_mem, self.device.index):
             return self._make_cache()
 
-    def _make_cache(self) -> dict:
+    def _make_cache(self):
         if self.speculate is not None:  # the draft's pool, in the same pool
             self.dcache = self.draft_model.init_slot_cache(
                 self.max_batch, self.max_len, self.device, kv_int8=False)
         if self.batching == "paged":
-            return self.model.init_paged_cache(
+            return self.runner.init_paged_cache(
                 self.allocator.n_blocks + 1, self.block_size, self.device,
                 kv_int8=self.kv_int8)
-        return self.model.init_slot_cache(self.max_batch, self.max_len,
-                                          self.device, kv_int8=self.kv_int8)
+        return self.runner.init_slot_cache(self.max_batch, self.max_len,
+                                           self.device, kv_int8=self.kv_int8)
 
     # -- admission -------------------------------------------------------------
 
@@ -539,10 +580,10 @@ class FunctionInstance:
             padded = np.zeros((pl,), np.int32)
             padded[:n] = prompt
             tokens = torch.as_tensor(padded[None], device=self.device)
-            return self.model.prefill(self.params, tokens, length=n, **kw)
+            return self.runner.prefill(self.params, tokens, length=n, **kw)
         tokens = torch.as_tensor(np.asarray(prompt, np.int32)[None],
                                  device=self.device)
-        return self.model.prefill(self.params, tokens, **kw)
+        return self.runner.prefill(self.params, tokens, **kw)
 
     def _plan_paged_admission(self, req: ServeRequest) -> tuple[int, tuple]:
         """Blocks a paged admission must allocate for ``req`` and its
@@ -627,7 +668,7 @@ class FunctionInstance:
         a = self._args
         tokens = a[self._tok0:self._tok0 + width].view(1, width)
         length = a[_LEN] if bucketed else None
-        logits, entry = self.model.prefill(
+        logits, entry = self.runner.prefill(
             self.params, tokens, max_len=self.max_len, length=length,
             kv_int8=self.kv_int8)
         tok = self._sample(logits)
@@ -635,9 +676,9 @@ class FunctionInstance:
         self._pending_dev.index_copy_(0, a[_ORD:_ORD + 1], tok)
         self._slot_tok_dev.index_copy_(0, slot, tok)
         if self.batching == "paged":
-            self.model.append_paged(self.cache, entry, a[_ROW:self._tok0])
+            self.runner.append_paged(self.cache, entry, a[_ROW:self._tok0])
         else:
-            self.model.merge_slot(self.cache, entry, slot)
+            self.runner.merge_slot(self.cache, entry, slot)
         if self.speculate is not None:
             _, dentry = self.draft_model.prefill(
                 self.draft_params, tokens, max_len=self.max_len,
@@ -723,7 +764,7 @@ class FunctionInstance:
                     self._append(entry,
                                  self._map_paged_request(slot, req, plan))
                 else:
-                    self.model.merge_slot(self.cache, entry, slot)
+                    self.runner.merge_slot(self.cache, entry, slot)
                 self._slot_tok[slot] = tok
             if had_live:
                 self.refills += 1
@@ -735,7 +776,7 @@ class FunctionInstance:
         checked against the write contract (eagerly: the host-argmax
         admission and ``import_slot``)."""
         self._assert_writes_exclusive(append_row)
-        self.model.append_paged(self.cache, entry, torch.as_tensor(
+        self.runner.append_paged(self.cache, entry, torch.as_tensor(
             append_row, dtype=torch.int64, device=self.device))
 
     def _advance_slot(self, slot: int, tok: int) -> Optional[ServeRequest]:
@@ -783,7 +824,7 @@ class FunctionInstance:
                     slot, idx * self.block_size)
                 if moved is not None:
                     old, new = moved
-                    self.model.copy_block(self.cache, old, new)
+                    self.runner.copy_block(self.cache, old, new)
                     self._tables[slot][idx] = new
                     self._state_dirty = True
                     self.cow_count += 1
@@ -808,13 +849,13 @@ class FunctionInstance:
         self.rounds += 1
         tok = torch.as_tensor(self._slot_tok, device=self.device)
         if self.batching == "paged":
-            logits, self.cache = self.model.decode_step_paged(
+            logits, self.cache = self.runner.decode_step_paged(
                 self.params, tok, self.cache,
                 torch.as_tensor(self._tables, device=self.device),
                 torch.as_tensor(self._pos, device=self.device))
         else:
-            logits, self.cache = self.model.decode_step(self.params, tok,
-                                                        self.cache)
+            logits, self.cache = self.runner.decode_step(self.params, tok,
+                                                         self.cache)
         next_tok = self._host_tokens(logits)
         finished = []
         for slot, req in enumerate(self.slots):
@@ -838,7 +879,7 @@ class FunctionInstance:
         prompts = torch.as_tensor(np.stack([r.prompt for r in batch]),
                                   dtype=torch.int32, device=self.device)
         self.prefills += 1
-        logits, self.cache = self.model.prefill(
+        logits, self.cache = self.runner.prefill(
             self.params, prompts, max_len=self.max_len, kv_int8=self.kv_int8)
         finished = []
         for r, t in zip(batch, self._host_tokens(logits)):
@@ -857,8 +898,8 @@ class FunctionInstance:
         self.rounds += 1
         toks = torch.as_tensor([r.tokens_out[-1] for r in self.active],
                                dtype=torch.int32, device=self.device)
-        logits, self.cache = self.model.decode_step(self.params, toks,
-                                                    self.cache)
+        logits, self.cache = self.runner.decode_step(self.params, toks,
+                                                     self.cache)
         finished = []
         for r, t in zip(self.active, self._host_tokens(logits)):
             if r.done:
@@ -898,16 +939,20 @@ class FunctionInstance:
                              self._out_dev, self._n_emit_dev)
             return tok
         if paged:
-            new_tok, _, pos = self.model.decode_step_paged_tokens(
+            new_tok, _, pos = self.runner.decode_step_paged_tokens(
                 self.params, tok, self.cache, self._tables_dev,
                 self._pos_dev, self._active_dev, self._key_dev,
                 self.sampling)[:3]
             self._pos_dev.copy_(pos)
         else:
-            new_tok, advanced = self.model.decode_step_tokens(
+            new_tok, advanced = self.runner.decode_step_tokens(
                 self.params, tok, self.cache, self._key_dev,
                 self.sampling)[:2]
-            self.cache["pos"].copy_(advanced["pos"])
+            if self.group is None:
+                self.cache["pos"].copy_(advanced["pos"])
+            else:
+                for pool, adv in zip(self.cache, advanced):
+                    pool["pos"].copy_(adv["pos"])
         return tok.copy_(new_tok)
 
     def _dispatch_round(self) -> None:
@@ -1026,6 +1071,10 @@ class FunctionInstance:
         entry, last token)``; paged slots are gathered into the dense
         layout, so any instance can import them.  Between passes only:
         the host mirrors are the pass's sync's."""
+        if self.group is not None:
+            raise ValueError(f"{self.inst_id}: a sharded pod's slots do not "
+                             f"export (each member holds its share of the "
+                             f"KV)")
         req = self.slots[slot]
         if req is None:
             raise ValueError(f"slot {slot} of {self.inst_id} is empty")
@@ -1055,6 +1104,9 @@ class FunctionInstance:
             raise ValueError("static batches cannot absorb migrated slots")
         if self.slots[slot] is not None:
             raise ValueError(f"slot {slot} of {self.inst_id} is occupied")
+        if self.group is not None:
+            raise ValueError(f"{self.inst_id}: a sharded pod imports no "
+                             f"slots")
         self._between_passes("import_slot")
         if self.cache is None:
             self.cache = self._init_cache()
@@ -1139,22 +1191,41 @@ class ServingEngine:
                fused: bool = True, prefix_sharing: bool = True,
                sampling: Optional[SamplingConfig] = None,
                speculate: Optional[SpecConfig] = None,
-               draft_params: Any = None) -> list[str]:
+               draft_params: Any = None,
+               group: Optional[TPGroup] = None) -> list[str]:
         """Deploy ``n_instances`` of ``fn`` sharing one stored copy of
         ``params`` (which must already lie on the engine's device).  When
         the node's store already holds ``fn``, its copy is used and
         ``params`` is ignored (it may be None), as in JAX.  ``speculate``
         builds the draft model of ``speculate.draft_cfg`` (once a function
         and node) and stores ``draft_params`` under ``"{fn}#draft"`` on
-        the first deploy (engine.py:1166-1200)."""
+        the first deploy (engine.py:1166-1200).
+
+        ``group`` (a ``TPGroup`` whose primary is this engine's device)
+        deploys sharded pods: their weights live under
+        ``group.weights_key(fn)``, ``"{fn}@tp{shards}"`` on one device
+        (engine.py:1179-1187), so ``shards=1`` replicas keep sharing the
+        intact tree, and pods on other member devices never share trees; ``params`` is a full tree,
+        placed by ``shard_put`` with ``serve_pspec``, or the list of member
+        trees a sharded upload made."""
         if not self.alive:
             raise RuntimeError("cannot deploy to a failed node")
         refusal = context_refusal(model.cfg)
         if refusal:
             raise ValueError(refusal)
+        weights_key = fn
+        if group is not None:
+            if group.primary != self.device:
+                raise ValueError(f"a pod's primary member lies on "
+                                 f"{group.primary}, the engine on "
+                                 f"{self.device}")
+            weights_key = group.weights_key(fn)
+            if isinstance(params, dict):
+                params = shard_put(params, model.param_names(), group,
+                                   resolver=serve_pspec)
         if fn not in self.recorders:
             self.recorders[fn] = SLORecorder(fn=fn)
-        self._store_weights(fn, params)
+        self._store_weights(weights_key, params, group)
         draft_model = draft_key = None
         if speculate is not None:
             draft_model = self._draft_models.get(fn)
@@ -1171,26 +1242,31 @@ class ServingEngine:
         for _ in range(n_instances):
             inst_id = f"{fn}/{next(self._inst_seq)}"
             self.instances[inst_id] = FunctionInstance(
-                inst_id, model, self.store, fn, device=self.device,
+                inst_id, model, self.store, weights_key, device=self.device,
                 max_batch=max_batch, max_len=max_len, batching=batching,
                 prefill_buckets=prefill_buckets, block_size=block_size,
                 n_kv_blocks=n_kv_blocks, fused=fused,
                 prefix_sharing=prefix_sharing, sampling=sampling,
                 speculate=speculate, draft_model=draft_model,
-                draft_key=draft_key)
+                draft_key=draft_key, group=group)
             self.scheduler.register(inst_id, alloc)
             ids.append(inst_id)
         return ids
 
-    def _store_weights(self, key: str, params: Any) -> None:
+    def _store_weights(self, key: str, params: Any,
+                       group: Optional[TPGroup] = None) -> None:
         """Store ``params`` under ``key`` unless the node holds it already;
-        they must lie on the engine's device."""
+        they must lie on the engine's device, or a pod's member trees each
+        on its member's."""
         if self.store.contains(key):
             return
-        for leaf in _leaves(params):
-            if leaf.device != self.device:
-                raise ValueError(f"{key}: params are on {leaf.device}, the "
-                                 f"engine on {self.device}")
+        trees, devices = (([params], [self.device]) if group is None
+                          else (params, group.devices))
+        for tree, dev in zip(trees, devices):
+            for leaf in _leaves(tree):
+                if leaf.device != dev:
+                    raise ValueError(f"{key}: params are on {leaf.device}, "
+                                     f"their member on {dev}")
         self.store.store(key, params)
 
     # -- scale-down and node failure (engine.py:1227-1282) --------------------

@@ -1,5 +1,5 @@
 """Multi-engine frontend: the live analogue of ``repro_torch.core.cluster``
-(counterpart of ``repro.serving.frontend`` at one device a pod).
+(counterpart of ``repro.serving.frontend``).
 
 ``ClusterFrontend`` routes requests across N ``ServingEngine`` nodes so the
 port's data plane exercises the simulator's full stack:
@@ -29,8 +29,9 @@ stores one param tree in each node's ``ModelStore``; instances within a
 node alias it zero-copy.
 
 Every node is a ``ServingEngine`` on the frontend's one ``device``
-(``None`` = the card): on one card the nodes are logical, each with its
-own weight copy, token scheduler and memory budget (``mem_bytes``).
+(``None`` = the card), or on its own entry of ``devices``: on one card
+the nodes are logical, each with its own weight copy, token scheduler
+and memory budget (``mem_bytes``).
 With a fleet ``model_store``, an overlapped upload's copies run on a
 side stream; the frontend makes the card's current stream, which the
 engines launch on, wait on the upload's event before it deploys the
@@ -42,8 +43,14 @@ speculative rounds; the draft weights (``draft_params``) are charged with
 the function's and, with a fleet ``model_store``, ride its tiers under
 ``"{fn}#draft"``.
 
-Not ported yet, and refused with ``NotImplementedError``: tensor-parallel
-pods (``shards > 1``; ROADMAP.md, Queue 1 item 11).
+``shards > 1`` places a tensor-parallel pod (frontend.py:457-548 of the
+JAX package): one rectangle on each of ``shards`` member nodes of the
+best-linked group, the KV charge divided by ``shards`` per member, and
+one instance on the primary member's engine driving a ``TPGroup`` of the
+members' devices (``engine.FunctionInstance``).  A pod dies with any
+member, does not migrate and does not speculate.  It serves the
+full-cache dense family; the rest raises ``NotImplementedError``
+(ROADMAP.md, Queue 1 item 11b).
 """
 
 from __future__ import annotations
@@ -66,8 +73,11 @@ from repro_torch.core.model_sharing import (MemoryModel, node_shared_footprint,
 from repro_torch.core.resources import Alloc
 from repro_torch.core.slo import (TIER_BEST_EFFORT, TIER_GUARANTEED, RetryPolicy,
                             observed_rate, record_arrival)
+from repro_torch.distributed.sharding import (TPGroup, serve_pspec,
+                                              sharding_for, tp_group)
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import tp_refusal
 from repro_torch.serving.engine import ServeRequest, ServingEngine
 from repro_torch.serving.modelstore import ColdStartEvent, FleetModelStore
 from repro_torch.serving.paging import blocks_needed
@@ -86,24 +96,28 @@ def _closed(ref: weakref.ref, node: int, inst_id: str) -> None:
         frontend._instance_closed(node, inst_id)
 
 
-def _refuse_unported(shards: int) -> None:
-    """The options the port has no data plane for yet raise, never drop."""
-    if shards > 1:
-        raise NotImplementedError(
-            "sharded pods (shards > 1) are not ported yet (ROADMAP.md, "
-            "Queue 1 item 11)")
-
-
 @dataclasses.dataclass
 class InstancePlacement:
-    """One live instance: which node it landed on and its MRA rectangle
-    (one device a pod: sharded pods wait for ROADMAP.md, Queue 1 item 11).
+    """One live instance: which node it landed on and its MRA rectangle.
+
+    A sharded pod holds one rectangle on every member node; ``node`` and
+    ``placement`` are the primary's (the engine hosting the instance),
+    ``member_nodes``/``member_placements`` list all of them, primary
+    first.  A one-device pod leaves the member tuples empty.
     """
 
     fn: str
     inst_id: str
     node: int
     placement: Placement
+    member_nodes: tuple[int, ...] = ()
+    member_placements: tuple[Placement, ...] = ()
+
+    def all_nodes(self) -> tuple[int, ...]:
+        return self.member_nodes or (self.node,)
+
+    def all_placements(self) -> tuple[Placement, ...]:
+        return self.member_placements or (self.placement,)
 
 
 class ClusterFrontend:
@@ -115,9 +129,13 @@ class ClusterFrontend:
                  cold_start: str = "overlap",
                  links: Optional[NetworkLinks] = None,
                  idle_sleep_s: float = 0.001,
-                 retry: Optional[RetryPolicy] = None, device=None):
+                 retry: Optional[RetryPolicy] = None, device=None,
+                 devices: Optional[list] = None):
         if n_nodes <= 0:
             raise ValueError("need at least one node")
+        if devices is not None and len(devices) != n_nodes:
+            raise ValueError(f"devices names {len(devices)} nodes' devices, "
+                             f"the fleet has {n_nodes}")
         if cold_start not in ("overlap", "blocking"):
             raise ValueError(f"unknown cold_start mode {cold_start!r}")
         # Inter-node bandwidth graph: the fleet store picks its transfer
@@ -138,9 +156,14 @@ class ClusterFrontend:
         # first landed token by cold_start_events().
         self._cold_instances: list[tuple[ColdStartEvent, int, str]] = []
         self.device = resolve_device(device)
-        self.engines = [ServingEngine(window=window, device=self.device,
+        # Each node's device: the frontend's one device, or ``devices``
+        # (several cards: a sharded pod's members then span them).
+        self.node_devices = ([resolve_device(d) for d in devices]
+                             if devices is not None
+                             else [self.device] * n_nodes)
+        self.engines = [ServingEngine(window=window, device=dev,
                                       idle_sleep_s=idle_sleep_s)
-                        for _ in range(n_nodes)]
+                        for dev in self.node_devices]
         # The engines call back through a weak reference: the frontend and
         # its engines form no cycle, so a dropped fleet frees its
         # instances' pools at once, never in a later garbage collection
@@ -200,7 +223,7 @@ class ClusterFrontend:
     def _fn_instances_on(self, node: int) -> dict[str, int]:
         counts: dict[str, int] = {}
         for p in self.placements:
-            if p.node == node:
+            if node in p.all_nodes():
                 counts[p.fn] = counts.get(p.fn, 0) + 1
         return counts
 
@@ -302,13 +325,26 @@ class ClusterFrontend:
         ``SamplingConfig``) samples on the device
         (frontend.py:218-440 of the JAX package).
 
-        ``shards > 1`` (ROADMAP.md, Queue 1 item 11) is not ported yet and
-        raises ``NotImplementedError``.
+        ``shards > 1`` deploys ONE tensor-parallel pod spanning that many
+        nodes (``_place_sharded``): a rectangle on every member of the
+        best-linked node group, the KV charge divided by ``shards`` per
+        node, and the primary member's engine running the instance over a
+        ``TPGroup`` of the members' devices.  What pods do not serve yet
+        (int8 KV, windowed and dual caches, the families other than dense;
+        ROADMAP.md, Queue 1 item 11b) raises ``NotImplementedError``
+        before any rectangle is taken.
         """
         t_start = time.perf_counter()
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
-        _refuse_unported(shards)
+        if shards > 1 and speculate is not None:
+            raise ValueError(
+                "speculate cannot ride a sharded pod: the draft/verify "
+                "round is not tensor-parallel")
+        if shards > 1:
+            why = tp_refusal(model.cfg, model.kv_int8())
+            if why:
+                raise NotImplementedError(why)
         if not 0.0 <= kv_shared_frac < 1.0:
             raise ValueError(
                 f"kv_shared_frac must be in [0, 1), got {kv_shared_frac}")
@@ -322,6 +358,12 @@ class ClusterFrontend:
             block_size=block_size, n_kv_blocks=n_kv_blocks,
             kv_int8=model.kv_int8())
             * (1.0 - kv_shared_frac))
+        if shards > 1:
+            # Per-member charge, kept exactly as JAX's (frontend.py:
+            # 299-307): the pool splits its kv heads over the members, so
+            # each holds about 1/shards of it; weights stay charged in full
+            # per node, the honest bound under column-only TP.
+            kv_bytes //= shards
         if params is None:
             if self.model_store is None:
                 raise ValueError(
@@ -370,6 +412,14 @@ class ClusterFrontend:
             if created_mm and not any(p.fn == fn for p in self.placements):
                 del self._fn_mm[fn]
 
+        if shards > 1:
+            return self._place_sharded(
+                fn, model, params, alloc, mm, rollback_mm, shards,
+                max_batch=max_batch, max_len=max_len, batching=batching,
+                block_size=block_size, n_kv_blocks=n_kv_blocks,
+                fused=fused, prefix_sharing=prefix_sharing,
+                sampling=sampling, weights_loader=weights_loader,
+                t_start=t_start)
         pod_id = f"{fn}-{next(self._pod_seq)}"
         # Warm-first phases: with a fleet store attached, the MRA search
         # first restricts itself to warm nodes (host-staged or
@@ -454,26 +504,117 @@ class ClusterFrontend:
         return f"{placement.node}:{inst_id}"
 
     def _acquire(self, node: int, fn: str, model: Model, params: Any,
-                 loader: Optional[Any]) -> tuple[Any, ColdStartEvent]:
+                 loader: Optional[Any], group: Optional[TPGroup] = None
+                 ) -> tuple[Any, ColdStartEvent]:
         """Source the weights stored under ``fn`` (a function's, or its
         draft's, ``"{fn}#draft"``) for ``node`` through the fleet tier and
         order the card's current stream (the engines') after an overlapped
         upload's copies.  A re-upload only ever reaches a node that holds
         no copy, hence no instance of the function whose graphs captured
-        one."""
+        one.  With a pod's ``group`` the upload gives each member its
+        ``serve_pspec`` slices, and the node's copy is the engine's
+        ``group.weights_key(fn)`` entry."""
         eng = self.engines[node]
-        resident = eng.store.contains(fn)
+        resident = eng.store.contains(
+            fn if group is None else group.weights_key(fn))
         owner = fn.split("#")[0]
         if not resident and any(k.startswith(owner + "/")
                                 for k in eng.instances):
             raise RuntimeError(f"node {node} runs {owner} without its "
                                f"weights")
+        sharding = (None if group is None else functools.partial(
+            sharding_for, group=group, resolver=serve_pspec))
         deploy_params, event = self.model_store.acquire(
             node, fn, model, params=params, loader=loader,
-            resident=resident, mode=self.cold_start, device=eng.device)
+            resident=resident, mode=self.cold_start, device=eng.device,
+            sharding_for=sharding)
         if event.ready is not None:
             torch.cuda.current_stream(eng.device).wait_event(event.ready)
         return deploy_params, event
+
+    def _place_sharded(self, fn: str, model: Model, params: Any,
+                       alloc: Alloc, mm: MemoryModel, rollback_mm: Any,
+                       shards: int, *, max_batch: int, max_len: int,
+                       batching: str, block_size: int,
+                       n_kv_blocks: Optional[int], fused: bool,
+                       prefix_sharing: bool, sampling: Optional[Any],
+                       weights_loader: Optional[Any],
+                       t_start: float) -> Optional[str]:
+        """Acquire ``shards`` MRA rectangles, one per member node, on the
+        best-connected node group and deploy ONE tensor-parallel instance
+        across them (frontend.py:457-548).
+
+        Candidate groups are walked in ``NetworkLinks.best_groups`` order,
+        highest bottleneck bandwidth first, so the pod's gathers ride the
+        fastest links.  Every member must fit the rectangle and pass memory
+        admission; a group that fails anywhere gives back the rectangles
+        it took and the next group is tried.  The primary (first member)
+        hosts the instance; its group names each member's node and
+        device.  With a fleet store the weights are staged under ``fn``
+        and uploaded as each member's slices (``sharding_for``, by
+        ``serve_pspec``)."""
+        all_nodes = {n.node_id for n in self.pool.nodes}
+        candidates = sorted(n for n in all_nodes if self.engines[n].alive)
+        pod_id = f"{fn}-{next(self._pod_seq)}"
+        group: Optional[list[int]] = None
+        rects: list[Placement] = []
+        for cand in self.links.best_groups(candidates, shards):
+            acquired: list[Placement] = []
+            ok = True
+            for member in cand:
+                rect = self.pool.schedule(alloc, f"{pod_id}@{member}",
+                                          exclude=all_nodes - {member})
+                if rect is None or not self.admits(member, fn, mm):
+                    if rect is not None:
+                        self.pool.release(rect)
+                    ok = False
+                    break
+                acquired.append(rect)
+            if ok:
+                group, rects = list(cand), acquired
+                break
+            for rect in acquired:
+                self.pool.release(rect)
+        if group is None:
+            rollback_mm()
+            return None
+        primary = group[0]
+        tp = tp_group(shards, devices=[self.node_devices[n] for n in group],
+                      nodes=group)
+        event = None
+        deploy_params = params
+        acquired_store = False
+        try:
+            if self.model_store is not None:
+                deploy_params, event = self._acquire(
+                    primary, fn, model, params, weights_loader, tp)
+                acquired_store = True
+                event.placed_at = t_start
+            inst_id = self.engines[primary].deploy(
+                fn, model, deploy_params, alloc, n_instances=1,
+                max_batch=max_batch, max_len=max_len, batching=batching,
+                block_size=block_size, n_kv_blocks=n_kv_blocks,
+                fused=fused, prefix_sharing=prefix_sharing,
+                sampling=sampling, group=tp)[0]
+        except Exception:
+            for rect in rects:
+                self.pool.release(rect)
+            if acquired_store:
+                self.model_store.release(primary, fn)
+            rollback_mm()
+            raise
+        if event is not None:
+            self._cold_instances.append((event, primary, inst_id))
+        self.placements.append(InstancePlacement(
+            fn=fn, inst_id=inst_id, node=primary, placement=rects[0],
+            member_nodes=tuple(group), member_placements=tuple(rects)))
+        inst = self.engines[primary].instances[inst_id]
+        self._fn_limits[fn] = (max_len, block_size,
+                               inst.allocator.capacity
+                               if batching == "paged" else None, 0)
+        for req in self._pending.pop(fn, []):
+            self._enqueue(fn, req)
+        return f"{primary}:{inst_id}"
 
     def deploy(self, fn: str, model: Model, params: Any, alloc: Alloc, *,
                n_instances: int = 1, max_batch: int = 4, max_len: int = 64,
@@ -686,8 +827,14 @@ class ClusterFrontend:
         if not 0 <= node < len(self.engines):
             return False
         eng = self.engines[node]
-        return (eng.alive and not eng.quarantined
-                and inst_id in eng.instances)
+        if not eng.alive or eng.quarantined or inst_id not in eng.instances:
+            return False
+        # A sharded pod reads dead when ANY member node is quarantined.
+        for p in self.placements:
+            if p.node == node and p.inst_id == inst_id:
+                return not any(self.engines[m].quarantined
+                               for m in p.all_nodes())
+        return True
 
     def health(self, node: int) -> float:
         """Node health score in (0, 1]: the engine's slow/fast pass-latency
@@ -708,7 +855,7 @@ class ClusterFrontend:
             return 0
         eng.quarantined = True
         self.pool.cordon(node)
-        return sum(1 for p in self.placements if p.node == node)
+        return sum(1 for p in self.placements if node in p.all_nodes())
 
     def unregister(self, fn: str) -> list[ServeRequest]:
         """Delete a function: evict its live instances and reject every
@@ -767,10 +914,20 @@ class ClusterFrontend:
             # Host RAM died with the node; peer caches stay warm.
             self.model_store.drop_node(node)
         self.pool.drain_node(node)
-        # One device a pod: every lost pod lived on the dead node alone,
-        # so drain_node dropped all of their rectangles.
-        lost = [p for p in self.placements if p.node == node]
-        self.placements = [p for p in self.placements if p.node != node]
+        # A sharded pod dies with ANY member: a KV share and a weight share
+        # lived on the dead node.  A secondary member's death also kills
+        # the (still running) instance on the primary's engine, and the
+        # rectangles on surviving members are released here (drain_node
+        # dropped only the dead node's).
+        lost = [p for p in self.placements if node in p.all_nodes()]
+        self.placements = [p for p in self.placements
+                           if node not in p.all_nodes()]
+        for p in lost:
+            if p.node != node:
+                strays.extend(self._kill_remote_member(p))
+            for n_, rect in zip(p.all_nodes(), p.all_placements()):
+                if n_ != node and self.engines[n_].alive:
+                    self.pool.release(rect)
         for fn in {p.fn for p in lost}:
             if not any(p.fn == fn for p in self.placements):
                 # No replica left anywhere: drop the per-function
@@ -806,6 +963,33 @@ class ClusterFrontend:
         self._retry_buf.append(
             (self.now() + self.retry.delay(req.attempts), fn, req))
 
+    def _kill_remote_member(self, p: InstancePlacement
+                            ) -> list[tuple[str, ServeRequest]]:
+        """Tear down a sharded pod whose SECONDARY member died
+        (frontend.py:896-920): the primary engine lives but the pod lost a
+        member, so the instance dies crash-style (no drain: a KV share is
+        gone) and its unfinished requests strand for re-routing, slot
+        occupants restarting from the prompt as after a primary crash."""
+        eng = self.engines[p.node]
+        inst = eng.instances.pop(p.inst_id, None)
+        if inst is None:
+            return []
+        eng.scheduler.deregister(p.inst_id)
+        strays: list[tuple[str, ServeRequest]] = []
+        occupants = (inst.active if inst.batching == "static"
+                     else inst.slots)
+        for req in occupants:
+            if req is None or req.done:
+                continue
+            req.tokens_out = []  # KV share lost: re-execute from scratch
+            strays.append((p.fn, req))
+        strays.extend((p.fn, req) for req in inst.queue)
+        inst.queue.clear()
+        inst.close()  # drops the engine-store weight refcount
+        if self.model_store is not None:
+            self.model_store.release(p.node, p.fn)
+        return strays
+
     def migrate(self, fn: str, handle: str, model: Model, params: Any,
                 target: int) -> Optional[str]:
         """Live KV migration: move the instance behind ``handle`` to node
@@ -835,6 +1019,11 @@ class ClusterFrontend:
         eng = self.engines[src]
         inst = eng.instances.get(inst_id)
         if inst is None or inst.retired or inst.batching == "static":
+            return None
+        if inst.group is not None:
+            # Sharded pods do not migrate: the KV lives as one share per
+            # member and a target would need a like group; the reconciler
+            # re-places instead.
             return None
         if inst.speculate is not None:
             # The draft's side pool and the key stream do not export:
@@ -903,7 +1092,8 @@ class ClusterFrontend:
         """Engine callback: a retired instance finished draining."""
         for p in self.placements:
             if p.node == node and p.inst_id == inst_id:
-                self.pool.release(p.placement)
+                for rect in p.all_placements():
+                    self.pool.release(rect)
                 self.placements.remove(p)
                 if self.model_store is not None:
                     # The pod's hold on its host-staged weights ends here;

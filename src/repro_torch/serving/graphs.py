@@ -32,6 +32,11 @@ instance's sync reads them.
   wrappers recorded while the round was captured (``kernels.COUNTED``);
   the capture itself counts none.
 - On the CPU, where CUDA graphs do not exist, every round runs eagerly.
+- ``eager=True`` is a mode declared when the graph is made: every round
+  runs eagerly.  A sharded pod whose members span devices takes it (a
+  graph is captured on one device's stream); a pod whose members share
+  one device is captured like any instance, its gathers ordinary copies
+  in the stream.
 
 ``PrefillGraphs`` applies the same rules to an instance's admissions of
 the dense and moe families, one ``RoundGraph`` per prefill bucket (JAX compiles
@@ -63,9 +68,11 @@ class RoundGraph:
     never kept, so an instance that holds its graph forms no reference
     cycle and its pools are freed as soon as it is dropped."""
 
-    def __init__(self, device: torch.device, pool: Any = None):
+    def __init__(self, device: torch.device, pool: Any = None,
+                 eager: bool = False):
         self.device = torch.device(device)
         self.pool = pool  # a memory pool shared with other graphs, or None
+        self.always_eager = eager  # the declared mode: never captures
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Any = None
         self.eager_rounds = 0
@@ -76,8 +83,8 @@ class RoundGraph:
     def run(self, body: Callable[[], Any]) -> Any:
         """One round: eager on the CPU and for the first round, else a
         replay (``body`` captured first if this is the second round)."""
-        if self.device.type != "cuda" or (self.graph is None
-                                          and not self.eager_rounds):
+        if self.device.type != "cuda" or self.always_eager or (
+                self.graph is None and not self.eager_rounds):
             self.eager_rounds += 1
             return body()
         if self.graph is None:
@@ -137,8 +144,9 @@ class PrefillGraphs:
     """One instance's bucketed admissions: a ``RoundGraph`` per bucket,
     made at the bucket's first admission, all on one memory pool."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, eager: bool = False):
         self.device = torch.device(device)
+        self.always_eager = eager
         self.by_bucket: dict[int, RoundGraph] = {}
         self.pool: Any = None  # the buckets' shared memory pool (card)
 
@@ -149,8 +157,8 @@ class PrefillGraphs:
         if graph is None:
             if self.device.type == "cuda" and self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            graph = self.by_bucket[bucket] = RoundGraph(self.device,
-                                                        self.pool)
+            graph = self.by_bucket[bucket] = RoundGraph(
+                self.device, self.pool, self.always_eager)
         return graph.run(body)
 
     @property

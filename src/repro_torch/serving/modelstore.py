@@ -41,12 +41,15 @@ uses it.
 
 The live frontend sources weights through ``acquire`` at placement time;
 the control plane reads ``warm_nodes`` for warm-aware scale-up and defrag
-targeting.  Sharded placement (``sharding_for`` / ``shardings``) is not
-ported yet (ROADMAP.md, Queue 1 item 11) and raises.
+targeting.  A sharded pod's placement passes ``sharding_for``: the
+weights are staged whole, as for one device, and the upload copies each
+member's slices straight to its device (modelstore.py:110-140 of the JAX
+package), layer slice by layer slice.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -214,45 +217,64 @@ def upload_params(staged: StagedWeights, *, mode: str = "overlap",
     stream must ``wait_event(ready)`` before it reads the tree.  On the
     CPU both modes copy synchronously.  Values are identical either way.
 
-    ``shardings`` (a tensor-parallel pod's per-leaf placement) is not
-    ported yet (ROADMAP.md, Queue 1 item 11).
+    ``shardings`` (leaf-aligned with ``staged.leaves``: a sharded pod's
+    ``distributed.Sharding`` of each leaf) returns a list of member trees
+    instead: each leaf's piece (``Sharding.piece``; a stacked leaf's
+    layer slices placed by the spec without its leading ``"layers"`` dim,
+    as JAX's ``_layer_sharding``) copied straight onto its member's
+    device.  A strided piece is staged through host memory by the copy.
+    The upload overlaps only when every member lies on ``device``; a
+    group that spans devices uploads blocking.
     """
     if mode not in ("blocking", "overlap"):
         raise ValueError(f"unknown upload mode {mode!r}")
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded uploads wait for the sharded pods (ROADMAP.md, "
-            "Queue 1 item 11)")
     dev = resolve_device(device)
-    overlap = mode == "overlap" and dev.type == "cuda"
-    out = [torch.empty(shape, dtype=dtype, device=dev)
-           for (_, shape), dtype in zip(staged.layout, staged.dtypes)]
-    ready = None
+    devices = [dev]
+    if shardings is not None:
+        if len(shardings) != len(staged.leaves):
+            raise ValueError(f"shardings must align with staged leaves "
+                             f"({len(shardings)} vs {len(staged.leaves)})")
+        devices = list(shardings[0].group.devices)
+    overlap = (mode == "overlap" and dev.type == "cuda"
+               and all(d == dev for d in devices))
+
+    def piece(i: int, m: int, j: Optional[int] = None) -> torch.Tensor:
+        t = staged.host_tensor(i, j)
+        if shardings is None:
+            return t
+        sh = shardings[i] if j is None else shardings[i].drop_leading()
+        return sh.piece(t, m)
+
+    out = [[torch.empty(shape if shardings is None
+                        else shardings[i].shape(shape), dtype=dtype,
+                        device=d)
+            for i, ((_, shape), dtype) in enumerate(zip(staged.layout,
+                                                        staged.dtypes))]
+           for d in devices]
+    side = ready = None
     if overlap:
         consumer = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(consumer)  # the allocations precede the copies
-        with torch.cuda.stream(side):
-            for i, (dst, st) in enumerate(zip(out, staged.stacked)):
-                dst.record_stream(side)
+    with torch.cuda.stream(side) if overlap else contextlib.nullcontext():
+        for m, leaves in enumerate(out):
+            for i, (dst, st) in enumerate(zip(leaves, staged.stacked)):
+                if overlap:
+                    dst.record_stream(side)
                 if st:
                     for j in range(dst.shape[0]):
-                        dst[j].copy_(staged.host_tensor(i, j),
-                                     non_blocking=True)
+                        dst[j].copy_(piece(i, m, j), non_blocking=overlap)
                 else:
-                    dst.copy_(staged.host_tensor(i), non_blocking=True)
+                    dst.copy_(piece(i, m), non_blocking=overlap)
+        if overlap:
             ready = torch.cuda.Event()
             ready.record(side)
-    else:
-        for i, (dst, st) in enumerate(zip(out, staged.stacked)):
-            if st:
-                for j in range(dst.shape[0]):
-                    dst[j].copy_(staged.host_tensor(i, j))
-            else:
-                dst.copy_(staged.host_tensor(i))
-        if dev.type == "cuda":
-            torch.cuda.current_stream(dev).synchronize()
-    return _unflatten(staged.treedef, out), ready
+    if not overlap:
+        for d in set(devices):
+            if d.type == "cuda":
+                torch.cuda.current_stream(d).synchronize()
+    trees = [_unflatten(staged.treedef, leaves) for leaves in out]
+    return (trees[0] if shardings is None else trees), ready
 
 
 @dataclass
@@ -430,12 +452,12 @@ class FleetModelStore:
         entry backing them (pair with :meth:`release`).  After an
         overlapped upload ``event.ready`` is the event the consumer's
         stream must wait on before reading the params.
-        ``sharding_for`` is not ported yet (ROADMAP.md, Queue 1 item 11).
+        ``sharding_for(names, shape) -> Sharding`` resolves each param
+        leaf's placement in a sharded pod: the upload then streams every
+        member's slices straight to its device and returns the member
+        trees (the staged entry is the whole tree, shared with one-device
+        placements).
         """
-        if sharding_for is not None:
-            raise NotImplementedError(
-                "sharded placement waits for the sharded pods (ROADMAP.md, "
-                "Queue 1 item 11)")
         with self._lock:
             cache = self._cache_for(node)
             if resident:
@@ -482,9 +504,17 @@ class FleetModelStore:
                     cache.put(key, staged)
             cache.pin(key)
 
+        shardings = None
+        if sharding_for is not None:
+            names = _name_leaves(model)
+            shardings = [sharding_for(nm, ((len(leaf),) + leaf[0].shape)
+                                      if st else leaf.shape)
+                         for nm, leaf, st in zip(names, staged.leaves,
+                                                 staged.stacked)]
         t0 = perf_counter()
         device_params, ready = upload_params(staged, mode=mode,
-                                             device=device)
+                                             device=device,
+                                             shardings=shardings)
         upload_s = perf_counter() - t0
         with self._lock:
             self.bytes_h2d += staged.nbytes

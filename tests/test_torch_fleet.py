@@ -541,8 +541,12 @@ def test_sim_live_decision_signature_with_speculate(models):
 # -- options the port does not have yet ---------------------------------------
 
 
-@pytest.mark.parametrize("option,item", [(dict(shards=2), "item 11")])
-def test_unported_options_raise(models, option, item):
+@pytest.mark.parametrize("option,item", [(dict(shards=2), "item 11b")])
+def test_unported_options_raise(models, monkeypatch, option, item):
+    """A sharded pod of what pods do not serve yet (here int8 KV, the gate
+    on) raises, never drops, and leaves no rectangle behind (ROADMAP.md,
+    Queue 1 item 11b)."""
+    monkeypatch.setenv("REPRO_KV_INT8", "1")
     fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
     alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=0.5)
     with pytest.raises(NotImplementedError, match=item):
@@ -552,21 +556,24 @@ def test_unported_options_raise(models, option, item):
     assert not fe.placements and fe.pool.total_used_area() == 0
 
 
-def test_unported_spec_axes_raise_through_the_live_backend(models):
+def test_unported_spec_axes_raise_through_the_live_backend(models,
+                                                            monkeypatch):
+    """A ``shards=2`` spec of an int8-KV function reaches the frontend
+    through the live backend and raises there, naming item 11b; a sharded
+    upload whose shardings do not align with the staged leaves raises
+    before any copy."""
+    monkeypatch.setenv("REPRO_KV_INT8", "1")
     point = ProfilePoint(sm=0.5, quota=0.5, throughput=1.0)
     spec = tctl.FunctionSpec(
         name="f", profile=(point,), shards=2,
         model_factory=lambda: (models["tm"], models["tp"]))
-    plane = tctl.ControlPlane(tctl.LiveBackend(
-        ClusterFrontend(n_nodes=1, device="cpu")))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    fe = ClusterFrontend(n_nodes=2, device="cpu")
+    plane = tctl.ControlPlane(tctl.LiveBackend(fe))
+    with pytest.raises(NotImplementedError, match="item 11b"):
         plane.register(spec)
+    assert not fe.placements and fe.pool.total_used_area() == 0
     from repro_torch.serving.modelstore import (stage_params,
                                                 upload_params)
     staged = stage_params(models["tm"], models["tp"])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="align"):
         upload_params(staged, device="cpu", shardings=[None])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        FleetModelStore().acquire(0, "f", models["tm"], models["tp"],
-                                  sharding_for=lambda n, s: None,
-                                  device="cpu")

@@ -1795,3 +1795,137 @@ def test_vlm_reduced_round_replay_equals_eager_body(cuda_device):
                 if not torch.equal(v, replayed[k])]
     assert [k for k in pool if torch.equal(start[k], replayed[k])] == \
         ["cross_k", "cross_v"]
+
+
+# -- sharded pods on the card --------------------------------------------------
+
+
+def _pod_streams(device, shards, batching, sampling=None):
+    """qwen2-7b's smoke cut (4 q over 2 kv heads of 16) served through
+    ``ClusterFrontend(n_nodes=4)`` on the card as a ``shards``-member pod;
+    returns (streams, instance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models import build_model
+    from repro_torch.serving import ClusterFrontend
+
+    model = build_model(get_config("qwen2-7b", reduced=True))
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    fe = ClusterFrontend(n_nodes=4, device=device)
+    fe.place_instance("f", model, params,
+                      Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0),
+                      max_batch=4, max_len=64, batching=batching,
+                      sampling=sampling, shards=shards)
+    rng = np.random.default_rng(3)
+    reqs = [fe.submit("f", rng.integers(0, 256, n).astype(np.int32),
+                      max_new_tokens=8) for n in (5, 17, 30, 9, 12)]
+    fe.pump(budget_s=120.0)
+    assert all(r.done for r in reqs)
+    (p,) = fe.placements
+    return [r.tokens_out for r in reqs], fe.engines[p.node].instances[
+        p.inst_id]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_pod_streams_equal_one_instance_on_the_card(cuda_device, batching,
+                                                    shards):
+    """A pod whose members share the card serves one instance's greedy and
+    sampled streams at the smoke cut's small widths (bf16), its rounds
+    replayed from one captured graph: split heads at 2 members, the
+    replicated pool at 4."""
+    from repro_torch.serving.speculative import SamplingConfig
+
+    for sampling in (None, SamplingConfig(temperature=0.8, top_k=8,
+                                          seed=7)):
+        one, _ = _pod_streams(cuda_device, 1, batching, sampling)
+        pod, inst = _pod_streams(cuda_device, shards, batching, sampling)
+        assert pod == one
+        rg = inst.round_graph
+        assert inst.group.one_device and rg.captures == 1
+        assert rg.replays == inst.rounds - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+def test_pod_round_replay_equals_eager_body(cuda_device, batching):
+    """A 2-member pod's replayed round equals its eager round body bit for
+    bit over the slot tokens and every member's pool leaves (paged: its
+    pages, and the shared page tables, positions and active mask)."""
+    from repro_torch.serving.engine import ServeRequest
+
+    _, inst = _pod_streams(cuda_device, 2, batching)
+    rng = np.random.default_rng(4)
+    for n in (6, 11, 20, 3):
+        inst.queue.append(ServeRequest(
+            req_id=n, prompt=rng.integers(0, 256, n).astype(np.int32),
+            max_new_tokens=12))
+    for _ in range(2):
+        inst.run_step()
+
+    def state():
+        out = {"tok": inst._slot_tok_dev, **{
+            f"{m}{k}": v for m, pool in enumerate(inst.cache)
+            for k, v in pool.items()}}
+        if batching == "paged":
+            out["paged state"] = inst._state_dev
+        return out
+
+    start = {k: v.clone() for k, v in state().items()}
+    inst.round_graph.replay()
+    replayed = {k: v.clone() for k, v in state().items()}
+    for k, v in state().items():
+        v.copy_(start[k])
+    inst._round_body()
+    torch.cuda.synchronize()
+    assert all(torch.equal(v, replayed[k]) for k, v in state().items())
+
+
+@pytest.mark.gpu
+def test_pods_on_other_member_devices_keep_their_own_weights(cuda_device):
+    """Two pods of one function on one primary, with their second member
+    on another card and then on the primary's: each gets member trees on
+    its own members' devices (never the other pod's), and both serve one
+    instance's greedy streams.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.configs import get_config
+    from repro_torch.core.links import NetworkLinks
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models import build_model
+    from repro_torch.serving import ClusterFrontend
+
+    model = build_model(get_config("qwen2-7b", reduced=True))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    links = NetworkLinks(3, default_bps=8e9)
+    links.set_link(0, 1, 64e9)
+    fe = ClusterFrontend(n_nodes=3, links=links,
+                         devices=["cuda:0", "cuda:1", "cuda:0"])
+    alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
+    for fast in ((0, 1), (0, 2)):
+        links.set_link(*fast, 64e9)
+        assert fe.place_instance("f", model, params, alloc, max_batch=4,
+                                 max_len=64, shards=2) is not None
+        links.set_link(*fast, 1e9)
+    insts = [fe.engines[0].instances[p.inst_id] for p in fe.placements]
+    assert [p.member_nodes for p in fe.placements] == [(0, 1), (0, 2)]
+    assert [i.weights_key for i in insts] == ["f@tp2:cuda:0,cuda:1",
+                                              "f@tp2"]
+    for inst in insts:
+        for tree, dev in zip(inst.params, inst.group.devices):
+            assert all(leaf.device == dev for leaf in _tree_leaves(tree))
+    one, _ = _pod_streams(cuda_device, 1, "continuous")
+    rng = np.random.default_rng(3)
+    reqs = [fe.submit("f", rng.integers(0, 256, n).astype(np.int32),
+                      max_new_tokens=8) for n in (5, 17, 30, 9, 12)]
+    fe.pump(budget_s=120.0)
+    assert [r.tokens_out for r in reqs] == one
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
