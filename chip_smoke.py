@@ -205,13 +205,43 @@ place), and then:
    cuBLAS's products over a member's columns came out bit-equal to the
    full product's, ``scripts/pod_exactness_probe.py``).  The kernel phase holds
    flash, dense and paged decode at the members' geometries (14 q over 2
-   kv heads, 7 over 1, of 128).
+   kv heads, 7 over 1, of 128);
+8. training phase (last) — the autograd Functions of flash, WKV-6 and the
+   selective scan (kernel forward, plain backward) at the trained shapes:
+   their input gradients against autograd of the plain versions on the
+   card within 2e-2 (flash causal at qwen2-7b's 4 x 512 rows, windowed
+   at hymba's 4 x 640 with windows 1024 and 33, not causal at seamless's
+   encoder, 4 x 1024 frames; WKV-6 at rwkv6-1.6b's 4 x 512, 4 x 16 and
+   4 x 1 tokens; the scan at hymba's 4 x 640 rows, N = 16), each beside
+   its kernel forward's, plain backward's and (flash) SDPA's forward +
+   backward time and the bound for forward + backward; a 2-layer model
+   of qwen2-7b's heads (28 q / 4 kv of 128, qkv bias) whose step-0 loss
+   and every leaf's gradient on the card are held against the same
+   weights in f32 on the CPU; then qwen2-7b's widths (d=3584, d_ff 18944,
+   V=152064) with the depth cut to the most layers whose training state
+   fits the card (``train_layers``), rwkv6-1.6b and hymba-1.5b whole,
+   random bf16 weights from the seed: the step-0 loss and ``grad_norm``
+   through the kernels against the plain path on the card within 2e-2
+   (rwkv6's norm logged only: its gradient at random weights amplifies
+   rounding about 1e9-fold; a witness holds its backward instead:
+   ``Wkv6ScanFn`` at the model's first and last layers' own inputs
+   against the loop, and in f64 the chunked algorithm against the loop
+   over the first ``WITNESS_LAYERS`` layers, every leaf), then 5 steps
+   of 4 x 512
+   tokens of the training stream with remat and bf16 gradients, the
+   counts of that run (each family's kernels must run), steps/s,
+   tokens/s, peak memory and a profiled step's device time split into
+   the forward kernels, the plain backward, the update, the matmuls and
+   the rest; last ``launch.train --preset 100m --steps 300``, whose mean
+   loss over the last 5 steps must fall below 0.8 of the first 5's.
 
 Prints the card's name and power limit, one JSON line of per-kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero, and so does a machine without a card.
 
 Usage:  python3 chip_smoke.py
+        python3 chip_smoke.py --witness-layers 24  (the f64 witness over
+                                                    all of rwkv6's layers)
         python3 chip_smoke.py --windows CHECKOUT   (see ``windows_phase``)
 """
 
@@ -4792,6 +4822,625 @@ def step_kernel_sass(name: str, lines: list[str]) -> None:
                              f"kernel stages through shared memory")
 
 
+# --------------------------------------------------------------------------
+# 8. training: the kernels' autograd Functions, a reference step, qwen2-7b's
+#    widths, rwkv6-1.6b and hymba-1.5b, the 100m preset
+# --------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 5
+TRAIN_HEADROOM = 6e9  # bytes beside the 12-byte-a-param state and logits:
+#                       one layer's recompute, the plain backward's
+#                       transients, the update's slices (PERF.md §4)
+GRAD_TOL = 5e-2       # bf16 gradients on the card vs f32 on the CPU, as
+#                       max |diff| / max |reference| a leaf (REF_TOL's)
+PRESET_STEPS = 300
+TOP_LEAVES = ("['head']", "['ln_f']")  # above every layer
+TIME_MIX = "['layers']['tm']"                # rwkv6's time-mix leaves
+WITNESS_TOL = 1e-4  # f64 chunked vs f64 loop, max |diff| / max |ref| a leaf
+WITNESS_LAYERS = 6  # rwkv6's first layers the f64 witness runs (the f64
+#                     loop costs about 1 s a layer; --witness-layers 24
+#                     runs the whole model, PERF.md 6)
+# rwkv6-1.6b's step-0 gradient norm is not held against the plain path's:
+# at its random weights the gradient is ill-conditioned.  At the first
+# token (a zero WKV state) a head's output is one scalar r.(u*k) times v,
+# and where that scalar is small its group norm (eps 1e-6) sits near its
+# singular point; the gradient through those heads compounds over the 24
+# layers, and any rounding of the forward moves it: in f64 its norm is
+# 6.03e5, through the chunked algorithm in f32 6.0e5 pointing elsewhere,
+# through the kernels in bf16 2.6e3 (PERF.md 6).  Held instead
+# (``wkv6_witness``): Wkv6ScanFn at the model's own layer inputs, and in
+# f64 the chunked algorithm its backward differentiates against the
+# loop, every leaf.
+NORM_BY_WITNESS = (RWKV_ARCH,)
+
+
+def _step_grads(model, params, batch, remat=True):
+    """(loss, gradients in ``leaves(params)`` order) of the train step's
+    loss (``TrainStepConfig``'s aux weight), as ``make_train_step``
+    differentiates it, without an update."""
+    import torch
+    from repro_torch.training import TrainStepConfig, cross_entropy
+    from repro_torch.training.tree import leaves, rebuild
+
+    dev = leaves(params)[0].device
+    diff = [p.detach().requires_grad_() for p in leaves(params)]
+    logits, aux = model.forward(rebuild(params, diff),
+                                batch["tokens"].to(dev), remat=remat)
+    loss = (cross_entropy(logits, batch["labels"].to(dev))
+            + TrainStepConfig().aux_weight * aux)
+    del logits
+    return loss.detach(), torch.autograd.grad(loss, diff)
+
+
+class _PlainOps:
+    """Within the block, the models' three training kernels run their
+    plain versions on the card, differentiated by autograd directly: the
+    scans' chunked algorithms, as their Functions' backward runs them
+    there (``wkv6_backward_plain``, ``ssm_backward_plain``), or WKV-6's
+    loop where ``loop`` is set."""
+
+    def __init__(self, loop: bool = False):
+        self.loop = loop
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ops, ssm_scan, wkv6
+        self.ops, self.saved = ops, {n: getattr(ops, n) for n in (
+            "flash_attention", "wkv6_scan", "ssm_scan")}
+        ops.flash_attention = fa.flash_attention_plain
+        ops.wkv6_scan = (wkv6.wkv6_scan_plain if self.loop
+                         else wkv6.wkv6_backward_plain)
+        ops.ssm_scan = lambda *a, state_out=None: ssm_scan.ssm_backward_plain(
+            *a)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+
+
+class _F64:
+    """Within the block ``Tensor.float()`` gives f64, so the models and the
+    plain versions, which compute in f32 by casting with it, compute in
+    f64 on f64 weights: the witness of a gradient that f32 rounding
+    moves."""
+
+    def __enter__(self):
+        import torch
+        self.saved = torch.Tensor.float
+        torch.Tensor.float = lambda t: t.double()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.Tensor.float = self.saved
+
+
+def _grad_gap(grads, ref, names) -> dict:
+    """How far ``grads`` lies from ``ref`` (same leaves, ``names`` their
+    paths): the two norms and their relative gap, ||g - ref|| / ||ref||
+    over all leaves, the worst leaf's max |diff| / max |ref|, and the
+    same whole-slice gap for the first and the last layer's time-mix
+    leaves."""
+    def sq(xs):
+        return float(sum(x.double().square().sum() for x in xs))
+
+    diff = [g.double() - r.double() for g, r in zip(grads, ref)]
+    norm, ref_norm = math.sqrt(sq(grads)), math.sqrt(sq(ref))
+    out = dict(norm=norm, ref_norm=ref_norm,
+               norm_rel=abs(norm - ref_norm) / ref_norm,
+               total_rel=math.sqrt(sq(diff)) / ref_norm,
+               worst_leaf=max((d.abs().max() / r.double().abs().max().clamp(
+                   min=1e-30)).item() for d, r in zip(diff, ref)))
+    tm = [i for i, n in enumerate(names) if n.startswith(TIME_MIX)]
+    for key, layer in (("first_tm", 0), ("last_tm", -1)):
+        if tm:
+            num = sq([diff[i][layer] for i in tm])
+            out[key] = math.sqrt(num / max(sq([ref[i][layer] for i in tm]),
+                                           1e-300))
+    return out
+
+
+def _gap_text(g: dict) -> str:
+    return (f"grad_norm {g['norm']:.5f} vs {g['ref_norm']:.5f} (rel "
+            f"{g['norm_rel']:.3e}); ||diff|| / ||ref|| {g['total_rel']:.3e}; "
+            f"worst leaf {g['worst_leaf']:.3e}; first / last layer's "
+            f"time-mix {g.get('first_tm', 0):.3e} / {g.get('last_tm', 0):.3e}")
+
+
+def wkv6_witness(model, params, batch, dev, layers) -> None:
+    """rwkv6-1.6b at full width, step 0, two holds through the WKV-6
+    backward:
+
+    * ``Wkv6ScanFn`` (the kernel forward, the chunked algorithm's
+      backward) at the inputs the model gives its first and last layers'
+      scans on ``batch`` (its own decays): input gradients against
+      autograd of the loop within ``TOL``, for a random output gradient;
+    * the model cut to its first ``layers`` layers (the same weights), in
+      f64 (``_F64``) through the plain versions: the chunked algorithm
+      at ``grad_chunk(S)``, what the Function's backward differentiates
+      on the card, against the loop, every leaf within ``WITNESS_TOL``.
+
+    Logged, not held: how far the f32 chunked path's and the bf16
+    kernels' gradients lie from the f64 loop's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels import ops, wkv6
+    from repro_torch.kernels.grad import grad_chunk
+    from repro_torch.models import build_model
+    from repro_torch.training.tree import leaves, paths, rebuild
+
+    captured, scan = [], ops.wkv6_scan
+    ops.wkv6_scan = lambda *a: captured.append(a) or scan(*a)
+    try:
+        with torch.no_grad():
+            model.forward(params, batch["tokens"].to(dev))
+    finally:
+        ops.wkv6_scan = scan
+    rng = np.random.default_rng(SEED + 30)
+    for label, x in (("first", captured[0]), ("last", captured[-1])):
+        outs = [torch.from_numpy(rng.standard_normal(t.shape).astype(
+            np.float32)).to(dev).to(t.dtype) for t in (x[0], x[5])]
+        xs_k = [t.detach().clone().requires_grad_() for t in x]
+        torch.autograd.backward(ops.wkv6_scan(*xs_k), outs)
+        xs_p = [t.detach().clone().requires_grad_() for t in x]
+        torch.autograd.backward(wkv6.wkv6_scan_plain(*xs_p), outs)
+        errs = [((a.grad.float() - b.grad.float()).abs().max()
+                 / b.grad.float().abs().max().clamp(min=1e-30)).item()
+                for a, b in zip(xs_k, xs_p)]
+        w = x[3].float()
+        if not all(e <= TOL for e in errs):
+            raise AssertionError(f"wkv6 grad at rwkv6's {label} layer: "
+                                 f"input gradient rel errs {errs}")
+        log(f"train-kernel wkv6 at rwkv6-1.6b's {label} layer's inputs "
+            f"(B={x[0].shape[0]} S={x[0].shape[1]}, decays w in "
+            f"[{w.min().item():.4f}, {w.max().item():.4f}]): Wkv6ScanFn's "
+            f"input grads (r k v w u state) within "
+            f"{[round(e, 6) for e in errs]} of the loop's autograd (limit "
+            f"{TOL})")
+    del captured
+    depth, seq = model.cfg.n_layers, batch["tokens"].shape[1]
+    if layers < depth:
+        model = build_model(dataclasses.replace(model.cfg, n_layers=layers))
+        params = {**params, "layers": _tree(params["layers"],
+                                            lambda t: t[:layers])}
+    names = [n for n, _ in paths(params)]
+
+    def grads(p, loop=False):
+        with _PlainOps(loop=loop):
+            return _step_grads(model, p, batch)[1]
+
+    t0 = time.perf_counter()
+    p64 = rebuild(params, [t.double() for t in leaves(params)])
+    with _F64():
+        ref = grads(p64, loop=True)
+        t_loop = time.perf_counter() - t0
+        f64 = _grad_gap(grads(p64), ref, names)
+    del p64
+    f32 = _grad_gap(grads(rebuild(params, [t.float() for t in leaves(
+        params)])), ref, names)
+    bf16 = _grad_gap(_step_grads(model, params, batch)[1], ref, names)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train {RWKV_ARCH} witness, {layers} of "
+        f"{depth} layers, f64 weights: the chunked "
+        f"algorithm at grad_chunk({seq}) = {grad_chunk(seq)} vs the "
+        f"loop: {_gap_text(f64)} (worst leaf's limit {WITNESS_TOL}); the "
+        f"f64 loop took {t_loop:.1f}s")
+    log(f"train {RWKV_ARCH} witness (not held): f32 weights through the "
+        f"chunked algorithm vs the f64 loop: {_gap_text(f32)}")
+    log(f"train {RWKV_ARCH} witness (not held): bf16 through the kernels "
+        f"vs the f64 loop: {_gap_text(bf16)}")
+    if not f64["worst_leaf"] <= WITNESS_TOL:
+        raise AssertionError(f"train {RWKV_ARCH} witness: f64 chunked vs "
+                             f"loop {f64}")
+
+
+def _fb_times(fn, inputs, grad_out, iters=10) -> tuple[float, float]:
+    """(forward ms, backward ms) of ``fn`` under autograd, CUDA events."""
+    import torch
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    fwd = time_ms([lambda: fn(*xs)], iters)
+    outs = iter([fn(*xs) for _ in range(iters + 1)])  # time_ms: 1 warm-up
+
+    def back():
+        o = next(outs)
+        o = o if isinstance(o, tuple) else (o,)
+        torch.autograd.grad(o, xs, grad_out[:len(o)])
+    return fwd, time_ms([back], iters)
+
+
+def function_grads(dev) -> None:
+    """Each autograd Function at the trained shapes: its input gradients on
+    the card against autograd of the plain version there (flash's equal by
+    construction, its backward recomputing that version, so flash's
+    kernel forward is held against the plain one too; flash causal at
+    qwen2-7b's 4 x 512 rows, windowed at hymba's 4 x 640 with window 1024
+    and at 33, not causal at seamless's encoder, 4 x 1024 frames; WKV-6
+    at rwkv6-1.6b's 4 x 512 tokens, from S = 16 and at S = 1; the scan at
+    hymba's 4 x 640 rows, N = 16), and the forward kernel's, the plain
+    backward's and (flash) SDPA's forward + backward times beside the
+    bound for forward + backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssm_scan, wkv6
+
+    rng = np.random.default_rng(SEED + 29)
+    b = TRAIN_B
+
+    def rand(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) * scale).to(torch.bfloat16)
+
+    def grads(fn, inputs, outs_like):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        out = fn(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.autograd.backward(out, outs_like[:len(out)])
+        return [x.grad for x in xs]
+
+    def rel(name, got, want):
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.isfinite(g.float()).all():
+                raise AssertionError(f"{name}: non-finite gradient {i}")
+            e = ((g.float() - w.float()).abs().max()
+                 / w.float().abs().max().clamp(min=1e-30)).item()
+            if not e <= TOL:
+                raise AssertionError(f"{name}: input {i} gradient rel err "
+                                     f"{e} > {TOL}")
+            worst = max(worst, e)
+        return worst
+
+    flash_cases = [("causal, qwen2-7b", 512, 512, 28, 4, 128, True, None),
+                   ("window 1024, hymba", 640, 640, 25, 5, 64, True, 1024),
+                   ("window 33, hymba heads", 640, 640, 25, 5, 64, True, 33),
+                   ("not causal, seamless encoder", 1024, 1024, 16, 16, 64,
+                    False, None)]
+    for label, sq, sk, h, kv, d, causal, window in flash_cases:
+        q, k, v = rand(b, sq, h, d), rand(b, sk, kv, d), rand(b, sk, kv, d)
+        do = [rand(b, sq, h, d)]
+        kw = dict(causal=causal, window=window)
+        before = fa.flash_attention.launches
+        got = grads(lambda *x: ops.flash_attention(*x, **kw), (q, k, v), do)
+        if fa.flash_attention.launches != before + 1:
+            raise AssertionError(f"flash grad {label}: the kernel did not "
+                                 f"run the forward")
+        err = rel(f"flash grad {label}", got, grads(
+            lambda *x: fa.flash_attention_plain(*x, **kw), (q, k, v), do))
+        with torch.no_grad():  # the gradients agree by construction
+            fwd_err = (ops.flash_attention(q, k, v, **kw).float()
+                       - fa.flash_attention_plain(q, k, v, **kw).float()
+                       ).abs().max().item()
+        if not fwd_err <= TOL:
+            raise AssertionError(f"flash forward {label}: max abs err "
+                                 f"{fwd_err} > {TOL}")
+        pairs = causal_pairs(sq, window) if causal else sq * sk
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+        bnd, by = bound(3.5 * 4 * b * h * d * pairs, nbytes)
+        fwd, bwd = _fb_times(lambda *x: ops.flash_attention(*x, **kw),
+                             (q, k, v), do)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_in = [x.detach().clone().requires_grad_() for x in (qt, kt, vt)]
+        dot = do[0].transpose(1, 2).contiguous()
+        mask = None
+        if window is not None and window < sq:
+            i = torch.arange(sq, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                  - window)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(
+                *sdpa_in, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+            torch.autograd.grad(o, sdpa_in, dot)
+        log(f"train-kernel flash {label} (B={b} Sq={sq} Sk={sk} {h} q / "
+            f"{kv} kv of {d}): kernel forward within {fwd_err:.5f} (max abs) "
+            f"of the plain version; input grads within {err:.5f} of the "
+            f"plain version's autograd (its own recompute, so equal by "
+            f"construction); kernel forward {fwd:.5f} ms, plain "
+            f"backward {bwd:.5f} ms, SDPA forward + backward "
+            f"{time_ms([sdpa], 10):.5f} ms, bound (forward + backward) "
+            f"{bnd:.5f} ms ({by})")
+    h, d = 32, 64
+    for s in (TRAIN_S, 16, 1):
+        x = [rand(b, s, h, d), rand(b, s, h, d), rand(b, s, h, d),
+             (-torch.exp(rand(b, s, h, d, scale=0.3).float()) - 0.01).to(
+                 torch.bfloat16), rand(h, d), rand(b, h, d, d).float()]
+        outs = [rand(b, s, h, d), rand(b, h, d, d).float()]
+        err = rel(f"wkv6 grad S={s}", grads(ops.wkv6_scan, x, outs),
+                  grads(wkv6.wkv6_scan_plain, x, outs))
+        seq = b * s * h * d
+        bnd, by = bound(3 * 5 * seq * d, 2 * 10 * seq + 3 * 4 * b * h * d * d)
+        fwd, bwd = _fb_times(ops.wkv6_scan, x, outs)
+        log(f"train-kernel wkv6 S={s} (B={b} H={h} D={d}): input grads "
+            f"within {err:.5f} of the plain loop's autograd; kernel forward "
+            f"{fwd:.5f} ms, plain backward {bwd:.5f} ms, bound (forward + "
+            f"backward) {bnd:.5f} ms ({by})")
+    h, n, s = 25, 16, 640
+    x = list(ssm_inputs(rng, dev, b, s, h, 0.0))
+    outs = [rand(b, s, h, d), rand(b, h, d, n).float()]
+    err = rel("ssm grad", grads(ops.ssm_scan, x, outs),
+              grads(ssm_scan.ssm_scan_plain, x, outs))
+    flops, io = ssm_cost(b, s, h)
+    bnd, by = bound(3 * flops, 2 * io + 2 * b * s * h * d)
+    fwd, bwd = _fb_times(ops.ssm_scan, x, outs)
+    log(f"train-kernel ssm S={s} N={n} (B={b} H={h} D={d}): input grads "
+        f"within {err:.5f} of the plain loop's autograd; kernel forward "
+        f"{fwd:.5f} ms, plain backward {bwd:.5f} ms, bound (forward + "
+        f"backward) {bnd:.5f} ms ({by})")
+
+
+def train_reference(dev) -> None:
+    """A 2-layer model with qwen2-7b's heads (28 q / 4 kv of 128, qkv
+    bias; cut: d 3584 -> 1024, d_ff 18944 -> 2048, V 152064 -> 1024),
+    zero leaves filled: its step-0 loss and every leaf's gradient on the
+    card (bf16, through the kernels' Functions) against the same weights
+    in f32 on the CPU (the plain versions), 2 x 256 tokens of the
+    training stream."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.tree import paths
+
+    cfg = ModelConfig(name="qwen2-7b-heads-train", family="dense",
+                      n_layers=2, d_model=1024, n_heads=28, n_kv_heads=4,
+                      head_dim=128, d_ff=2048, vocab_size=1024,
+                      qkv_bias=True, mlp="swiglu", rope_theta=1e6)
+    model = build_model(cfg)
+    p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)),
+                    SEED + 2)
+    batch = make_batch(cfg.vocab_size, 2, 256, 0, seed=SEED)
+    loss, grads = _step_grads(model, _tree(p_cpu, lambda t: t.to(dev)),
+                              batch)
+    ref_loss, ref = _step_grads(model, _tree(p_cpu, lambda t: t.float()),
+                                batch, remat=False)
+    lrel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+    worst, names = 0.0, [path for path, _ in paths(p_cpu)]
+    for name, g, r in zip(names, grads, ref):
+        g = g.float().cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"train reference {name}: non-finite")
+        e = ((g - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, e)
+        if e > GRAD_TOL:
+            raise AssertionError(f"train reference {name}: gradient rel "
+                                 f"err {e} > {GRAD_TOL}")
+    if not lrel <= TOL:
+        raise AssertionError(f"train reference: loss {loss.item()} vs "
+                             f"{ref_loss.item()}")
+    log(f"train reference: 2-layer d=1024 28 q / 4 kv of 128 model, step-0 "
+        f"loss {loss.item():.5f} on the card vs {ref_loss.item():.5f} in f32 "
+        f"on the CPU (rel {lrel:.5f}, limit {TOL}); {len(names)} leaves' "
+        f"gradients within {worst:.5f} (max |diff| / max |ref|, limit "
+        f"{GRAD_TOL})")
+
+
+def step_split(prof) -> str:
+    """A profiled train step's device time: the port's forward kernels
+    (forward and remat recompute), the Functions' plain backward
+    (``plain_backward`` ranges), the update (``AdamW.update``), cuBLAS
+    matmuls outside both, and the rest.  A kernel belongs to a range when
+    it starts inside the range's span on the device's timeline (the
+    profiler mirrors each host range there as an annotation).  Reads the
+    profiler's raw device records: building its event tree for a step of
+    a few hundred thousand ops takes longer than the step."""
+    from torch.autograd import DeviceType
+
+    def ns(e, what):
+        if hasattr(e, f"{what}_ns"):
+            return getattr(e, f"{what}_ns")()
+        return getattr(e, f"{what}_us")() * 1000
+
+    labels = {"plain_backward": "plain backward",
+              "AdamW.update": "optimizer"}
+    events = [(e.name(), ns(e, "start"), ns(e, "duration"))
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() != DeviceType.CPU]
+    spans = {label: sorted((t, t + d) for name, t, d in events
+                           if name == label) for label in labels}
+    kernels = [x for x in events if x[0] not in labels]
+    if not kernels or not all(spans.values()):
+        return "not measured (no device time or no device-side ranges)"
+
+    def label_of(t):
+        for label, sp in spans.items():
+            i = bisect.bisect_right(sp, (t, math.inf)) - 1
+            if i >= 0 and t < sp[i][1]:
+                return labels[label]
+        return None
+
+    gemm = ("nvjet", "gemm", "cutlass", "xmma")
+    parts = dict.fromkeys(("forward kernels", "plain backward", "optimizer",
+                           "matmuls outside them", "the rest"), 0.0)
+    for name, t, d in kernels:
+        part = label_of(t) or (
+            "forward kernels" if _port_name(name) else
+            "matmuls outside them" if any(g in name for g in gemm)
+            else "the rest")
+        parts[part] += d / 1e3
+    total = sum(parts.values())
+    return f"device {total / 1e3:.2f} ms: " + ", ".join(
+        f"{k} {v / 1e3:.2f} ms ({v / total:.3f})" for k, v in parts.items())
+
+
+def train_layers(model) -> tuple[int, str]:
+    """The most layers of ``model``'s widths whose training state fits the
+    card: params, bf16 gradients and f32 moments (12 bytes a param), the
+    f32 logits and their gradient path (four B x S x V f32 tensors) and
+    ``TRAIN_HEADROOM``, within 0.9 of the card's memory."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+
+    def n(layers):
+        return build_model(dataclasses.replace(cfg, n_layers=layers)) \
+            .n_params()
+    per_layer, base = n(2) - n(1), 2 * n(1) - n(2)
+    logits = 4 * TRAIN_B * TRAIN_S * cfg.padded_vocab * 4
+    total = torch.cuda.get_device_properties(0).total_memory
+    fit = int((0.9 * total - logits - TRAIN_HEADROOM - 12 * base)
+              // (12 * per_layer))
+    layers = max(1, min(cfg.n_layers, fit))
+    need = 12 * (base + layers * per_layer) + logits + TRAIN_HEADROOM
+    return layers, (f"{per_layer} params a layer, {base} outside them; "
+                    f"{layers} layers: 12 x {base + layers * per_layer} + "
+                    f"{logits} (logits) + {TRAIN_HEADROOM:.0f} = {need} "
+                    f"bytes of {total}")
+
+
+def train_arch(arch, want, dev, witness_layers=WITNESS_LAYERS) -> None:
+    """``arch`` at full width (depth cut to fit, for qwen2-7b), random bf16
+    weights from the seed: the step-0 loss and ``grad_norm`` through the
+    kernels against the plain path on the card, then ``TRAIN_STEPS``
+    steps of B x S tokens of the training stream with remat and bf16
+    gradients, the launch counts of the steps (each of ``want`` must
+    run), steps/s, tokens/s, peak memory and a profiled step's split."""
+    import dataclasses
+    import gc
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamW, TrainStepConfig, make_train_step
+    from repro_torch.training.data import batch_iterator
+    from repro_torch.training.tree import paths
+
+    t_arch = time.perf_counter()
+    model = build_model(get_config(arch))
+    cut = ""
+    if arch == ARCH:
+        layers, reckoning = train_layers(model)
+        model = build_model(dataclasses.replace(model.cfg, n_layers=layers))
+        cut = (f", depth cut {get_config(arch).n_layers} -> {layers} "
+               f"({reckoning})")
+    cfg = model.cfg
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    batches = batch_iterator(cfg.vocab_size, TRAIN_B, TRAIN_S, seed=SEED)
+    first = next(batches)
+
+    def loss_norms(plain):
+        """(loss, the gradient's norm, the head's and ln_f's norms)."""
+        if plain:
+            with _PlainOps():
+                loss, grads = _step_grads(model, params, first)
+        else:
+            loss, grads = _step_grads(model, params, first)
+        norms = dict(zip((n for n, _ in paths(params)),
+                         (g.float().norm() for g in grads)))
+        return (loss.item(),
+                torch.sqrt(sum(n * n for n in norms.values())).item(),
+                [norms[k].item() for k in TOP_LEAVES])
+
+    t0 = time.perf_counter()
+    (loss_k, norm_k, top_k), (loss_p, norm_p, top_p) = (loss_norms(False),
+                                                        loss_norms(True))
+    if arch in NORM_BY_WITNESS:
+        wkv6_witness(model, params, first, dev, witness_layers)
+    t_check = time.perf_counter() - t0
+    lrel = abs(loss_k - loss_p) / abs(loss_p)
+    nrel = abs(norm_k - norm_p) / norm_p
+    trel = max(abs(a - b) / b for a, b in zip(top_k, top_p))
+    held = arch not in NORM_BY_WITNESS
+    if not (lrel <= TOL and trel <= TOL and math.isfinite(norm_k)
+            and (nrel <= TOL or not held)):
+        raise AssertionError(f"train {arch}: step 0 through the kernels "
+                             f"(loss {loss_k}, grad_norm {norm_k}, head and "
+                             f"ln_f {top_k}) vs the plain path ({loss_p}, "
+                             f"{norm_p}, {top_p})")
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt, TrainStepConfig(remat=True,
+                                                       grad_compress=True))
+    state = opt.init(params)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, times, batch = [], [], first
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        batch = next(batches)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    missing = [k for k in want if not launches[k]]
+    if missing or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {arch}: losses {losses}, launches "
+                             f"{launches}")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, metrics = step(params, state, batch)
+        torch.cuda.synchronize()
+    split = step_split(prof)
+    t_prof = time.perf_counter() - t0
+    steady = float(np.mean(times[1:]))
+    log(f"train {arch}: full width ({cfg.n_layers}L d={cfg.d_model} "
+        f"V={cfg.vocab_size}{cut}), {model.n_params()} params; step 0 "
+        f"through the kernels loss {loss_k:.5f} grad_norm {norm_k:.5f} vs "
+        f"the plain path {loss_p:.5f} {norm_p:.5f} (rel {lrel:.5f} / "
+        f"{nrel:.5f}{'' if held else ', logged, held by the witness'}; "
+        f"the head's and "
+        f"ln_f's gradient norms within {trel:.5f}; limit {TOL})")
+    log(f"train {arch}: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens "
+        f"(remat, bf16 gradients): losses {[round(x, 5) for x in losses]}; "
+        f"step seconds {[round(t, 4) for t in times]}; steady "
+        f"{1 / steady:.3f} steps/s = {TRAIN_B * TRAIN_S / steady:.1f} "
+        f"tokens/s; max_memory_allocated {peak} bytes; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    log(f"train {arch}: a profiled step: {split}")
+    del params, state, metrics, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train {arch} took {time.perf_counter() - t_arch:.1f}s (the "
+        f"step-0 checks {t_check:.1f}s, the profiled step {t_prof:.1f}s)")
+
+
+def train_preset() -> None:
+    """``launch.train --preset 100m --steps 300`` on the card: the loss's
+    mean over the last 5 steps must fall below 0.8 of the first 5's, as
+    ``tests/test_training.py:36-45`` holds the reference's."""
+    from repro_torch.launch import train as launch_train
+
+    t0 = time.perf_counter()
+    result = launch_train.main(["--preset", "100m", "--steps",
+                                str(PRESET_STEPS)])
+    first = float(np.mean(result.losses[:5]))
+    last = float(np.mean(result.losses[-5:]))
+    if not last < 0.8 * first:
+        raise AssertionError(f"train preset 100m: loss {first} -> {last}")
+    log(f"train preset 100m: {PRESET_STEPS} steps, mean loss of the first "
+        f"5 {first:.4f}, of the last 5 {last:.4f} ({last / first:.3f}, "
+        f"limit 0.8); {result.steps / result.wall_time:.2f} steps/s; took "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def training_phase(witness_layers: int = WITNESS_LAYERS) -> None:
+    import torch
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    function_grads(dev)
+    log(f"train-kernel checks took {time.perf_counter() - t0:.1f}s")
+    train_reference(dev)
+    for arch, want in ((ARCH, ("flash_attention",)),
+                       (RWKV_ARCH, ("wkv6_chunked",)),
+                       (HYBRID_ARCH, ("flash_attention", "ssm_chunked"))):
+        train_arch(arch, want, dev, witness_layers)
+    train_preset()
+    log(f"training phase took {time.perf_counter() - t0:.1f}s")
+
+
 def windows_phase(checkout: Path) -> None:
     """``--windows CHECKOUT``: only the serve runs' tokens/s (the serve
     phase's six modes and request mix, each through ``timed_serve``) and
@@ -4848,6 +5497,9 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--windows", metavar="CHECKOUT", type=Path,
                     help="only the serve runs' tokens/s and the profile "
                          "windows, with src/repro_torch of CHECKOUT")
+    ap.add_argument("--witness-layers", type=int, default=WITNESS_LAYERS,
+                    help="rwkv6's layers the training phase's f64 witness "
+                         "runs (24: all of them)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("[chip_smoke] FAIL: no CUDA device", file=sys.stderr)
@@ -4890,6 +5542,7 @@ def main(argv: list[str]) -> int:
     log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
     pod_reduced()
     launches = serve_phase(rng)
+    training_phase(args.witness_layers)
     extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],
                     **{k: v for k, v in r.items() if k not in extra})

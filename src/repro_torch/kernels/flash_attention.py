@@ -7,8 +7,11 @@ Plain version: the counterpart of ``repro/kernels/ops.py::_xla_flash``
 (chunked online softmax, ragged tails padded and masked).
 
 ``flash_attention`` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor, or raises; ``flash_attention.
-launches`` counts kernel launches.
+launches the kernel for a CUDA tensor, or raises (as it does for a CUDA
+input that wants a gradient: the kernel gives none);
+``flash_attention.launches`` counts kernel launches.
+``FlashAttentionFn`` gives the call a gradient (``ops.flash_attention``
+takes it under autograd): the kernel forward, a plain backward.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import recompute_grads, refuse_grad
 
 NEG_INF = -1e30
 
@@ -99,6 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     b, sq, h, d = q.shape
     kb, sk, n_kv, kd = k.shape
     if v.shape != k.shape or kb != b or kd != d or h % n_kv:
@@ -123,3 +128,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient.  The forward is the wrapper:
+    the kernel on the card, the plain version on the CPU.  The backward
+    recomputes ``flash_attention_plain`` under autograd from the saved q,
+    k, v and returns its input gradients.  That is how JAX's training
+    gets this gradient: XLA differentiates the plain chunked path of
+    ``ops`` (``_xla_flash``), outside any Pallas kernel, so there is no
+    backward kernel to port (a hand-written one, FlashAttention-2 style
+    from a saved log-sum-exp, is ROADMAP.md Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, q_offset=q_offset)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = recompute_grads(
+            lambda q, k, v: flash_attention_plain(q, k, v, **ctx.kw),
+            ctx.saved_tensors, ctx.needs_input_grad[:3], (do,))
+        return (*grads, None, None, None)

@@ -4,7 +4,12 @@ selective scan, the samplers and the speculative verify).
 
 Each kernel op dispatches on the device of its input: a CPU tensor goes
 to the plain PyTorch version, a CUDA tensor to the hand-written kernel
-(or the call raises — there is no fallback).  The samplers
+(or the call raises — there is no fallback).  Where autograd wants a
+gradient, the three kernels of the training path (``flash_attention``,
+``wkv6_scan``, ``ssm_scan``) go through their autograd Functions instead:
+the same forward, and a backward that recomputes a plain version under
+autograd, as JAX's training differentiates its plain path
+(``kernels/grad.py``).  The samplers
 (``greedy_sample``, ``_filtered_logits``, ``sample_tokens``),
 ``speculative_verify``, ``verify_attention`` and
 ``paged_verify_attention`` have no kernel of their own: the JAX package
@@ -17,20 +22,60 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import keys
+from repro_torch.kernels import ssm_scan as _ssm
+from repro_torch.kernels import wkv6 as _wkv6
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_quant, paged_decode_attention,
     paged_decode_attention_quant)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.kernels.ssm_scan import ssm_scan
-from repro_torch.kernels.wkv6 import wkv6_scan
 
 __all__ = ["flash_attention", "decode_attention", "paged_decode_attention",
            "decode_attention_quant", "paged_decode_attention_quant",
            "wkv6_scan", "ssm_scan", "greedy_sample", "sample_tokens",
            "speculative_verify", "verify_attention",
            "paged_verify_attention"]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention (``kernels/flash_attention.py``), through
+    ``FlashAttentionFn`` where autograd wants a gradient."""
+    if needs_grad(q, k, v):
+        return _flash.FlashAttentionFn.apply(q, k, v, causal, window,
+                                             q_offset)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+
+
+def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WKV-6 recurrence (``kernels/wkv6.py``), through ``Wkv6ScanFn``
+    where autograd wants a gradient."""
+    if needs_grad(r, k, v, w, u, state):
+        return _wkv6.Wkv6ScanFn.apply(r, k, v, w, u, state)
+    return _wkv6.wkv6_scan(r, k, v, w, u, state)
+
+
+def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, state: torch.Tensor,
+             state_out: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan (``kernels/ssm_scan.py``), through ``SsmScanFn``
+    where autograd wants a gradient; that path takes no ``state_out``."""
+    if needs_grad(x, dt, a_log, b, c, state):
+        if state_out is not None:
+            raise ValueError("ssm_scan: state_out is an in-place write, "
+                             "which autograd cannot differentiate; under "
+                             "grad the scan returns its final state")
+        return _ssm.SsmScanFn.apply(x, dt, a_log, b, c, state)
+    return _ssm.ssm_scan(x, dt, a_log, b, c, state, state_out=state_out)
 
 
 def greedy_sample(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:

@@ -8,12 +8,18 @@ decode round, S = 1) and a chunked kernel on the tensor cores from there
 up (prefill).  Each shape has exactly one kernel.  Plain version: the f32
 scan of ``repro/kernels/ops.py::ssm_scan`` (xla path, ops.py:515-548) as a
 loop over time.  ``ssm_chunked_plain`` repeats the chunked kernel's
-algorithm for the tests; nothing on the serving path calls it.
+algorithm: the tests hold it against the loop, and on the card
+``SsmScanFn``'s backward differentiates it (nothing on the serving path
+calls it).
 
 ``ssm_scan`` takes the plain version for a tensor on the CPU and launches
-a kernel for a CUDA tensor, or raises.  ``ssm_scan.launches`` counts its
-launches of either kernel; ``ssm_step.launches`` and
-``ssm_chunked.launches`` count each kernel's own.
+a kernel for a CUDA tensor, or raises (as every wrapper here does for a
+CUDA input that wants a gradient: the kernels give none).
+``ssm_scan.launches`` counts its launches of either kernel;
+``ssm_step.launches`` and ``ssm_chunked.launches`` count each kernel's
+own.  ``SsmScanFn`` gives the scan a gradient (``ops.ssm_scan`` takes it
+under autograd): the kernel forward, a plain backward, and no
+``state_out``.
 
 ``state_out``: ``ssm_scan``, ``ssm_step`` and ``ssm_chunked`` write the
 final state into a buffer the caller gives, which may be ``state``
@@ -30,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import (recompute_grads, refuse_grad,
+                                      scan_backward_plain)
 
 STATE_SIZES = (8, 16)  # the kernels' N: hymba's ssm_state, and its reduced one
 ROWS = 16           # state rows (of D) per CTA: D must be a multiple
@@ -177,6 +185,7 @@ def _launch(name: str, fn: str, x, dt, a_log, b, c, state, state_out
             f"a_log{tuple(a_log.shape)} b{tuple(b.shape)} "
             f"c{tuple(c.shape)} state{tuple(state.shape)} (N must be one "
             f"of {STATE_SIZES}, D a multiple of {ROWS})")
+    refuse_grad(name, x, dt, a_log, b, c, state)
     if state_out is None:
         state_out = torch.empty_like(state)
     else:
@@ -245,3 +254,36 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 ssm_step.launches = 0
 ssm_chunked.launches = 0
 ssm_scan.launches = 0
+
+
+def ssm_backward_plain(x, dt, a_log, b, c, state
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version ``SsmScanFn``'s backward differentiates
+    (``grad.scan_backward_plain``): ``ssm_chunked_plain`` at
+    ``grad_chunk(S)`` steps a chunk where the forward ran the chunked
+    kernel, else the loop."""
+    return scan_backward_plain(ssm_scan_plain, ssm_chunked_plain,
+                               CHUNKED_MIN_S, x, dt, a_log, b, c, state)
+
+
+class SsmScanFn(torch.autograd.Function):
+    """``ssm_scan`` with a gradient, and no ``state_out`` (an in-place write
+    of a state autograd saved would corrupt it): the final state comes
+    back in a new buffer.  The forward is the wrapper: a kernel on the
+    card, the plain loop on the CPU.  The backward recomputes the plain
+    version of what the forward ran (``ssm_backward_plain``) under
+    autograd from the saved inputs and returns their gradients.  That is
+    how JAX's training gets this gradient: XLA differentiates the plain
+    scan of ``ops`` (``ssm_scan``'s xla path), outside any Pallas kernel,
+    so there is no backward kernel to port (a hand-written one is
+    ROADMAP.md Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, state):
+        ctx.save_for_backward(x, dt, a_log, b, c, state)
+        return ssm_scan(x, dt, a_log, b, c, state)
+
+    @staticmethod
+    def backward(ctx, d_y, d_state):
+        return recompute_grads(ssm_backward_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad, (d_y, d_state))

@@ -8,13 +8,17 @@ bounds them and what their design does about it): a step kernel for
 tensor cores from there up (prefill).  Each shape has exactly one kernel.
 Plain version: the f32 scan of ``repro/kernels/ops.py::wkv6_scan`` (xla
 path, ops.py:497-512) as a loop over time.  ``wkv6_chunked_plain``
-repeats the chunked kernel's algorithm for the tests; nothing on the
-serving path calls it.
+repeats the chunked kernel's algorithm: the tests hold it against the
+loop, and on the card ``Wkv6ScanFn``'s backward differentiates it
+(nothing on the serving path calls it).
 
 ``wkv6_scan`` takes the plain version for a tensor on the CPU and launches
-a kernel for a CUDA tensor, or raises.  ``wkv6_scan.launches`` counts its
-launches of either kernel; ``wkv6_step.launches`` and
-``wkv6_chunked.launches`` count each kernel's own.
+a kernel for a CUDA tensor, or raises (as every wrapper here does for a
+CUDA input that wants a gradient: the kernels give none).
+``wkv6_scan.launches`` counts its launches of either kernel;
+``wkv6_step.launches`` and ``wkv6_chunked.launches`` count each kernel's
+own.  ``Wkv6ScanFn`` gives the scan a gradient (``ops.wkv6_scan`` takes
+it under autograd): the kernel forward, a plain backward.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.grad import (recompute_grads, refuse_grad,
+                                      scan_backward_plain)
 
 HEAD_SIZE = 64      # the kernels' D (rwkv6 head size)
 CHUNK = 16          # steps per chunk of the chunked kernel (one mma k16)
@@ -32,13 +38,14 @@ def wkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """r, k, v, w (B,S,H,D) (w: log-space decay, negative); u (H,D); state
-    (B,H,D,D) mapping k-dim x v-dim.  Scans in f32 and returns (out in
-    ``r.dtype``, final state in ``state.dtype``)."""
+    (B,H,D,D) mapping k-dim x v-dim.  Scans in the dtype ``Tensor.float``
+    gives (f32) and returns (out in ``r.dtype``, final state in
+    ``state.dtype``)."""
     b, s, h, d = r.shape
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()[None, :, :, None]
     st = state.float()
-    out = torch.empty((b, s, h, d), dtype=torch.float32, device=r.device)
+    out = torch.empty((b, s, h, d), dtype=rf.dtype, device=r.device)
     for t in range(s):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B,H,Dk,Dv)
         out[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], st + uf * kv)
@@ -72,7 +79,7 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()
     st = state.float()
-    out = torch.empty((b, s, h, d), dtype=torch.float32, device=r.device)
+    out = torch.empty((b, s, h, d), dtype=rf.dtype, device=r.device)
     rows = torch.arange(chunk, device=r.device)
     for c0 in range(0, s, chunk):
         n = min(chunk, s - c0)
@@ -93,8 +100,11 @@ def wkv6_chunked_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             upper = (block % 2 == 1)[None, :, None, None]
             ref_t = (block * z - 1).clamp(min=0)        # rows in odd blocks
             ref_s = block * z + z - 1                   # rows in even blocks
+            # Row 0's a_prev - a[0] = -w_0 > 0 in the branch not taken:
+            # zero it, so no exp overflows into the gradient (0 * inf).
             q = torch.where(
-                upper, rc * torch.exp(a_prev - a[:, ref_t]),
+                upper, rc * torch.exp(torch.where(upper, a_prev - a[:, ref_t],
+                                                  0.0)),
                 kc * torch.exp(a[:, ref_s] - a))
             x = rows[:, None] ^ rows[None, :]
             level = (x >= z) & (x < 2 * z) & (rows[:, None] > rows[None, :])
@@ -117,6 +127,7 @@ def _launch(name: str, fn: str, r, k, v, w, u, state
         raise ValueError(
             f"{name}: bad shapes r{tuple(r.shape)} u{tuple(u.shape)} "
             f"state{tuple(state.shape)} (head size must be {HEAD_SIZE})")
+    refuse_grad(name, r, k, v, w, u, state)
     out = torch.empty_like(r)
     new_state = torch.empty_like(state)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -169,3 +180,34 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 wkv6_step.launches = 0
 wkv6_chunked.launches = 0
 wkv6_scan.launches = 0
+
+
+def wkv6_backward_plain(r, k, v, w, u, state
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version ``Wkv6ScanFn``'s backward differentiates
+    (``grad.scan_backward_plain``): ``wkv6_chunked_plain`` at
+    ``grad_chunk(S)`` steps a chunk where the forward ran the chunked
+    kernel, else the loop."""
+    return scan_backward_plain(wkv6_scan_plain, wkv6_chunked_plain,
+                               CHUNKED_MIN_S, r, k, v, w, u, state)
+
+
+class Wkv6ScanFn(torch.autograd.Function):
+    """``wkv6_scan`` with a gradient.  The forward is the wrapper: a
+    kernel on the card, the plain loop on the CPU.  The backward
+    recomputes the plain version of what the forward ran
+    (``wkv6_backward_plain``) under autograd from the saved inputs and
+    returns their gradients.  That is how JAX's training gets this
+    gradient: XLA differentiates the plain scan of ``ops`` (``wkv6_scan``'s
+    xla path), outside any Pallas kernel, so there is no backward kernel
+    to port (a hand-written one is ROADMAP.md Queue 2)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return wkv6_scan(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        return recompute_grads(wkv6_backward_plain, ctx.saved_tensors,
+                               ctx.needs_input_grad, (d_out, d_state))

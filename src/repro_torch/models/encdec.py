@@ -8,8 +8,8 @@ the flash kernel with ``causal=False``; the decoder is a causal
 transformer with a cross-attention layer in every block.  Decode caches:
 each layer's self ``k``/``v`` (full length) and its projected encoder
 output ``cross_k``/``cross_v`` (L, B, S_enc, K, Dh), written once at
-prefill.  JAX's ``forward`` (training) is not ported yet (ROADMAP.md,
-Queue 1 item 12).
+prefill.  ``forward`` (training) encodes the context, then runs the
+decoder over the whole sequence.
 """
 
 from __future__ import annotations
@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec, mlp_apply,
-                                       mlp_specs, rms_norm, stack_tree)
+from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec,
+                                       checkpointed, mlp_apply, mlp_specs,
+                                       rms_norm, stack_tree, unstack)
 from repro_torch.models.transformer import embed_tokens, layer_params, lm_head
 
 
@@ -83,6 +84,32 @@ def _dec_block_full(lp: dict, x: torch.Tensor, enc_out: torch.Tensor,
     x = x + attn.cross_attn_full(lp["xattn"], h, (ck, cv), cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp_apply(lp["mlp"], h, cfg.mlp), k, v, ck, cv
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            ctx: Optional[torch.Tensor] = None, remat: bool = False,
+            train: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f32 logits (B, S, V_padded), a zero f32 aux loss): ``encode`` the
+    context, then every decoder layer over ``tokens`` (encdec.py:89-107);
+    ``remat`` recomputes each decoder layer in the backward, as JAX
+    checkpoints the decoder's body alone.  ``train`` is the family
+    signature's, unused."""
+    del train
+    if ctx is None:
+        raise ValueError(f"{cfg.name}: the encoder-decoder forward needs "
+                         f"a context")
+    enc_out = encode(params, ctx, cfg)
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def body(lp, x):
+        return _dec_block_full(lp, x, enc_out, positions, cfg)[0]
+
+    body = checkpointed(body, remat)
+    for lp in unstack(params["layers"]):
+        x = body(lp, x)
+    return (lm_head(params, x, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,

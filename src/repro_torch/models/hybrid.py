@@ -19,7 +19,8 @@ round.
 
 Decode cache per layer: rolled bf16 K/V (B, C, K, Dh) and the f32 SSM
 state (B, H, Dh, N), written in place by the decode step.  ``forward``
-(training) is not ported yet.
+(training) runs the meta tokens and the sequence through every layer from
+a zero SSM state, the scan returning its state (no ``state_out``).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (COL, EMBED, HEAD, NORM, ROW, PSpec,
-                                       mlp_apply, mlp_specs, rms_norm,
-                                       stack_tree)
+                                       checkpointed, mlp_apply, mlp_specs,
+                                       rms_norm, stack_tree, unstack)
 from repro_torch.models.transformer import (_full_cache, _windowed_cache,
                                             layer_params, lm_head,
                                             local_cache_len)
@@ -98,11 +99,13 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int
 
 
 def _ssm_path(p: dict, x: torch.Tensor, state: torch.Tensor,
-              cfg: ModelConfig, state_out: torch.Tensor) -> torch.Tensor:
+              cfg: ModelConfig, state_out: Optional[torch.Tensor]
+              ) -> torch.Tensor:
     """The Mamba heads (hybrid.py:70-84): ``dt`` is formed in f32 and cast
     to the activation dtype before the scan, which exponentiates it in
     f32 with ``A = -exp(a_log)``.  The scan writes its final state into
-    ``state_out`` (which may be ``state``)."""
+    ``state_out`` (which may be ``state``); without one (training) the
+    state is dropped."""
     b, s, _ = x.shape
     h, dh, n = cfg.n_heads, cfg.dh, cfg.ssm_state
     xin = (x @ p["w_in"]).reshape(b, s, h, dh)
@@ -123,9 +126,9 @@ def _fuse(lp: dict, a: torch.Tensor, m: torch.Tensor,
 
 def _block_full(lp: dict, x: torch.Tensor, state0: torch.Tensor,
                 cfg: ModelConfig, positions: torch.Tensor,
-                state_out: torch.Tensor):
-    """Full-sequence block; the final SSM state goes to ``state_out``.
-    Returns (x, k, v)."""
+                state_out: Optional[torch.Tensor] = None):
+    """Full-sequence block; the final SSM state goes to ``state_out``
+    where one is given.  Returns (x, k, v)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, k, v = attn.attn_full(lp["attn"], h, cfg, positions=positions,
                              window=cfg.sliding_window)
@@ -133,6 +136,40 @@ def _block_full(lp: dict, x: torch.Tensor, state0: torch.Tensor,
     x = x + _fuse(lp, a, m, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp_apply(lp["mlp"], h, cfg.mlp), k, v
+
+
+def _with_meta(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The meta tokens, then the embedded tokens: (B, meta + S, d)."""
+    meta = params["meta"]
+    x = params["embed"][tokens.long()]
+    b = tokens.shape[0]
+    return torch.cat([meta[None].expand(b, *meta.shape).to(x.dtype), x],
+                     dim=1)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            ctx=None, remat: bool = False, train: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f32 logits (B, S, V_padded), a zero f32 aux loss): the meta tokens
+    and ``tokens`` through every layer from a zero SSM state, the meta
+    rows dropped from the logits (hybrid.py:104-125); ``remat`` recomputes
+    each layer in the backward.  ``ctx`` and ``train`` are the family
+    signature's, unused."""
+    del ctx, train
+    x = _with_meta(params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    state0 = torch.zeros((tokens.shape[0], cfg.n_heads, cfg.dh,
+                          cfg.ssm_state), dtype=torch.float32,
+                         device=x.device)
+
+    def body(lp, x):
+        return _block_full(lp, x, state0, cfg, positions)[0]
+
+    body = checkpointed(body, remat)
+    for lp in unstack(params["layers"]):
+        x = body(lp, x)
+    logits = lm_head(params, x[:, params["meta"].shape[0]:], cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -145,10 +182,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     zero state held apart), and ``pos`` = prompt + meta."""
     b, s = tokens.shape
     max_len = max_len or s
-    meta = params["meta"]
-    rows = max_len + meta.shape[0]  # meta + prompt + new tokens
-    x = params["embed"][tokens.long()]
-    x = torch.cat([meta[None].expand(b, *meta.shape).to(x.dtype), x], dim=1)
+    rows = max_len + params["meta"].shape[0]  # meta + prompt + new tokens
+    x = _with_meta(params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     state0 = torch.zeros((b, cfg.n_heads, cfg.dh, cfg.ssm_state),
                          dtype=torch.float32, device=x.device)

@@ -9,11 +9,13 @@ so a JAX param tree bridges over leaf for leaf (``repro_torch.bridge``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.distributed.sharding import TPGroup, gather_cols
 
@@ -91,6 +93,31 @@ def init_params(spec_tree: Any, generator: torch.Generator) -> Any:
         return one(tree)
 
     return walk(spec_tree)
+
+
+def unstack(tree: Any) -> list:
+    """The layers of a stacked tree (every leaf (L, ...)) as L trees of
+    views, cut with one ``torch.unbind`` a leaf: autograd then gathers a
+    leaf's gradients of every layer in one stack onto the stacked leaf,
+    where an indexed view a layer would add a zero-filled gradient of the
+    whole leaf per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+    return torch.unbind(tree)
+
+
+def checkpointed(body: Callable, on: bool) -> Callable:
+    """``body`` itself, or with ``on`` the body recomputed in the backward
+    from its inputs (``torch.utils.checkpoint``, non-reentrant): nothing
+    of the body is kept for the backward, the counterpart of JAX's
+    ``jax.checkpoint(policy=nothing_saveable)``.  The layers draw no
+    random numbers, so the recompute keeps no RNG state."""
+    if not on:
+        return body
+    return functools.partial(torch.utils.checkpoint.checkpoint, body,
+                             use_reentrant=False, preserve_rng_state=False)
 
 
 def param_count(spec_tree: Any) -> int:

@@ -116,6 +116,27 @@ class Model:
     def _int8(self, kv_int8: Optional[bool]) -> bool:
         return self.kv_int8() if kv_int8 is None else kv_int8
 
+    def _check_ctx(self, ctx, what: str) -> None:
+        if (ctx is not None) != self.needs_ctx():
+            raise ValueError(
+                f"{self.cfg.name}: {what} needs a context of shape "
+                f"{self.ctx_shape(1)[0]} a prompt"
+                if self.needs_ctx() else
+                f"{self.cfg.name}: a {self.cfg.family} model takes no context")
+
+    def forward(self, params, tokens, *, ctx=None, remat=False, train=True):
+        """(f32 logits (B, S, V_padded), f32 aux loss) over the whole of
+        ``tokens`` (B, S), for training (model.py:76-80): every family,
+        the vision and encoder-decoder ones with their context ``ctx``.
+        ``remat`` recomputes each layer in the backward; ``train`` runs
+        the moe layers at ``moe_cf_train``.  Under autograd the kernels
+        go through their Functions (``kernels/ops.py``), and a
+        gradient lands on the stacked leaves of ``params``."""
+        self._check_ctx(ctx, "forward")
+        return _FAMILY[self.cfg.family].forward(params, tokens, self.cfg,
+                                                ctx=ctx, remat=remat,
+                                                train=train)
+
     def prefill(self, params, tokens, *, max_len=None, ctx=None,
                 length=None, kv_int8: Optional[bool] = None):
         """(last-position logits (B, V), a cache of ``max_len`` rows).  The
@@ -124,12 +145,7 @@ class Model:
         params' dtype on their device (``ctx_shape``); the others refuse
         it (model.py:84-88)."""
         family = self.cfg.family
-        if (ctx is not None) != self.needs_ctx():
-            raise ValueError(
-                f"{self.cfg.name}: prefill needs a context of shape "
-                f"{self.ctx_shape(1)[0]} a prompt"
-                if self.needs_ctx() else
-                f"{self.cfg.name}: a {family} model takes no context")
+        self._check_ctx(ctx, "prefill")
         if family in ("rwkv", "hybrid", "encdec"):
             if length is not None:
                 raise NotImplementedError(

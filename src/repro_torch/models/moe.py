@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COL, ROW, PSpec
 
@@ -106,11 +107,16 @@ def dispatch(xt: torch.Tensor, r: dict, cfg: ModelConfig,
 def experts(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
     """Every expert's SiLU-gated FFN over its bucket, the activation in f32
     (moe.py:222-225): the (E * cap, D) outputs, then a zero row that
-    dropped pairs read."""
+    dropped pairs read.  Serving writes the last product straight into
+    the output; under autograd, which takes no ``out=``, the rows are
+    concatenated (the same values)."""
     e, cap, d = expert_in.shape
     h_gate = torch.bmm(expert_in, params["w_gate"])
     h_up = torch.bmm(expert_in, params["w_up"])
     h = F.silu(h_gate.float()).to(expert_in.dtype) * h_up
+    if needs_grad(h, params["w_down"]):
+        out = torch.bmm(h, params["w_down"]).view(e * cap, d)
+        return torch.cat([out, out.new_zeros((1, d))])
     flat = torch.empty((e * cap + 1, d), dtype=expert_in.dtype,
                        device=expert_in.device)
     torch.bmm(h, params["w_down"], out=flat[:-1].view(e, cap, d))
@@ -146,10 +152,10 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
               capacity_factor: float = 1.25
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) -> ((B, S, D), aux): the routed experts' combine plus the
-    shared experts, and the Switch load-balancing loss (``aux_loss``; the
-    transformer drops it).  Every one of the B * S rows takes capacity:
-    free decode slots, prompt padding and every row of a verify window
-    (``_capacity`` of B * S)."""
+    shared experts, and the Switch load-balancing loss (``aux_loss``;
+    serving drops it, training adds it to the loss).  Every one of the
+    B * S rows takes capacity: free decode slots, prompt padding and every
+    row of a verify window (``_capacity`` of B * S)."""
     b, s, d = x.shape
     t = b * s
     cap = _capacity(t, cfg, capacity_factor)

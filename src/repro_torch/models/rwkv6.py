@@ -10,7 +10,8 @@ card, the plain f32 scan on the CPU).
 Decode state per layer: (tm_x (B, d), cm_x (B, d), wkv (B, H, 64, 64)
 f32), O(1) in sequence length.  ``tm_x``/``cm_x`` are the last rows of the
 normed inputs of time_mix / channel_mix.  The decode step writes the
-state pools in place.  ``forward`` (training) is not ported yet.
+state pools in place.  ``forward`` (training) runs every layer from a
+zero WKV state and zero token shifts over the whole sequence.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (COL, EMBED, HEAD, NORM, ROW, PSpec,
-                                       rms_norm, stack_tree)
+                                       checkpointed, rms_norm, stack_tree,
+                                       unstack)
 
 DECAY_LORA = 64
 HEAD_SIZE = 64
@@ -159,6 +161,31 @@ def _layer(params: dict, i: int) -> dict:
 def _head(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return (x @ params["head"]).float()[:, 0]
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            ctx=None, remat: bool = False, train: bool = True
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f32 logits (B, S, V_padded), a zero f32 aux loss) over the whole of
+    ``tokens``, every layer from a zero WKV state (rwkv6.py:147-167);
+    ``remat`` recomputes each layer in the backward.  ``ctx`` and
+    ``train`` are the family signature's, unused."""
+    del ctx, train
+    b, _ = tokens.shape
+    h, dh = _heads(cfg)
+    x = rms_norm(params["embed"][tokens.long()], params["ln_in"],
+                 cfg.norm_eps)
+    wkv0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
+
+    def body(lp, x):
+        return _block(lp, x, wkv0, None, None, cfg)[0]
+
+    body = checkpointed(body, remat)
+    for lp in unstack(params["layers"]):
+        x = body(lp, x)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return ((x @ params["head"]).float(),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,

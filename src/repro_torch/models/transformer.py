@@ -32,9 +32,9 @@ from repro_torch.distributed.sharding import TPGroup, on_members
 from repro_torch.kernels import keys, ops
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec, mlp_apply,
-                                       mlp_specs, mlp_tp, rms_norm,
-                                       stack_tree)
+from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec,
+                                       checkpointed, mlp_apply, mlp_specs,
+                                       mlp_tp, rms_norm, stack_tree, unstack)
 from repro_torch.models.moe import moe_apply, moe_specs
 
 
@@ -100,25 +100,31 @@ def layer_params(params: dict, i: int, stack: str = "layers") -> dict:
 # --------------------------------------------------------------------------
 
 
-def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MLP, or for the moe family the expert block at the serving
-    capacity factor ``moe_cf_eval`` (transformer.py:89-94)."""
+def _ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig, train: bool = False
+         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, aux): the MLP and no aux loss (None), or for the moe family
+    the expert block and its f32 load-balancing loss, at the training
+    capacity factor ``moe_cf_train`` (drops allowed) under ``train`` and
+    at the serving one ``moe_cf_eval`` else (transformer.py:89-94)."""
     if cfg.family == "moe":
-        return moe_apply(lp["moe"], x, cfg, cfg.moe_cf_eval)[0]
-    return mlp_apply(lp["mlp"], x, cfg.mlp)
+        cf = cfg.moe_cf_train if train else cfg.moe_cf_eval
+        return moe_apply(lp["moe"], x, cfg, cf)
+    return mlp_apply(lp["mlp"], x, cfg.mlp), None
 
 
 def block_full(lp: dict, x: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor, window: Optional[int] = None
-               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               positions: torch.Tensor, window: Optional[int] = None,
+               train: bool = False):
     """Full-sequence block, attending within ``window`` when one is given.
-    Returns (x, k, v)."""
+    Returns (x, k, v, aux) (``_ffn``'s aux: None but for the moe
+    family)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, k, v = attn.attn_full(lp["attn"], h, cfg, positions=positions,
                              window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg), k, v
+    m, aux = _ffn(lp, h, cfg, train)
+    return x + m, k, v, aux
 
 
 def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -130,7 +136,7 @@ def block_decode(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                rolled=rolled, window=window)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -139,7 +145,7 @@ def block_decode_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     x = x + attn.attn_decode_quant(lp["attn"], h, kc, vc, ksc, vsc, pos, cfg)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
@@ -152,7 +158,7 @@ def block_decode_paged_quant(lp: dict, x: torch.Tensor, kc, vc, ksc, vsc,
     x = x + attn.attn_decode_paged_quant(lp["attn"], h, kc, vc, ksc, vsc,
                                          block_tables, pos, cfg, active)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -165,7 +171,7 @@ def block_decode_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def _gated(x: torch.Tensor, gate: torch.Tensor, y: torch.Tensor
@@ -254,6 +260,49 @@ def local_cache_len(cfg: ModelConfig, max_len: int) -> int:
 
 
 # --------------------------------------------------------------------------
+# Forward (training) — logits over the full sequence (transformer.py:245-313)
+# --------------------------------------------------------------------------
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
+            ctx: Optional[torch.Tensor] = None, remat: bool = False,
+            train: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f32 logits (B, S, V_padded), f32 aux loss) over the whole of
+    ``tokens`` (B, S).  Each self layer is ``block_full`` (moe at
+    ``moe_cf_train`` under ``train``), windowed as prefill windows it
+    (gemma3's global layers in full, its locals and mixtral's every layer
+    within the window); the aux loss sums the moe layers'.  The vision
+    family runs each group's self layers, then its gated cross layer on
+    the raw context ``ctx``.  ``remat`` recomputes each self layer in the
+    backward (``layers.checkpointed``), as JAX checkpoints ``self_body``
+    alone."""
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    layers = unstack(params["layers"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def self_body(lp, x, aux, window):
+        x, _, _, a = block_full(lp, x, cfg, positions=positions,
+                                window=window, train=train)
+        return x, aux if a is None else aux + a
+
+    body = checkpointed(self_body, remat)
+    w = cfg.sliding_window
+    if cfg.family == "vlm":
+        if ctx is None:
+            raise ValueError(f"{cfg.name}: the vision forward needs a context")
+        cross = unstack(params["cross_layers"])
+        for g, idx in _groups(cfg):
+            for i in idx:
+                x, aux = body(layers[i], x, aux, w)
+            x, _, _ = cross_block_full(cross[g], x, ctx, cfg)
+    else:
+        for i, g in enumerate(global_slots(cfg)):
+            x, aux = body(layers[i], x, aux, w if g is None else None)
+    return lm_head(params, x, cfg), aux
+
+
+# --------------------------------------------------------------------------
 # Prefill — forward + emit decode caches
 # --------------------------------------------------------------------------
 
@@ -328,9 +377,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                                                     quant).items()}
     lc = local_cache_len(cfg, max_len)
     for i, g in enumerate(global_slots(cfg)):
-        x, k, v = block_full(layer_params(params, i), x, cfg,
-                             positions=positions,
-                             window=w if g is None else None)
+        x, k, v, _ = block_full(layer_params(params, i), x, cfg,
+                                positions=positions,
+                                window=w if g is None else None)
         for key, t in (("k", k), ("v", v)):
             if w is not None:
                 cache[key][i] = _windowed_cache(t, lc, max_len)
@@ -375,8 +424,8 @@ def _prefill_vlm(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                                                     kv_int8).items()}
     for g, layers in _groups(cfg):
         for i in layers:
-            x, k, v = block_full(layer_params(params, i), x, cfg,
-                                 positions=positions)
+            x, k, v, _ = block_full(layer_params(params, i), x, cfg,
+                                    positions=positions)
             cache["k"][i, :, :s] = k
             cache["v"][i, :, :s] = v
         x, ck, cv = cross_block_full(layer_params(params, g, "cross_layers"),
@@ -572,7 +621,7 @@ def block_verify(lp: dict, x: torch.Tensor, kc: torch.Tensor,
     a, _, _ = attn.attn_verify(lp["attn"], h, kc, vc, pos, cfg)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
@@ -585,7 +634,7 @@ def block_verify_paged(lp: dict, x: torch.Tensor, kc: torch.Tensor,
                                      pos, cfg, active)
     x = x + a
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _ffn(lp, h, cfg)
+    return x + _ffn(lp, h, cfg)[0]
 
 
 def supports_speculative(cfg: ModelConfig, kv_int8: bool = False) -> bool:

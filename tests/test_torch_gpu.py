@@ -1929,3 +1929,152 @@ def _tree_leaves(tree):
             yield from _tree_leaves(v)
     else:
         yield tree
+
+
+# -- gradients: the autograd Functions of the training path's kernels --------
+
+
+def _input_grads(fn, inputs, seed):
+    """Gradients of ``fn(*inputs)`` (a tensor or a tuple) against normal
+    output gradients from ``seed``, for every floating input."""
+    xs = [x.detach().clone().requires_grad_() for x in inputs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=outs[0].device).manual_seed(seed)
+    torch.autograd.backward(outs, [torch.randn(o.shape, generator=gen,
+                                               device=o.device).to(o.dtype)
+                                   for o in outs])
+    return [x.grad for x in xs]
+
+
+def _grads_close(got, want, what):
+    """Each input gradient finite and within 2e-2 of the plain version's,
+    as max |diff| / max |plain| (bf16 gradients of sums over a sequence,
+    in another order)."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g.float()).all(), (what, i)
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp(min=1e-30)).item()
+        assert rel <= 2e-2, (what, i, rel)
+
+
+GRAD_FLASH_CASES = [  # (B, Sq, Sk, causal, window, D, heads)
+    (2, 512, 512, True, None, 128, (28, 4)),    # qwen2-7b's training shape
+    (1, 640, 640, True, 1024, 64, (25, 5)),     # hymba's meta + 512 rows
+    (1, 200, 200, True, 33, 64, (25, 5)),       # a window inside the rows
+    (1, 1024, 1024, False, None, 64, (16, 16)),  # seamless's encoder
+    (2, 77, 100, False, None, 128, (32, 8))]    # a cross attention
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", GRAD_FLASH_CASES)
+def test_flash_function_grads_vs_plain(cuda_device, case):
+    """``ops.flash_attention`` under autograd: the kernel forward (launched
+    once, within 2e-2 of the plain version) and the plain backward.  Its
+    input gradients equal autograd of the plain version by construction
+    (the backward recomputes that version), so the check of the kernel is
+    its forward's agreement at the same causal and window settings."""
+    from repro_torch.kernels import ops
+    b, sq, sk, causal, window, d, (h, kv) = case
+    rng = np.random.default_rng(sq + sk + d)
+    q = _cuda_rand(rng, (b, sq, h, d), cuda_device)
+    k = _cuda_rand(rng, (b, sk, kv, d), cuda_device)
+    v = _cuda_rand(rng, (b, sk, kv, d), cuda_device)
+    kw = dict(causal=causal, window=window)
+    before = fa.flash_attention.launches
+    got = _input_grads(lambda *x: ops.flash_attention(*x, **kw), (q, k, v), 1)
+    assert fa.flash_attention.launches == before + 1
+    want = _input_grads(lambda *x: fa.flash_attention_plain(*x, **kw),
+                        (q, k, v), 1)
+    _grads_close(got, want, f"flash {case}")
+    with torch.no_grad():
+        err = (ops.flash_attention(q, k, v, **kw).float()
+               - fa.flash_attention_plain(q, k, v, **kw).float()).abs().max()
+    assert err.item() <= 2e-2, f"flash {case}: forward max abs err {err}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 16, 77])
+def test_wkv6_function_grads_vs_plain(cuda_device, s):
+    """``ops.wkv6_scan`` under autograd (the step kernel at S = 1, the
+    chunked one from 16), every input's gradient, u and the state
+    included, against autograd of the plain loop."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import wkv6
+    inputs = _wkv_inputs(np.random.default_rng(s), 2, s, 32, cuda_device)
+    before = wkv6.wkv6_scan.launches
+    got = _input_grads(ops.wkv6_scan, inputs, 2)
+    assert wkv6.wkv6_scan.launches == before + 1
+    _grads_close(got, _input_grads(wkv6.wkv6_scan_plain, inputs, 2),
+                 f"wkv6 S={s}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 16, 77])
+def test_ssm_function_grads_vs_plain(cuda_device, s):
+    """``ops.ssm_scan`` under autograd at N = 16 (the step kernel at S = 1,
+    the chunked one from 16) against autograd of the plain loop."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan
+    inputs = _ssm_inputs(np.random.default_rng(s), 2, s, 25, cuda_device)
+    before = ssm_scan.ssm_scan.launches
+    got = _input_grads(ops.ssm_scan, inputs, 3)
+    assert ssm_scan.ssm_scan.launches == before + 1
+    _grads_close(got, _input_grads(ssm_scan.ssm_scan_plain, inputs, 3),
+                 f"ssm S={s}")
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_an_input_that_wants_a_gradient(cuda_device):
+    """Each wrapper raises on a CUDA input that requires grad under grad
+    mode (its output would drop the gradient), never falling back to the
+    plain version; under ``torch.no_grad`` it launches; the scan's
+    autograd path refuses ``state_out``."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssm_scan, wkv6
+    rng = np.random.default_rng(0)
+    q = _cuda_rand(rng, (1, 32, 28, 128), cuda_device)
+    k = _cuda_rand(rng, (1, 32, 4, 128), cuda_device)
+    wkv = _wkv_inputs(rng, 1, 16, 32, cuda_device)
+    ssm = _ssm_inputs(rng, 1, 16, 25, cuda_device)
+    calls = [(fa.flash_attention, (q, k, k)),
+             (wkv6.wkv6_scan, wkv), (wkv6.wkv6_step, wkv),
+             (wkv6.wkv6_chunked, wkv), (ssm_scan.ssm_scan, ssm),
+             (ssm_scan.ssm_step, ssm), (ssm_scan.ssm_chunked, ssm)]
+    for fn, args in calls:
+        wanting = [a.detach().clone().requires_grad_() for a in args]
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="gives no gradient"):
+            fn(*wanting)
+        assert fn.launches == before
+        with torch.no_grad():
+            fn(*wanting)
+        assert fn.launches == before + 1
+    x = [a.detach().clone().requires_grad_() for a in ssm]
+    with pytest.raises(ValueError, match="state_out"):
+        ops.ssm_scan(*x, state_out=torch.empty_like(ssm[-1]))
+
+
+@pytest.mark.gpu
+def test_forward_without_grad_runs_the_serving_kernels(cuda_device):
+    """``Model.forward`` on params that want no gradient (or under
+    ``torch.no_grad``) launches the wrappers as serving does, one flash a
+    layer, records no graph, and its last position's logits are
+    prefill's within 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("qwen2-7b", reduced=True))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, model.cfg.vocab_size, (2, 40)), dtype=torch.int32,
+        device=cuda_device)
+    before = fa.flash_attention.launches
+    logits, aux = model.forward(params, tokens)
+    assert fa.flash_attention.launches == before + model.cfg.n_layers
+    assert not logits.requires_grad and float(aux) == 0.0
+    with torch.no_grad():
+        again, _ = model.forward(params, tokens, remat=True)
+    assert torch.equal(again, logits)
+    last, _ = model.prefill(params, tokens)
+    rel = ((logits[:, -1] - last).abs().max() / last.abs().max()).item()
+    assert rel <= 2e-2, rel
