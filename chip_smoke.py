@@ -196,16 +196,36 @@ place), and then:
    replayed round's device time, kernels and host launch calls; after
    the continuous 2-member pod, a secondary member fails and the
    stranded request finishes on a one-instance replacement with the
-   one-instance stream.  Before it, the
-   reduced configs (qwen2-7b's smoke cut, head dim 16, and a 2-layer
-   model of qwen2-7b's heads, 7 q over 1 kv of 128, whose kv head does
-   not divide a pod) serve the same greedy and sampled streams at 1, 2
-   and 4 members, continuous and paged, in bf16 (the attention kernels
-   take bf16 only; the check holds exactly because at these shapes
-   cuBLAS's products over a member's columns came out bit-equal to the
-   full product's, ``scripts/pod_exactness_probe.py``).  The kernel phase holds
+   one-instance stream.  Then the same runs from int8 KV (no failure):
+   the int8 dense and paged kernels once a layer, member and round.
+   After the gemma3-27b phase its widths cut in depth to what a 4-member
+   pod holds on the card (``pod_layers``: 36 layers, 30 local and 6
+   global; staged on the host, the full tree freed) serve the gemma3
+   phase's 16 prompts (8 past the window), continuous at
+   ``max_len=2048``, and after the qwen2-moe-a2.7b phase that model
+   serves the mix continuous and paged, each on one instance and as
+   2- and 4-member pods held as above (the replayed round over every
+   member's rolled, global, int8 or paged leaves; the decode kernel on
+   gemma3's global layers only),
+   each member's weight bytes below one instance's, and for the moe
+   pods every member routing every token-layer of the prefills and a
+   round to the same experts, equal to one instance's wherever its
+   top-k gate margin exceeds 1e-4 (a member's decode kernels split S as
+   one device's: ``member_split_check`` in the kernel phase holds each
+   member's heads to the whole launch's bit for bit).  Before it, the
+   reduced configs (qwen2-7b's smoke cut, head dim 16, bf16 and int8
+   KV; a 2-layer model of qwen2-7b's heads, 7 q over 1 kv of 128, whose
+   kv head does not divide a pod; gemma3-27b's and mixtral-8x7b's cuts
+   on their windowed caches, continuous; qwen2-moe-a2.7b's) serve the
+   same greedy and sampled streams at 1, 2 and 4 members, continuous
+   and paged, with bf16 weights (the attention kernels take bf16 only;
+   the check holds exactly because at these shapes cuBLAS's products
+   over a member's columns came out bit-equal to the full product's,
+   ``scripts/pod_exactness_probe.py``).  The kernel phase holds
    flash, dense and paged decode at the members' geometries (14 q over 2
-   kv heads, 7 over 1, of 128);
+   kv heads, 7 over 1, of 128), int8 decode at 14 over 2, windowed flash
+   at a 4-member gemma3-27b pod's (8 over 4, window 1024) and decode at
+   a 4-member qwen2-moe-a2.7b pod's (4 over 4);
 8. training phase (last) — the autograd Functions of flash, WKV-6 and the
    selective scan (kernel forward, plain backward) at the trained shapes:
    their input gradients against autograd of the plain versions on the
@@ -248,8 +268,10 @@ Usage:  python3 chip_smoke.py
 from __future__ import annotations
 
 import bisect
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1053,18 +1075,21 @@ def flash_dense_configs(dev) -> None:
                      rand(1, sq, kv, d), window=window)
 
 
-def decode_logged(label, q, kc, vc, lens) -> None:
-    """The bf16 dense decode kernel at one more geometry, held against its
-    plain version and timed (logged) beside SDPA with a length mask (none
-    where every row is at ``cache_len = S``, as a cross layer's context
-    cache) and the bound: the rows ``lens`` holds, read once."""
+def decode_logged(label, q, kc, vc, lens, plan_kv=None) -> None:
+    """The bf16 dense decode kernel at one more geometry (its split of S
+    planned for ``plan_kv`` kv heads, as a pod's member plans it), held
+    against its plain version and timed (logged) beside SDPA with a
+    length mask (none where every row is at ``cache_len = S``, as a cross
+    layer's context cache) and the bound: the rows ``lens`` holds, read
+    once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
 
     b, _, h, d = q.shape
     s, kv = kc.shape[1:3]
-    err = close(f"decode {label}", da.decode_attention(q, kc, vc, lens),
+    err = close(f"decode {label}",
+                da.decode_attention(q, kc, vc, lens, plan_kv=plan_kv),
                 da.decode_attention_plain(q, kc, vc, lens))
     rows = int(lens.clamp(max=s).sum())
     bnd, by = bound(4 * h * d * rows,
@@ -1077,11 +1102,13 @@ def decode_logged(label, q, kc, vc, lens) -> None:
     full = bool((lens == s).all())
     mask = None if full else (torch.arange(s, device=q.device)[None, :]
                               < lens[:, None])[:, None, None, :]
-    calls = [lambda x=x: da.decode_attention(*x, lens) for x in sets]
+    calls = [lambda x=x: da.decode_attention(*x, lens, plan_kv=plan_kv)
+             for x in sets]
     sdpa = [lambda x=x: F.scaled_dot_product_attention(
         *x, attn_mask=mask, enable_gqa=True) for x in tsets]
     log(f"kernel decode_attention at {label} (B={b} S={s} H={h} K={kv} "
-        f"D={d}, cache_len {lens.tolist()}): max_abs_err={err} "
+        f"D={d}, split planned for {plan_kv or kv} kv heads, cache_len "
+        f"{lens.tolist()}): max_abs_err={err} "
         f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
         f"library_ms={time_ms(sdpa)} library_device_ms={device_ms(sdpa)} "
         f"(SDPA, {'no mask' if full else 'mask'}) bound_ms={bnd} ({by})")
@@ -1117,8 +1144,9 @@ def decode_dense_configs(dev) -> None:
                       torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-def paged_logged(label, q, kc, vc, lens, page=16) -> None:
-    """The bf16 paged decode kernel at one more geometry: ``kc``/``vc``
+def paged_logged(label, q, kc, vc, lens, page=16, plan_kv=None) -> None:
+    """The bf16 paged decode kernel at one more geometry (split as
+    ``decode_logged``'s): ``kc``/``vc``
     scattered over ``page``-row pages in a random order, held against the
     plain paged version and timed beside SDPA over the dense layout (with
     a length mask) and the bound: the rows ``lens`` holds and their table
@@ -1132,7 +1160,8 @@ def paged_logged(label, q, kc, vc, lens, page=16) -> None:
     (kp, vp), tables = scatter_pages((kc, vc), page,
                                      np.random.default_rng(SEED + 13))
     err = close(f"paged {label}",
-                da.paged_decode_attention(q, kp, vp, tables, lens),
+                da.paged_decode_attention(q, kp, vp, tables, lens,
+                                          plan_kv=plan_kv),
                 da.paged_decode_attention_plain(q, kp, vp, tables, lens))
     rows = int(lens.sum())
     entries = int((-(-lens // page)).sum())
@@ -1140,7 +1169,8 @@ def paged_logged(label, q, kc, vc, lens, page=16) -> None:
                     + 2 * q.numel() * 2 + 4 * b + 4 * entries)
     n = copies_for(kp.numel() * 4)
     sets = [[x.clone() for x in (q, kp, vp)] for _ in range(n)]
-    calls = [lambda x=x: da.paged_decode_attention(*x, tables, lens)
+    calls = [lambda x=x: da.paged_decode_attention(*x, tables, lens,
+                                                   plan_kv=plan_kv)
              for x in sets]
     dense = [[q.reshape(b, h, 1, d).clone()]
              + [c.transpose(1, 2).contiguous() for c in (kc, vc)]
@@ -1150,20 +1180,25 @@ def paged_logged(label, q, kc, vc, lens, page=16) -> None:
     sdpa = [lambda x=x: F.scaled_dot_product_attention(
         *x, attn_mask=mask, enable_gqa=True) for x in dense]
     log(f"kernel paged_decode_attention at {label} (B={b} pages of {page} "
-        f"rows, M={tables.shape[1]} H={h} K={kv} D={d}, cache_len "
-        f"{lens.tolist()}): max_abs_err={err} ms={time_ms(calls)} "
+        f"rows, M={tables.shape[1]} H={h} K={kv} D={d}, split planned for "
+        f"{plan_kv or kv} kv heads, cache_len {lens.tolist()}): "
+        f"max_abs_err={err} ms={time_ms(calls)} "
         f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
         f"library_device_ms={device_ms(sdpa)} (SDPA over the dense "
         f"layout, mask) bound_ms={bnd} ({by})")
 
 
 def member_geometries(dev) -> None:
-    """The three kernels of a qwen2-7b pod at its members' geometries: a
+    """The kernels of a qwen2-7b pod at its members' geometries: a
     2-member pod's member attends 14 q heads over 2 kv heads of 128, a
     4-member pod's 7 over 1 (G = 7 either way).  Flash causal at a
     512-token prompt (B=1); dense decode at B=8, S=1024 with mixed cache
-    lengths; paged decode over pages of 16 rows; each held against its
-    plain version and timed beside SDPA and the bound."""
+    lengths; paged decode over pages of 16 rows; int8 dense decode at 14
+    over 2.  Then flash windowed at a 4-member gemma3-27b pod's member
+    (1920 rows, 8 over 4, window 1024) and dense decode at a 4-member
+    qwen2-moe-a2.7b pod's (4 over 4).  Each held against its plain
+    version and timed beside SDPA (none computes int8 decode) and the
+    bound."""
     import torch
     gen = np.random.default_rng(SEED + 12)
 
@@ -1179,8 +1214,111 @@ def member_geometries(dev) -> None:
                      rand(1, 512, kv, 128))
         q, kc, vc = (rand(8, 1, h, 128), rand(8, 1024, kv, 128),
                      rand(8, 1024, kv, 128))
-        decode_logged(label, q, kc, vc, lens)
-        paged_logged(label, q, kc, vc, lens)
+        decode_logged(label, q, kc, vc, lens, plan_kv=4)
+        paged_logged(label, q, kc, vc, lens, plan_kv=4)
+        if shards == 2:
+            int8_logged(label, q, kc, vc, lens, plan_kv=4)
+    # The windowed and moe pods, one member geometry each: a
+    # 4-member gemma3-27b pod's local prefill (8 q over 4 kv heads of 128,
+    # window 1024) and a 4-member qwen2-moe-a2.7b pod's round (4 over 4).
+    flash_logged("a 4-member gemma3-27b pod's member, local", rand(
+        1, 1920, 8, 128), rand(1, 1920, 4, 128), rand(1, 1920, 4, 128),
+                 window=1024)
+    decode_logged("a 4-member qwen2-moe-a2.7b pod's member, G=1",
+                  rand(8, 1, 4, 128), rand(8, 1024, 4, 128),
+                  rand(8, 1024, 4, 128), lens, plan_kv=16)
+    member_split_check(rand, lens)
+
+
+def member_split_check(rand, lens) -> None:
+    """A pod's member attends its heads as one device does: each decode
+    kernel (dense and paged, bf16 and int8) at qwen2-moe-a2.7b's 16 q /
+    16 kv heads and qwen2-7b's 28 / 4, and at a 2- and a 4-member pod's
+    slices of the same inputs with the split planned for the whole
+    model's kv heads (``plan_kv``, as ``decode_step_tp`` launches them),
+    which must equal the whole launch's heads bit for bit.  Without
+    ``plan_kv`` a member splits S by its own heads, and the entries that
+    differ are counted (logged)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import kv_quantize
+
+    out = []
+    for arch, h, kv in (("qwen2-moe-a2.7b", 16, 16), ("qwen2-7b", 28, 4)):
+        q, kc, vc = (rand(8, 1, h, 128), rand(8, 1024, kv, 128),
+                     rand(8, 1024, kv, 128))
+        (k8, ks), (v8, vs) = kv_quantize(kc), kv_quantize(vc)
+        (kp, vp), tables = scatter_pages((kc, vc), 16,
+                                         np.random.default_rng(SEED + 15))
+        (k8p, kps), (v8p, vps) = kv_quantize(kp), kv_quantize(vp)
+        pools = {"decode_attention": (kc, vc),
+                 "paged_decode_attention": (kp, vp),
+                 "decode_attention_quant": (k8, v8, ks, vs),
+                 "paged_decode_attention_quant": (k8p, v8p, kps, vps)}
+        for name, pool in pools.items():
+            fn = getattr(da, name)
+            tail = (tables, lens) if name.startswith("paged") else (lens,)
+
+            def run(q, sl, **kw):
+                return fn(q, *(x[:, :, sl].contiguous() for x in pool),
+                          *tail, **kw)
+
+            whole = run(q, slice(None))
+            for shards in (2, 4):
+                kvm, hm = kv // shards, h // shards
+                own = planned = 0
+                for m in range(shards):
+                    sl, qs = slice(m * kvm, (m + 1) * kvm), \
+                        slice(m * hm, (m + 1) * hm)
+                    qm = q[:, :, qs].contiguous()
+                    got = run(qm, sl, plan_kv=kv)
+                    planned += int((got != whole[:, :, qs]).sum())
+                    own += int((run(qm, sl) != whole[:, :, qs]).sum())
+                if planned:
+                    raise AssertionError(
+                        f"member split: {name} at {arch}'s {h}/{kv} heads, "
+                        f"{shards} members: {planned} entries differ from "
+                        f"the whole launch's with the split planned for "
+                        f"{kv} kv heads")
+                out.append(f"{name} {arch} x{shards} {own}")
+    torch.cuda.synchronize()
+    log(f"member split: every member's heads equal the whole launch's bit "
+        f"for bit with the split planned for the model's kv heads "
+        f"(dense, paged, int8, paged int8; qwen2-moe-a2.7b 16/16 and "
+        f"qwen2-7b 28/4 at 2 and 4 members); entries of the B x H x 128 "
+        f"outputs that differ when a member plans by its own kv heads "
+        f"(logged): {'; '.join(out)}")
+
+
+def int8_logged(label, q, kc, vc, lens, plan_kv=None) -> None:
+    """The int8 dense decode kernel at one more geometry (split as
+    ``decode_logged``'s), on the codes and scales of ``kc``/``vc``
+    (quantized on the card), held against its plain version and timed
+    (logged) beside the bound: the rows ``lens`` holds, codes and scales,
+    read once.  No PyTorch call computes it."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.attention import kv_quantize
+
+    b, _, h, d = q.shape
+    s, kv = kc.shape[1:3]
+    (k8, ks), (v8, vs) = kv_quantize(kc), kv_quantize(vc)
+    err = close(f"int8 decode {label}",
+                da.decode_attention_quant(q, k8, v8, ks, vs, lens,
+                                          plan_kv=plan_kv),
+                da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens))
+    rows = int(lens.clamp(max=s).sum())
+    bnd, by = bound(4 * h * d * rows, 2 * rows * kv * d + 2 * rows * kv * 2
+                    + 2 * q.numel() * 2 + 4 * b)
+    n = copies_for(k8.numel() * 2)
+    sets = [[x.clone() for x in (q, k8, v8, ks, vs)] for _ in range(n)]
+    calls = [lambda x=x: da.decode_attention_quant(*x, lens,
+                                                   plan_kv=plan_kv)
+             for x in sets]
+    log(f"kernel decode_attention_quant at {label} (B={b} S={s} H={h} "
+        f"K={kv} D={d}, split planned for {plan_kv or kv} kv heads, "
+        f"cache_len {lens.tolist()}): max_abs_err={err} "
+        f"ms={time_ms(calls)} device_ms={device_ms(calls)} library_ms=None "
+        f"bound_ms={bnd} ({by})")
 
 
 def context_attention(dev) -> None:
@@ -1554,6 +1692,8 @@ def _reference_gemma3() -> None:
 
 
 MOE_MARGIN = 1e-4  # a top-k gate margin above this must route the same
+MIN_KEPT = 0.75  # of a moe pod's prefills and round rows, the least share
+#                  that must route as one instance's (near-tie flips aside)
 #                    on the card as on the CPU
 
 
@@ -2190,9 +2330,14 @@ def gemma3_phase(alloc, totals) -> None:
     the decode kernel 10 times a round, on the global layers) against
     ``fused=False``, one round replayed == eager bit for bit, the rolled
     decode's and the round's device time beside the weights' bytes, a
-    profile window and a sampled check."""
+    profile window and a sampled check.  Then its widths at the depth a
+    4-member pod holds on the card (``pod_layers``) on one instance and
+    as 2- and 4-member pods (``pod_family``)."""
+    import dataclasses
+    import gc
     import torch
     from repro_torch.launch import serve
+    from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     model, params = serve.init_model(GEMMA_ARCH, reduced=False, seed=SEED)
@@ -2227,6 +2372,19 @@ def gemma3_phase(alloc, totals) -> None:
                    "continuous", max_len=GEMMA_MAX_LEN)
     sampled_check(model, params, GEMMA_ARCH, prompts[:SAMPLED_REQUESTS],
                   alloc, "continuous", max_len=GEMMA_MAX_LEN)
+    # Its widths as pods: the depth cut to what a 4-member pod holds on
+    # the card, the layers' leading slices staged, the full tree freed.
+    layers, why = pod_layers(model)
+    cut = build_model(dataclasses.replace(cfg, n_layers=layers))
+    store = staged_store(cut, {k: (_tree(v, lambda t: t[:layers])
+                                   if k == "layers" else v)
+                               for k, v in params.items()}, GEMMA_ARCH)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pod {GEMMA_ARCH}: depth cut by pod_layers to {why}")
+    pod_family(cut, store, GEMMA_ARCH, prompts, totals, ("continuous",),
+               max_len=GEMMA_MAX_LEN)
 
 
 def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
@@ -2239,7 +2397,10 @@ def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
     round's device time beside three bounds and split into the expert
     FFN, the dispatch and the rest (``round_check``), a paged profile
     window, speculation continuous and paged with the 2-layer draft of
-    views (``spec_phase``), and the sampled checks."""
+    views (``spec_phase``), and the sampled checks.  Then the model on one
+    instance and as 2- and 4-member pods, continuous and paged
+    (``pod_family``)."""
+    import gc
     import torch
     from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.launch import serve
@@ -2269,6 +2430,12 @@ def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
     round_check(model, params, MOE_ARCH, prompts[:8], alloc)
     profile_window(model, params, prompts[:8], alloc, MOE_ARCH)
     spec_phase(model, params, alloc, prompts, streams, totals, MOE_ARCH)
+    store = staged_store(model, params, MOE_ARCH)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod_family(model, store, MOE_ARCH, prompts, totals,
+               ("continuous", "paged"))
 
 
 def moe_round(model, params, round_dev: float) -> None:
@@ -2861,20 +3028,30 @@ def deploy(model, params, arch, alloc, batching, *, int8=False,
     instances (``max_batch=8``, ``max_len`` 1024 unless given, block size
     16), the int8-KV gate set for the deploy only (an instance reads it
     once)."""
-    import os
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(window=0.2, device="cuda")
-    gate = os.environ.pop("REPRO_KV_INT8", None)
+    with kv_gate(int8):
+        engine.deploy(arch, model, params, alloc, n_instances=n_instances,
+                      max_batch=8, max_len=max_len, batching=batching,
+                      block_size=16, **kw)
+    return engine
+
+
+@contextlib.contextmanager
+def kv_gate(int8: bool):
+    """The int8-KV gate set for a deploy or placement only (the frontend
+    charges, and an instance pins, the KV dtype it reads then), put back
+    after."""
+    old = os.environ.pop("REPRO_KV_INT8", None)
     if int8:
         os.environ["REPRO_KV_INT8"] = "1"
-    engine.deploy(arch, model, params, alloc, n_instances=n_instances,
-                  max_batch=8, max_len=max_len, batching=batching,
-                  block_size=16, **kw)
-    os.environ.pop("REPRO_KV_INT8", None)
-    if gate is not None:
-        os.environ["REPRO_KV_INT8"] = gate
-    return engine
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_KV_INT8", None)
+        if old is not None:
+            os.environ["REPRO_KV_INT8"] = old
 
 
 WARM_BUCKETS = (64, 128, 256, 512)  # the buckets of 64-512-token prompts
@@ -4199,13 +4376,16 @@ def pod_of(fe):
 def pod_reduced() -> None:
     """The reduced configs as 1-, 2- and 4-member pods on the card: qwen2-7b's
     smoke cut (4 q over 2 kv heads of 16: a 2-member pod splits its heads,
-    a 4-member one replicates its pool) and a 2-layer model of qwen2-7b's
-    heads (7 q over 1 kv of 128, d=896: the kv head never divides, and at
-    4 members each member's q columns end mid-head), bf16 weights with
-    their zero norms and biases filled, 6 requests of 5-40 tokens x 8 new
-    tokens on 4 slots.  Greedy and sampled (temperature 0.8, top-k 8, seed
-    7), continuous and paged: each pod's streams must equal one
-    instance's."""
+    a 4-member one replicates its pool), bf16 and int8 KV, and a 2-layer
+    model of qwen2-7b's heads (7 q over 1 kv of 128, d=896: the kv head
+    never divides, and at 4 members each member's q columns end
+    mid-head), continuous and paged; gemma3-27b's (dual caches, window 8)
+    and mixtral-8x7b's (moe on a rolled cache, window 16) continuous;
+    qwen2-moe-a2.7b's continuous and paged.  bf16 weights with their zero
+    norms and biases filled, 6 requests of 5-40 tokens x 8 new tokens on 4
+    slots, greedy and sampled (temperature 0.8, top-k 8, seed 7): each
+    pod's streams must equal one instance's, every round a replay of the
+    one capture."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.resources import Alloc
@@ -4219,8 +4399,15 @@ def pod_reduced() -> None:
                         d_model=896, n_heads=7, n_kv_heads=1, head_dim=128,
                         d_ff=1024, vocab_size=1024, qkv_bias=True,
                         mlp="swiglu", rope_theta=1e6)
+    both = ("continuous", "paged")
+    cases = [(get_config(ARCH, reduced=True), False, both),
+             (heads, False, both), (get_config(ARCH, reduced=True), True, both),
+             (get_config(GEMMA_ARCH, reduced=True), False, ("continuous",)),
+             (get_config("mixtral-8x7b", reduced=True), False,
+              ("continuous",)),
+             (get_config(MOE_ARCH, reduced=True), False, both)]
     rng = np.random.default_rng(SEED + 14)
-    for cfg in (get_config(ARCH, reduced=True), heads):
+    for cfg, int8, batchings in cases:
         model = build_model(cfg)
         p_cpu = _filled(model.init(torch.Generator().manual_seed(SEED)),
                         SEED + 1)
@@ -4228,36 +4415,42 @@ def pod_reduced() -> None:
         prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                    for n in rng.integers(5, 41, 6)]
         checked = []
-        for batching in ("continuous", "paged"):
+        for batching in batchings:
             for sampling in (None, SamplingConfig(**POD_SAMPLING)):
                 streams = {}
                 for shards in (1, 2, 4):
                     fe = pod_frontend()
-                    fe.place_instance(cfg.name, model, params, alloc,
-                                      batching=batching, sampling=sampling,
-                                      shards=shards, **POD_REDUCED)
+                    with kv_gate(int8):
+                        fe.place_instance(cfg.name, model, params, alloc,
+                                          batching=batching,
+                                          sampling=sampling, shards=shards,
+                                          **POD_REDUCED)
                     reqs = [fe.submit(cfg.name, q, max_new_tokens=8)
                             for q in prompts]
                     fe.pump(budget_s=120.0)
                     _, _, inst = pod_of(fe)
                     if not all(r.done for r in reqs) or \
-                            inst.round_graph.captures != 1:
+                            inst.round_graph.captures != 1 or \
+                            inst.kv_int8 != int8:
                         raise AssertionError(
                             f"pod {cfg.name} x{shards} {batching}: served "
                             f"{sum(r.done for r in reqs)}/{len(reqs)}, "
-                            f"{inst.round_graph.captures} round captures")
+                            f"{inst.round_graph.captures} round captures, "
+                            f"int8 {inst.kv_int8}")
                     streams[shards] = [list(r.tokens_out) for r in reqs]
                 what = (f"{batching} "
                         f"{'sampled' if sampling else 'greedy'}")
                 if not streams[1] == streams[2] == streams[4]:
                     raise AssertionError(
-                        f"pod {cfg.name} {what}: streams at 1/2/4 members "
-                        f"{streams}")
+                        f"pod {cfg.name} {'int8 ' if int8 else ''}{what}: "
+                        f"streams at 1/2/4 members {streams}")
                 checked.append(what)
         log(f"pod reduced {cfg.name} (H={cfg.n_heads} K={cfg.n_kv_heads} "
-            f"D={cfg.dh} d={cfg.d_model}, bf16): streams at 1, 2 and 4 "
-            f"members equal in {', '.join(checked)}, {len(prompts)} "
-            f"requests x 8 tokens, every round of a pod a graph replay")
+            f"D={cfg.dh} d={cfg.d_model}, {cfg.family}, window "
+            f"{cfg.sliding_window}, {'int8' if int8 else 'bf16'} KV, bf16 "
+            f"weights): streams at 1, 2 and 4 members equal in "
+            f"{', '.join(checked)}, {len(prompts)} requests x 8 tokens, "
+            f"every round of a pod a graph replay")
     log(f"pod reduced phase took {time.perf_counter() - t0:.1f}s")
 
 
@@ -4274,18 +4467,19 @@ def round_state(inst) -> dict:
     return out
 
 
-def pod_round_check(eng, inst, prompts) -> tuple[float, str]:
+def pod_round_check(eng, inst, prompts, fn=ARCH) -> tuple[float, str]:
     """One round with 8 live slots replayed from the pod's
     graph against its eager body over the same state (copies restored
-    between them), bit for bit; then the replay's device time over 10
-    replays and, from the profiler over 3 replays, its host launch calls
-    and device kernels a round.  Returns (device ms, what it logged)."""
+    between them), bit for bit; then, from the profiler over one replay,
+    the round's device time (its kernels' durations summed), host launch
+    calls and device kernels, and the replay's time by CUDA events over
+    10 replays.  Returns (device ms, what it logged)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from torch.autograd import DeviceType
 
     for q in prompts:
-        eng.submit(ARCH, q, max_new_tokens=16)
+        eng.submit(fn, q, max_new_tokens=16)
     for _ in range(2):  # admissions and a replayed round
         inst.run_step()
     rg = inst.round_graph
@@ -4305,49 +4499,52 @@ def pod_round_check(eng, inst, prompts) -> tuple[float, str]:
         raise AssertionError(f"pod round check: replay != eager in {diff}")
     for k, v in round_state(inst).items():
         v.copy_(start[k])
-    dev_ms = device_ms([rg.replay], iters=10)
+    rg.replay()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            rg.replay()
+        rg.replay()
         torch.cuda.synchronize()
     events = prof.events()
     calls = sum(e.name in LAUNCH_CALLS for e in events)
-    kernels = sum(1 for e in events if e.device_type == DeviceType.CUDA)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    wall_ms = time_ms([rg.replay], iters=10)
     for k, v in round_state(inst).items():
         v.copy_(start[k])
     eng.pump(budget_s=120.0)  # the 8 requests finish from the restored state
     return dev_ms, (f"replay == eager bit for bit over {len(start)} "
-                    f"buffers; a replayed round {dev_ms:.4f} ms device, "
-                    f"{calls / 3:.1f} host launch calls and "
-                    f"{kernels / 3:.0f} device kernels a round")
+                    f"buffers; a replayed round {dev_ms:.4f} ms device "
+                    f"({wall_ms:.4f} ms by CUDA events over 10 replays), "
+                    f"{calls} host launch calls and {len(kernels)} device "
+                    f"kernels a round")
 
 
 def pod_logits(inst, prompts, first=None) -> tuple:
     """Exact-length prefill logits of every prompt and, over a fresh pool
     holding ``prompts[:8]`` (8 slots, or paged 8 sequences' pages through
-    one page table), one round's logits from the tokens ``first``
+    one page table; in the instance's KV dtype), one round's logits from
+    the tokens ``first``
     (default: the prefills' greedy picks; a pod takes one instance's, so a
     near-tie pick cannot change a round's input), eager, through the
     instance's runner.  Returns (prefill logits, round logits, the
     round's tokens)."""
     import torch
-    run, dev = inst.runner, inst.device
+    run, dev, int8 = inst.runner, inst.device, inst.kv_int8
     paged = inst.batching == "paged"
     if paged:
         per = inst.max_len // inst.block_size
         pool = run.init_paged_cache(8 * per + 1, inst.block_size, dev,
-                                    kv_int8=False)
+                                    kv_int8=int8)
         tables = (1 + torch.arange(8 * per, dtype=torch.int32,
                                    device=dev)).view(8, per)
     else:
-        pool = run.init_slot_cache(8, inst.max_len, dev, kv_int8=False)
+        pool = run.init_slot_cache(8, inst.max_len, dev, kv_int8=int8)
     pre = []
     for slot, q in enumerate(prompts):
         tokens = torch.as_tensor(q[None], device=dev)
         logits, entry = run.prefill(inst.params, tokens,
-                                    max_len=inst.max_len, kv_int8=False)
+                                    max_len=inst.max_len, kv_int8=int8)
         pre.append(logits[0].float())
         if slot < 8 and paged:
             run.append_paged(pool, entry, tables[slot].long())
@@ -4382,84 +4579,209 @@ def pod_phase(model, params, prompts, totals) -> None:
     if torch.cuda.device_count() >= 2:
         pod_spread(model, params, alloc, store, prompts, one["continuous"])
     log(f"pod phase took {time.perf_counter() - t_phase:.1f}s")
+    t_phase = time.perf_counter()
+    for b in ("continuous", "paged"):
+        pod_widths(model, params, prompts, totals,
+                   alloc, store, b, int8=True, failure=False)
+    log(f"pod int8 {ARCH} phase took {time.perf_counter() - t_phase:.1f}s")
 
 
-def pod_widths(model, params, prompts, totals, alloc, store,
-               batching) -> dict:
-    """The request mix on one instance and on 2- and 4-member pods in
-    ``batching``, one placement at a time, each held against the one
-    instance (phase 7); after the continuous 2-member pod, a secondary
-    member's failure.  Returns the one instance's readings."""
+POD_HEADROOM = 6e9  # bytes beside a pod's weights and KV pool: the pool
+#                     of ``pod_logits``, the round graph's, activations
+
+
+def pod_layers(model, shards=4, batch=8, max_len=GEMMA_MAX_LEN
+               ) -> tuple[int, str]:
+    """The most layers of ``model``'s widths, in whole local:global groups
+    (each ``local_global_ratio`` local layers and one global), whose
+    ``shards``-member pod fits the card: the members' weights (the
+    column-parallel leaves split, the rest whole on every member, as
+    ``serve_pspec`` places them), their KV pools at ``batch`` x
+    ``max_len`` and ``POD_HEADROOM``, within 0.9 of the card's memory."""
+    import dataclasses
+    import torch
+    from repro_torch.distributed.sharding import serve_pspec
+    from repro_torch.models import build_model
+
+    cfg = model.cfg
+    group = cfg.local_global_ratio + 1
+
+    def pod_bytes(layers):
+        cut = build_model(dataclasses.replace(cfg, n_layers=layers))
+        total = 0
+
+        def walk(tree):
+            nonlocal total
+            if isinstance(tree, dict):
+                for v in tree.values():
+                    walk(v)
+                return
+            spec = serve_pspec(tree.names, tree.shape, {"serve": shards})
+            n = math.prod(tree.shape) * tree.dtype.itemsize
+            total += n if any(spec) else n * shards
+        walk(cut.specs)
+        kv = cut.dense_kv_bytes(batch, max_len)
+        return total + (kv if cfg.n_kv_heads % shards == 0 else kv * shards)
+
+    card = torch.cuda.get_device_properties(0).total_memory
+    layers = group
+    while (layers + group <= cfg.n_layers
+           and pod_bytes(layers + group) + POD_HEADROOM <= 0.9 * card):
+        layers += group
+    need = pod_bytes(layers)
+    return layers, (f"{layers} layers ({layers // group} groups of "
+                    f"{group - 1} local + 1 global): the {shards} members' "
+                    f"weights and KV pools at {batch} x {max_len} "
+                    f"{need} + {POD_HEADROOM:.0f} bytes, within 0.9 of "
+                    f"{card}; {layers + group} layers would take "
+                    f"{pod_bytes(layers + group)}")
+
+
+def staged_store(model, params, fn):
+    """A ``FleetModelStore`` with ``params`` staged under ``fn`` in node
+    0's host cache, so that a pod's placements upload from the host and
+    the caller can free the tree it drew on the card."""
+    from repro_torch.serving import FleetModelStore
+    from repro_torch.serving.modelstore import stage_params
+
+    staged = stage_params(model, params)
+    store = FleetModelStore(host_budget_bytes=staged.nbytes + (1 << 30))
+    store.cache(0).put(fn, staged)
+    return store
+
+
+def pod_family(model, store, fn, prompts, totals, batchings, max_len=1024
+               ) -> None:
+    """``fn``'s staged weights (``store``) on one instance and as 2- and
+    4-member pods in each of ``batchings``, one placement at a time,
+    each held against the one instance (``pod_widths``), serving
+    ``prompts``."""
+    from repro_torch.core.resources import Alloc
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    log(f"pod {fn}: {cfg.n_layers}L d={cfg.d_model} H={cfg.n_heads} "
+        f"K={cfg.n_kv_heads} D={cfg.dh}, {model.n_params()} params, staged "
+        f"{store.staged_nbytes(fn)} bytes on the host, {len(prompts)} "
+        f"requests of {min(map(len, prompts))}-{max(map(len, prompts))} "
+        f"tokens, max_len {max_len}")
+    alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
+    for b in batchings:
+        pod_widths(model, None, prompts, totals, alloc, store, b, fn=fn,
+                   max_len=max_len, failure=False)
+    log(f"pod {fn} phase took {time.perf_counter() - t_phase:.1f}s")
+
+
+def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
+               fn=ARCH, int8=False, max_len=1024, failure=True) -> dict:
+    """The request mix on one instance and on 2- and 4-member pods of
+    ``model`` in ``batching`` (bf16 or ``int8`` KV), one placement at a
+    time, each held against the one instance (phase 7; a moe model's
+    routing too, ``pod_routing``); after the continuous bf16 2-member pod
+    (``failure``), a secondary member's failure.  ``params`` may be None
+    when ``store`` holds ``fn``'s staged weights.  Returns the one
+    instance's readings."""
     import gc
     import torch
     from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.distributed.sharding import per_member_bytes
+    from repro_torch.models import transformer
 
     cfg = model.cfg
-    decode = ("decode_attention" if batching == "continuous"
-              else "paged_decode_attention")
+    decode = {("continuous", False): "decode_attention",
+              ("paged", False): "paged_decode_attention",
+              ("continuous", True): "decode_attention_quant",
+              ("paged", True): "paged_decode_attention_quant"}[
+        (batching, int8)]
+    decode_layers = (transformer.n_global_layers(cfg)
+                     if cfg.local_global_ratio else cfg.n_layers)
+    graphed = model.supports_bucketed_prefill()  # else exact-length, eager
     one = {}
     for shards in (1, 2, 4):
         t0 = time.perf_counter()
         fe = pod_frontend(store)
-        fe.place_instance(ARCH, model, params, alloc, max_batch=8,
-                          max_len=1024, batching=batching, shards=shards)
+        with kv_gate(int8):
+            fe.place_instance(fn, model, params, alloc, max_batch=8,
+                              max_len=max_len, batching=batching,
+                              shards=shards)
         p, eng, inst = pod_of(fe)
         event = fe.cold_start_events()[0]
         placed = time.perf_counter() - t0
-        label = f"x{shards} {batching}"
+        label = f"x{shards} {'int8 ' if int8 else ''}{batching}"
         if (inst.group is None) != (shards == 1) or \
-                inst.round_graph.always_eager:
-            raise AssertionError(f"pod {label}: group {inst.group}, eager "
-                                 f"{inst.round_graph.always_eager}")
+                inst.round_graph.always_eager or inst.kv_int8 != int8:
+            raise AssertionError(f"pod {fn} {label}: group {inst.group}, "
+                                 f"eager {inst.round_graph.always_eager}, "
+                                 f"int8 {inst.kv_int8}")
         reqs, done, wall, counts, delta, (replayed, pre_replayed), peak = \
-            timed_serve(eng, ARCH, prompts, POD_TOKENS)
+            timed_serve(eng, fn, prompts, POD_TOKENS)
         (tel,) = delta.values()
         prefills, rounds = tel["prefills"], tel["rounds"]
         if done != len(prompts) or not all(
                 len(r.tokens_out) == POD_TOKENS for r in reqs):
-            raise AssertionError(f"pod {label}: served {done}")
-        if (replayed, pre_replayed) != (rounds, prefills):
-            raise AssertionError(f"pod {label}: replayed {replayed}/"
+            raise AssertionError(f"pod {fn} {label}: served {done}")
+        if (replayed, pre_replayed) != (rounds,
+                                        prefills if graphed else 0):
+            raise AssertionError(f"pod {fn} {label}: replayed {replayed}/"
                                  f"{rounds} rounds, {pre_replayed}/"
                                  f"{prefills} prefills")
         want = {k: 0 for k in counts}
         want["flash_attention"] = shards * cfg.n_layers * prefills
-        want[decode] = shards * cfg.n_layers * rounds
+        want[decode] = shards * decode_layers * rounds
         if counts != want:
-            raise AssertionError(f"pod {label}: launches {counts}, "
+            raise AssertionError(f"pod {fn} {label}: launches {counts}, "
                                  f"expected {want}")
         for k in totals:
             totals[k] += counts[k]
         first = [r.tokens_out[0] for r in reqs]
         streams = [list(r.tokens_out) for r in reqs]
-        pre, rnd, fed = pod_logits(inst, prompts, one.get("fed"))
+        t_logits = time.perf_counter()
+        routes, (pre, rnd, fed) = pod_routes(
+            cfg, lambda: pod_logits(inst, prompts, one.get("fed")))
+        t_logits = time.perf_counter() - t_logits
         members = inst.hbm_bytes_by_member()
         weights = (per_member_bytes(inst.group, inst.params)
                    if inst.group is not None
-                   else {p.node: pytree_nbytes(inst.params)})
+                   else {0: pytree_nbytes(inst.params)})
+        kv = {n: members[n] - weights[n] for n in members}
         n_tok = len(prompts) * POD_TOKENS
         if shards == 1:
             one = dict(first=first, streams=streams, pre=pre, rnd=rnd,
                        fed=fed, bytes=sum(members.values()),
-                       tps=n_tok / wall)
+                       weights=sum(weights.values()), tps=n_tok / wall,
+                       routes=routes)
             flips = ""
         else:
-            flips = pod_against_one(label, one, first, streams, pre, rnd,
-                                    members, n_tok)
-        _, check = pod_round_check(eng, inst, prompts[:8])
-        log(f"pod {ARCH} {label}: placed on nodes {p.all_nodes()} in "
+            if max(weights.values()) >= one["weights"]:
+                raise AssertionError(f"pod {fn} {label}: member weights "
+                                     f"{weights} not below one instance's "
+                                     f"{one['weights']}")
+            routing, *flipped = pod_routing(f"{fn} {label}", cfg,
+                                            one["routes"], routes, shards,
+                                            len(prompts))
+            flips = pod_against_one(f"{fn} {label}", one, first, streams,
+                                    pre, rnd, members, n_tok,
+                                    flipped) + routing
+        t_check = time.perf_counter()
+        dev_ms, check = pod_round_check(eng, inst, prompts[:8], fn)
+        t_check = time.perf_counter() - t_check
+        read = sum(weights.values()) + sum(kv.values())
+        log(f"pod {fn} {label}: placed on nodes {p.all_nodes()} in "
             f"{placed:.2f}s (store tier {event.tier}, upload call "
-            f"{event.upload_s:.2f}s); weights a member {weights}, weights "
-            f"and KV pool a member {members} bytes (one instance "
-            f"{one['bytes']}; the params {pytree_nbytes(params)}); "
+            f"{event.upload_s:.2f}s); weights a member {weights}, KV pool a "
+            f"member {kv}, both a member {members} bytes (one instance "
+            f"{one['bytes']}, its weights {one['weights']}); "
             f"{done} requests x {POD_TOKENS} tokens in {wall:.3f}s = "
             f"{n_tok / wall:.1f} tokens/s ({n_tok / wall / one['tps']:.3f}"
             f" of one instance's); prefills {prefills}, rounds {rounds}, "
             f"replayed {pre_replayed} and {replayed}; launches {counts}; "
             f"peak allocated {peak[0]} bytes{flips}; round check: {check}; "
-            f"{time.perf_counter() - t0:.1f}s in all")
-        if shards == 2 and batching == "continuous":
+            f"a round reads at most the members' weights and pools, {read} "
+            f"bytes: {read / PEAK_BYTES * 1e3:.4f} ms at the card's rate "
+            f"(the replayed round {dev_ms / (read / PEAK_BYTES * 1e3):.2f}x "
+            f"that); {time.perf_counter() - t0:.1f}s in all (the logits "
+            f"{t_logits:.1f}s, the round check {t_check:.1f}s)")
+        if failure and shards == 2 and batching == "continuous":
             pod_failure(fe, model, params, alloc, prompts[0],
                         one["streams"][0])
         del fe, eng, inst
@@ -4468,14 +4790,104 @@ def pod_widths(model, params, prompts, totals, alloc, store,
     return one
 
 
-def pod_against_one(label, one, first, streams, pre, rnd, members,
-                    n_tok) -> str:
-    """A pod's logits, first tokens and member bytes held against the one
-    instance's readings ``one``; returns what to log."""
+def pod_routes(cfg, run) -> tuple:
+    """``run()`` with every ``moe.route`` call's (top_e, gates) recorded in
+    call order (none for a model without experts): a pod routes each
+    layer once a member, in member order.  Returns (the records, what
+    ``run`` returned)."""
+    from repro_torch.models import moe
+
+    if cfg.family != "moe":
+        return [], run()
+    calls, route = [], moe.route
+
+    def recorded(router, xt, cfg_, cap):
+        r = route(router, xt, cfg_, cap)
+        calls.append((r["top_e"].clone(), r["gates"].clone()))
+        return r
+
+    moe.route = recorded
+    try:
+        out = run()
+    finally:
+        moe.route = route
+    return calls, out
+
+
+def pod_routing(label, cfg, one, pod, shards, n_pre) -> tuple:
+    """A moe pod's routing against one instance's over the same ``n_pre``
+    prefills and round (``pod_routes``): every member routes each
+    token-layer to the same experts, as it must by construction (its
+    tokens are the others' bit for bit), and the primary's experts equal
+    one instance's wherever one instance's top-k gate margin exceeds
+    ``MOE_MARGIN`` (PERF.md section 2; a member's decode kernels split S
+    as one device's, ``plan_kv``).  Returns (what to log, the prompts
+    whose prefill flipped an expert anywhere, the round's rows that
+    did)."""
     import torch
+
+    if not one:
+        return "", set(), set()
+    n = cfg.n_layers
+    if len(one) != (n_pre + 1) * n or len(pod) != shards * len(one):
+        raise AssertionError(f"pod {label}: {len(pod)} routings, one "
+                             f"instance {len(one)}, {n_pre} prefills")
+    k = cfg.top_k
+    rows = flips = near = 0
+    dev_max = 0.0
+    pre, rnd = set(), set()
+    for j, (top_e, gates) in enumerate(one):
+        mine = [pod[j * shards + m] for m in range(shards)]
+        if not all(torch.equal(e, mine[0][0]) for e, _ in mine[1:]):
+            raise AssertionError(f"pod {label}: members route call {j} "
+                                 f"differently")
+        g = gates.sort(-1, descending=True).values
+        margin = g[:, k - 1] - g[:, k]
+        dev = (mine[0][1] - gates).abs().amax(-1)
+        same = (mine[0][0].sort(-1).values == top_e.sort(-1).values).all(-1)
+        if not (same | (margin <= MOE_MARGIN)).all():
+            bad = ~(same | (margin <= MOE_MARGIN))
+            raise AssertionError(
+                f"pod {label}: call {j} routes other experts than one "
+                f"instance at margins {margin[bad].tolist()}, gate "
+                f"deviations {dev[bad].tolist()}")
+        dev_max = max(dev_max, float(dev.max()))
+        rows += int(same.numel())
+        flips += int((~same).sum())
+        near += int((margin <= MOE_MARGIN).sum())
+        if (~same).any():
+            if j // n < n_pre:
+                pre.add(j // n)
+            else:
+                rnd.update(torch.nonzero(~same).flatten().tolist())
+    return (f"; routing: every member the same experts, the primary one "
+            f"instance's on {rows - flips}/{rows} token-layers ({flips} "
+            f"flips, each at a top-{k} margin <= {MOE_MARGIN}; {near} "
+            f"token-layers at such a margin; gates within {dev_max:.3g} of "
+            f"one instance's); prefills with a flip {sorted(pre)}, round "
+            f"rows {sorted(rnd)}", pre, rnd)
+
+
+def pod_against_one(label, one, first, streams, pre, rnd, members,
+                    n_tok, flipped=(set(), set())) -> str:
+    """A pod's logits, first tokens and member bytes held against the one
+    instance's readings ``one``; a moe pod's prompts and round rows that
+    routed a token-layer to other experts at a near-tie (``flipped``,
+    from ``pod_routing``) are left out of the logits' tolerance, and
+    their first tokens may differ, while at least ``MIN_KEPT`` of each
+    stay held.  Returns what to log."""
+    import torch
+    keep_pre = [i for i in range(len(pre)) if i not in flipped[0]]
+    keep_rnd = [i for i in range(len(rnd)) if i not in flipped[1]]
+    if (len(keep_pre) < MIN_KEPT * len(pre)
+            or len(keep_rnd) < MIN_KEPT * len(rnd)):
+        raise AssertionError(f"pod {label}: {len(keep_pre)}/{len(pre)} "
+                             f"prefills and {len(keep_rnd)}/{len(rnd)} "
+                             f"round rows routed as one instance's, fewer "
+                             f"than {MIN_KEPT} of each")
     scale = float(one["rnd"].abs().max())
-    rel = float((rnd - one["rnd"]).abs().max()) / scale
-    pre_rel = float((pre - one["pre"]).abs().max()) / float(
+    rel = float((rnd - one["rnd"])[keep_rnd].abs().max()) / scale
+    pre_rel = float((pre - one["pre"])[keep_pre].abs().max()) / float(
         one["pre"].abs().max())
     if rel > REF_TOL or pre_rel > REF_TOL:
         raise AssertionError(f"pod {label}: logits {pre_rel:.4f} "
@@ -4492,7 +4904,8 @@ def pod_against_one(label, one, first, streams, pre, rnd, members,
             for t in top2[:, 0].tolist()]
     differ = [i for i, (a, b) in enumerate(zip(first, one["first"]))
               if a != b]
-    bad = [i for i in differ if margin[i] > max(2 * dev[i], 2 * step[i])]
+    bad = [i for i in differ if margin[i] > max(2 * dev[i], 2 * step[i])
+           and i not in flipped[0]]
     if bad:
         raise AssertionError(
             f"pod {label}: first tokens of requests {bad} differ "
@@ -4507,14 +4920,15 @@ def pod_against_one(label, one, first, streams, pre, rnd, members,
                for a, b in zip(s_, o))
     ties = ", ".join(f"request {i}: margin {margin[i]:.4f}, "
                      f"deviation {dev[i]:.4f}" for i in differ)
+    left = (f" over the {len(keep_pre)} prefills and {len(keep_rnd)} "
+            f"round rows routed as one instance's" if any(flipped) else "")
     return (f"; first tokens equal one instance's on "
             f"{len(first) - len(differ)}/{len(first)} requests "
             f"({len(differ)} near-ties{': ' + ties if ties else ''}), "
             f"logits within {pre_rel:.5f} (prefills) and {rel:.5f} (a "
             f"round of 8 slots) of one instance's (max |diff| / max "
-            f"|logit|, limit {REF_TOL}); {same}/{n_tok} stream tokens "
-            f"equal (logged: bf16 decode kernels split S by kv heads a "
-            f"member)")
+            f"|logit|, limit {REF_TOL}){left}; {same}/{n_tok} stream "
+            f"tokens equal (logged)")
 
 
 def pod_spread(model, params, alloc, store, prompts, one) -> None:

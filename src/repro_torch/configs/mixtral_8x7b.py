@@ -4,8 +4,9 @@
 [arXiv:2401.04088; hf]: a rolled cache of the window on every layer,
 continuous batching with exact-length prefills.  The same two configs as
 ``repro.configs.mixtral_8x7b``.  The full width (93.4 GB in bf16) does
-not fit one card; it waits for moe pods over several cards (ROADMAP.md,
-Queue 1 item 11b).
+not fit one card, nor does a pod of it on one card (every member holds
+the replicated ``w_down`` of every expert); it waits for a pod over
+several cards (ROADMAP.md, Queue 1 item 11b).
 """
 
 from repro_torch.models.config import ModelConfig

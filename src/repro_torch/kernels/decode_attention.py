@@ -60,17 +60,21 @@ def row_tiles(n_rows: int) -> int:
 
 
 def decode_plan(kv: torch.Tensor,
-                block_tables: Optional[torch.Tensor] = None
-                ) -> tuple[int, int]:
+                block_tables: Optional[torch.Tensor] = None,
+                plan_kv: Optional[int] = None) -> tuple[int, int]:
     """``split_plan`` of a decode launch over a dense (B,S,K,D) cache or,
     given ``block_tables`` (B,M), over (N,bs,K,D) pages (bf16 or int8
-    codes alike): tiles of the S or M * bs logical rows."""
+    codes alike): tiles of the S or M * bs logical rows.  ``plan_kv``
+    (default: the cache's K) is the kv-head count the split is planned
+    for: each CTA walks one kv head and the combine merges a head's
+    splits in split order, so two launches that plan alike give every
+    head the same output bit for bit, whatever heads each holds."""
     if block_tables is None:
         b, s, n_kv = kv.shape[:3]
-        return split_plan(b, n_kv, row_tiles(s))
+        return split_plan(b, plan_kv or n_kv, row_tiles(s))
     b, m = block_tables.shape
     bs, n_kv = kv.shape[1:3]
-    return split_plan(b, n_kv, row_tiles(m * bs))
+    return split_plan(b, plan_kv or n_kv, row_tiles(m * bs))
 
 
 def scratch_shapes(b: int, n_kv: int, n_split: int, d: int
@@ -145,9 +149,12 @@ def _check_decode_shapes(name: str, q: torch.Tensor, kv: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     plan_kv: Optional[int] = None) -> torch.Tensor:
     """Single-token GQA attention against a (B,S,K,D) cache; returns
-    (B,1,H,D).  ``cache_len`` (B,) int32 may exceed S (a free continuous
+    (B,1,H,D).  ``plan_kv``: see ``decode_plan`` (a sharded pod's member
+    passes the whole model's kv heads, so its heads' outputs are one
+    device's).  ``cache_len`` (B,) int32 may exceed S (a free continuous
     slot keeps advancing): the kernel clamps its row loop to S.  Rows are
     walked in tiles of ``DENSE_TILE`` logical rows, as the paged kernel
     walks them, so dense and paged decode agree bit for bit.  The kernel
@@ -165,7 +172,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError("decode_attention: cache / cache_len shapes do "
                          "not match q")
-    per, n_split = decode_plan(k_cache)
+    per, n_split = decode_plan(k_cache, plan_kv=plan_kv)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -190,7 +197,8 @@ decode_attention.launches = 0
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
-                           cache_len: torch.Tensor) -> torch.Tensor:
+                           cache_len: torch.Tensor, *,
+                           plan_kv: Optional[int] = None) -> torch.Tensor:
     """Single-token GQA attention against (N,bs,K,D) pages (bs of 1-64
     rows) walked through a (B,M) int32 block table; returns (B,1,H,D).
     Table entries must name blocks of the pool (rows on an entry outside
@@ -209,7 +217,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: pages / tables / "
                          "cache_len shapes do not match q")
     m = block_tables.shape[1]
-    per, n_split = decode_plan(k_pages, block_tables)
+    per, n_split = decode_plan(k_pages, block_tables, plan_kv)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i32, f32 = torch.bfloat16, torch.int32, torch.float32
@@ -278,7 +286,8 @@ def _check_scales(name: str, codes: torch.Tensor, *scales: torch.Tensor
 def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, k_scale: torch.Tensor,
                            v_scale: torch.Tensor,
-                           cache_len: torch.Tensor) -> torch.Tensor:
+                           cache_len: torch.Tensor, *,
+                           plan_kv: Optional[int] = None) -> torch.Tensor:
     """``decode_attention`` over (B,S,K,D) int8 codes and (B,S,K,1) bf16
     scales; returns (B,1,H,D) bf16.  No window (the reference has none)."""
     if q.device.type == "cpu":
@@ -295,7 +304,7 @@ def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError(f"{name}: cache / cache_len shapes do not match q")
     _check_scales(name, k_cache, k_scale, v_scale)
-    per, n_split = decode_plan(k_cache)
+    per, n_split = decode_plan(k_cache, plan_kv=plan_kv)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
@@ -322,7 +331,9 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                                  ks_pages: torch.Tensor,
                                  vs_pages: torch.Tensor,
                                  block_tables: torch.Tensor,
-                                 cache_len: torch.Tensor) -> torch.Tensor:
+                                 cache_len: torch.Tensor, *,
+                                 plan_kv: Optional[int] = None
+                                 ) -> torch.Tensor:
     """``paged_decode_attention`` over (N,bs,K,D) int8 code pages and
     (N,bs,K,1) bf16 scale pages; returns (B,1,H,D) bf16."""
     if q.device.type == "cpu":
@@ -341,7 +352,7 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"match q")
     _check_scales(name, k_pages, ks_pages, vs_pages)
     m = block_tables.shape[1]
-    per, n_split = decode_plan(k_pages, block_tables)
+    per, n_split = decode_plan(k_pages, block_tables, plan_kv)
     part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
     o = torch.empty_like(q)
     bf16, i8, i32, f32 = torch.bfloat16, torch.int8, torch.int32, \

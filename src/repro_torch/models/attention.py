@@ -191,15 +191,26 @@ def attn_decode(params: dict, x: torch.Tensor, kc: torch.Tensor,
     b = x.shape[0]
     pos_b = pos.reshape(-1).expand(b)
     q, k, v = _rope_qkv(params, x, pos_b[:, None], cfg)
+    o = decode_attend(q, k, v, kc, vc, pos_b, rolled=rolled, window=window)
+    return _output(params, o), kc, vc
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kc: torch.Tensor, vc: torch.Tensor, pos_b: torch.Tensor, *,
+                  rolled: bool = False, window: Optional[int] = None,
+                  plan_kv: Optional[int] = None) -> torch.Tensor:
+    """``attn_decode`` past its projections: write the rope'd row k, v
+    (B, 1, K, Dh) into the cache at ``pos_b`` (B,) (rolled: at ``pos_b
+    mod C``) and attend it, (B, 1, H, Dh) -> (B, 1, H, Dh).  A sharded
+    pod's member runs it on its own heads, with ``plan_kv`` the whole
+    model's kv heads (the kernel's split of S, ``decode_plan``)."""
     row = torch.remainder(pos_b, kc.shape[1]) if rolled else pos_b
     cache_write(kc, k, row)
     cache_write(vc, v, row)
     if rolled:
-        o = _rolled_decode(q, kc, vc, pos_b, window)
-    else:
-        cache_len = (pos_b + 1).to(torch.int32)
-        o = ops.decode_attention(q, kc, vc, cache_len, window=window)
-    return _output(params, o), kc, vc
+        return _rolled_decode(q, kc, vc, pos_b, window)
+    return ops.decode_attention(q, kc, vc, (pos_b + 1).to(torch.int32),
+                                window=window, plan_kv=plan_kv)
 
 
 def paged_cache_write(pages: torch.Tensor, new: torch.Tensor,
@@ -237,12 +248,23 @@ def attn_decode_paged(params: dict, x: torch.Tensor, k_pages: torch.Tensor,
     """One-token self-attention against (and updating, in place) a paged
     cache.  pos: (B,) absolute position of each sequence's new token."""
     q, k, v = _rope_qkv(params, x, pos[:, None], cfg)
+    o = paged_attend(q, k, v, k_pages, v_pages, block_tables, pos, active)
+    return _output(params, o), k_pages, v_pages
+
+
+def paged_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 k_pages: torch.Tensor, v_pages: torch.Tensor,
+                 block_tables: torch.Tensor, pos: torch.Tensor,
+                 active: Optional[torch.Tensor] = None,
+                 plan_kv: Optional[int] = None) -> torch.Tensor:
+    """``attn_decode_paged`` past its projections: write the new row into
+    the pages and attend them through the block table (``plan_kv`` as
+    ``decode_attend``'s)."""
     paged_cache_write(k_pages, k, block_tables, pos, active)
     paged_cache_write(v_pages, v, block_tables, pos, active)
-    cache_len = (pos + 1).to(torch.int32)
-    o = ops.paged_decode_attention(q, k_pages, v_pages, block_tables,
-                                   cache_len)
-    return _output(params, o), k_pages, v_pages
+    return ops.paged_decode_attention(q, k_pages, v_pages, block_tables,
+                                      (pos + 1).to(torch.int32),
+                                      plan_kv=plan_kv)
 
 
 # --------------------------------------------------------------------------
@@ -316,13 +338,25 @@ def attn_decode_quant(params: dict, x: torch.Tensor, kc: torch.Tensor,
     b = x.shape[0]
     pos_b = pos.reshape(-1).expand(b)
     q, k, v = _rope_qkv(params, x, pos_b[:, None], cfg)
+    return _output(params, decode_attend_quant(q, k, v, kc, vc, ksc, vsc,
+                                               pos_b))
+
+
+def decode_attend_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kc: torch.Tensor, vc: torch.Tensor,
+                        ksc: torch.Tensor, vsc: torch.Tensor,
+                        pos_b: torch.Tensor,
+                        plan_kv: Optional[int] = None) -> torch.Tensor:
+    """``attn_decode_quant`` past its projections: quantize the new row
+    (per head), write its codes and scales at ``pos_b`` and attend
+    (``plan_kv`` as ``decode_attend``'s)."""
     k8, ks_new = kv_quantize(k)
     v8, vs_new = kv_quantize(v)
     for cache, new in ((kc, k8), (vc, v8), (ksc, ks_new), (vsc, vs_new)):
         cache_write(cache, new, pos_b)
-    cache_len = (pos_b + 1).to(torch.int32)
-    o = ops.decode_attention_quant(q, kc, vc, ksc, vsc, cache_len)
-    return _output(params, o)
+    return ops.decode_attention_quant(q, kc, vc, ksc, vsc,
+                                      (pos_b + 1).to(torch.int32),
+                                      plan_kv=plan_kv)
 
 
 def attn_decode_paged_quant(params: dict, x: torch.Tensor,
@@ -335,15 +369,28 @@ def attn_decode_paged_quant(params: dict, x: torch.Tensor,
     """``attn_decode_paged`` against int8 code + scale pages, written in
     place."""
     q, k, v = _rope_qkv(params, x, pos[:, None], cfg)
+    return _output(params, paged_attend_quant(
+        q, k, v, k_pages, v_pages, ks_pages, vs_pages, block_tables, pos,
+        active))
+
+
+def paged_attend_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       k_pages: torch.Tensor, v_pages: torch.Tensor,
+                       ks_pages: torch.Tensor, vs_pages: torch.Tensor,
+                       block_tables: torch.Tensor, pos: torch.Tensor,
+                       active: Optional[torch.Tensor] = None,
+                       plan_kv: Optional[int] = None) -> torch.Tensor:
+    """``attn_decode_paged_quant`` past its projections: the new row's
+    codes and scales into the four pools, then the int8 paged kernel
+    (``plan_kv`` as ``decode_attend``'s)."""
     k8, ks_new = kv_quantize(k)
     v8, vs_new = kv_quantize(v)
     for pages, new in ((k_pages, k8), (v_pages, v8), (ks_pages, ks_new),
                        (vs_pages, vs_new)):
         paged_cache_write(pages, new, block_tables, pos, active)
-    cache_len = (pos + 1).to(torch.int32)
-    o = ops.paged_decode_attention_quant(q, k_pages, v_pages, ks_pages,
-                                         vs_pages, block_tables, cache_len)
-    return _output(params, o)
+    return ops.paged_decode_attention_quant(
+        q, k_pages, v_pages, ks_pages, vs_pages, block_tables,
+        (pos + 1).to(torch.int32), plan_kv=plan_kv)
 
 
 def cross_attn_decode(params: dict, x: torch.Tensor, ck: torch.Tensor,

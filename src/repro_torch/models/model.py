@@ -252,26 +252,31 @@ class Model:
         return transformer.cache_specs(self.cfg, n_blocks, block_size,
                                        self._int8(kv_int8))
 
-    def cache_names(self, batch: int, max_len: int) -> dict[str, tuple]:
+    def cache_names(self, batch: int, max_len: int,
+                    kv_int8: Optional[bool] = None) -> dict[str, tuple]:
         """The logical dim names of every cache leaf, ``pos`` included
-        (model.py:234-251): what a sharded pod's pools resolve."""
+        (model.py:234-251): what a sharded pod's pools resolve.  The int8
+        scales and gemma3's ``global_k``/``global_v`` take the K/V names,
+        so they split by kv head with the codes."""
         if self.cfg.family == "rwkv":
             return {"wkv": ("layers", "batch", "heads", None, None),
                     "tm_x": ("layers", "batch", None),
                     "cm_x": ("layers", "batch", None), "pos": ()}
         names = {key: (("layers", "batch", "heads", None, None)
                        if key == "ssm" else _KV_NAMES)
-                 for key in self.cache_specs(batch, max_len)}
+                 for key in self.cache_specs(batch, max_len, kv_int8)}
         names["pos"] = ()
         return names
 
-    def paged_cache_names(self, n_blocks: int, block_size: int
+    def paged_cache_names(self, n_blocks: int, block_size: int,
+                          kv_int8: Optional[bool] = None
                           ) -> dict[str, tuple]:
         """The paged pools' dim names (model.py:344-351): the kv heads
         split over a pod's members when they divide it, the physical
         blocks never do."""
         return {key: ("layers", None, None, "kv_heads", None)
-                for key in self.paged_cache_specs(n_blocks, block_size)}
+                for key in self.paged_cache_specs(n_blocks, block_size,
+                                                  kv_int8)}
 
     # -- slot caches (continuous batching) ---------------------------------
 
@@ -430,20 +435,29 @@ class PodModel:
     ``cache_names``), while logits, the sampled tokens and the key stream
     live on the primary.  It answers the calls the serving engine makes of
     a ``Model`` on params and caches, so an instance runs a pod through
-    the same admission and round bodies as one device.  The full-cache
-    dense family only (``transformer.tp_refusal``); a pod neither
-    speculates nor migrates, so it has no verify step and no slot
-    export."""
+    the same admission and round bodies as one device.  The dense and moe
+    families, on full, rolled and dual caches, bf16 or int8 KV
+    (``kv_int8``, the default of every pool it makes); the rwkv and
+    hybrid families are refused (``transformer.tp_refusal``; the
+    families that prefill with a context are refused before a pod is
+    built, by ``engine.context_refusal``).  A pod neither speculates nor
+    migrates, so it has no verify step and no slot export."""
 
     def __init__(self, model: Model, group: TPGroup, kv_int8: bool):
-        why = transformer.tp_refusal(model.cfg, kv_int8)
+        why = transformer.tp_refusal(model.cfg)
         if why:
             raise NotImplementedError(why)
         self.model, self.cfg, self.group = model, model.cfg, group
+        self.kv_int8 = kv_int8
+
+    def _int8(self, kv_int8: Optional[bool]) -> bool:
+        return self.kv_int8 if kv_int8 is None else kv_int8
 
     def _pools(self, specs: dict, names: dict) -> list:
         """Each member's zeroed leaves of ``specs``, resolved by
-        ``names`` against the group."""
+        ``names`` against the group: every leaf a tensor of its own on
+        its member's device (never a view of a wider pool, so the int8
+        codes keep the kernels' 16-byte alignment)."""
         out = [{} for _ in self.group.devices]
         for key, (shape, dtype) in specs.items():
             sh = Sharding(self.group, resolve_pspec(names[key], shape,
@@ -453,12 +467,16 @@ class PodModel:
                                           device=dev)
         return out
 
+    def _slot_pools(self, batch: int, max_len: int, kv_int8) -> list:
+        int8 = self._int8(kv_int8)
+        return self._pools(self.model.cache_specs(batch, max_len, int8),
+                           self.model.cache_names(batch, max_len, int8))
+
     def init_slot_cache(self, n_slots: int, max_len: int, device=None,
                         kv_int8: Optional[bool] = None) -> list:
         """Each member's slot pool, with its own per-slot positions
         (``device`` is the primary's; every member's is its own)."""
-        caches = self._pools(self.model.cache_specs(n_slots, max_len, False),
-                             self.model.cache_names(n_slots, max_len))
+        caches = self._slot_pools(n_slots, max_len, kv_int8)
         for c, dev in zip(caches, self.group.devices):
             c["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         return caches
@@ -466,17 +484,19 @@ class PodModel:
     def init_paged_cache(self, n_blocks: int, block_size: int, device=None,
                          kv_int8: Optional[bool] = None) -> list:
         """Each member's pages: its kv heads of every physical block."""
+        int8 = self._int8(kv_int8)
         return self._pools(
-            self.model.paged_cache_specs(n_blocks, block_size, False),
-            self.model.paged_cache_names(n_blocks, block_size))
+            self.model.paged_cache_specs(n_blocks, block_size, int8),
+            self.model.paged_cache_names(n_blocks, block_size, int8))
 
     def prefill(self, params, tokens, *, max_len=None, length=None,
                 kv_int8: Optional[bool] = None, ctx=None):
         b, s = tokens.shape
-        entries = self._pools(self.model.cache_specs(b, max_len or s, False),
-                              self.model.cache_names(b, max_len or s))
-        return transformer.prefill_tp(params, tokens, self.cfg, self.group,
-                                      entries, length=length)
+        max_len = max_len or s
+        return transformer.prefill_tp(
+            params, tokens, self.cfg, self.group,
+            self._slot_pools(b, max_len, kv_int8), max_len=max_len,
+            length=length)
 
     def merge_slot(self, caches: list, entries: list, slot) -> list:
         slots = (on_members(slot, self.group) if torch.is_tensor(slot)

@@ -7,7 +7,9 @@ row of its expert's capacity bucket in token-major order, overflow past
 the capacity is dropped to a trash row, the buckets go through a batched
 (E, C, D) x (E, D, F) product, and the pair outputs come back weighted by
 their gates.  The mesh path (``_moe_apply_shardmap``) needs a training
-mesh; a moe pod (``shards > 1``) is ROADMAP.md, Queue 1 item 11b.
+mesh.  A sharded pod (``shards > 1``) runs ``moe_tp``: JAX under a
+serving mesh runs the single-device path on column-split experts, and
+so does each member, on its copy of the tokens.
 
 The body runs inside the captured decode round and admission graphs
 (``serving/graphs.py``), so nothing in it syncs the host or takes a
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import TPGroup, gather_cols
 from repro_torch.kernels.grad import needs_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import COL, ROW, PSpec
@@ -82,13 +85,25 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
                 counts=seen[:, -1])
 
 
-def _shared(sp: dict, xt: torch.Tensor) -> torch.Tensor:
-    """The shared experts times their sigmoid gate (moe.py:233-239); the
-    gate's logits in f32, as JAX promotes ``f32 @ bf16``."""
+def _shared_act(sp: dict, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts' column-parallel half: the SiLU-gated
+    activation (T, fs), or a member's columns of it."""
     g = F.silu((xt @ sp["w_gate"]).float()).to(xt.dtype)
-    out = (g * (xt @ sp["w_up"])) @ sp["w_down"]
+    return g * (xt @ sp["w_up"])
+
+
+def _shared_down(sp: dict, h: torch.Tensor, xt: torch.Tensor
+                 ) -> torch.Tensor:
+    """The row-parallel half: the whole ``w_down`` times the sigmoid gate
+    of ``xt``; the gate's logits in f32, as JAX promotes ``f32 @
+    bf16``."""
     mix = torch.sigmoid(xt.float() @ sp["gate"].float())
-    return out * mix.to(xt.dtype)
+    return (h @ sp["w_down"]) * mix.to(xt.dtype)
+
+
+def _shared(sp: dict, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts times their sigmoid gate (moe.py:233-239)."""
+    return _shared_down(sp, _shared_act(sp, xt), xt)
 
 
 def dispatch(xt: torch.Tensor, r: dict, cfg: ModelConfig,
@@ -104,24 +119,35 @@ def dispatch(xt: torch.Tensor, r: dict, cfg: ModelConfig,
     return buckets[:-1].view(e, cap, d)
 
 
-def experts(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
-    """Every expert's SiLU-gated FFN over its bucket, the activation in f32
-    (moe.py:222-225): the (E * cap, D) outputs, then a zero row that
-    dropped pairs read.  Serving writes the last product straight into
-    the output; under autograd, which takes no ``out=``, the rows are
-    concatenated (the same values)."""
-    e, cap, d = expert_in.shape
+def _expert_act(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
+    """The experts' column-parallel half: (E, cap, fe) SiLU-gated
+    activations of the buckets, the SiLU in f32, or a member's columns."""
     h_gate = torch.bmm(expert_in, params["w_gate"])
     h_up = torch.bmm(expert_in, params["w_up"])
-    h = F.silu(h_gate.float()).to(expert_in.dtype) * h_up
+    return F.silu(h_gate.float()).to(expert_in.dtype) * h_up
+
+
+def _expert_down(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """The row-parallel half: the whole ``w_down`` over (E, cap, fe), the
+    (E * cap, D) outputs, then a zero row that dropped pairs read.
+    Serving writes the product straight into the output; under autograd,
+    which takes no ``out=``, the rows are concatenated (the same
+    values)."""
+    e, cap = h.shape[:2]
+    d = params["w_down"].shape[-1]
     if needs_grad(h, params["w_down"]):
         out = torch.bmm(h, params["w_down"]).view(e * cap, d)
         return torch.cat([out, out.new_zeros((1, d))])
-    flat = torch.empty((e * cap + 1, d), dtype=expert_in.dtype,
-                       device=expert_in.device)
+    flat = torch.empty((e * cap + 1, d), dtype=h.dtype, device=h.device)
     torch.bmm(h, params["w_down"], out=flat[:-1].view(e, cap, d))
     flat[-1].zero_()
     return flat
+
+
+def experts(params: dict, expert_in: torch.Tensor) -> torch.Tensor:
+    """Every expert's SiLU-gated FFN over its bucket (moe.py:222-225):
+    ``_expert_down`` of ``_expert_act``."""
+    return _expert_down(params, _expert_act(params, expert_in))
 
 
 def combine(flat: torch.Tensor, r: dict) -> torch.Tensor:
@@ -165,3 +191,32 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     if "shared" in params:
         y = y + _shared(params["shared"], xt)
     return y.view(b, s, d), aux_loss(r, cfg)
+
+
+def moe_tp(lps: list, hs: list, cfg: ModelConfig, group: TPGroup,
+           capacity_factor: float = 1.25) -> tuple[list, torch.Tensor]:
+    """``moe_apply`` of a sharded pod (moe.py:184-241 under
+    ``serve_pspec``): each member routes and dispatches its own copy of
+    the tokens, which every exact exchange keeps bitwise equal, so
+    ``dest``/``keep`` agree on every member; it runs its columns of the
+    experts' and the shared experts' ``w_gate``/``w_up``; the
+    activations are gathered in member order before the whole ``w_down``
+    each member holds.  lps, hs: each member's moe leaves and (B, S, D)
+    input.  Returns (each member's output, the primary's aux loss)."""
+    b, s, d = hs[0].shape
+    t = b * s
+    cap = _capacity(t, cfg, capacity_factor)
+    xts = [h.reshape(t, d) for h in hs]
+    routes = [route(lp["router"], xt, cfg, cap) for lp, xt in zip(lps, xts)]
+    acts = gather_cols([_expert_act(lp, dispatch(xt, r, cfg, cap))
+                        for lp, xt, r in zip(lps, xts, routes)],
+                       group, cfg.expert_d_ff)
+    ys = [combine(_expert_down(lp, a), r)
+          for lp, a, r in zip(lps, acts, routes)]
+    if "shared" in lps[0]:
+        sps = [lp["shared"] for lp in lps]
+        sh = gather_cols([_shared_act(sp, xt) for sp, xt in zip(sps, xts)],
+                         group, cfg.n_shared_experts * cfg.expert_d_ff)
+        ys = [y + _shared_down(sp, a, xt)
+              for y, sp, a, xt in zip(ys, sps, sh, xts)]
+    return [y.view(b, s, d) for y in ys], aux_loss(routes[0], cfg)

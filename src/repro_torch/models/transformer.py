@@ -35,7 +35,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (EMBED, HEAD, NORM, PSpec,
                                        checkpointed, mlp_apply, mlp_specs,
                                        mlp_tp, rms_norm, stack_tree, unstack)
-from repro_torch.models.moe import moe_apply, moe_specs
+from repro_torch.models.moe import moe_apply, moe_specs, moe_tp
 
 
 def block_specs(cfg: ModelConfig) -> dict[str, Any]:
@@ -375,21 +375,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     cache = {key: torch.zeros(shape, dtype=dtype, device=x.device)
              for key, (shape, dtype) in cache_specs(cfg, b, max_len,
                                                     quant).items()}
-    lc = local_cache_len(cfg, max_len)
     for i, g in enumerate(global_slots(cfg)):
         x, k, v, _ = block_full(layer_params(params, i), x, cfg,
                                 positions=positions,
                                 window=w if g is None else None)
-        for key, t in (("k", k), ("v", v)):
-            if w is not None:
-                cache[key][i] = _windowed_cache(t, lc, max_len)
-                if g is not None:
-                    cache[f"global_{key}"][g, :, :s] = t
-                continue
-            if quant:
-                t, scale = attn.kv_quantize(t)
-                cache[f"{key}_scale"][i, :, :s] = scale
-            cache[key][i, :, :s] = t
+        _write_prefill_kv(cache, i, g, k, v, cfg, max_len)
     if torch.is_tensor(length):
         cache["pos"] = length.to(torch.int32, copy=True)
         last = x.index_select(1, (length - 1).reshape(1).long())
@@ -398,6 +388,28 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         cache["pos"] = torch.tensor(n, dtype=torch.int32, device=x.device)
         last = x[:, n - 1:n]
     return lm_head(params, last, cfg)[:, 0], cache
+
+
+def _write_prefill_kv(cache: dict, i: int, g: Optional[int],
+                      k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                      max_len: int) -> None:
+    """Layer i's post-rope K/V (B, S, K, Dh) into ``cache`` as the pools
+    hold them: rolled on a windowed config (``_windowed_cache``), a
+    global layer's (``g``, its ``global_slots`` entry) also into
+    ``global_k``/``global_v``; int8 codes and scales where the cache holds
+    ``k_scale``; else bf16 rows [0, S)."""
+    s, w = k.shape[1], cfg.sliding_window
+    for key, t in (("k", k), ("v", v)):
+        if w is not None:
+            cache[key][i] = _windowed_cache(t, local_cache_len(cfg, max_len),
+                                            max_len)
+            if g is not None:
+                cache[f"global_{key}"][g, :, :s] = t
+            continue
+        if "k_scale" in cache:
+            t, scale = attn.kv_quantize(t)
+            cache[f"{key}_scale"][i, :, :s] = scale
+        cache[key][i, :, :s] = t
 
 
 def _groups(cfg: ModelConfig):
@@ -695,21 +707,15 @@ def verify_step_paged(params: dict, tokens: torch.Tensor, cache: dict,
 # --------------------------------------------------------------------------
 
 
-def tp_refusal(cfg: ModelConfig, kv_int8: bool) -> Optional[str]:
+def tp_refusal(cfg: ModelConfig) -> Optional[str]:
     """Why a sharded pod cannot serve ``cfg`` yet, or None: the port runs
-    the full-cache dense family in bf16 KV; the rest, which JAX runs
-    under a mesh through XLA, is ROADMAP.md Queue 1 item 11b."""
-    why = None
-    if cfg.family != "dense":
-        why = f"the {cfg.family} family"
-    elif kv_int8:
-        why = "int8 KV"
-    elif cfg.sliding_window is not None or cfg.local_global_ratio:
-        why = "windowed and dual caches"
-    if why is None:
+    the dense and moe families on full, rolled and dual caches, bf16 or
+    int8 KV; the rwkv and hybrid families, which JAX runs under a mesh
+    through XLA, are ROADMAP.md Queue 1 item 11b."""
+    if cfg.family not in ("rwkv", "hybrid"):
         return None
-    return (f"{cfg.name}: sharded pods (shards > 1) of {why} are not ported "
-            f"yet (ROADMAP.md, Queue 1 item 11b)")
+    return (f"{cfg.name}: sharded pods (shards > 1) of the {cfg.family} "
+            f"family are not ported yet (ROADMAP.md, Queue 1 item 11b)")
 
 
 def embed_tokens_tp(members: list, tokens: torch.Tensor, cfg: ModelConfig,
@@ -752,43 +758,64 @@ def lm_head_tp(members: list, xs: list, cfg: ModelConfig, group: TPGroup
                       for p, x in zip(members, xs)], dim=-1)
 
 
+def _ffn_tp(lps: list, hs: list, cfg: ModelConfig, group: TPGroup
+            ) -> list:
+    """``_ffn`` of a sharded pod at serving: ``mlp_tp``, or for the moe
+    family ``moe_tp`` at ``moe_cf_eval`` (its aux loss dropped)."""
+    if cfg.family == "moe":
+        return moe_tp([lp["moe"] for lp in lps], hs, cfg, group,
+                      cfg.moe_cf_eval)[0]
+    return mlp_tp([lp["mlp"] for lp in lps], hs, cfg.mlp, group, cfg.d_ff)
+
+
 def _blocks_tp(members: list, xs: list, caches: list, cfg: ModelConfig,
                group: TPGroup, positions: list, attend_at) -> list:
-    """Every layer over the members: ``attend_at(i)`` is layer i's
-    ``attn_tp`` callback.  Whether a member attends only its own heads is
-    read off the pools it writes (``caches``): split by kv head, or
-    replicated, as the pod's placement made them."""
+    """Every layer over the members: ``attend_at(i, g)`` is layer i's
+    ``attn_tp`` callback (``g``: its ``global_slots`` entry).  Whether a
+    member attends only its own heads is read off the pool the layer
+    attends (``caches``; ``global_k`` on a global layer): split by kv
+    head, or replicated, as the pod's placement made it."""
     eps = cfg.norm_eps
-    split = caches[0]["k"].shape[-2] < cfg.n_kv_heads
-    for i in range(cfg.n_layers):
+    for i, g in enumerate(global_slots(cfg)):
+        pool = caches[0]["k" if g is None else "global_k"]
+        split = pool.shape[-2] < cfg.n_kv_heads
         lps = [layer_params(p, i) for p in members]
         hs = [rms_norm(x, lp["ln1"], eps) for x, lp in zip(xs, lps)]
         a = attn.attn_tp([lp["attn"] for lp in lps], hs, cfg, group,
-                         positions, split, attend_at(i))
+                         positions, split, attend_at(i, g))
         xs = [x + y for x, y in zip(xs, a)]
         hs = [rms_norm(x, lp["ln2"], eps) for x, lp in zip(xs, lps)]
-        f = mlp_tp([lp["mlp"] for lp in lps], hs, cfg.mlp, group, cfg.d_ff)
+        f = _ffn_tp(lps, hs, cfg, group)
         xs = [x + y for x, y in zip(xs, f)]
     return xs
 
 
 def prefill_tp(members: list, tokens: torch.Tensor, cfg: ModelConfig,
-               group: TPGroup, caches: list, *, length=None
+               group: TPGroup, caches: list, *, max_len: int, length=None
                ) -> tuple[torch.Tensor, list]:
     """``prefill`` of a sharded pod into ``caches``, each member's zeroed
-    bf16 ``k``/``v`` of its kv heads (``PodModel`` makes them as it makes
-    the pools): returns (the last position's logits on the primary, the
-    caches, each with its own ``pos``).  ``tokens`` and a tensor
-    ``length`` lie on the primary."""
+    leaves of ``cache_specs`` (``PodModel`` makes them as it makes the
+    pools): returns (the last position's logits on the primary, the
+    caches, each with its own ``pos``).  Each member writes its heads:
+    bf16 K/V, or under int8 (``"k_scale"`` in its cache) their codes and
+    scales while it attends the unquantized K/V; a windowed config's
+    layers rolled (``_windowed_cache``) and its global layers also into
+    ``global_k``/``global_v``, as ``prefill`` writes them.  ``tokens``
+    and a tensor ``length`` lie on the primary; a windowed config
+    refuses ``length``, as ``prefill`` does."""
     s = tokens.shape[1]
+    w = cfg.sliding_window
+    if length is not None and w is not None:
+        raise NotImplementedError(
+            "length-masked prefill requires full (non-windowed) caches")
     xs = embed_tokens_tp(members, tokens, cfg, group)
     positions = on_members(torch.arange(s, device=tokens.device), group)
 
-    def attend_at(i):
+    def attend_at(i, g):
         def attend(m, q, k, v):
-            caches[m]["k"][i, :, :s] = k
-            caches[m]["v"][i, :, :s] = v
-            return ops.flash_attention(q, k, v, causal=True)
+            _write_prefill_kv(caches[m], i, g, k, v, cfg, max_len)
+            return ops.flash_attention(q, k, v, causal=True,
+                                       window=w if g is None else None)
         return attend
 
     xs = _blocks_tp(members, xs, caches, cfg, group, positions, attend_at)
@@ -809,19 +836,31 @@ def decode_step_tp(members: list, token: torch.Tensor, caches: list,
                    cfg: ModelConfig, group: TPGroup
                    ) -> tuple[torch.Tensor, list]:
     """``decode_step`` of a sharded pod: each member writes and attends
-    its pool at its own ``pos``; returns (logits on the primary, the
-    caches with every member's ``pos + 1``)."""
+    its pool at its own ``pos`` with ``decode_step``'s branches (a global
+    layer over its slot of ``global_k``/``global_v``, int8 codes, a
+    rolled cache within the window, or the full cache), its decode
+    kernels splitting S as one device's do (``plan_kv``), so a member's
+    heads attend as one device's bit for bit; returns (logits on the
+    primary, the caches with every member's ``pos + 1``)."""
     b = token.shape[0]
+    kv = cfg.n_kv_heads
     pos_b = [c["pos"].reshape(-1).expand(b) for c in caches]
     xs = embed_tokens_tp(members, token[:, None], cfg, group)
+    w = cfg.sliding_window
+    rolled = w is not None and caches[0]["k"].shape[2] <= w
 
-    def attend_at(i):
+    def attend_at(i, g):
         def attend(m, q, k, v):
-            kc, vc = caches[m]["k"][i], caches[m]["v"][i]
-            attn.cache_write(kc, k, pos_b[m])
-            attn.cache_write(vc, v, pos_b[m])
-            return ops.decode_attention(q, kc, vc,
-                                        (pos_b[m] + 1).to(torch.int32))
+            c, p = caches[m], pos_b[m]
+            if g is not None:
+                return attn.decode_attend(q, k, v, c["global_k"][g],
+                                          c["global_v"][g], p, plan_kv=kv)
+            if "k_scale" in c:
+                return attn.decode_attend_quant(
+                    q, k, v, c["k"][i], c["v"][i], c["k_scale"][i],
+                    c["v_scale"][i], p, plan_kv=kv)
+            return attn.decode_attend(q, k, v, c["k"][i], c["v"][i], p,
+                                      rolled=rolled, window=w, plan_kv=kv)
         return attend
 
     xs = _blocks_tp(members, xs, caches, cfg, group,
@@ -837,20 +876,26 @@ def decode_step_paged_tp(members: list, token: torch.Tensor, caches: list,
                          ) -> tuple[torch.Tensor, list]:
     """``decode_step_paged`` of a sharded pod: one page table (on the
     primary) addresses every member's pool, which holds the member's kv
-    heads of every page."""
+    heads of every page (under int8 their codes and scales), attended
+    with one device's split of S (``plan_kv``)."""
+    kv = cfg.n_kv_heads
     tables = on_members(block_tables, group)
     poss = on_members(pos, group)
     acts = (on_members(active, group) if active is not None
             else [None] * group.n)
     xs = embed_tokens_tp(members, token[:, None], cfg, group)
 
-    def attend_at(i):
+    def attend_at(i, g):
         def attend(m, q, k, v):
-            kp, vp = caches[m]["k"][i], caches[m]["v"][i]
-            attn.paged_cache_write(kp, k, tables[m], poss[m], acts[m])
-            attn.paged_cache_write(vp, v, tables[m], poss[m], acts[m])
-            return ops.paged_decode_attention(
-                q, kp, vp, tables[m], (poss[m] + 1).to(torch.int32))
+            c = caches[m]
+            if "k_scale" in c:
+                return attn.paged_attend_quant(
+                    q, k, v, c["k"][i], c["v"][i], c["k_scale"][i],
+                    c["v_scale"][i], tables[m], poss[m], acts[m],
+                    plan_kv=kv)
+            return attn.paged_attend(q, k, v, c["k"][i], c["v"][i],
+                                     tables[m], poss[m], acts[m],
+                                     plan_kv=kv)
         return attend
 
     xs = _blocks_tp(members, xs, caches, cfg, group,

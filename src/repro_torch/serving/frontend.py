@@ -48,9 +48,11 @@ JAX package): one rectangle on each of ``shards`` member nodes of the
 best-linked group, the KV charge divided by ``shards`` per member, and
 one instance on the primary member's engine driving a ``TPGroup`` of the
 members' devices (``engine.FunctionInstance``).  A pod dies with any
-member, does not migrate and does not speculate.  It serves the
-full-cache dense family; the rest raises ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 11b).
+member, does not migrate and does not speculate.  It serves the dense
+and moe families, full, rolled and dual caches, bf16 or int8 KV; the
+rwkv and hybrid families raise ``NotImplementedError`` (ROADMAP.md,
+Queue 1 item 11b).  A family that prefills with a context (encdec,
+vlm) is refused at any ``shards``, before any rectangle is taken.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ from repro_torch.distributed.sharding import (TPGroup, serve_pspec,
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import tp_refusal
-from repro_torch.serving.engine import ServeRequest, ServingEngine
+from repro_torch.serving.engine import (ServeRequest, ServingEngine,
+                                       context_refusal)
 from repro_torch.serving.modelstore import ColdStartEvent, FleetModelStore
 from repro_torch.serving.paging import blocks_needed
 
@@ -330,8 +333,9 @@ class ClusterFrontend:
         best-linked node group, the KV charge divided by ``shards`` per
         node, and the primary member's engine running the instance over a
         ``TPGroup`` of the members' devices.  What pods do not serve yet
-        (int8 KV, windowed and dual caches, the families other than dense;
-        ROADMAP.md, Queue 1 item 11b) raises ``NotImplementedError``
+        (the rwkv and hybrid families; ROADMAP.md, Queue 1 item 11b)
+        raises ``NotImplementedError``, and a family that prefills with a
+        context the engine's refusal (``ValueError``, at any ``shards``),
         before any rectangle is taken.
         """
         t_start = time.perf_counter()
@@ -341,8 +345,11 @@ class ClusterFrontend:
             raise ValueError(
                 "speculate cannot ride a sharded pod: the draft/verify "
                 "round is not tensor-parallel")
+        why = context_refusal(model.cfg)
+        if why:
+            raise ValueError(why)
         if shards > 1:
-            why = tp_refusal(model.cfg, model.kv_int8())
+            why = tp_refusal(model.cfg)
             if why:
                 raise NotImplementedError(why)
         if not 0.0 <= kv_shared_frac < 1.0:

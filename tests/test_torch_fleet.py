@@ -541,32 +541,38 @@ def test_sim_live_decision_signature_with_speculate(models):
 # -- options the port does not have yet ---------------------------------------
 
 
+def _rwkv():
+    """rwkv6's reduced cut, a family pods do not serve yet, and its
+    params."""
+    from repro_torch.configs import get_config
+
+    model = build_model(get_config("rwkv6-1.6b", reduced=True))
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
 @pytest.mark.parametrize("option,item", [(dict(shards=2), "item 11b")])
-def test_unported_options_raise(models, monkeypatch, option, item):
-    """A sharded pod of what pods do not serve yet (here int8 KV, the gate
-    on) raises, never drops, and leaves no rectangle behind (ROADMAP.md,
+def test_unported_options_raise(option, item):
+    """A sharded pod of what pods do not serve yet (here the rwkv family)
+    raises, never drops, and leaves no rectangle behind (ROADMAP.md,
     Queue 1 item 11b)."""
-    monkeypatch.setenv("REPRO_KV_INT8", "1")
+    model, params = _rwkv()
     fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
     alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=0.5)
     with pytest.raises(NotImplementedError, match=item):
-        fe.place_instance("f", models["tm"], models["tp"], alloc, **option)
+        fe.place_instance("f", model, params, alloc, **option)
     with pytest.raises(NotImplementedError, match=item):
-        fe.deploy("f", models["tm"], models["tp"], alloc, **option)
+        fe.deploy("f", model, params, alloc, **option)
     assert not fe.placements and fe.pool.total_used_area() == 0
 
 
-def test_unported_spec_axes_raise_through_the_live_backend(models,
-                                                            monkeypatch):
-    """A ``shards=2`` spec of an int8-KV function reaches the frontend
+def test_unported_spec_axes_raise_through_the_live_backend(models):
+    """A ``shards=2`` spec of an rwkv function reaches the frontend
     through the live backend and raises there, naming item 11b; a sharded
     upload whose shardings do not align with the staged leaves raises
     before any copy."""
-    monkeypatch.setenv("REPRO_KV_INT8", "1")
     point = ProfilePoint(sm=0.5, quota=0.5, throughput=1.0)
     spec = tctl.FunctionSpec(
-        name="f", profile=(point,), shards=2,
-        model_factory=lambda: (models["tm"], models["tp"]))
+        name="f", profile=(point,), shards=2, model_factory=_rwkv)
     fe = ClusterFrontend(n_nodes=2, device="cpu")
     plane = tctl.ControlPlane(tctl.LiveBackend(fe))
     with pytest.raises(NotImplementedError, match="item 11b"):

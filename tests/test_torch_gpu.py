@@ -1800,16 +1800,17 @@ def test_vlm_reduced_round_replay_equals_eager_body(cuda_device):
 # -- sharded pods on the card --------------------------------------------------
 
 
-def _pod_streams(device, shards, batching, sampling=None):
-    """qwen2-7b's smoke cut (4 q over 2 kv heads of 16) served through
-    ``ClusterFrontend(n_nodes=4)`` on the card as a ``shards``-member pod;
+def _pod_streams(device, shards, batching, sampling=None, arch="qwen2-7b"):
+    """``arch``'s smoke cut (qwen2-7b's: 4 q over 2 kv heads of 16) served
+    through ``ClusterFrontend(n_nodes=4)`` on the card as a
+    ``shards``-member pod, under the int8 gate as the caller set it;
     returns (streams, instance)."""
     from repro_torch.configs import get_config
     from repro_torch.core.resources import Alloc
     from repro_torch.models import build_model
     from repro_torch.serving import ClusterFrontend
 
-    model = build_model(get_config("qwen2-7b", reduced=True))
+    model = build_model(get_config(arch, reduced=True))
     params = model.init(torch.Generator(device=device).manual_seed(0))
     fe = ClusterFrontend(n_nodes=4, device=device)
     fe.place_instance("f", model, params,
@@ -1847,15 +1848,14 @@ def test_pod_streams_equal_one_instance_on_the_card(cuda_device, batching,
         assert rg.replays == inst.rounds - 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("batching", ["continuous", "paged"])
-def test_pod_round_replay_equals_eager_body(cuda_device, batching):
-    """A 2-member pod's replayed round equals its eager round body bit for
-    bit over the slot tokens and every member's pool leaves (paged: its
-    pages, and the shared page tables, positions and active mask)."""
+def _pod_replay_equals_eager(inst) -> None:
+    """Four more requests admitted and a round run, then the pod's round
+    replayed from its graph and its eager body run from the same state:
+    bit for bit over the slot tokens and every member's pool leaves
+    (paged: its pages, and the shared page tables, positions and active
+    mask)."""
     from repro_torch.serving.engine import ServeRequest
 
-    _, inst = _pod_streams(cuda_device, 2, batching)
     rng = np.random.default_rng(4)
     for n in (6, 11, 20, 3):
         inst.queue.append(ServeRequest(
@@ -1868,7 +1868,7 @@ def test_pod_round_replay_equals_eager_body(cuda_device, batching):
         out = {"tok": inst._slot_tok_dev, **{
             f"{m}{k}": v for m, pool in enumerate(inst.cache)
             for k, v in pool.items()}}
-        if batching == "paged":
+        if inst.batching == "paged":
             out["paged state"] = inst._state_dev
         return out
 
@@ -1880,6 +1880,96 @@ def test_pod_round_replay_equals_eager_body(cuda_device, batching):
     inst._round_body()
     torch.cuda.synchronize()
     assert all(torch.equal(v, replayed[k]) for k, v in state().items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batching", ["continuous", "paged"])
+def test_pod_round_replay_equals_eager_body(cuda_device, batching):
+    """A 2-member pod's replayed round equals its eager round body bit for
+    bit over the slot tokens and every member's pool leaves."""
+    _, inst = _pod_streams(cuda_device, 2, batching)
+    _pod_replay_equals_eager(inst)
+
+
+POD_KINDS = [("qwen2-7b", True, "continuous"), ("qwen2-7b", True, "paged"),
+             ("gemma3-27b", False, "continuous"),
+             ("mixtral-8x7b", False, "continuous"),
+             ("qwen2-moe-a2.7b", False, "continuous"),
+             ("qwen2-moe-a2.7b", False, "paged")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,int8,batching", POD_KINDS,
+                         ids=[f"{a}-{'int8-' if q else ''}{b}"
+                              for a, q, b in POD_KINDS])
+def test_pod_families_on_the_card(cuda_device, monkeypatch, arch, int8,
+                                  batching):
+    """int8 KV, gemma3's dual caches, mixtral's rolled moe and qwen2-moe as
+    pods on the card at their smoke cuts (bf16 weights): greedy streams
+    at 1, 2 and 4 members equal, every pod's round one capture; each
+    member's int8 codes and scales tensors of their own, every layer's
+    view on a 16-byte boundary (the int8 kernels' rule); a 2-member pod's
+    replayed round equal to its eager body over every member's pool."""
+    monkeypatch.setenv("REPRO_KV_INT8", "1" if int8 else "0")
+    one, _ = _pod_streams(cuda_device, 1, batching, arch=arch)
+    for shards in (2, 4):
+        pod, inst = _pod_streams(cuda_device, shards, batching, arch=arch)
+        assert pod == one, shards
+        assert inst.kv_int8 == int8 and inst.round_graph.captures == 1
+        for pool in inst.cache:
+            assert ("k_scale" in pool) == int8
+            for key, leaf in pool.items():
+                if key in ("k", "v", "k_scale", "v_scale"):
+                    assert leaf._base is None, key
+                    assert all(leaf[i].data_ptr() % 16 == 0
+                               for i in range(leaf.shape[0])), key
+    _, inst = _pod_streams(cuda_device, 2, batching, arch=arch)
+    _pod_replay_equals_eager(inst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention",
+                                  "decode_attention_quant",
+                                  "paged_decode_attention_quant"])
+@pytest.mark.parametrize("h,kv", [(16, 16), (28, 4)])
+def test_member_heads_decode_as_the_whole_launch(cuda_device, name, h, kv):
+    """A pod member's slice of the heads, its split of S planned for the
+    whole model's kv heads (``plan_kv``), attends as the whole launch's
+    heads bit for bit, at 2 and 4 members (qwen2-moe-a2.7b's 16 / 16
+    heads, qwen2-7b's 28 / 4; B=8, S=1024, mixed lengths)."""
+    from repro_torch.models.attention import kv_quantize
+    rng = np.random.default_rng(17)
+    b, s, bs = 8, 1024, 16
+    q = _cuda_rand(rng, (b, 1, h, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, kv, 128), cuda_device)
+              for _ in range(2))
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    paged = name.startswith("paged")
+    if paged:
+        order = torch.as_tensor(rng.permutation(b * s // bs),
+                                device=cuda_device)
+        tables = order.to(torch.int32).view(b, s // bs)
+        pool = []
+        for x in (kc, vc):
+            pages = torch.empty_like(x).view(b * s // bs, bs, kv, 128)
+            pages[order] = x.reshape(b * s // bs, bs, kv, 128)
+            pool.append(pages)
+        kc, vc = pool
+    leaves = ((kc, vc) if "quant" not in name
+              else (*(kv_quantize(x)[0] for x in (kc, vc)),
+                    *(kv_quantize(x)[1] for x in (kc, vc))))
+    tail = (tables, lens) if paged else (lens,)
+    fn = getattr(da, name)
+    whole = fn(q, *leaves, *tail)
+    for shards in (2, 4):
+        km, hm = kv // shards, h // shards
+        for m in range(shards):
+            got = fn(q[:, :, m * hm:(m + 1) * hm].contiguous(),
+                     *(x[:, :, m * km:(m + 1) * km].contiguous()
+                       for x in leaves), *tail, plan_kv=kv)
+            assert torch.equal(got, whole[:, :, m * hm:(m + 1) * hm]), \
+                (shards, m)
 
 
 @pytest.mark.gpu

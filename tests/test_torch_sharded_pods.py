@@ -547,21 +547,12 @@ def test_seqshard_decode_equals_jax(shards):
 # -- what a pod does not serve yet --------------------------------------------
 
 
-OUT_OF_SCOPE = [("int8 KV", "qwen2-7b", True),
-                ("windowed and dual caches", "gemma3-27b", False),
-                ("the moe family", "mixtral-8x7b", False),
-                ("the moe family", "qwen2-moe-a2.7b", False),
-                ("the rwkv family", "rwkv6-1.6b", False),
-                ("the hybrid family", "hymba-1.5b", False),
-                ("the encdec family", "seamless-m4t-large-v2", False),
-                ("the vlm family", "llama-3.2-vision-11b", False)]
+OUT_OF_SCOPE = [("the rwkv family", "rwkv6-1.6b"),
+                ("the hybrid family", "hymba-1.5b")]
 
 
-@pytest.mark.parametrize("what,arch,int8", OUT_OF_SCOPE)
-def test_out_of_scope_pods_raise_naming_item_11b(monkeypatch, what, arch,
-                                                 int8):
-    if int8:
-        monkeypatch.setenv("REPRO_KV_INT8", "1")
+@pytest.mark.parametrize("what,arch", OUT_OF_SCOPE)
+def test_out_of_scope_pods_raise_naming_item_11b(what, arch):
     model = build_model(get_config(arch, reduced=True))
     params = {"unused": torch.zeros(1)}
     fe = ClusterFrontend(n_nodes=4, device="cpu")
@@ -569,4 +560,4 @@ def test_out_of_scope_pods_raise_naming_item_11b(monkeypatch, what, arch,
         fe.place_instance("f", model, params, ALLOC, shards=2)
     assert not fe.placements and fe.pool.total_used_area() == 0
     with pytest.raises(NotImplementedError, match="item 11b"):
-        PodModel(model, tp_group(2, devices=["cpu"] * 2), int8)
+        PodModel(model, tp_group(2, devices=["cpu"] * 2), False)
