@@ -174,9 +174,11 @@ place), and then:
    qwen2-7b continuous and paged here, rwkv6-1.6b and hymba-1.5b after
    their serve modes, each through the graphs equal to a ``fused=False``
    engine bit for bit, one sync a pass;
-7. sharded pods phase — qwen2-7b at full width through
+7. sharded pods phase — qwen2-7b's full widths at ``POD_LAYERS`` = 7 of
+   its 28 layers through
    ``ClusterFrontend(n_nodes=4)`` with a ``FleetModelStore`` (the weights
-   staged once, each pod's members' slices uploaded straight to them) as
+   staged once; a pod's members on one card share one upload of each
+   leaf and take their slices from it on the card) as
    one instance and as 2- and 4-member pods whose members share the card
    (and, on a machine with two cards or more, a 2-member pod spanning
    two, which runs eagerly), 16 requests x 32 tokens, continuous and
@@ -198,16 +200,25 @@ place), and then:
    stranded request finishes on a one-instance replacement with the
    one-instance stream.  Then the same runs from int8 KV (no failure):
    the int8 dense and paged kernels once a layer, member and round.
-   After the gemma3-27b phase its widths cut in depth to what a 4-member
-   pod holds on the card (``pod_layers``: 36 layers, 30 local and 6
-   global; staged on the host, the full tree freed) serve the gemma3
-   phase's 16 prompts (8 past the window), continuous at
-   ``max_len=2048``, and after the qwen2-moe-a2.7b phase that model
-   serves the mix continuous and paged, each on one instance and as
+   After the gemma3-27b phase its widths at 12 of its 62 layers (10
+   local and 2 global; staged on the host, the full tree freed) serve
+   the gemma3 phase's 16 prompts (8 past the window), continuous at
+   ``max_len=2048``, and after the qwen2-moe-a2.7b phase its widths at 6
+   of its 24 layers serve the mix continuous and paged, each on one
+   instance and as
    2- and 4-member pods held as above (the replayed round over every
    member's rolled, global, int8 or paged leaves; the decode kernel on
-   gemma3's global layers only),
-   each member's weight bytes below one instance's, and for the moe
+   gemma3's global layers only), and after their serve modes rwkv6-1.6b
+   (its 32-head state split by head at 2 and 4 members) and hymba-1.5b
+   (its pools whole on every member: 5 kv and 25 SSM heads divide
+   neither) serve the mix continuous on one instance and as 2- and
+   4-member pods, each member's weight and state bytes equal to JAX's
+   ``per_device_bytes``, chunked WKV-6 (rwkv) or windowed flash and the
+   chunked scan (hymba) once a layer a member at each prefill, step
+   WKV-6 or the step scan once a layer a member each round, the
+   replayed round over every member's ``wkv``, ``tm_x``, ``cm_x`` or
+   ``k``, ``v``, ``ssm``; each member's weight bytes below one
+   instance's, and for the moe
    pods every member routing every token-layer of the prefills and a
    round to the same experts, equal to one instance's wherever its
    top-k gate margin exceeds 1e-4 (a member's decode kernels split S as
@@ -218,14 +229,19 @@ place), and then:
    kv head does not divide a pod; gemma3-27b's and mixtral-8x7b's cuts
    on their windowed caches, continuous; qwen2-moe-a2.7b's) serve the
    same greedy and sampled streams at 1, 2 and 4 members, continuous
-   and paged, with bf16 weights (the attention kernels take bf16 only;
+   and paged, and so do rwkv6-1.6b's and hymba-1.5b's cuts and a hymba
+   cut with 5 q over 1 kv head at d=80, continuous, with bf16 weights
+   (the attention kernels take bf16 only;
    the check holds exactly because at these shapes cuBLAS's products
    over a member's columns came out bit-equal to the full product's,
    ``scripts/pod_exactness_probe.py``).  The kernel phase holds
    flash, dense and paged decode at the members' geometries (14 q over 2
    kv heads, 7 over 1, of 128), int8 decode at 14 over 2, windowed flash
-   at a 4-member gemma3-27b pod's (8 over 4, window 1024) and decode at
-   a 4-member qwen2-moe-a2.7b pod's (4 over 4);
+   at a 4-member gemma3-27b pod's (8 over 4, window 1024), decode at
+   a 4-member qwen2-moe-a2.7b pod's (4 over 4) and both WKV-6 kernels at
+   a 2- and a 4-member rwkv6-1.6b pod's (16 and 8 heads of 64), and
+   holds each member's heads of the four decode kernels, both WKV-6
+   kernels and both scan kernels to the whole launch's bit for bit;
 8. training phase (last) — the autograd Functions of flash, WKV-6 and the
    selective scan (kernel forward, plain backward) at the trained shapes:
    their input gradients against autograd of the plain versions on the
@@ -326,7 +342,6 @@ def device_ms(calls, iters: int = 30, label: str = "") -> float:
     finish before Python dispatches the next call.  With a ``label``,
     logs the time per call of each CUDA kernel the calls launch."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for c in calls[:3]:
         c()
@@ -335,14 +350,46 @@ def device_ms(calls, iters: int = 30, label: str = "") -> float:
         for i in range(iters):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    rows = [(e.self_device_time_total / 1e3 / iters, e.key)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0]
+    rows = [(us / 1e3 / iters, key) for key, (us, _) in
+            device_totals(raw_events(prof, host=False)).items()]
     if label:
         log(f"device ms per call of {label} by kernel: " + "; ".join(
             f"{_port_name(key) or key[:50]} {t:.5f}" for t, key in rows))
     return sum(t for t, _ in rows)
+
+
+def raw_events(prof, host: bool = True) -> list[tuple[str, bool, int, int]]:
+    """The profiler's raw records, the device's and (``host``) the
+    host's, as (name, on the device, start ns, end ns).  Building its
+    event list (``prof.events()``, ``key_averages()``) for a serve window
+    of a few hundred thousand records takes longer than the window."""
+    from torch.autograd import DeviceType
+
+    def ns(e, what):
+        if hasattr(e, f"{what}_ns"):
+            return getattr(e, f"{what}_ns")()
+        return getattr(e, f"{what}_us")() * 1000
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        on_device = e.device_type() != DeviceType.CPU
+        if on_device or host:
+            start = ns(e, "start")
+            out.append((e.name(), on_device, start,
+                        start + ns(e, "duration")))
+    return out
+
+
+def device_totals(events, skip=()) -> dict[str, tuple[float, int]]:
+    """{name: (µs, records)} of the device records of ``raw_events`` with
+    a duration (the kernels, copies and sets), by name in order of first
+    appearance, leaving out the names in ``skip``."""
+    rows = {}
+    for name, on_device, start, end in events:
+        if on_device and end > start and name not in skip:
+            us, n = rows.get(name, (0.0, 0))
+            rows[name] = (us + (end - start) / 1e3, n + 1)
+    return rows
 
 
 def kernel_times(calls, plain, library=None, plain_iters: int = 30,
@@ -763,6 +810,32 @@ def decode_geometries(dev) -> None:
             f"int8")
 
 
+def wkv6_cost(b, s, h):
+    """(operations, bytes) of WKV-6 over (B, S, H) heads of 64: r, k, v, w
+    read and out written (bf16), u read, the state read and written
+    (f32); 5 D^2 operations a step and head, as the recurrence is
+    written."""
+    seq = b * s * h * 64
+    return 5 * seq * 64, 5 * seq * 2 + 2 * b * h * 64 * 64 * 4 + h * 128
+
+
+def wkv6_inputs(rng, dev, b, s, h, state_scale, decay="mild"):
+    """r, k, v, w, u, state of WKV-6 on the card (heads of 64): w in log
+    space, mild (-exp(0.3 n) - 0.01), strong (-exp(n + 2): a chunk's
+    decay reaches hundreds) or weak (-1e-3)."""
+    import torch
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+    r, k, v = (rand(b, s, h, 64).to(torch.bfloat16) for _ in range(3))
+    n = rand(b, s, h, 64)
+    w = {"mild": -torch.exp(n * 0.3) - 0.01, "strong": -torch.exp(n + 2),
+         "weak": torch.full_like(n, -1e-3)}[decay].to(torch.bfloat16)
+    return r, k, v, w, rand(h, 64).to(torch.bfloat16), \
+        rand(b, h, 64, 64) * state_scale
+
+
 def wkv6_kernel(rng, dev) -> dict:
     """The two WKV-6 kernels (rwkv6-1.6b: 32 heads of 64): the chunked one
     at a batch-1 prefill of 512 tokens from a zero state, the step one at
@@ -774,16 +847,8 @@ def wkv6_kernel(rng, dev) -> dict:
     import torch
     from repro_torch.kernels import wkv6
 
-    def inputs(b, s, h, state_scale, decay="mild"):
-        def rand(*shape):
-            return torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).to(dev)
-        r, k, v = (rand(b, s, h, 64).to(torch.bfloat16) for _ in range(3))
-        n = rand(b, s, h, 64)
-        w = {"mild": -torch.exp(n * 0.3) - 0.01, "strong": -torch.exp(n + 2),
-             "weak": torch.full_like(n, -1e-3)}[decay].to(torch.bfloat16)
-        return r, k, v, w, rand(h, 64).to(torch.bfloat16), \
-            rand(b, h, 64, 64) * state_scale
+    def inputs(*shape):
+        return wkv6_inputs(rng, dev, *shape)
 
     def check(name, x, kernel=None):
         before = (wkv6.wkv6_step.launches, wkv6.wkv6_chunked.launches)
@@ -798,13 +863,6 @@ def wkv6_kernel(rng, dev) -> dict:
             raise AssertionError(f"{name}: non-finite output")
         close(f"{name} state", st, pst)
         return close(name, o, po)
-
-    def cost(b, s, h):
-        """(operations, bytes): r, k, v, w read and out written (bf16), u
-        read, the state read and written (f32); 5 D^2 operations a step
-        and head, as the recurrence is written."""
-        seq = b * s * h * 64
-        return 5 * seq * 64, 5 * seq * 2 + 2 * b * h * 64 * 64 * 4 + h * 128
 
     b, s, h = 1, 512, 32
     main = inputs(b, s, h, 0.0)
@@ -829,11 +887,11 @@ def wkv6_kernel(rng, dev) -> dict:
     log(f"wkv6: the step kernel below S={t}, the chunked kernel from S={t}; "
         f"edge cases (threshold, strong and weak decay, S=2048, split == "
         f"whole) within {TOL} of the plain scan")
-    flops, io = cost(b, s, h)
+    flops, io = wkv6_cost(b, s, h)
     n = copies_for(io)
     sets = [[x.clone() for x in main] for _ in range(n)]
     bnd, by = bound(flops, io)
-    dflops, dio = cost(8, 1, h)
+    dflops, dio = wkv6_cost(8, 1, h)
     dsets = [[x.clone() for x in decode] for _ in range(copies_for(dio))]
     dbnd, dby = bound(dflops, dio)
     step_at_prefill = device_ms([lambda x=x: wkv6.wkv6_step(*x)
@@ -1228,6 +1286,7 @@ def member_geometries(dev) -> None:
                   rand(8, 1, 4, 128), rand(8, 1024, 4, 128),
                   rand(8, 1024, 4, 128), lens, plan_kv=16)
     member_split_check(rand, lens)
+    recurrent_member_split(dev)
 
 
 def member_split_check(rand, lens) -> None:
@@ -1288,6 +1347,71 @@ def member_split_check(rand, lens) -> None:
         f"qwen2-7b 28/4 at 2 and 4 members); entries of the B x H x 128 "
         f"outputs that differ when a member plans by its own kv heads "
         f"(logged): {'; '.join(out)}")
+
+
+# The head axis of each input of the WKV-6 kernels (r, k, v, w, u, state)
+# and of the scan's (x, dt, a_log, b, c, state).
+WKV6_HEAD_AXES = (2, 2, 2, 2, 0, 1)
+SSM_HEAD_AXES = (2, 2, 0, 2, 2, 1)
+
+
+def recurrent_member_split(dev) -> None:
+    """A pod's member scans its heads as one device does: both WKV-6
+    kernels at rwkv6-1.6b's geometry (32 heads of 64; the chunked one at
+    a B=1, S=512 prefill, the step one at a B=8, S=1 round) and both
+    selective-scan kernels at the reduced hymba's (4 heads of 16, N=8;
+    S=64 and S=1), each on a 2- and a 4-member pod's head slices of the
+    same inputs: every member's outputs and final state must equal the
+    whole launch's heads bit for bit (each CTA walks one head).  Then
+    both WKV-6 kernels at a 2- and a 4-member rwkv6-1.6b pod's member
+    geometry (16 and 8 heads), held against the plain scan and timed
+    beside the bound (no PyTorch call computes WKV-6)."""
+    import torch
+    from repro_torch.kernels import ssm_scan, wkv6
+
+    gen = np.random.default_rng(SEED + 16)
+    cases = [("wkv6_chunked", wkv6.wkv6_chunked, WKV6_HEAD_AXES,
+              wkv6_inputs(gen, dev, 1, 512, 32, 1.0)),
+             ("wkv6_step", wkv6.wkv6_step, WKV6_HEAD_AXES,
+              wkv6_inputs(gen, dev, 8, 1, 32, 1.0)),
+             ("ssm_chunked", ssm_scan.ssm_chunked, SSM_HEAD_AXES,
+              ssm_inputs(gen, dev, 1, 64, 4, 1.0, d=16, n=8)),
+             ("ssm_step", ssm_scan.ssm_step, SSM_HEAD_AXES,
+              ssm_inputs(gen, dev, 8, 1, 4, 1.0, d=16, n=8))]
+    done = []
+    for name, fn, axes, x in cases:
+        out, state = fn(*x)
+        h = x[-1].shape[1]
+        for shards in (2, 4):
+            hm = h // shards
+            for m in range(shards):
+                o, st = fn(*(t.narrow(a, m * hm, hm).contiguous()
+                             for t, a in zip(x, axes)))
+                if not (torch.equal(o, out.narrow(2, m * hm, hm))
+                        and torch.equal(st, state.narrow(1, m * hm, hm))):
+                    raise AssertionError(
+                        f"member split: {name}'s member {m} of {shards} "
+                        f"({hm} of {h} heads) differs from the whole "
+                        f"launch's heads")
+        done.append(f"{name} ({h} heads in {h // 2} and {h // 4}, "
+                    f"B={x[0].shape[0]} S={x[0].shape[1]})")
+    log(f"member split: every member's heads (outputs and final state) "
+        f"equal the whole launch's bit for bit: {'; '.join(done)}")
+    for shards in (2, 4):
+        hm = 32 // shards
+        for name, fn, b, s_ in (("wkv6_chunked", wkv6.wkv6_chunked, 1, 512),
+                                ("wkv6_step", wkv6.wkv6_step, 8, 1)):
+            x = wkv6_inputs(gen, dev, b, s_, hm, 0.0 if s_ > 1 else 1.0)
+            err = close(f"{name} at a {shards}-member pod's member", fn(*x)[0],
+                        wkv6.wkv6_scan_plain(*x)[0])
+            flops, io = wkv6_cost(b, s_, hm)
+            bnd, by = bound(flops, io)
+            sets = [[t.clone() for t in x] for _ in range(copies_for(io))]
+            calls = [lambda v=v: fn(*v) for v in sets]
+            log(f"kernel {name} at a {shards}-member rwkv6-1.6b pod's member "
+                f"(B={b} S={s_} H={hm} D=64): max_abs_err={err} "
+                f"ms={time_ms(calls)} device_ms={device_ms(calls)} "
+                f"bound_ms={bnd} ({by}); no library call")
 
 
 def int8_logged(label, q, kc, vc, lens, plan_kv=None) -> None:
@@ -2118,6 +2242,19 @@ def _tree(tree, fn):
 #    rwkv6-1.6b and hymba-1.5b continuous
 # --------------------------------------------------------------------------
 
+# {shards: (weight bytes, slot-pool bytes at 8 x 1024)} a member of each
+# pod holds, as JAX's ``per_device_bytes`` counts the params it places by
+# ``serve_pspec`` and the pool its engine places by ``resolve_pspec``
+# (bf16 weights; the pool's per-slot ``pos`` included).  hymba's pool is
+# whole on every member: neither its 5 kv heads nor its 25 SSM heads
+# divide 2 or 4.
+POD_MEMBER_BYTES = {
+    "rwkv6-1.6b": {1: (3_167_887_360, 102_236_192),
+                   2: (2_144_477_184, 51_904_544),
+                   4: (1_632_772_096, 26_738_720)},
+    "hymba-1.5b": {1: (2_702_673_600, 361_758_752),
+                   2: (1_839_646_400, 361_758_752),
+                   4: (1_408_132_800, 361_758_752)}}
 HYBRID_PARAMS = 1_351_336_800    # hymba-1.5b, as the JAX package counts
 HYBRID_DENSE_BYTES = 361_758_724  # its dense_kv_bytes(8, 1024): rolled
 #                                   K/V of 1024 rows + the f32 SSM state
@@ -2227,6 +2364,8 @@ def serve_phase(rng) -> dict[str, int]:
                    "continuous")
     sampled_check(model, params, RWKV_ARCH, rwkv_prompts[:SAMPLED_REQUESTS],
                   alloc, "continuous")
+    pod_family(model, staged_store(model, params, RWKV_ARCH), RWKV_ARCH,
+               rwkv_prompts, totals, ("continuous",))
 
     # -- hymba-1.5b, the same request mix, after rwkv6-1.6b is freed ------
     del model, params
@@ -2254,6 +2393,8 @@ def serve_phase(rng) -> dict[str, int]:
                    "continuous")
     sampled_check(model, params, HYBRID_ARCH,
                   hybrid_prompts[:SAMPLED_REQUESTS], alloc, "continuous")
+    pod_family(model, staged_store(model, params, HYBRID_ARCH), HYBRID_ARCH,
+               hybrid_prompts, totals, ("continuous",))
     log(f"serve: {HYBRID_ARCH} phase took "
         f"{time.perf_counter() - t_arch:.1f}s")
     return totals
@@ -2330,14 +2471,12 @@ def gemma3_phase(alloc, totals) -> None:
     the decode kernel 10 times a round, on the global layers) against
     ``fused=False``, one round replayed == eager bit for bit, the rolled
     decode's and the round's device time beside the weights' bytes, a
-    profile window and a sampled check.  Then its widths at the depth a
-    4-member pod holds on the card (``pod_layers``) on one instance and
-    as 2- and 4-member pods (``pod_family``)."""
-    import dataclasses
+    profile window and a sampled check.  Then its widths at
+    ``POD_LAYERS`` layers on one instance and as 2- and 4-member pods
+    (``pod_family``)."""
     import gc
     import torch
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
 
     t0 = time.perf_counter()
     model, params = serve.init_model(GEMMA_ARCH, reduced=False, seed=SEED)
@@ -2372,17 +2511,18 @@ def gemma3_phase(alloc, totals) -> None:
                    "continuous", max_len=GEMMA_MAX_LEN)
     sampled_check(model, params, GEMMA_ARCH, prompts[:SAMPLED_REQUESTS],
                   alloc, "continuous", max_len=GEMMA_MAX_LEN)
-    # Its widths as pods: the depth cut to what a 4-member pod holds on
-    # the card, the layers' leading slices staged, the full tree freed.
-    layers, why = pod_layers(model)
-    cut = build_model(dataclasses.replace(cfg, n_layers=layers))
-    store = staged_store(cut, {k: (_tree(v, lambda t: t[:layers])
-                                   if k == "layers" else v)
-                               for k, v in params.items()}, GEMMA_ARCH)
-    del params
+    # Its widths as pods at ``POD_LAYERS`` layers: the layers' leading
+    # slices staged, the full tree freed.
+    cut, cut_params = depth_cut(model, params, POD_LAYERS[GEMMA_ARCH])
+    store = staged_store(cut, cut_params, GEMMA_ARCH)
+    del params, cut_params
     gc.collect()
     torch.cuda.empty_cache()
-    log(f"pod {GEMMA_ARCH}: depth cut by pod_layers to {why}")
+    n_global = sum(cut.cfg.is_global_layer(i) for i in range(
+        cut.cfg.n_layers))
+    log(f"pod {GEMMA_ARCH}: depth cut to {cut.cfg.n_layers} of "
+        f"{cfg.n_layers} layers (POD_LAYERS: {cut.cfg.n_layers - n_global} "
+        f"local + {n_global} global)")
     pod_family(cut, store, GEMMA_ARCH, prompts, totals, ("continuous",),
                max_len=GEMMA_MAX_LEN)
 
@@ -2397,9 +2537,9 @@ def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
     round's device time beside three bounds and split into the expert
     FFN, the dispatch and the rest (``round_check``), a paged profile
     window, speculation continuous and paged with the 2-layer draft of
-    views (``spec_phase``), and the sampled checks.  Then the model on one
-    instance and as 2- and 4-member pods, continuous and paged
-    (``pod_family``)."""
+    views (``spec_phase``), and the sampled checks.  Then its widths at
+    ``POD_LAYERS`` layers on one instance and as 2- and 4-member pods,
+    continuous and paged (``pod_family``)."""
     import gc
     import torch
     from repro_torch.core.model_sharing import pytree_nbytes
@@ -2430,11 +2570,14 @@ def qwen2_moe_phase(qwen_prompts, alloc, totals) -> None:
     round_check(model, params, MOE_ARCH, prompts[:8], alloc)
     profile_window(model, params, prompts[:8], alloc, MOE_ARCH)
     spec_phase(model, params, alloc, prompts, streams, totals, MOE_ARCH)
-    store = staged_store(model, params, MOE_ARCH)
-    del params
+    cut, cut_params = depth_cut(model, params, POD_LAYERS[MOE_ARCH])
+    store = staged_store(cut, cut_params, MOE_ARCH)
+    del params, cut_params
     gc.collect()
     torch.cuda.empty_cache()
-    pod_family(model, store, MOE_ARCH, prompts, totals,
+    log(f"pod {MOE_ARCH}: depth cut to {cut.cfg.n_layers} of "
+        f"{cfg.n_layers} layers (POD_LAYERS)")
+    pod_family(cut, store, MOE_ARCH, prompts, totals,
                ("continuous", "paged"))
 
 
@@ -2928,9 +3071,9 @@ def context_phase(arch, qwen_prompts, totals) -> None:
         loop.serve(prompts[:8], ctxs[:8], 8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernel_profile(prof, arch, "8 requests x 8 tokens through the "
-                   "model-level loop (8 eager prefills, 7 replayed rounds)",
-                   wall)
+    kernel_profile(raw_events(prof, host=False), arch, "8 requests x 8 "
+                   "tokens through the model-level loop (8 eager "
+                   "prefills, 7 replayed rounds)", wall)
     log(f"serve: {arch} phase took {time.perf_counter() - t_arch:.1f}s")
 
 
@@ -3065,14 +3208,20 @@ def warm(engine, arch, prompt, new_tokens: int = 3) -> dict:
     dense family), the first round runs eagerly and the second is
     captured.  3 tokens make exactly 2 rounds; a speculating instance
     emits up to k + 1 tokens a round, so it warms with ``3 + 2k`` tokens
-    and at least 2 rounds.  Returns each instance's graphs, (round graph,
-    {bucket: prefill graph}); an engine without them (a checkout before
-    them, ``--windows``) gets ``None``s."""
+    and at least 2 rounds.  Instances that admit at exact length, eager
+    (no buckets), take one request each, of the first bucket's length:
+    only their rounds are captured.  Returns each instance's graphs,
+    (round graph, {bucket: prefill graph}); an engine without them (a
+    checkout before them, ``--windows``) gets ``None``s."""
     from repro_torch.launch import serve
 
     n = len(engine.instances)
-    serve.drive(engine, arch, [np.resize(prompt, b) for b in WARM_BUCKETS
-                               for _ in range(2 * n)], new_tokens)
+    bucketed = all(getattr(i, "bucketed", True)
+                   for i in engine.instances.values())
+    lens = ([b for b in WARM_BUCKETS for _ in range(2 * n)] if bucketed
+            else [WARM_BUCKETS[0]] * n)
+    serve.drive(engine, arch, [np.resize(prompt, b) for b in lens],
+                new_tokens)
     graphs = {}
     for k, inst in engine.instances.items():
         rg = getattr(inst, "round_graph", None)
@@ -3565,7 +3714,6 @@ def cow_launches(model, params, alloc, prompts, int8) -> None:
     and one other prompt: the COW pass pays one copy a pool leaf (2 bf16,
     4 int8), the others none."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     engine = deploy(model, params, ARCH, alloc, "paged", int8=int8,
@@ -3587,12 +3735,12 @@ def cow_launches(model, params, alloc, prompts, int8) -> None:
                                  ProfilerActivity.CUDA]) as prof:
             inst.run_step()
             torch.cuda.synchronize()
-        events = prof.events()
-        spans = [(e.time_range.start, e.time_range.end) for e in events
-                 if e.name == "cow_round" and e.device_type == DeviceType.CPU]
-        per_pass.append(sum(1 for e in events if e.name in LAUNCH_CALLS
-                            and any(a <= e.time_range.start <= b
-                                    for a, b in spans)))
+        events = raw_events(prof)
+        spans = [(a, b) for name, dev, a, b in events
+                 if name == "cow_round" and not dev]
+        per_pass.append(sum(1 for name, dev, t, _ in events
+                            if name in LAUNCH_CALLS and not dev
+                            and any(a <= t <= b for a, b in spans)))
     del inst._cow_round  # the wrapper holds the instance
     leaves = len(inst.cache)
     if inst.cow_count != 1 or per_pass != [leaves, 0, 0]:
@@ -4381,11 +4529,18 @@ def pod_reduced() -> None:
     never divides, and at 4 members each member's q columns end
     mid-head), continuous and paged; gemma3-27b's (dual caches, window 8)
     and mixtral-8x7b's (moe on a rolled cache, window 16) continuous;
-    qwen2-moe-a2.7b's continuous and paged.  bf16 weights with their zero
+    qwen2-moe-a2.7b's continuous and paged; rwkv6-1.6b's (2 heads of 64:
+    ``wkv`` split at 2 members, replicated at 4, where each member's
+    columns are half a head), hymba-1.5b's (4 q over 2 kv heads of 16:
+    K/V and ``ssm`` split at 2, K/V replicated and ``ssm`` split at 4)
+    and a hymba cut with 5 q over 1 kv head at d=80 (every pool
+    replicated, the ``w_in`` and q columns ending mid-head, as at full
+    width), continuous.  bf16 weights with their zero
     norms and biases filled, 6 requests of 5-40 tokens x 8 new tokens on 4
     slots, greedy and sampled (temperature 0.8, top-k 8, seed 7): each
     pod's streams must equal one instance's, every round a replay of the
     one capture."""
+    import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.resources import Alloc
@@ -4399,13 +4554,19 @@ def pod_reduced() -> None:
                         d_model=896, n_heads=7, n_kv_heads=1, head_dim=128,
                         d_ff=1024, vocab_size=1024, qkv_bias=True,
                         mlp="swiglu", rope_theta=1e6)
+    hymba_cut = dataclasses.replace(get_config(HYBRID_ARCH, reduced=True),
+                                    name="hymba-5q1kv", d_model=80,
+                                    n_heads=5, n_kv_heads=1)
     both = ("continuous", "paged")
     cases = [(get_config(ARCH, reduced=True), False, both),
              (heads, False, both), (get_config(ARCH, reduced=True), True, both),
              (get_config(GEMMA_ARCH, reduced=True), False, ("continuous",)),
              (get_config("mixtral-8x7b", reduced=True), False,
               ("continuous",)),
-             (get_config(MOE_ARCH, reduced=True), False, both)]
+             (get_config(MOE_ARCH, reduced=True), False, both),
+             (get_config(RWKV_ARCH, reduced=True), False, ("continuous",)),
+             (get_config(HYBRID_ARCH, reduced=True), False, ("continuous",)),
+             (hymba_cut, False, ("continuous",))]
     rng = np.random.default_rng(SEED + 14)
     for cfg, int8, batchings in cases:
         model = build_model(cfg)
@@ -4476,7 +4637,6 @@ def pod_round_check(eng, inst, prompts, fn=ARCH) -> tuple[float, str]:
     10 replays.  Returns (device ms, what it logged)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from torch.autograd import DeviceType
 
     for q in prompts:
         eng.submit(fn, q, max_new_tokens=16)
@@ -4505,10 +4665,11 @@ def pod_round_check(eng, inst, prompts, fn=ARCH) -> tuple[float, str]:
                              ProfilerActivity.CUDA]) as prof:
         rg.replay()
         torch.cuda.synchronize()
-    events = prof.events()
-    calls = sum(e.name in LAUNCH_CALLS for e in events)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    events = raw_events(prof)
+    calls = sum(name in LAUNCH_CALLS and not dev
+                for name, dev, _, _ in events)
+    kernels = [(a, b) for _, dev, a, b in events if dev]
+    dev_ms = sum(b - a for a, b in kernels) / 1e6
     wall_ms = time_ms([rg.replay], iters=10)
     for k, v in round_state(inst).items():
         v.copy_(start[k])
@@ -4564,14 +4725,19 @@ def pod_logits(inst, prompts, first=None) -> tuple:
 
 
 def pod_phase(model, params, prompts, totals) -> None:
-    """qwen2-7b at full width as one instance and as 2- and 4-member pods,
-    continuous and then paged (see the module docstring, phase 7), all on
-    four logical nodes of the card through one ``FleetModelStore``."""
+    """qwen2-7b's widths at ``POD_LAYERS`` layers as one instance and as
+    2- and 4-member pods, continuous and then paged (see the module
+    docstring, phase 7), all on four logical nodes of the card through
+    one ``FleetModelStore``."""
     import torch
     from repro_torch.core.resources import Alloc
     from repro_torch.serving import FleetModelStore
 
     t_phase = time.perf_counter()
+    full = model.cfg.n_layers
+    model, params = depth_cut(model, params, POD_LAYERS[ARCH])
+    log(f"pod {ARCH}: full widths, depth cut to {model.cfg.n_layers} of "
+        f"{full} layers (POD_LAYERS), the leading layers' leaves")
     alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
     store = FleetModelStore(host_budget_bytes=40 << 30)
     one = {b: pod_widths(model, params, prompts, totals, alloc, store, b)
@@ -4586,55 +4752,23 @@ def pod_phase(model, params, prompts, totals) -> None:
     log(f"pod int8 {ARCH} phase took {time.perf_counter() - t_phase:.1f}s")
 
 
-POD_HEADROOM = 6e9  # bytes beside a pod's weights and KV pool: the pool
-#                     of ``pod_logits``, the round graph's, activations
+# The pods of earlier slices (qwen2-7b's, bf16 and int8 KV; gemma3-27b's;
+# qwen2-moe-a2.7b's) serve their model's full widths at a quarter of its
+# depth (gemma3-27b: two of its local:global groups), so that the whole
+# smoke keeps well inside its time limit; every run, request and check of
+# theirs is whole.  rwkv6-1.6b's and hymba-1.5b's pods run whole.
+POD_LAYERS = {ARCH: 7, GEMMA_ARCH: 12, MOE_ARCH: 6}
 
 
-def pod_layers(model, shards=4, batch=8, max_len=GEMMA_MAX_LEN
-               ) -> tuple[int, str]:
-    """The most layers of ``model``'s widths, in whole local:global groups
-    (each ``local_global_ratio`` local layers and one global), whose
-    ``shards``-member pod fits the card: the members' weights (the
-    column-parallel leaves split, the rest whole on every member, as
-    ``serve_pspec`` places them), their KV pools at ``batch`` x
-    ``max_len`` and ``POD_HEADROOM``, within 0.9 of the card's memory."""
+def depth_cut(model, params, layers) -> tuple:
+    """``model``'s config at its first ``layers`` layers and ``params``'
+    leading ``layers`` slices of every stacked leaf (views, no copy)."""
     import dataclasses
-    import torch
-    from repro_torch.distributed.sharding import serve_pspec
     from repro_torch.models import build_model
 
-    cfg = model.cfg
-    group = cfg.local_global_ratio + 1
-
-    def pod_bytes(layers):
-        cut = build_model(dataclasses.replace(cfg, n_layers=layers))
-        total = 0
-
-        def walk(tree):
-            nonlocal total
-            if isinstance(tree, dict):
-                for v in tree.values():
-                    walk(v)
-                return
-            spec = serve_pspec(tree.names, tree.shape, {"serve": shards})
-            n = math.prod(tree.shape) * tree.dtype.itemsize
-            total += n if any(spec) else n * shards
-        walk(cut.specs)
-        kv = cut.dense_kv_bytes(batch, max_len)
-        return total + (kv if cfg.n_kv_heads % shards == 0 else kv * shards)
-
-    card = torch.cuda.get_device_properties(0).total_memory
-    layers = group
-    while (layers + group <= cfg.n_layers
-           and pod_bytes(layers + group) + POD_HEADROOM <= 0.9 * card):
-        layers += group
-    need = pod_bytes(layers)
-    return layers, (f"{layers} layers ({layers // group} groups of "
-                    f"{group - 1} local + 1 global): the {shards} members' "
-                    f"weights and KV pools at {batch} x {max_len} "
-                    f"{need} + {POD_HEADROOM:.0f} bytes, within 0.9 of "
-                    f"{card}; {layers + group} layers would take "
-                    f"{pod_bytes(layers + group)}")
+    cut = build_model(dataclasses.replace(model.cfg, n_layers=layers))
+    return cut, {k: (_tree(v, lambda t: t[:layers]) if k == "layers"
+                     else v) for k, v in params.items()}
 
 
 def staged_store(model, params, fn):
@@ -4680,21 +4814,17 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
     routing too, ``pod_routing``); after the continuous bf16 2-member pod
     (``failure``), a secondary member's failure.  ``params`` may be None
     when ``store`` holds ``fn``'s staged weights.  Returns the one
-    instance's readings."""
+    instance's readings.  Each kernel of ``pod_kernels`` must launch once
+    a layer a member at each prefill or round, and where
+    ``POD_MEMBER_BYTES`` holds ``fn`` each member's weight and pool bytes
+    must equal JAX's ``per_device_bytes``."""
     import gc
     import torch
     from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.distributed.sharding import per_member_bytes
-    from repro_torch.models import transformer
 
     cfg = model.cfg
-    decode = {("continuous", False): "decode_attention",
-              ("paged", False): "paged_decode_attention",
-              ("continuous", True): "decode_attention_quant",
-              ("paged", True): "paged_decode_attention_quant"}[
-        (batching, int8)]
-    decode_layers = (transformer.n_global_layers(cfg)
-                     if cfg.local_global_ratio else cfg.n_layers)
+    per_prefill, per_round = pod_kernels(cfg, batching, int8)
     graphed = model.supports_bucketed_prefill()  # else exact-length, eager
     one = {}
     for shards in (1, 2, 4):
@@ -4726,8 +4856,9 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
                                  f"{rounds} rounds, {pre_replayed}/"
                                  f"{prefills} prefills")
         want = {k: 0 for k in counts}
-        want["flash_attention"] = shards * cfg.n_layers * prefills
-        want[decode] = shards * decode_layers * rounds
+        for kernels, n in ((per_prefill, prefills), (per_round, rounds)):
+            for k, layers in kernels.items():
+                want[k] += shards * layers * n
         if counts != want:
             raise AssertionError(f"pod {fn} {label}: launches {counts}, "
                                  f"expected {want}")
@@ -4744,6 +4875,12 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
                    if inst.group is not None
                    else {0: pytree_nbytes(inst.params)})
         kv = {n: members[n] - weights[n] for n in members}
+        jax_bytes = POD_MEMBER_BYTES.get(fn, {}).get(shards)
+        if jax_bytes and {(weights[n], kv[n]) for n in members} != \
+                {jax_bytes}:
+            raise AssertionError(f"pod {fn} {label}: (weights, pool) a "
+                                 f"member {weights}, {kv}, JAX's "
+                                 f"per_device_bytes {jax_bytes}")
         n_tok = len(prompts) * POD_TOKENS
         if shards == 1:
             one = dict(first=first, streams=streams, pre=pre, rnd=rnd,
@@ -4769,7 +4906,8 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
         log(f"pod {fn} {label}: placed on nodes {p.all_nodes()} in "
             f"{placed:.2f}s (store tier {event.tier}, upload call "
             f"{event.upload_s:.2f}s); weights a member {weights}, KV pool a "
-            f"member {kv}, both a member {members} bytes (one instance "
+            f"member {kv}{' (JAX per_device_bytes)' if jax_bytes else ''}, "
+            f"both a member {members} bytes (one instance "
             f"{one['bytes']}, its weights {one['weights']}); "
             f"{done} requests x {POD_TOKENS} tokens in {wall:.3f}s = "
             f"{n_tok / wall:.1f} tokens/s ({n_tok / wall / one['tps']:.3f}"
@@ -4788,6 +4926,30 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
         gc.collect()
         torch.cuda.empty_cache()
     return one
+
+
+def pod_kernels(cfg, batching, int8) -> tuple[dict, dict]:
+    """The port's kernels a pod launches once a member at each prefill and
+    at each round: ({kernel: layers a prefill}, {kernel: layers a
+    round}).  rwkv: chunked WKV-6 a prefill, step WKV-6 a round; hybrid:
+    windowed flash and the chunked scan a prefill, the step scan a round
+    (its rolled decode attention is plain torch); the others flash a
+    prefill and the decode kernel of their batching and KV dtype a round
+    (a dual-cache config's on its global layers only)."""
+    from repro_torch.models import transformer
+
+    n = cfg.n_layers
+    if cfg.family == "rwkv":
+        return {"wkv6_chunked": n}, {"wkv6_step": n}
+    if cfg.family == "hybrid":
+        return {"flash_attention": n, "ssm_chunked": n}, {"ssm_step": n}
+    decode = {("continuous", False): "decode_attention",
+              ("paged", False): "paged_decode_attention",
+              ("continuous", True): "decode_attention_quant",
+              ("paged", True): "paged_decode_attention_quant"}[
+        (batching, int8)]
+    return {"flash_attention": n}, {decode: (
+        transformer.n_global_layers(cfg) if cfg.local_global_ratio else n)}
 
 
 def pod_routes(cfg, run) -> tuple:
@@ -5036,17 +5198,15 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     rounds, prefills = inst.rounds - rounds0, inst.prefills - prefills0
     replayed = [b - a for a, b in zip(replayed0,
                                       same_graphs(engine, graphs, arch))]
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    calls = [e.time_range.start for e in events if e.name in LAUNCH_CALLS]
+    events = raw_events(prof)
+    calls = [t for name, dev, t, _ in events
+             if name in LAUNCH_CALLS and not dev]
     inside = {}
     for label in LABELS.values():
         # The label's host spans (the profiler mirrors it on the device's
         # timeline too, as an annotation kept out of every count here).
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in events if e.name == label
-                       and e.device_type == DeviceType.CPU)
+        spans = sorted((a, b) for name, dev, a, b in events
+                       if name == label and not dev)
         starts = [s for s, _ in spans]
         n = 0
         for t in calls:
@@ -5064,23 +5224,19 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     log(f"profile {arch}: rounds {rounds} ({n_spans} profiled), replayed "
         f"{replayed[0]}; prefills {prefills}, replayed {replayed[1]}; "
         f"{launch_text}")
-    kernel_profile(prof, arch, f"8 requests x 8 tokens, {batching}, 1 "
+    kernel_profile(events, arch, f"8 requests x 8 tokens, {batching}, 1 "
                    f"instance", wall)
 
 
-def kernel_profile(prof, arch, what, wall) -> None:
-    """Logs a profile window's device time by kernel: the device's busy
-    share of the ``wall`` seconds, the port's kernels, cuBLAS and the rest,
-    the copy kernels (casts included) and the ten longest kernels."""
-    from torch.autograd import DeviceType
-
-    # Device-side (kernel) events only: the CPU-side op events carry the
-    # same device time again as their children's.
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and e.self_device_time_total > 0
-            and e.key not in LABELS.values()]
+def kernel_profile(events, arch, what, wall) -> None:
+    """Logs a profile window's device time by kernel, from its
+    ``raw_events``: the device's busy share of the ``wall`` seconds, the
+    port's kernels, cuBLAS and the rest, the copy kernels (casts
+    included) and the ten longest kernels."""
+    # Device-side (kernel) records only: the CPU-side op records carry
+    # the same device time again as their children's.
+    rows = [(us, n, key) for key, (us, n) in device_totals(
+        events, skip=set(LABELS.values())).items()]
     if not rows:
         log("profile: the profiler recorded no device time (not measured)")
         return
@@ -5643,18 +5799,10 @@ def step_split(prof) -> str:
     profiler mirrors each host range there as an annotation).  Reads the
     profiler's raw device records: building its event tree for a step of
     a few hundred thousand ops takes longer than the step."""
-    from torch.autograd import DeviceType
-
-    def ns(e, what):
-        if hasattr(e, f"{what}_ns"):
-            return getattr(e, f"{what}_ns")()
-        return getattr(e, f"{what}_us")() * 1000
-
     labels = {"plain_backward": "plain backward",
               "AdamW.update": "optimizer"}
-    events = [(e.name(), ns(e, "start"), ns(e, "duration"))
-              for e in prof.profiler.kineto_results.events()
-              if e.device_type() != DeviceType.CPU]
+    events = [(name, a, b - a)
+              for name, _, a, b in raw_events(prof, host=False)]
     spans = {label: sorted((t, t + d) for name, t, d in events
                            if name == label) for label in labels}
     kernels = [x for x in events if x[0] not in labels]

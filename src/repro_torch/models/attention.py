@@ -24,7 +24,7 @@ from repro_torch.distributed.sharding import TPGroup, gather_cols
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import COL, ROW, PSpec, apply_rope
+from repro_torch.models.layers import COL, ROW, PSpec, rope_tables, rotate
 
 
 def attn_specs(cfg: ModelConfig, cross: bool = False) -> dict[str, PSpec]:
@@ -66,9 +66,10 @@ def _rope_qkv(params: dict, x: torch.Tensor, positions: torch.Tensor,
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Projections with rotary embeddings on q and k (post-rope k is what
     the caches hold)."""
-    q = apply_rope(_project_q(params, x, cfg), positions, cfg.rope_theta)
+    q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
-    return q, apply_rope(k, positions, cfg.rope_theta), v
+    rope = rope_tables(positions, cfg.dh, cfg.rope_theta)
+    return rotate(q, rope), rotate(k, rope), v
 
 
 def _output(params: dict, o: torch.Tensor) -> torch.Tensor:
@@ -442,8 +443,9 @@ def attn_tp(lps: list, hs: list, cfg: ModelConfig, group: TPGroup,
     outs = []
     for m in range(group.n):
         heads = (b, s, -1, cfg.dh)
-        qm = apply_rope(q[m].reshape(heads), positions[m], cfg.rope_theta)
-        km = apply_rope(k[m].reshape(heads), positions[m], cfg.rope_theta)
+        rope = rope_tables(positions[m], cfg.dh, cfg.rope_theta)
+        qm = rotate(q[m].reshape(heads), rope)
+        km = rotate(k[m].reshape(heads), rope)
         outs.append(attend(m, qm, km, v[m].reshape(heads)).reshape(b, s, -1))
     if split:
         outs = gather_cols(outs, group, cfg.q_dim)

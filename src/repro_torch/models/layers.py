@@ -141,25 +141,48 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
+_FREQS: dict = {}
+
+
 def rope_freqs(dh: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
-                                         device=device) / dh))
+    """The (D/2,) f32 inverse frequencies, made once per (dh, theta,
+    device) and kept; inside a graph capture, whose allocations belong to
+    the graph, they are made anew and not kept."""
+    device = torch.device("cpu" if device is None else device)
+    key = (dh, theta, device)
+    freqs = _FREQS.get(key)
+    if freqs is None:
+        with torch.inference_mode(False):  # usable under autograd later
+            freqs = 1.0 / (theta ** (torch.arange(
+                0, dh, 2, dtype=torch.float32, device=device) / dh))
+        if not (device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _FREQS[key] = freqs
+    return freqs
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotary embedding on split halves (not interleaved pairs).
-    x: (B, S, H, D); positions: (S,) or (B, S)."""
-    dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)
-    angles = positions[..., None].float() * freqs  # (..., S, D/2)
+def rope_tables(positions: torch.Tensor, dh: int, theta: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotation at ``positions`` ((S,) or (B, S)) over both halves of
+    a head: (cos, sin), each (B or 1, S, 1, D) f32, sin negated over the
+    first half.  One pair serves a layer's q and k."""
+    angles = positions[..., None].float() * rope_freqs(dh, theta,
+                                                       positions.device)
     if angles.dim() == 2:
         angles = angles[None]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return (torch.cat([cos, cos], dim=-1)[:, :, None, :],
+            torch.cat([-sin, sin], dim=-1)[:, :, None, :])
+
+
+def rotate(x: torch.Tensor, tables: tuple) -> torch.Tensor:
+    """Rotary embedding of x (B, S, H, D) by ``rope_tables``' pair, on
+    split halves (not interleaved pairs): [x1 cos - x2 sin, x2 cos + x1
+    sin] in f32."""
+    cos, sin = tables
+    xf = x.float()
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
+    return (xf * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -435,18 +435,16 @@ class PodModel:
     ``cache_names``), while logits, the sampled tokens and the key stream
     live on the primary.  It answers the calls the serving engine makes of
     a ``Model`` on params and caches, so an instance runs a pod through
-    the same admission and round bodies as one device.  The dense and moe
-    families, on full, rolled and dual caches, bf16 or int8 KV
-    (``kv_int8``, the default of every pool it makes); the rwkv and
-    hybrid families are refused (``transformer.tp_refusal``; the
+    the same admission and round bodies as one device.  Every family the
+    engine serves: the dense and moe families on full, rolled and dual
+    caches, bf16 or int8 KV (``kv_int8``, the default of every pool it
+    makes), through ``transformer``'s seams; the rwkv and hybrid families
+    at exact-length prefill through ``rwkv6``'s and ``hybrid``'s (the
     families that prefill with a context are refused before a pod is
     built, by ``engine.context_refusal``).  A pod neither speculates nor
     migrates, so it has no verify step and no slot export."""
 
     def __init__(self, model: Model, group: TPGroup, kv_int8: bool):
-        why = transformer.tp_refusal(model.cfg)
-        if why:
-            raise NotImplementedError(why)
         self.model, self.cfg, self.group = model, model.cfg, group
         self.kv_int8 = kv_int8
 
@@ -493,10 +491,17 @@ class PodModel:
                 kv_int8: Optional[bool] = None, ctx=None):
         b, s = tokens.shape
         max_len = max_len or s
-        return transformer.prefill_tp(
-            params, tokens, self.cfg, self.group,
-            self._slot_pools(b, max_len, kv_int8), max_len=max_len,
-            length=length)
+        family = self.cfg.family
+        if family in ("rwkv", "hybrid") and length is not None:
+            raise NotImplementedError(
+                f"{family} prefill runs at the exact prompt length")
+        pools = self._slot_pools(b, max_len, kv_int8)
+        if family in ("rwkv", "hybrid"):
+            return _FAMILY[family].prefill_tp(params, tokens, self.cfg,
+                                              self.group, pools,
+                                              max_len=max_len)
+        return transformer.prefill_tp(params, tokens, self.cfg, self.group,
+                                      pools, max_len=max_len, length=length)
 
     def merge_slot(self, caches: list, entries: list, slot) -> list:
         slots = (on_members(slot, self.group) if torch.is_tensor(slot)
@@ -521,8 +526,8 @@ class PodModel:
         return caches
 
     def decode_step(self, params, token, caches):
-        return transformer.decode_step_tp(params, token, caches, self.cfg,
-                                          self.group)
+        return _FAMILY[self.cfg.family].decode_step_tp(params, token, caches,
+                                                       self.cfg, self.group)
 
     def decode_step_paged(self, params, token, caches, block_tables, pos):
         return transformer.decode_step_paged_tp(

@@ -703,19 +703,10 @@ def verify_step_paged(params: dict, tokens: torch.Tensor, cache: dict,
 # Sharded pods: column-only exact tensor parallelism over a member group
 # (src/repro/distributed/README.md:37-85).  Every member runs the whole
 # layer on its own copies of the replicated leaves; only the
-# column-parallel results cross members, by exact gathers.
+# column-parallel results cross members, by exact gathers.  The embedding
+# and head seams here serve every family's pods (the rwkv and hybrid
+# families' layers in ``rwkv6.py`` and ``hybrid.py``).
 # --------------------------------------------------------------------------
-
-
-def tp_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why a sharded pod cannot serve ``cfg`` yet, or None: the port runs
-    the dense and moe families on full, rolled and dual caches, bf16 or
-    int8 KV; the rwkv and hybrid families, which JAX runs under a mesh
-    through XLA, are ROADMAP.md Queue 1 item 11b."""
-    if cfg.family not in ("rwkv", "hybrid"):
-        return None
-    return (f"{cfg.name}: sharded pods (shards > 1) of the {cfg.family} "
-            f"family are not ported yet (ROADMAP.md, Queue 1 item 11b)")
 
 
 def embed_tokens_tp(members: list, tokens: torch.Tensor, cfg: ModelConfig,

@@ -113,7 +113,8 @@ addressed by absolute position).
   (engine.py:175-202, 488-513): the instance holds one param tree and
   one KV pool per member (``PodModel``; the weights column-sharded by
   ``serve_pspec`` under ``TPGroup.weights_key``, the pools split by kv
-  head when the heads divide the group), and its admission and round
+  head, or the rwkv and SSM states by head, when the heads divide the
+  group), and its admission and round
   bodies drive every member and gather their columns exactly, so a
   pod's f32 streams on the CPU are one device's (on the card only where
   cuBLAS's column-slice products are bit-equal to the full product's
@@ -256,9 +257,8 @@ class FunctionInstance:
                              "draft/verify round is not tensor-parallel")
         _refuse_options(model, kv_int8, batching, fused, sampling, speculate,
                         draft_model, draft_key)
-        # The pod's runner (raises for what pods do not serve yet), or
-        # the model itself: every call on params and caches goes through
-        # ``self.runner``.
+        # The pod's runner, or the model itself: every call on params and
+        # caches goes through ``self.runner``.
         self.group = group
         self.runner = (model if group is None
                        else PodModel(model, group, kv_int8))

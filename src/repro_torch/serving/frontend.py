@@ -49,10 +49,10 @@ best-linked group, the KV charge divided by ``shards`` per member, and
 one instance on the primary member's engine driving a ``TPGroup`` of the
 members' devices (``engine.FunctionInstance``).  A pod dies with any
 member, does not migrate and does not speculate.  It serves the dense
-and moe families, full, rolled and dual caches, bf16 or int8 KV; the
-rwkv and hybrid families raise ``NotImplementedError`` (ROADMAP.md,
-Queue 1 item 11b).  A family that prefills with a context (encdec,
-vlm) is refused at any ``shards``, before any rectangle is taken.
+and moe families, full, rolled and dual caches, bf16 or int8 KV, and
+the rwkv and hybrid families (continuous batching, exact-length
+prefill).  A family that prefills with a context (encdec, vlm) is
+refused at any ``shards``, before any rectangle is taken.
 """
 
 from __future__ import annotations
@@ -79,7 +79,6 @@ from repro_torch.distributed.sharding import (TPGroup, serve_pspec,
                                               sharding_for, tp_group)
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import tp_refusal
 from repro_torch.serving.engine import (ServeRequest, ServingEngine,
                                        context_refusal)
 from repro_torch.serving.modelstore import ColdStartEvent, FleetModelStore
@@ -332,11 +331,9 @@ class ClusterFrontend:
         nodes (``_place_sharded``): a rectangle on every member of the
         best-linked node group, the KV charge divided by ``shards`` per
         node, and the primary member's engine running the instance over a
-        ``TPGroup`` of the members' devices.  What pods do not serve yet
-        (the rwkv and hybrid families; ROADMAP.md, Queue 1 item 11b)
-        raises ``NotImplementedError``, and a family that prefills with a
-        context the engine's refusal (``ValueError``, at any ``shards``),
-        before any rectangle is taken.
+        ``TPGroup`` of the members' devices.  A family that prefills with
+        a context raises the engine's refusal (``ValueError``, at any
+        ``shards``) before any rectangle is taken.
         """
         t_start = time.perf_counter()
         if shards < 1:
@@ -348,10 +345,6 @@ class ClusterFrontend:
         why = context_refusal(model.cfg)
         if why:
             raise ValueError(why)
-        if shards > 1:
-            why = tp_refusal(model.cfg)
-            if why:
-                raise NotImplementedError(why)
         if not 0.0 <= kv_shared_frac < 1.0:
             raise ValueError(
                 f"kv_shared_frac must be in [0, 1), got {kv_shared_frac}")
@@ -367,9 +360,11 @@ class ClusterFrontend:
             * (1.0 - kv_shared_frac))
         if shards > 1:
             # Per-member charge, kept exactly as JAX's (frontend.py:
-            # 299-307): the pool splits its kv heads over the members, so
-            # each holds about 1/shards of it; weights stay charged in full
-            # per node, the honest bound under column-only TP.
+            # 299-307): where the pool splits its heads over the members
+            # each holds about 1/shards of it (a pool whose heads do not
+            # divide the group, hymba-1.5b's, is whole on every member and
+            # charged the same share); weights stay charged in full per
+            # node, the honest bound under column-only TP.
             kv_bytes //= shards
         if params is None:
             if self.model_store is None:

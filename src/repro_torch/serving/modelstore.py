@@ -222,9 +222,11 @@ def upload_params(staged: StagedWeights, *, mode: str = "overlap",
     instead: each leaf's piece (``Sharding.piece``; a stacked leaf's
     layer slices placed by the spec without its leading ``"layers"`` dim,
     as JAX's ``_layer_sharding``) copied straight onto its member's
-    device.  A strided piece is staged through host memory by the copy.
-    The upload overlaps only when every member lies on ``device``; a
-    group that spans devices uploads blocking.
+    device: members on one device share one upload of each leaf and
+    take their pieces on the device; across devices a strided piece is
+    staged through host memory by the copy.  The upload overlaps only
+    when every member lies on ``device``; a group that spans devices
+    uploads blocking.
     """
     if mode not in ("blocking", "overlap"):
         raise ValueError(f"unknown upload mode {mode!r}")
@@ -238,8 +240,15 @@ def upload_params(staged: StagedWeights, *, mode: str = "overlap",
     overlap = (mode == "overlap" and dev.type == "cuda"
                and all(d == dev for d in devices))
 
-    def piece(i: int, m: int, j: Optional[int] = None) -> torch.Tensor:
-        t = staged.host_tensor(i, j)
+    # Members that share one device read one upload of each leaf (a
+    # layer shard of a stacked leaf): the host-to-device copy of the whole
+    # slice, contiguous from the staged buffer, then each member's piece
+    # copied on the device.  Across devices each member's piece is copied
+    # from the host, a strided piece through host memory.
+    shared = all(d == devices[0] for d in devices)
+
+    def piece(t: torch.Tensor, i: int, m: int,
+              j: Optional[int] = None) -> torch.Tensor:
         if shardings is None:
             return t
         sh = shardings[i] if j is None else shardings[i].drop_leading()
@@ -257,15 +266,17 @@ def upload_params(staged: StagedWeights, *, mode: str = "overlap",
         side = torch.cuda.Stream(dev)
         side.wait_stream(consumer)  # the allocations precede the copies
     with torch.cuda.stream(side) if overlap else contextlib.nullcontext():
-        for m, leaves in enumerate(out):
-            for i, (dst, st) in enumerate(zip(leaves, staged.stacked)):
-                if overlap:
-                    dst.record_stream(side)
-                if st:
-                    for j in range(dst.shape[0]):
-                        dst[j].copy_(piece(i, m, j), non_blocking=overlap)
-                else:
-                    dst.copy_(piece(i, m), non_blocking=overlap)
+        for i, st in enumerate(staged.stacked):
+            if overlap:
+                for leaves in out:
+                    leaves[i].record_stream(side)
+            for j in range(out[0][i].shape[0]) if st else (None,):
+                src = staged.host_tensor(i, j)
+                if shared and shardings is not None:
+                    src = src.to(devices[0], non_blocking=overlap)
+                for m, leaves in enumerate(out):
+                    dst = leaves[i] if j is None else leaves[i][j]
+                    dst.copy_(piece(src, i, m, j), non_blocking=overlap)
         if overlap:
             ready = torch.cuda.Event()
             ready.record(side)

@@ -15,7 +15,8 @@
 * ``place_instance``/``deploy`` take ``sampling``, ``speculate`` and
   ``draft_params`` (the draft stored under ``"{fn}#draft"`` and charged),
   and the speculating fleet's ``decision_signature`` equals JAX's;
-* ``shards > 1``, not ported yet, raises ``NotImplementedError``.
+* a sharded pod of the rwkv family places, deploys and registers
+  through the live backend, and serves one device's streams.
 
 Both packages serve the tiny config on the CPU; the streams compare f32
 params (bf16 greedy streams are not portable, ROADMAP.md Queue 3).
@@ -538,46 +539,66 @@ def test_sim_live_decision_signature_with_speculate(models):
     assert sum(t["spec_proposed"] for t in tele) > 0
 
 
-# -- options the port does not have yet ---------------------------------------
+# -- sharded pods of the rwkv family -------------------------------------------
 
 
 def _rwkv():
-    """rwkv6's reduced cut, a family pods do not serve yet, and its
-    params."""
+    """rwkv6's reduced cut and its params, in f32 (a pod's streams are one
+    device's in f32)."""
     from repro_torch.configs import get_config
+    from repro_torch.training.tree import tree_map
 
     model = build_model(get_config("rwkv6-1.6b", reduced=True))
-    return model, model.init(torch.Generator().manual_seed(0))
+    return model, tree_map(lambda t: t.float(),
+                           model.init(torch.Generator().manual_seed(0)))
 
 
-@pytest.mark.parametrize("option,item", [(dict(shards=2), "item 11b")])
-def test_unported_options_raise(option, item):
-    """A sharded pod of what pods do not serve yet (here the rwkv family)
-    raises, never drops, and leaves no rectangle behind (ROADMAP.md,
-    Queue 1 item 11b)."""
+def _served(fe, fn="f"):
+    """Serve three prompts through ``fe``: the streams."""
+    rng = np.random.default_rng(0)
+    reqs = [fe.submit(fn, rng.integers(0, 200, 6, dtype=np.int32),
+                      max_new_tokens=4) for _ in range(3)]
+    fe.pump(budget_s=60.0)
+    assert all(r.done for r in reqs)
+    return [list(r.tokens_out) for r in reqs]
+
+
+@pytest.mark.parametrize("option", [dict(shards=2)])
+def test_sharded_rwkv_places_and_deploys(option):
+    """A sharded pod of the rwkv family places and deploys: one rectangle
+    on each member node, and the streams of one device."""
     model, params = _rwkv()
-    fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
     alloc = Alloc(sm=0.5, quota_request=0.5, quota_limit=0.5)
-    with pytest.raises(NotImplementedError, match=item):
-        fe.place_instance("f", model, params, alloc, **option)
-    with pytest.raises(NotImplementedError, match=item):
-        fe.deploy("f", model, params, alloc, **option)
-    assert not fe.placements and fe.pool.total_used_area() == 0
+    fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
+    fe.place_instance("f", model, params, alloc)
+    one = _served(fe)
+    for place in ("place_instance", "deploy"):
+        fe = ClusterFrontend(n_nodes=2, window=0.05, device="cpu")
+        assert getattr(fe, place)("f", model, params, alloc, **option)
+        [p] = fe.placements
+        assert p.member_nodes == (0, 1)
+        assert [len(n.placements) for n in fe.pool.nodes] == [1, 1]
+        assert _served(fe) == one
 
 
-def test_unported_spec_axes_raise_through_the_live_backend(models):
-    """A ``shards=2`` spec of an rwkv function reaches the frontend
-    through the live backend and raises there, naming item 11b; a sharded
-    upload whose shardings do not align with the staged leaves raises
-    before any copy."""
+def test_sharded_spec_serves_through_the_live_backend(models):
+    """A ``shards=2`` spec of an rwkv function registers through the live
+    backend, which places it as a pod on both nodes, and serves one
+    device's streams; a sharded upload whose shardings do not align with
+    the staged leaves raises before any copy."""
     point = ProfilePoint(sm=0.5, quota=0.5, throughput=1.0)
+    fe = ClusterFrontend(n_nodes=2, device="cpu")
+    tctl.ControlPlane(tctl.LiveBackend(fe)).register(tctl.FunctionSpec(
+        name="f", profile=(point,), model_factory=_rwkv))
+    one = _served(fe)
     spec = tctl.FunctionSpec(
         name="f", profile=(point,), shards=2, model_factory=_rwkv)
     fe = ClusterFrontend(n_nodes=2, device="cpu")
     plane = tctl.ControlPlane(tctl.LiveBackend(fe))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        plane.register(spec)
-    assert not fe.placements and fe.pool.total_used_area() == 0
+    plane.register(spec)
+    [p] = fe.placements
+    assert p.member_nodes == (0, 1)
+    assert _served(fe) == one
     from repro_torch.serving.modelstore import (stage_params,
                                                 upload_params)
     staged = stage_params(models["tm"], models["tp"])

@@ -2168,3 +2168,94 @@ def test_forward_without_grad_runs_the_serving_kernels(cuda_device):
     last, _ = model.prefill(params, tokens)
     rel = ((logits[:, -1] - last).abs().max() / last.abs().max()).item()
     assert rel <= 2e-2, rel
+
+
+# -- the rwkv and hybrid families' pods (card only) ---------------------------
+
+
+def _member_heads_equal(fn, x, axes):
+    """``fn`` on a 2- and a 4-member pod's head slices of ``x`` (each
+    input cut along its head axis in ``axes``; the state is last) gives
+    each member the whole launch's heads bit for bit: outputs and final
+    state."""
+    out, state = fn(*x)
+    h = x[-1].shape[1]
+    for shards in (2, 4):
+        hm = h // shards
+        for m in range(shards):
+            o, st = fn(*(t.narrow(a, m * hm, hm).contiguous()
+                         for t, a in zip(x, axes)))
+            assert torch.equal(o, out.narrow(2, m * hm, hm)), (shards, m)
+            assert torch.equal(st, state.narrow(1, m * hm, hm)), (shards, m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["wkv6_chunked", "wkv6_step"])
+def test_member_heads_wkv6_as_the_whole_launch(cuda_device, kernel):
+    """A 2- and a 4-member rwkv6-1.6b pod's member (16 and 8 of its 32
+    heads of 64) scans its heads as the whole launch does, bit for bit:
+    the chunked kernel at a B=1, S=512 prefill, the step kernel at a B=8,
+    S=1 round."""
+    from repro_torch.kernels import wkv6
+    b, s = (1, 512) if kernel == "wkv6_chunked" else (8, 1)
+    x = _wkv_inputs(np.random.default_rng(19), b, s, 32, cuda_device)
+    _member_heads_equal(getattr(wkv6, kernel), x, (2, 2, 2, 2, 0, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["ssm_chunked", "ssm_step"])
+def test_member_heads_ssm_as_the_whole_launch(cuda_device, kernel):
+    """A 2- and a 4-member reduced hymba pod's member (2 and 1 of its 4
+    SSM heads of 16, N=8) scans its heads as the whole launch does, bit
+    for bit: the chunked kernel at S=64, the step kernel at a B=8, S=1
+    round."""
+    from repro_torch.kernels import ssm_scan
+    b, s = (1, 64) if kernel == "ssm_chunked" else (8, 1)
+    x = _ssm_inputs(np.random.default_rng(23), b, s, 4, cuda_device, d=16,
+                    n=8)
+    _member_heads_equal(getattr(ssm_scan, kernel), x, (2, 2, 0, 2, 2, 1))
+
+
+RECURRENT_CUTS = {"rwkv6": ("rwkv6-1.6b", {}),
+                  "hymba": ("hymba-1.5b", {}),
+                  "hymba-5q1kv": ("hymba-1.5b", dict(d_model=80, n_heads=5,
+                                                     n_kv_heads=1))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", list(RECURRENT_CUTS))
+def test_recurrent_pod_streams_equal_one_instance_on_the_card(cuda_device,
+                                                              cut):
+    """rwkv6-1.6b's and hymba-1.5b's smoke cuts and a hymba cut with 5 q
+    over 1 kv head at d=80 serve one instance's greedy streams as 2- and
+    4-member pods whose members share the card (bf16), every pod's
+    rounds replayed from one captured graph: rwkv's state split at 2 and
+    replicated at 4, hymba's K/V and SSM state split at 2, its K/V
+    replicated at 4, the cut's every pool replicated."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models import build_model
+    from repro_torch.serving import ClusterFrontend
+
+    arch, over = RECURRENT_CUTS[cut]
+    model = build_model(dataclasses.replace(get_config(arch, reduced=True),
+                                            **over))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32)
+               for n in (5, 17, 30, 9, 12)]
+    streams = {}
+    for shards in (1, 2, 4):
+        fe = ClusterFrontend(n_nodes=4, device=cuda_device)
+        fe.place_instance("f", model, params,
+                          Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0),
+                          max_batch=4, max_len=64, shards=shards)
+        reqs = [fe.submit("f", q, max_new_tokens=8) for q in prompts]
+        fe.pump(budget_s=120.0)
+        assert all(r.done for r in reqs)
+        (p,) = fe.placements
+        inst = fe.engines[p.node].instances[p.inst_id]
+        assert inst.round_graph.captures == 1 and inst.round_graph.replays
+        streams[shards] = [r.tokens_out for r in reqs]
+    assert streams[2] == streams[1] and streams[4] == streams[1]

@@ -15,8 +15,7 @@ devices, and the kernels run their plain versions.
   fleet's decisions as in JAX; ``shards=1`` builds no group;
 * starcoder2's reduced cut with its biases filled; the fleet store's
   sharded upload; the sequence-sharded paged decode against JAX's;
-  the options and families a pod does not serve yet raise naming
-  ROADMAP.md Queue 1 item 11b.
+  the rwkv and hybrid families placed and deployed as pods.
 """
 
 import dataclasses
@@ -64,6 +63,7 @@ from repro_torch.models.model import PodModel
 from repro_torch.serving import ClusterFrontend, FleetModelStore
 from repro_torch.serving.modelstore import stage_params, upload_params
 from repro_torch.serving.speculative import SamplingConfig, SpecConfig
+from repro_torch.training.tree import tree_map
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 4, reason="needs 4 (forced host) devices")
@@ -544,20 +544,38 @@ def test_seqshard_decode_equals_jax(shards):
                                atol=TOL)
 
 
-# -- what a pod does not serve yet --------------------------------------------
+# -- the rwkv and hybrid families ---------------------------------------------
 
 
-OUT_OF_SCOPE = [("the rwkv family", "rwkv6-1.6b"),
-                ("the hybrid family", "hymba-1.5b")]
+RECURRENT = ["rwkv6-1.6b", "hymba-1.5b"]
 
 
-@pytest.mark.parametrize("what,arch", OUT_OF_SCOPE)
-def test_out_of_scope_pods_raise_naming_item_11b(what, arch):
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_pods_place_deploy_and_serve(arch):
+    """``place_instance`` and ``deploy`` of the rwkv6 and hymba reduced
+    cuts at ``shards=2`` each take one rectangle on each of two member
+    nodes and none elsewhere, and the pods' streams equal ``shards=1``'s
+    (``tests/test_torch_pod_recurrent.py`` holds them against JAX's
+    pods)."""
     model = build_model(get_config(arch, reduced=True))
-    params = {"unused": torch.zeros(1)}
+    params = tree_map(lambda t: t.float(),
+                      model.init(torch.Generator().manual_seed(0)))
+    _, one = serve(model, params, 1)
+    fe, toks = serve(model, params, 2)
+    assert toks == one
+    [p] = fe.placements
+    assert isinstance(fe.engines[p.node].instances[p.inst_id].runner,
+                      PodModel)
+    assert len(set(p.member_nodes)) == 2
+    assert [len(fe.pool.nodes[n].placements) for n in range(4)] == \
+        [int(n in p.member_nodes) for n in range(4)]
     fe = ClusterFrontend(n_nodes=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 11b"):
-        fe.place_instance("f", model, params, ALLOC, shards=2)
-    assert not fe.placements and fe.pool.total_used_area() == 0
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        PodModel(model, tp_group(2, devices=["cpu"] * 2), False)
+    [handle] = fe.deploy("f", model, params, ALLOC, max_batch=4, max_len=32,
+                         shards=2)
+    [p] = fe.placements
+    assert handle == f"{p.node}:{p.inst_id}"
+    assert [len(fe.pool.nodes[n].placements) for n in range(4)] == \
+        [int(n in p.member_nodes) for n in range(4)]
+    reqs = [fe.submit("f", q, max_new_tokens=6) for q in PROMPTS]
+    fe.pump(budget_s=60.0)
+    assert [list(r.tokens_out) for r in reqs] == one
