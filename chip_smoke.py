@@ -284,20 +284,24 @@ Usage:  python3 chip_smoke.py
 from __future__ import annotations
 
 import bisect
+import collections
 import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-PEAK_FLOPS = 989e12   # H100 SXM, dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (NVIDIA data sheet)
+# The card's dense bf16 FLOP/s and HBM bytes/s: read from the port's
+# ``launch/mesh.py`` (the H100 SXM data sheet) by ``load_rates`` once the
+# port is on the path.
+PEAK_FLOPS = PEAK_BYTES = None
 TOL = 2e-2            # bf16 kernel vs plain version (tests/test_kernels.py)
 REF_TOL = 5e-2        # bf16 model on the card vs f32 model on the CPU,
 #                       as max |diff| / max |reference logit|
@@ -316,6 +320,12 @@ HYBRID_ARCH = "hymba-1.5b"
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def load_rates() -> None:
+    global PEAK_FLOPS, PEAK_BYTES
+    from repro_torch.launch import mesh
+    PEAK_FLOPS, PEAK_BYTES = mesh.PEAK_FLOPS_BF16, mesh.HBM_BW
 
 
 def time_ms(calls, iters: int = 30) -> float:
@@ -6003,6 +6013,207 @@ def training_phase(witness_layers: int = WITNESS_LAYERS) -> None:
     log(f"training phase took {time.perf_counter() - t0:.1f}s")
 
 
+# --------------------------------------------------------------------------
+# 9. the analysis layer: the dry run on the meta device; the examples
+# --------------------------------------------------------------------------
+
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun"
+DRYRUN_CELLS = 280  # 10 configs x (4 training layouts + 3 cases x 8 layouts)
+
+
+class DryRun:
+    """``python -m repro_torch.launch.dryrun --all`` in a process of its
+    own with no card visible (it traces on the meta device), its lines
+    to ``DRYRUN_OUT``.  It runs beside the card's phases only to keep the
+    smoke inside its time limit; a thread notes when it exits, so the
+    log says which timed phases shared the host with it."""
+
+    def __init__(self, src: Path):
+        DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+        with open(DRYRUN_OUT / "stdout.txt", "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--out", str(DRYRUN_OUT)], env=env, stdout=out,
+                stderr=subprocess.STDOUT, cwd=str(ROOT))
+        self.started = time.perf_counter()
+        self.ended: float | None = None
+        self.waiter = threading.Thread(target=self._wait, daemon=True)
+        self.waiter.start()
+
+    def _wait(self) -> None:
+        self.proc.wait()
+        self.ended = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.waiter.join()
+
+
+def analysis_phase(dry: DryRun, t_serve: float) -> None:
+    """The dry run's reckoning of a member's weight and pool bytes, on the
+    meta device through the port's own pod code, at the smoke's serve
+    shape (8 slots x 1024 rows; gemma3's 2048), held equal to the byte
+    constants this script serves by (the JAX package's counts); no
+    kernel launches on meta.  Then the whole dry run's result, from its
+    own process: every cell ``ok`` or ``skipped``, and its fit table, and
+    when it exited against ``t_serve``, the serve phase's start."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    before = kernels.counter_values()
+    slots = 8
+
+    def member(arch, n=1, max_len=1024, int8=False):
+        return dryrun.serve_member_bytes(get_config(arch), n, slots,
+                                         max_len, int8)
+
+    def dense(arch, max_len=1024, int8=False):
+        """``dense_kv_bytes``: the pool's leaves and one scalar ``pos``
+        (a slot pool holds one ``pos`` a slot)."""
+        return member(arch, 1, max_len, int8)[1] - 4 * slots + 4
+
+    checks = {}
+    for arch, by_n in POD_MEMBER_BYTES.items():
+        for n, want in by_n.items():
+            checks[f"{arch} member of {n}"] = (member(arch, n), want)
+    checks[f"{ARCH} dense_kv_bytes(8, 1024)"] = (
+        (dense(ARCH), dense(ARCH, int8=True)),
+        (BF16_DENSE_BYTES, INT8_DENSE_BYTES))
+    sc = build_model(get_config(STARCODER_ARCH))
+    checks[STARCODER_ARCH] = (
+        (sc.n_params(), dense(STARCODER_ARCH),
+         dense(STARCODER_ARCH, int8=True), sc.kv_block_bytes(16, False),
+         sc.kv_block_bytes(16, True)), STARCODER_SIZES)
+    checks[GEMMA_ARCH] = (
+        (build_model(get_config(GEMMA_ARCH)).n_params(),
+         dense(GEMMA_ARCH, GEMMA_MAX_LEN)), GEMMA_SIZES)
+    checks[MOE_ARCH] = (
+        (build_model(get_config(MOE_ARCH)).n_params(), member(MOE_ARCH)[0],
+         dense(MOE_ARCH)), MOE_SIZES)
+    bad = {k: v for k, v in checks.items() if tuple(v[0]) != tuple(v[1])}
+    if bad:
+        raise AssertionError(f"analysis: reckoned bytes differ from the "
+                             f"smoke's constants: {bad}")
+    if kernels.counter_values() != before:
+        raise AssertionError("analysis: a meta trace launched a kernel")
+    log(f"analysis: {len(checks)} reckonings of member weight and pool "
+        f"bytes on the meta device equal the smoke's constants: "
+        + "; ".join(f"{k} {tuple(v[0])}" for k, v in checks.items()))
+    t_wait = time.perf_counter()
+    dry.waiter.join(timeout=600)
+    waited = time.perf_counter() - t_wait
+    rc = dry.proc.returncode
+    text = (DRYRUN_OUT / "stdout.txt").read_text()
+    cells = [json.loads(x) for x in
+             (DRYRUN_OUT / "dryrun.jsonl").read_text().splitlines()]
+    status = collections.Counter(c["status"] for c in cells)
+    if rc != 0 or len(cells) != DRYRUN_CELLS or set(status) - {
+            "ok", "skipped"}:
+        raise AssertionError(f"analysis: dry run exit {rc}, "
+                             f"{len(cells)} cells, {dict(status)}:\n"
+                             f"{text[-4000:]}")
+    summary = next(x for x in text.splitlines()
+                   if x.startswith("[dryrun]"))
+    lead = t_serve - dry.ended
+    log(f"analysis: dry run --all under torch {torch.__version__}: "
+        f"{dict(status)} of {len(cells)} cells; {summary} (waited "
+        f"{waited:.1f}s for it here); it exited "
+        f"{dry.ended - dry.started:.1f}s after it started, "
+        + (f"{lead:.1f}s before the serve phase began" if lead >= 0 else
+           f"{-lead:.1f}s into the serve phase, whose first windows "
+           f"shared the host with it"))
+    for line in text.split("[fit]", 1)[1].splitlines():
+        if line.strip():
+            log(f"fit: {line}")
+    log(f"analysis phase took {time.perf_counter() - t0:.2f}s (predicted "
+        f"3-6 s before its first run, PERF.md Findings)")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module of its own."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase() -> None:
+    """The port's examples on the card, in this process, each with its
+    own asserts: torch_quickstart, torch_multi_tenant_isolation (the
+    victim's rate while the aggressor runs, isolated at least 0.9 of
+    time-shared) and
+    torch_train_lm at ``--preset 100m --steps 40`` (the loss falls across
+    the restart); their launches counted from 0, and flash, decode and
+    the WKV-6 step kernel must each have run.  Then the two examples
+    whose tiny models have head dim 8 must be refused before any weight
+    is drawn (no device memory allocated), with no CPU fallback."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    times = {}
+    t = time.perf_counter()
+    out = load_example("torch_quickstart").main([])
+    times["quickstart"] = time.perf_counter() - t
+    log(f"examples: torch_quickstart served {out['done']} of "
+        f"{len(out['reqs'])} requests on the card; first completion "
+        f"{out['reqs'][0].tokens_out}")
+    t = time.perf_counter()
+    runs = load_example("torch_multi_tenant_isolation").main([])
+    times["isolation"] = time.perf_counter() - t
+    shared = {}
+    for k in ("contended", "isolated"):
+        rec = runs[k]["engine"].recorders
+        end = max(rec["aggressor"].completion_times)
+        shared[k] = sum(t <= end for t in rec["victim"].completion_times)
+    log("examples: torch_multi_tenant_isolation victim req/s "
+        + ", ".join(f"{k} {v['rate']:.1f}" for k, v in runs.items())
+        + f" (isolated / time-shared "
+        f"{runs['isolated']['rate'] / runs['contended']['rate']:.3f}, "
+        f"limit 0.9; read over the victim's completions while the "
+        f"aggressor ran: {shared})")
+    t = time.perf_counter()
+    losses = load_example("torch_train_lm").main(
+        ["--preset", "100m", "--steps", "40"])
+    times["train_lm"] = time.perf_counter() - t
+    log(f"examples: torch_train_lm 100m, 40 steps across a restart: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    counts = kernels.launch_counts()
+    missing = [k for k in ("flash_attention", "decode_attention",
+                           "wkv6_step") if not counts[k]]
+    if missing:
+        raise AssertionError(f"examples: no launches of {missing}: "
+                             f"{counts}")
+    log(f"examples: launches {({k: v for k, v in counts.items() if v})}")
+    for name in ("torch_serve_cluster", "torch_autoscale_live"):
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        try:
+            load_example(name).main([])
+        except SystemExit as e:
+            if e.code != 2:
+                raise
+        else:
+            raise AssertionError(f"examples: {name} ran on the card")
+        if torch.cuda.memory_allocated() != mem:
+            raise AssertionError(f"examples: {name} drew weights before "
+                                 f"its refusal")
+        log(f"examples: {name} refused on the card before drawing any "
+            f"weight (its tiny models' head dim 8)")
+    log(f"examples phase took {time.perf_counter() - t0:.1f}s ("
+        + ", ".join(f"{k} {v:.1f}s" for k, v in times.items())
+        + "; predicted 22-43 s before its first run, PERF.md Findings)")
+
+
 def windows_phase(checkout: Path) -> None:
     """``--windows CHECKOUT``: only the serve runs' tokens/s (the serve
     phase's six modes and request mix, each through ``timed_serve``) and
@@ -6072,6 +6283,7 @@ def main(argv: list[str]) -> int:
         print(f"[chip_smoke] FAIL: {src}/repro_torch not found",
               file=sys.stderr)
         return 2
+    load_rates()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6091,20 +6303,28 @@ def main(argv: list[str]) -> int:
     ptxas_report((lib.parent / "ptxas.log").read_text())
     hmma_report(lib)
     rng = np.random.default_rng(SEED)
-    for name, phase in (("kernel", kernel_phase), ("reference",
-                                                   reference_phase)):
-        t0 = time.perf_counter()
-        out = phase(rng)
-        log(f"{name} phase took {time.perf_counter() - t0:.1f}s")
-        if name == "kernel":
-            results = out
     t0 = time.perf_counter()
-    reduced_serve()
-    reduced_context_serve()
-    log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
-    pod_reduced()
-    launches = serve_phase(rng)
-    training_phase(args.witness_layers)
+    results = kernel_phase(rng)
+    log(f"kernel phase took {time.perf_counter() - t0:.1f}s")
+    # The dry run traces on the meta device in a process of its own, on a
+    # host core, while the card runs the phases below (for the time limit).
+    dry = DryRun(src)
+    try:
+        t0 = time.perf_counter()
+        reference_phase(rng)
+        log(f"reference phase took {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        reduced_serve()
+        reduced_context_serve()
+        log(f"reduced serve took {time.perf_counter() - t0:.1f}s")
+        pod_reduced()
+        t_serve = time.perf_counter()
+        launches = serve_phase(rng)
+        training_phase(args.witness_layers)
+        analysis_phase(dry, t_serve)
+    finally:
+        dry.stop()
+    examples_phase()
     extra = ("shape", "device_ms", "library_device_ms")  # logged above
     listing = [dict(name=name, launches=launches[name],
                     **{k: v for k, v in r.items() if k not in extra})

@@ -51,7 +51,7 @@ class ServiceCurve:
     framework_bytes: int = 0
     # Weight-bound (batch-shared) fraction of one decode round.  0.5 is
     # the uncalibrated default; ``calibrate_round_alpha`` replaces it with
-    # the model's roofline split (``decode_round_alpha`` below).
+    # the model's roofline split (``analysis.roofline.decode_round_alpha``).
     alpha: float = 0.5
     # Bytes exchanged per live slot per decode round by a tensor-parallel
     # pod's collectives (the all-gather volume of the column-only layout).
@@ -97,40 +97,17 @@ class ServiceCurve:
         return t
 
 
-def decode_round_alpha(cfg, seq_len: int) -> float:
-    """Weight-bound fraction of a batched decode round for this model.
-
-    One round streams the (active) bf16 weights once — ``W`` bytes,
-    shared by every slot — and each slot's KV cache once — ``K`` bytes
-    per sequence at ``seq_len`` context — so ``alpha = W / (W + K)``.
-    The port's copy of ``repro.analysis.roofline.decode_round_alpha``
-    with the decode branch of its ``kernel_hbm_bytes``; the rest of that
-    analysis module is not ported (ROADMAP.md, Queue 1 item 13).
-    """
-    s = max(seq_len, 1)
-    kv_d = cfg.n_kv_heads * cfg.dh
-    w = 2.0 * cfg.active_param_count()  # bf16 weight stream, batch-shared
-    if cfg.family == "rwkv":
-        k = 6.0 * s * cfg.d_model * 2.0 * cfg.n_layers
-    else:
-        eff = min(cfg.sliding_window or s, s)
-        k = 2.0 * eff * kv_d * 2.0 * cfg.n_layers
-        if cfg.family == "hybrid" and cfg.ssm_state:
-            k += 2.0 * cfg.n_heads * cfg.dh * cfg.ssm_state * 4.0 * \
-                cfg.n_layers
-    return w / max(w + k, 1.0)
-
-
 def calibrate_round_alpha(curve: ServiceCurve, cfg,
                           seq_len: int = 1024) -> ServiceCurve:
     """Replace the curve's fixed alpha=0.5 with the model's roofline split.
 
     ``cfg`` is the architecture's ``ModelConfig``; the weight-bound
-    fraction comes from :func:`decode_round_alpha` at a representative
-    decode context length.  Single-slot behaviour
+    fraction comes from ``repro_torch.analysis.roofline.decode_round_alpha``
+    at a representative decode context length.  Single-slot behaviour
     (``round_time(sm, 1) == step_time(sm, 1)``) is alpha-independent, so
     paper-calibrated rates survive calibration unchanged.
     """
+    from repro_torch.analysis.roofline import decode_round_alpha
     return dataclasses.replace(curve,
                                alpha=decode_round_alpha(cfg, seq_len))
 

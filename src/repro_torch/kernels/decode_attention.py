@@ -12,13 +12,14 @@ the masked-softmax decode of ``repro/kernels/ops.py::decode_attention``
 as ``ops.decode_attention_quant`` (ops.py:450-477).
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
-its kernel for a CUDA tensor, or raises; ``<wrapper>.launches`` counts
-kernel launches.  All four kernels walk tiles of ``DENSE_TILE`` logical
-rows, dense and paged alike and whatever the page size, through one
-tensor-core tile loop and one split of S across CTAs (``decode_plan``;
-the int8 kernels widen their codes to bf16 in shared memory first): on
-identical K/V, or codes and scales, with ``M * bs == S`` a dense and a
-paged kernel give bit-identical outputs.
+its kernel for a CUDA tensor, or raises; on a meta tensor it returns an
+empty output and records the call (``kernels/meta.py``);
+``<wrapper>.launches`` counts kernel launches.  All four kernels walk
+tiles of ``DENSE_TILE`` logical rows, dense and paged alike and whatever
+the page size, through one tensor-core tile loop and one split of S
+across CTAs (``decode_plan``; the int8 kernels widen their codes to bf16
+in shared memory first): on identical K/V, or codes and scales, with
+``M * bs == S`` a dense and a paged kernel give bit-identical outputs.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 NEG_INF = -1e30
 MAX_GROUP = 16  # query heads per kv head the kernels hold (kMaxG)
@@ -147,6 +148,15 @@ def _check_decode_shapes(name: str, q: torch.Tensor, kv: torch.Tensor,
     return b, h, d
 
 
+def _meta(name: str, q: torch.Tensor, operands: tuple, rows: int,
+          window: Optional[int] = None) -> torch.Tensor:
+    """A shape-only call on the meta device: the empty (B,1,H,D) output,
+    the call recorded with the logical rows each sequence may attend."""
+    o = torch.empty_like(q)
+    meta.record(name, (q, *operands), (o,), rows=int(rows), window=window)
+    return o
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor, *,
                      window: Optional[int] = None,
@@ -163,6 +173,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       window=window)
+    if q.device.type == "meta":
+        return _meta("decode_attention", q, (k_cache, v_cache, cache_len),
+                     k_cache.shape[1], window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     block_s = DENSE_TILE
@@ -207,6 +220,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, cache_len)
+    if q.device.type == "meta":
+        return _meta("paged_decode_attention", q,
+                     (k_pages, v_pages, block_tables, cache_len),
+                     block_tables.shape[1] * k_pages.shape[1])
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     n, bs, n_kv, _ = k_pages.shape
@@ -293,6 +310,10 @@ def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, k_cache, v_cache, k_scale,
                                             v_scale, cache_len)
+    if q.device.type == "meta":
+        return _meta("decode_attention_quant", q,
+                     (k_cache, v_cache, k_scale, v_scale, cache_len),
+                     k_cache.shape[1])
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention_quant: no kernel for "
                          f"{q.device}")
@@ -339,6 +360,10 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_quant_plain(
             q, k_pages, v_pages, ks_pages, vs_pages, block_tables, cache_len)
+    if q.device.type == "meta":
+        return _meta("paged_decode_attention_quant", q,
+                     (k_pages, v_pages, ks_pages, vs_pages, block_tables,
+                      cache_len), block_tables.shape[1] * k_pages.shape[1])
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_quant: no kernel for "
                          f"{q.device}")

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.grad import recompute_grads, refuse_grad
 
 NEG_INF = -1e30
@@ -96,11 +96,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """Returns (B, Sq, H, D).  CPU: plain version; CUDA: the kernel (bf16,
     head dim 64 or 128, contiguous operands starting at 16-byte
-    boundaries) or an error.  The kernel rounds the softmax weights to
+    boundaries) or an error; meta: an empty output, recorded
+    (``kernels/meta.py``).  The kernel rounds the softmax weights to
     bf16 for the second product (at most 2^-8 relative per weight)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
+    if q.device.type == "meta":
+        o = torch.empty_like(q)
+        meta.record("flash_attention", (q, k, v), (o,), causal=causal,
+                    window=window, q_offset=q_offset)
+        return o
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     refuse_grad("flash_attention", q, k, v)
@@ -148,6 +154,10 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if do.device.type == "meta":
+            return (*meta.backward("flash_attention", ctx.saved_tensors,
+                                   ctx.needs_input_grad[:3], (do,),
+                                   **ctx.kw), None, None, None)
         grads = recompute_grads(
             lambda q, k, v: flash_attention_plain(q, k, v, **ctx.kw),
             ctx.saved_tensors, ctx.needs_input_grad[:3], (do,))

@@ -14,8 +14,10 @@ calls it).
 
 ``ssm_scan`` takes the plain version for a tensor on the CPU and launches
 a kernel for a CUDA tensor, or raises (as every wrapper here does for a
-CUDA input that wants a gradient: the kernels give none).
-``ssm_scan.launches`` counts its launches of either kernel;
+CUDA input that wants a gradient: the kernels give none); on a meta
+tensor it returns empty outputs and records the kernel the card would run
+(``kernels/meta.py``).  ``ssm_scan.launches`` counts its launches of
+either kernel;
 ``ssm_step.launches`` and ``ssm_chunked.launches`` count each kernel's
 own.  ``SsmScanFn`` gives the scan a gradient (``ops.ssm_scan`` takes it
 under autograd): the kernel forward, a plain backward, and no
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.grad import (recompute_grads, refuse_grad,
                                       scan_backward_plain)
 
@@ -243,6 +245,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         _check_state_out("ssm_scan", state, state_out, x, dt, a_log, b, c)
         y, st = ssm_scan_plain(x, dt, a_log, b, c, state)
         return y, state_out.copy_(st)
+    if x.device.type == "meta":
+        y = torch.empty_like(x)
+        out = torch.empty_like(state) if state_out is None else state_out
+        meta.record("ssm_chunked" if x.shape[1] >= CHUNKED_MIN_S
+                    else "ssm_step", (x, dt, a_log, b, c, state), (y, out))
+        return y, out
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for {x.device}")
     kernel = ssm_chunked if x.shape[1] >= CHUNKED_MIN_S else ssm_step
@@ -285,5 +293,8 @@ class SsmScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_y, d_state):
+        if d_y.device.type == "meta":
+            return meta.backward("ssm_scan", ctx.saved_tensors,
+                                 ctx.needs_input_grad, (d_y, d_state))
         return recompute_grads(ssm_backward_plain, ctx.saved_tensors,
                                ctx.needs_input_grad, (d_y, d_state))

@@ -14,7 +14,9 @@ loop, and on the card ``Wkv6ScanFn``'s backward differentiates it
 
 ``wkv6_scan`` takes the plain version for a tensor on the CPU and launches
 a kernel for a CUDA tensor, or raises (as every wrapper here does for a
-CUDA input that wants a gradient: the kernels give none).
+CUDA input that wants a gradient: the kernels give none); on a meta
+tensor it returns empty outputs and records the kernel the card would run
+(``kernels/meta.py``).
 ``wkv6_scan.launches`` counts its launches of either kernel;
 ``wkv6_step.launches`` and ``wkv6_chunked.launches`` count each kernel's
 own.  ``Wkv6ScanFn`` gives the scan a gradient (``ops.wkv6_scan`` takes
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.grad import (recompute_grads, refuse_grad,
                                       scan_backward_plain)
 
@@ -169,6 +171,12 @@ def wkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel below ``CHUNKED_MIN_S`` steps, the chunked kernel from there."""
     if r.device.type == "cpu":
         return wkv6_scan_plain(r, k, v, w, u, state)
+    if r.device.type == "meta":
+        out, new_state = torch.empty_like(r), torch.empty_like(state)
+        meta.record("wkv6_chunked" if r.shape[1] >= CHUNKED_MIN_S
+                    else "wkv6_step", (r, k, v, w, u, state),
+                    (out, new_state))
+        return out, new_state
     if r.device.type != "cuda":
         raise ValueError(f"wkv6_scan: no kernel for {r.device}")
     kernel = wkv6_chunked if r.shape[1] >= CHUNKED_MIN_S else wkv6_step
@@ -209,5 +217,8 @@ class Wkv6ScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out, d_state):
+        if d_out.device.type == "meta":
+            return meta.backward("wkv6_scan", ctx.saved_tensors,
+                                 ctx.needs_input_grad, (d_out, d_state))
         return recompute_grads(wkv6_backward_plain, ctx.saved_tensors,
                                ctx.needs_input_grad, (d_out, d_state))

@@ -428,6 +428,59 @@ class Model:
                 torch.bfloat16)
 
 
+# --------------------------------------------------------------------------
+# Dry-run input specs (meta tensors: shapes and dtypes, no allocation;
+# model.py:464-501)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCase:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPE_CASES = {
+    "train_4k": ShapeCase("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCase("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCase("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCase("long_500k", "decode", 524288, 1),
+}
+
+
+def input_specs(model: Model, case: ShapeCase, device="meta"
+                ) -> tuple[dict[str, Any], dict[str, Any]]:
+    """Returns (a tree of empty tensors on ``device``, the logical-names
+    tree) for the step's inputs: JAX's shapes and dtypes, a decode cache
+    with its scalar ``pos`` as JAX's ``cache_shapes`` holds it, and the
+    context families' ``ctx`` outside decode."""
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    b, s = case.global_batch, case.seq_len
+    i32 = torch.int32
+    if case.kind == "train":
+        specs = {"tokens": empty((b, s), i32), "labels": empty((b, s), i32)}
+        names = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    elif case.kind == "prefill":
+        specs = {"tokens": empty((b, s), i32)}
+        names = {"tokens": ("batch", "seq")}
+    else:  # decode
+        cache = {key: empty(shape, dtype) for key, (shape, dtype)
+                 in model.cache_specs(b, s).items()}
+        cache["pos"] = empty((), i32)
+        specs = {"token": empty((b,), i32), "cache": cache}
+        names = {"token": ("batch",), "cache": model.cache_names(b, s)}
+    if model.needs_ctx() and case.kind != "decode":
+        specs["ctx"] = empty(*model.ctx_shape(b))
+        names["ctx"] = ("batch", "seq", None)
+    return specs, names
+
+
 class PodModel:
     """A ``Model`` served as a sharded pod over ``group``: params and
     caches are lists of member trees, primary first (params as

@@ -32,8 +32,12 @@ class AdamWState(NamedTuple):
 
 def _slices(t: torch.Tensor):
     """Consecutive views of at most ``SLICE`` elements of a contiguous
-    ``t``, in place."""
+    ``t``, in place (one view of a meta tensor, which holds no memory for
+    a slice to bound: the dry run traces the update at full width)."""
     flat = t.view(-1)
+    if flat.is_meta:
+        yield flat
+        return
     for a in range(0, flat.numel(), SLICE):
         yield flat[a:a + SLICE]
 

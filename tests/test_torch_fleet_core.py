@@ -202,9 +202,10 @@ def test_memory_model_identical(weight, framework, overhead):
 
 
 def test_round_alpha_identical_without_the_roofline_module():
-    """The port's ``decode_round_alpha`` (the decode branch of the
-    roofline's byte count, copied) equals the JAX package's for the dense
-    tiny config, a windowed one, and the rwkv and hybrid families."""
+    """The port's ``decode_round_alpha`` (``repro_torch.analysis.roofline``,
+    which ``calibrate_round_alpha`` imports) equals the JAX package's for
+    the dense tiny config, a windowed one, and the rwkv and hybrid
+    families."""
     from repro.configs import get_config
 
     cfgs = [tiny_config(), tiny_config(sliding_window=16)]

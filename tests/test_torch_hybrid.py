@@ -217,9 +217,13 @@ def test_ssm_chunked_plain_split_equals_whole():
 
 
 def test_ssm_wrapper_refuses_other_devices():
-    x = torch.zeros((1, 2, 1, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        ssm_scan.ssm_scan(x, x[..., 0], x[0, 0], x, x, x[:, 0])
+    """A device with no kernel and no plain version is refused (the meta
+    device is the dry run's shape-only path, ``tests/test_torch_dryrun.py``)."""
+    from torch_devices import OtherDevice
+    x = OtherDevice(1, 2, 1, 16)
+    with pytest.raises(ValueError, match="no kernel for xpu"):
+        ssm_scan.ssm_scan(x, OtherDevice(1, 2, 1), OtherDevice(1, 16), x,
+                          x, OtherDevice(1, 1, 16, 16))
 
 
 # -- the rolled sliding-window cache ------------------------------------------

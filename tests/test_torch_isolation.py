@@ -1,6 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py`` and ``scripts/scan_round.py``) loads neither JAX nor
-the JAX package, entry points that default to the card refuse to fall
+``chip_smoke.py``, ``scripts/scan_round.py`` and every
+``examples/torch_*.py``) loads neither JAX nor the JAX package, entry points that default to the card refuse to fall
 back to the CPU, and the serve entry point refuses on the card a config
 its kernels do not take."""
 
@@ -25,6 +25,13 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 sys.path.insert(0, sys.argv[1] + "/scripts")
 import scan_round
+import glob, importlib.util
+examples = sorted(glob.glob(sys.argv[1] + "/examples/torch_*.py"))
+assert len(examples) == 5, examples
+for path in examples:
+    spec = importlib.util.spec_from_file_location(
+        "ex_" + path.rsplit("/", 1)[1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -201,7 +201,9 @@ def test_paged_decode_plain_vs_pallas_interpret():
 
 def test_wrappers_count_no_launch_on_cpu():
     """On the CPU the wrappers take the plain versions and launch
-    nothing; a tensor on another device type is refused."""
+    nothing; a tensor on another device type (one that reports ``xpu``)
+    is refused by each of the seven wrappers.  The meta device is the dry
+    run's shape-only path (``tests/test_torch_dryrun.py``)."""
     from repro_torch import kernels
     from repro_torch.kernels import ssm_scan, wkv6
     kernels.reset_launch_counts()
@@ -228,8 +230,21 @@ def test_wrappers_count_no_launch_on_cpu():
         "paged_decode_attention_quant": 0, "wkv6_step": 0,
         "wkv6_chunked": 0, "ssm_step": 0, "ssm_chunked": 0}
     assert wkv6.wkv6_scan.launches == 0 and ssm_scan.ssm_scan.launches == 0
-    with pytest.raises(ValueError):
-        fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    from torch_devices import OtherDevice as Other
+    o, okv, lens = Other(1, 1, 2, 8), Other(1, 4, 1, 8), Other(1)
+    xs = Other(1, 3, 2, 8)
+    for call in (lambda: fa.flash_attention(o, okv, okv),
+                 lambda: da.decode_attention(o, okv, okv, lens),
+                 lambda: da.paged_decode_attention(o, okv, okv, lens, lens),
+                 lambda: da.decode_attention_quant(o, okv, okv, okv, okv,
+                                                   lens),
+                 lambda: da.paged_decode_attention_quant(
+                     o, okv, okv, okv, okv, lens, lens),
+                 lambda: wkv6.wkv6_scan(xs, xs, xs, xs, o, o),
+                 lambda: ssm_scan.ssm_scan(xs, xs, o, xs, xs, o)):
+        with pytest.raises(ValueError, match="no kernel for xpu"):
+            call()
+    assert kernels.counter_values() == [0] * len(kernels.COUNTED)
 
 
 def test_every_c_entry_point_has_a_signature():
