@@ -4,9 +4,11 @@
 Builds the port's CUDA kernels from ``src/repro_torch/csrc``, logs each
 kernel's registers and spills from the ptxas report and, by the
 toolkit's ``cuobjdump`` (the smoke fails without it), the tensor-core
-instructions (HMMA) in each kernel's SASS, failing if flash or any decode kernel, at any head dim
-they are built for (16, 32, 64, 128), chunked WKV-6 or the chunked
-selective scan (N = 16 and 8) holds none or spills, or if the scan's
+instructions in each kernel's SASS (HGMMA, the warpgroup products, in
+flash; HMMA, mma.sync's, in the others), failing if flash or any decode
+kernel, at any head dim they are built for (16, 32, 64, 128), chunked
+WKV-6 or the chunked selective scan (N = 16 and 8) holds none of its
+kind or spills, or if the scan's
 step kernel spills or moves its state otherwise than by one coherent
 16-byte load and one 16-byte store a thread (it updates the state in
 place), and then:
@@ -240,8 +242,10 @@ place), and then:
    at a 4-member gemma3-27b pod's (8 over 4, window 1024), decode at
    a 4-member qwen2-moe-a2.7b pod's (4 over 4) and both WKV-6 kernels at
    a 2- and a 4-member rwkv6-1.6b pod's (16 and 8 heads of 64), and
-   holds each member's heads of the four decode kernels, both WKV-6
-   kernels and both scan kernels to the whole launch's bit for bit;
+   holds each member's heads of flash (14/2 and 7/1 of 28/4 at 512
+   rows; 16/8 and 8/4 of 32/16 at 1920 rows, window 1024), the four
+   decode kernels, both WKV-6 kernels and both scan kernels to the whole
+   launch's bit for bit;
 8. training phase (last) — the autograd Functions of flash, WKV-6 and the
    selective scan (kernel forward, plain backward) at the trained shapes:
    their input gradients against autograd of the plain versions on the
@@ -1307,7 +1311,7 @@ def member_split_check(rand, lens) -> None:
     model's kv heads (``plan_kv``, as ``decode_step_tp`` launches them),
     which must equal the whole launch's heads bit for bit.  Without
     ``plan_kv`` a member splits S by its own heads, and the entries that
-    differ are counted (logged)."""
+    differ are counted (logged).  Then flash (``flash_member_split``)."""
     import torch
     from repro_torch.kernels import decode_attention as da
     from repro_torch.models.attention import kv_quantize
@@ -1350,13 +1354,46 @@ def member_split_check(rand, lens) -> None:
                         f"the whole launch's with the split planned for "
                         f"{kv} kv heads")
                 out.append(f"{name} {arch} x{shards} {own}")
+    flash = flash_member_split(rand)
     torch.cuda.synchronize()
     log(f"member split: every member's heads equal the whole launch's bit "
         f"for bit with the split planned for the model's kv heads "
         f"(dense, paged, int8, paged int8; qwen2-moe-a2.7b 16/16 and "
         f"qwen2-7b 28/4 at 2 and 4 members); entries of the B x H x 128 "
         f"outputs that differ when a member plans by its own kv heads "
-        f"(logged): {'; '.join(out)}")
+        f"(logged): {'; '.join(out)}; flash, bit for bit: {flash}")
+
+
+def flash_member_split(rand) -> str:
+    """A pod member's flash heads equal the whole launch's bit for bit:
+    qwen2-7b's 28 q / 4 kv heads of 128 at a 512-token prefill split in
+    2 and 4 members (14/2, 7/1), gemma3-27b's 32/16 at 1920 rows with its
+    window of 1024 (16/8, 8/4)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    done = []
+    for arch, sq, h, kv, window in (("qwen2-7b", 512, 28, 4, None),
+                                    ("gemma3-27b", 1920, 32, 16, 1024)):
+        q, k, v = rand(1, sq, h, 128), rand(1, sq, kv, 128), \
+            rand(1, sq, kv, 128)
+        whole = fa.flash_attention(q, k, v, window=window)
+        for shards in (2, 4):
+            hm, kvm = h // shards, kv // shards
+            for m in range(shards):
+                qs, ks = slice(m * hm, (m + 1) * hm), \
+                    slice(m * kvm, (m + 1) * kvm)
+                got = fa.flash_attention(q[:, :, qs].contiguous(),
+                                         k[:, :, ks].contiguous(),
+                                         v[:, :, ks].contiguous(),
+                                         window=window)
+                bad = int((got != whole[:, :, qs]).sum())
+                if bad:
+                    raise AssertionError(
+                        f"member split: flash at {arch}'s {h}/{kv} heads, "
+                        f"member {m} of {shards}: {bad} entries differ "
+                        f"from the whole launch's")
+            done.append(f"{arch} {hm}/{kvm}")
+    return ", ".join(done)
 
 
 # The head axis of each input of the WKV-6 kernels (r, k, v, w, u, state)
@@ -5352,18 +5389,21 @@ def ptxas_report(text: str) -> None:
             raise AssertionError(f"{name} spills {spills[name]} bytes")
 
 
-def hmma_report(lib) -> None:
-    """Tensor-core instructions (HMMA) in the SASS of each kernel, by the
-    toolkit's cuobjdump; the tensor-core kernels (``tensor_core_builds``)
-    must hold some, and the step kernel passes ``step_kernel_sass``."""
+# Kernels built on warpgroup products (wgmma): their SASS holds HGMMA,
+# the other tensor-core kernels' (mma.sync) HMMA.
+WGMMA_KERNELS = ("flash_kernel",)
+
+
+def tensor_op(name: str) -> str:
+    """The SASS tensor-core instruction a kernel must hold."""
+    return "HGMMA" if name.split("<")[0] in WGMMA_KERNELS else "HMMA"
+
+
+def sass_counts(sass: str) -> tuple[dict, dict]:
+    """For each kernel (``_short`` names) of a ``cuobjdump -sass``
+    listing: how many of its instructions are its ``tensor_op``, and its
+    lines."""
     import re
-    from repro_torch.kernels import build
-    tool = Path(build.nvcc()).with_name("cuobjdump")
-    if not tool.exists():
-        raise AssertionError(f"{tool} not found: the SASS checks cannot "
-                             f"run")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
     counts, lines, name = {}, {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -5371,13 +5411,31 @@ def hmma_report(lib) -> None:
             name = _short(m.group(1))
             counts[name], lines[name] = 0, []
         elif name:
-            counts[name] += "HMMA" in line
+            counts[name] += re.search(rf"\b{tensor_op(name)}\b",
+                                      line) is not None
             lines[name].append(line)
-    log(f"SASS HMMA instructions per kernel: {counts}")
+    return counts, lines
+
+
+def tensor_core_report(lib) -> None:
+    """Tensor-core instructions in the SASS of each kernel, by the
+    toolkit's cuobjdump: the tensor-core kernels (``tensor_core_builds``)
+    must hold their ``tensor_op`` (HGMMA for flash, HMMA for the rest),
+    and the step kernel passes ``step_kernel_sass``."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        raise AssertionError(f"{tool} not found: the SASS checks cannot "
+                             f"run")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, lines = sass_counts(sass)
+    log(f"SASS tensor-core instructions per kernel (HGMMA for "
+        f"{', '.join(WGMMA_KERNELS)}, HMMA for the rest): {counts}")
     for name in tensor_core_builds():
         if counts.get(name, 0) == 0:
-            raise AssertionError(f"{name} has no HMMA instruction in its "
-                                 f"SASS")
+            raise AssertionError(f"{name} has no {tensor_op(name)} "
+                                 f"instruction in its SASS")
     for name in step_kernel_builds():
         step_kernel_sass(name, lines.get(name, []))
 
@@ -6301,7 +6359,7 @@ def main(argv: list[str]) -> int:
     lib = build.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s: {lib}")
     ptxas_report((lib.parent / "ptxas.log").read_text())
-    hmma_report(lib)
+    tensor_core_report(lib)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     results = kernel_phase(rng)

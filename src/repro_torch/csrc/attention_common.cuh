@@ -2,23 +2,25 @@
 // wrappers, bf16 hi + lo splits for the chunked recurrences (WKV-6, the
 // selective scan), and the attention kernels' warp tile.
 //
-// The last part is one warp's attention tile on the tensor cores, shared
-// by the flash kernel and the four decode kernels: a warp holds 16 "query
-// rows" (q rows in flash, the G query heads of one kv head in decode) as
-// the A fragment of mma.sync m16n8k16 and attends them to bf16 K/V rows
-// staged in shared memory (int8 decode widens its codes to such rows):
+// The last part is one warp's attention tile on the tensor cores.  The
+// four decode kernels run all of it: a warp holds 16 "query rows" (the G
+// query heads of one kv head) as the A fragment of mma.sync m16n8k16 and
+// attends them to bf16 K/V rows staged in shared memory (int8 decode
+// widens its codes to such rows):
 //   scores  S (16 x n) = Q (16 x D) . K^T   K through ldmatrix (B, "col")
 //   softmax online, on the f32 C fragments: a row's values sit in one quad
 //           of lanes, so a row reduction is two __shfl_xor_sync
 //   P -> A  P rounded to bf16; two adjacent n8 C tiles are the k16 A
 //           fragment of P . V, so P never touches shared memory
 //   values  O (16 x D) += P . V         V through ldmatrix.trans
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 * gid + tig;
-// C element e of n8 tile j is row gid + 8 * (e >> 1), column
-// 8 j + 2 tig + (e & 1).  Scores are scaled in f32 after the dot (q is
-// never rounded after scaling) and carried in log2 units, so the softmax
-// uses exp2f.  Rounding P to bf16 is the one rounding step the plain
-// versions do not have: at most 2^-8 relative per weight.
+// The flash kernel runs the scale and mask steps and the row sum on
+// wgmma accumulators, which hold each warp's 16 rows in the same C
+// layout (hopper.cuh).  Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane =
+// 4 * gid + tig; C element e of n8 tile j is row gid + 8 * (e >> 1),
+// column 8 j + 2 tig + (e & 1).  Scores are scaled in f32 after the dot
+// (q is never rounded after scaling) and carried in log2 units, so the
+// softmax uses exp2f.  Rounding P to bf16 is the one rounding step the
+// plain versions do not have: at most 2^-8 relative per weight.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -134,17 +136,6 @@ __device__ __forceinline__ void unpack8(uint4 bits, float* f) {
 
 // -- one warp's attention tile -----------------------------------------------
 
-// The A fragments of a 16 x D bf16 tile in shared memory (row stride ld
-// elements, 16-byte aligned rows).
-template <int D>
-__device__ __forceinline__ void warp_load_a(const __nv_bfloat16* tile, int ld,
-                                            unsigned (&a)[D / 16][4]) {
-  const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* p = tile + (lane & 15) * ld + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(a[kk], p + 16 * kk);
-}
-
 // s (16 x 8 NT) = Q . K^T over K rows [0, 8 NT) of a bf16 tile in shared
 // memory (row stride ld).  NT even.
 template <int D, int NT>
@@ -198,14 +189,15 @@ __device__ __forceinline__ void warp_scale(float (&s)[NT][4],
 }
 
 // Online softmax of one tile for the lane's two rows (gid, gid + 8):
-// s becomes P (f32), o is rescaled by alpha, m is the running max (log2
-// units, equal across the quad), l the lane's part of the running sum
-// (summed over the quad once, at the end: warp_row_sum).  A row with no
-// live score yet keeps m = REPRO_NEG_INF and gets p = 0.
-template <int NT, int NO>
-__device__ __forceinline__ void warp_softmax(float (&s)[NT][4],
+// s becomes P (f32), m is the running max (log2 units, equal across the
+// quad), l the lane's part of the running sum (summed over the quad once,
+// at the end: warp_row_sum), alpha the factor the rows' O takes
+// (warp_rescale).  A row with no live score yet keeps m = REPRO_NEG_INF
+// and gets p = 0.
+template <int NT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4],
                                              float (&m)[2], float (&l)[2],
-                                             float (&o)[NO][4]) {
+                                             float (&alpha)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float mx = m[h];
@@ -215,7 +207,7 @@ __device__ __forceinline__ void warp_softmax(float (&s)[NT][4],
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float base = mx == REPRO_NEG_INF ? 0.f : mx;
-    const float alpha = exp2f(m[h] - base);
+    alpha[h] = exp2f(m[h] - base);
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -223,14 +215,29 @@ __device__ __forceinline__ void warp_softmax(float (&s)[NT][4],
       s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - base);
       sum += s[j][2 * h] + s[j][2 * h + 1];
     }
-    l[h] = l[h] * alpha + sum;
+    l[h] = l[h] * alpha[h] + sum;
     m[h] = mx;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][2 * h] *= alpha;
-      o[j][2 * h + 1] *= alpha;
-    }
   }
+}
+
+// o's two rows of the lane times their alpha.
+template <int NO>
+__device__ __forceinline__ void warp_rescale(float (&o)[NO][4],
+                                             const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+}
+
+// softmax_tile, then o rescaled.
+template <int NT, int NO>
+__device__ __forceinline__ void warp_softmax(float (&s)[NT][4],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&o)[NO][4]) {
+  float alpha[2];
+  softmax_tile<NT>(s, m, l, alpha);
+  warp_rescale<NO>(o, alpha);
 }
 
 // o (16 x D) += P . V, P from the score fragments (rounded to bf16), V

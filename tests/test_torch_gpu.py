@@ -597,6 +597,97 @@ def test_flash_kernel_dense_config_geometry(cuda_device, h, kv, window):
                                rtol=2e-2)
 
 
+def _flash_close(q, k, v, **kw):
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2, msg=lambda m: f"{kw}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 7, 16])
+@pytest.mark.parametrize("sq", [1, 15, 63, 65, 127, 640])
+def test_flash_wgmma_ragged_edges(cuda_device, d, g, sq):
+    """The wgmma kernel's ragged edges, B = 2 over 2 kv heads of G q
+    heads each: Sq below, at and past one 64-row tile, against Sk tails
+    that are no multiple of it (TMA zero-fills them, the mask hides
+    them): causal at Sq = Sk, causal with a q offset of 37 (Sk = Sq +
+    37), and not causal over Sk = 2 Sq + 13."""
+    rng = np.random.default_rng(1000 * d + 10 * g + sq)
+    q = _cuda_rand(rng, (2, sq, 2 * g, d), cuda_device)
+    for sk, causal, off in ((sq, True, 0), (sq + 37, True, 37),
+                            (2 * sq + 13, False, 0)):
+        k = _cuda_rand(rng, (2, sk, 2, d), cuda_device)
+        v = _cuda_rand(rng, (2, sk, 2, d), cuda_device)
+        _flash_close(q, k, v, causal=causal, q_offset=off)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_wgmma_cross_prefill(cuda_device, d):
+    """Not causal, Sq != Sk: a 512-row prompt over 1600 context rows (a
+    vision cross layer's), 32 q over 8 kv heads."""
+    rng = np.random.default_rng(d)
+    q = _cuda_rand(rng, (1, 512, 32, d), cuda_device)
+    k = _cuda_rand(rng, (1, 1600, 8, d), cuda_device)
+    v = _cuda_rand(rng, (1, 1600, 8, d), cuda_device)
+    _flash_close(q, k, v, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,h,kv,window", [(512, 28, 4, None),
+                                            (1920, 32, 16, 1024)])
+def test_flash_member_heads_equal_whole_launch(cuda_device, sq, h, kv,
+                                               window):
+    """A pod member's heads (14/2 and 7/1 of qwen2-7b's 28/4; 16/8 and 8/4
+    of gemma3-27b's 32/16 with its window) equal the whole launch's bit
+    for bit: a head's output does not depend on the launch's other
+    heads."""
+    rng = np.random.default_rng(sq + h)
+    q = _cuda_rand(rng, (1, sq, h, 128), cuda_device)
+    k = _cuda_rand(rng, (1, sq, kv, 128), cuda_device)
+    v = _cuda_rand(rng, (1, sq, kv, 128), cuda_device)
+    whole = fa.flash_attention(q, k, v, window=window)
+    for shards in (2, 4):
+        hm, kvm = h // shards, kv // shards
+        for m in range(shards):
+            qs, ks = slice(m * hm, (m + 1) * hm), slice(m * kvm, (m + 1) * kvm)
+            got = fa.flash_attention(q[:, :, qs].contiguous(),
+                                     k[:, :, ks].contiguous(),
+                                     v[:, :, ks].contiguous(), window=window)
+            assert torch.equal(got, whole[:, :, qs]), (shards, m)
+
+
+@pytest.mark.gpu
+def test_flash_graph_replay_equals_eager(cuda_device):
+    """A flash call captured in a CUDA graph (its tensor maps baked for
+    the static buffers, as an admission graph bakes them) replays equal
+    to the eager call bit for bit, and after new inputs are copied into
+    the same buffers, equal to the eager call on those."""
+    rng = np.random.default_rng(7)
+    shape_q, shape_kv = (1, 300, 28, 128), (1, 300, 4, 128)
+    q = _cuda_rand(rng, shape_q, cuda_device)
+    k = _cuda_rand(rng, shape_kv, cuda_device)
+    v = _cuda_rand(rng, shape_kv, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):  # warm up off the default stream
+        fa.flash_attention(q, k, v, window=100)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = fa.flash_attention.launches
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, window=100)
+    assert fa.flash_attention.launches == before + 1
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fa.flash_attention(q, k, v, window=100))
+        for x in (q, k, v):
+            x.copy_(_cuda_rand(rng, tuple(x.shape), cuda_device))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("h,kv,s", [(48, 4, 1024), (32, 16, 2048)])
 def test_decode_kernel_dense_config_geometry(cuda_device, h, kv, s):

@@ -1,0 +1,40 @@
+"""``chip_smoke.py``'s SASS counter on a canned ``cuobjdump -sass``
+excerpt (no card, no toolkit): flash, built on warpgroup products, must
+hold HGMMA; the decode kernels, built on mma.sync, HMMA.  An instruction
+of the other kind does not count for a kernel."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+_NS = "_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_41edf866"
+SASS = f"""
+	code for sm_90a
+		Function : {_NS}12flash_kernelILi128EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiifi
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0f70*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0f80*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*1a00*/                   HGMMA.64x128x16.F32.BF16 R88, R20, gdesc[UR12], R88, gsb0 ;
+        /*1a10*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+		Function : {_NS}12flash_kernelILi16EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16iiiiiiifi
+        /*0900*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+		Function : _ZN51_GLOBAL__N__7e3a1c2b_19_decode_attention_cu_5c3b1a2018decode_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PS1_PKiiiiiif
+        /*0a10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0a20*/                   HMMA.16816.F32.BF16 R16, R4, R14, R16 ;
+        /*0a30*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*0a40*/                   LDSM.16.M88.4 R4, [R2] ;
+"""
+
+
+def test_sass_counter_counts_each_kernels_own_tensor_op():
+    counts, lines = chip_smoke.sass_counts(SASS)
+    assert counts == {"flash_kernel<128>": 3, "flash_kernel<16>": 0,
+                      "decode_bf16_kernel<64>": 2}
+    assert len(lines["decode_bf16_kernel<64>"]) == 4
+    assert chip_smoke.tensor_op("flash_kernel<32>") == "HGMMA"
+    assert chip_smoke.tensor_op("paged_decode_q8_kernel<128>") == "HMMA"
+    assert chip_smoke.tensor_op("wkv6_chunked_kernel") == "HMMA"
