@@ -8,7 +8,8 @@ instructions in each kernel's SASS (HGMMA, the warpgroup products, in
 flash; HMMA, mma.sync's, in the others), failing if flash or any decode
 kernel, at any head dim they are built for (16, 32, 64, 128), chunked
 WKV-6 or the chunked selective scan (N = 16 and 8) holds none of its
-kind or spills, or if the scan's
+kind or spills, if flash or a bf16 decode kernel holds no TMA load
+(UTMALDG), or if the scan's
 step kernel spills or moves its state otherwise than by one coherent
 16-byte load and one 16-byte store a thread (it updates the state in
 place), and then:
@@ -21,8 +22,10 @@ place), and then:
    shapes, and times kernel, plain version, one PyTorch library call where
    one computes the same function, and the card's bound for the same work
    (flash also at a short serve bucket, Sq=64, and at hymba's prefill,
-   beside SDPA; bf16 paged decode at pages of 8, 16 and 32 rows and int8
-   at 8, 16, 32 and 64, bit-equal to dense; all four decode kernels also
+   beside SDPA; bf16 dense and paged decode one kernel a call; bf16
+   paged decode at pages of 8, 16 and 32 rows and int8 at 8, 16, 32 and
+   64, bit-equal to dense, and blind to NaN in pages no table entry
+   names; all four decode kernels also
    at starcoder2-15b's 12 query heads per kv head; flash at gemma3-27b's
    prefill geometry (1920 rows, 32 query heads over 16 kv heads of 128,
    its window of 1024 and none) and at starcoder2-15b's (512 rows, 48
@@ -349,12 +352,15 @@ def time_ms(calls, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(calls, iters: int = 30, label: str = "") -> float:
+def device_ms(calls, iters: int = 30, label: str = "",
+              one_kernel: str = "") -> float:
     """Mean device time per call of the kernels ``calls`` launch, from
     ``torch.profiler``'s kernel records: unlike ``time_ms`` it leaves out
     the host's dispatch, which bounds ``time_ms`` when a call's kernels
     finish before Python dispatches the next call.  With a ``label``,
-    logs the time per call of each CUDA kernel the calls launch."""
+    logs the time per call of each CUDA kernel the calls launch; with
+    ``one_kernel``, fails unless each call ran that one port kernel and
+    nothing else (where the profile holds records at all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for c in calls[:3]:
@@ -364,11 +370,16 @@ def device_ms(calls, iters: int = 30, label: str = "") -> float:
         for i in range(iters):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    rows = [(us / 1e3 / iters, key) for key, (us, _) in
-            device_totals(raw_events(prof, host=False)).items()]
+    totals = device_totals(raw_events(prof, host=False))
+    rows = [(us / 1e3 / iters, key) for key, (us, _) in totals.items()]
     if label:
         log(f"device ms per call of {label} by kernel: " + "; ".join(
             f"{_port_name(key) or key[:50]} {t:.5f}" for t, key in rows))
+    ran = {_port_name(key) or key: n for key, (_, n) in totals.items()}
+    if one_kernel and ran and (len(ran) != 1
+                               or ran.get(one_kernel) != iters):
+        raise AssertionError(f"{label or one_kernel}: {iters} calls ran "
+                             f"{ran}, not one {one_kernel} each")
     return sum(t for t, _ in rows)
 
 
@@ -407,11 +418,13 @@ def device_totals(events, skip=()) -> dict[str, tuple[float, int]]:
 
 
 def kernel_times(calls, plain, library=None, plain_iters: int = 30,
-                 label: str = "") -> dict:
+                 label: str = "", one_kernel: str = "") -> dict:
     """The kernel's and the library call's times by CUDA events and by
     device time (split by CUDA kernel in the log where ``label`` names
-    the calls), and the plain version's by CUDA events."""
-    return dict(ms=time_ms(calls), device_ms=device_ms(calls, label=label),
+    the calls; ``one_kernel``: see ``device_ms``), and the plain
+    version's by CUDA events."""
+    return dict(ms=time_ms(calls), device_ms=device_ms(
+                    calls, label=label, one_kernel=one_kernel),
                 plain_ms=time_ms(plain, iters=plain_iters),
                 library_ms=library and time_ms(library),
                 library_device_ms=library and device_ms(
@@ -572,7 +585,8 @@ def kernel_phase(rng) -> dict:
                                                    lens) for i in range(n)],
             [lambda i=i: F.scaled_dot_product_attention(
                 qsd[i], kct[i], vct[i], attn_mask=mask, enable_gqa=True)
-             for i in range(n)], label="bf16 dense decode"))
+             for i in range(n)], label="bf16 dense decode",
+            one_kernel="decode_bf16_kernel<128>"))
 
     # -- paged decode: the same K/V scattered over 16-row pages ------------
     bs, m = 16, s // 16
@@ -605,6 +619,21 @@ def kernel_phase(rng) -> dict:
             raise AssertionError(f"paged decode with {page}-row pages "
                                  f"differs from dense on identical K/V")
     log("decode: paged (pages of 8, 16, 32 rows) == dense, bit for bit")
+    # Pages no table entry names (each sequence's pages past its length)
+    # may hold anything: NaN there changes no bit.
+    named = set(tables_np[tables_np > 0].tolist())
+    unnamed = torch.as_tensor([p for p in range(1, n_blocks)
+                               if p not in named], device=dev)
+    poisoned = [x.clone() for x in (kp, vp)]
+    for x in poisoned:
+        x[unnamed] = float("nan")
+    if not torch.equal(da.paged_decode_attention(q, *poisoned, tables, lens),
+                       paged_out):
+        raise AssertionError("paged decode read a page no table entry "
+                             "names")
+    log(f"decode: NaN in the {len(unnamed)} pages no table entry names "
+        f"changes no bit of the paged output")
+    del poisoned
     tbl_entries = int((-(-lens_np // bs)).sum())
     n = copies_for(kp.numel() * 4)
     kps = [kp.clone() for _ in range(n)]
@@ -623,7 +652,8 @@ def kernel_phase(rng) -> dict:
              for i in range(n)],
             [lambda i=i: da.paged_decode_attention_plain(
                 qs[i], kps[i], vps[i], tables, lens) for i in range(n)],
-            label="bf16 paged decode"))
+            label="bf16 paged decode",
+            one_kernel="paged_decode_bf16_kernel<128>"))
     out.update(int8_kernels(q, kc, vc, lens_np, tables_np))
     decode_geometries(dev)
     decode_dense_configs(dev)
@@ -5246,6 +5276,14 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     replayed = [b - a for a, b in zip(replayed0,
                                       same_graphs(engine, graphs, arch))]
     events = raw_events(prof)
+    combines = sum(dev and b > a and "combine_kernel" in name
+                   for name, dev, a, b in events)
+    from repro_torch.kernels import decode_attention as da
+    if (combines and not kw.get("int8")
+            and Path(da.__file__).resolve().is_relative_to(ROOT / "src")):
+        raise AssertionError(f"profile {arch}: {combines} combine_kernel "
+                             f"launches on the bf16 path (one kernel a "
+                             f"call)")
     calls = [t for name, dev, t, _ in events
              if name in LAUNCH_CALLS and not dev]
     inside = {}
@@ -5270,7 +5308,7 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
                    "host launch calls not measured (no runtime events)")
     log(f"profile {arch}: rounds {rounds} ({n_spans} profiled), replayed "
         f"{replayed[0]}; prefills {prefills}, replayed {replayed[1]}; "
-        f"{launch_text}")
+        f"{launch_text}; combine_kernel launches {combines}")
     kernel_profile(events, arch, f"8 requests x 8 tokens, {batching}, 1 "
                    f"instance", wall)
 
@@ -5392,6 +5430,9 @@ def ptxas_report(text: str) -> None:
 # Kernels built on warpgroup products (wgmma): their SASS holds HGMMA,
 # the other tensor-core kernels' (mma.sync) HMMA.
 WGMMA_KERNELS = ("flash_kernel",)
+# Kernels that load their tiles by TMA: their SASS holds UTMALDG.
+TMA_KERNELS = ("flash_kernel", "decode_bf16_kernel",
+               "paged_decode_bf16_kernel")
 
 
 def tensor_op(name: str) -> str:
@@ -5417,11 +5458,22 @@ def sass_counts(sass: str) -> tuple[dict, dict]:
     return counts, lines
 
 
+def tma_loads(lines: dict) -> dict:
+    """UTMALDG (TMA tile loads) in the SASS ``lines`` of each kernel of
+    ``TMA_KERNELS`` (``sass_counts``' second result)."""
+    import re
+    return {name: sum(re.search(r"\bUTMALDG\b", line) is not None
+                      for line in body)
+            for name, body in lines.items()
+            if name.split("<")[0] in TMA_KERNELS}
+
+
 def tensor_core_report(lib) -> None:
     """Tensor-core instructions in the SASS of each kernel, by the
     toolkit's cuobjdump: the tensor-core kernels (``tensor_core_builds``)
     must hold their ``tensor_op`` (HGMMA for flash, HMMA for the rest),
-    and the step kernel passes ``step_kernel_sass``."""
+    flash and the bf16 decode kernels TMA loads (UTMALDG), and the step
+    kernel passes ``step_kernel_sass``."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
@@ -5436,6 +5488,11 @@ def tensor_core_report(lib) -> None:
         if counts.get(name, 0) == 0:
             raise AssertionError(f"{name} has no {tensor_op(name)} "
                                  f"instruction in its SASS")
+    tma = tma_loads(lines)
+    log(f"SASS TMA loads (UTMALDG) per kernel: {tma}")
+    for name in tensor_core_builds():
+        if name.split("<")[0] in TMA_KERNELS and tma.get(name, 0) == 0:
+            raise AssertionError(f"{name} has no UTMALDG in its SASS")
     for name in step_kernel_builds():
         step_kernel_sass(name, lines.get(name, []))
 

@@ -310,58 +310,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_kernel(
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (so the
-// library links no libcuda).
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a (batch, rows, heads, D) bf16 tensor, in boxes of 64 rows by
-// box_cols(D) of one head, swizzled to the box's row bytes.
-template <int D>
-int encode(CUtensorMap* map, const void* base, int batch, int rows,
-           int heads) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
-                                 2ull * D * heads * rows};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), 1, (cuuint32_t)kBQ, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      box_row_bytes(D) == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : box_row_bytes(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 // The current device's SM count, with flash_kernel<D>'s shared-memory
 // limit raised there: both once a device, not a call.
 template <int D>
@@ -391,9 +339,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, int causal, int window,
            int q_offset, float scale, cudaStream_t st) {
   CUtensorMap qmap, kmap, vmap;
-  int err = encode<D>(&qmap, q, B, Sq, H);
-  if (!err) err = encode<D>(&kmap, k, B, Sk, KV);
-  if (!err) err = encode<D>(&vmap, v, B, Sk, KV);
+  int err = encode_rows<D>(&qmap, q, B, Sq, H, kBQ);
+  if (!err) err = encode_rows<D>(&kmap, k, B, Sk, KV, kBK);
+  if (!err) err = encode_rows<D>(&vmap, v, B, Sk, KV, kBK);
   if (err) return err;
   int sms;
   const cudaError_t cerr = device_sms<D>(&sms);

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's kernels, in inline PTX:
-// mbarriers, TMA tile loads, warpgroup matrix products (wgmma) and
-// their shared-memory descriptors, and warpgroup register reallocation
-// (setmaxnreg).  The flash kernel is built from them; the decode kernels'
-// redesigns are to follow.
+// mbarriers, TMA tile loads and the host's tensor-map encoder, cluster
+// barriers and distributed shared memory, warpgroup matrix products
+// (wgmma) and their shared-memory descriptors, and warpgroup register
+// reallocation (setmaxnreg).  The flash kernel is built from them, and so
+// are the bf16 decode kernels (mbarriers, TMA and clusters; their
+// products stay on mma.sync).
 //
 // Shared tiles are written by TMA with a 32-, 64- or 128-byte swizzle
 // and read by wgmma through a descriptor of the same
@@ -60,7 +62,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
   } while (!done);
 }
 
+// -- named barriers ----------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads') over `count` threads of the
+// CTA, whole warps.
+__device__ __forceinline__ void named_barrier_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // -- TMA ---------------------------------------------------------------------
+
+// Row bytes of one box at D bf16 per row, and the swizzle that matches
+// it: D = 16, 32 rows of 32 and 64 bytes; D >= 64 boxes of 64 (128 bytes).
+__host__ __device__ constexpr int box_cols(int d) { return d < 64 ? d : 64; }
+__host__ __device__ constexpr int box_row_bytes(int d) {
+  return 2 * box_cols(d);
+}
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
@@ -83,6 +100,118 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (so the
+// library links no libcuda).
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of an (outer, rows, heads, D) bf16 tensor, in boxes of
+// `box_rows` rows by box_cols(D) of one head, swizzled to the box's row
+// bytes; boxes reaching past the tensor read zeros.  Flash maps (batch,
+// rows, heads) in boxes of 64 rows, dense decode (batch, S, kv heads) in
+// boxes of 16, paged decode (pages, page rows, kv heads) in boxes of the
+// rows a piece of one page holds.
+template <int D>
+inline int encode_rows(CUtensorMap* map, const void* base, int outer,
+                       int rows, int heads, int box_rows) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)outer};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
+                                 2ull * D * heads * rows};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), 1,
+                             (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_row_bytes(D) == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_row_bytes(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The XOR a TMA swizzle applies to the 16-byte chunks of the box row at
+// byte offset `row_off` (a multiple of `row_bytes`) from a base aligned
+// to the swizzle's repeat (8 rows of `row_bytes`): a chunk's offset bits
+// 4.. XOR the row's address bits 7.., as many bits as a row has chunks.
+__host__ __device__ constexpr uint32_t swizzle_xor(uint32_t row_off,
+                                                   int row_bytes) {
+  return ((row_off >> 7) & (uint32_t)(row_bytes / 16 - 1)) << 4;
+}
+
+// -- thread block clusters ---------------------------------------------------
+
+// Every thread of every CTA of the cluster arrives (its earlier shared
+// memory writes released to the cluster), then waits for all of them.
+// The warp reconverges first: the barrier is .aligned.  The release
+// compiles to MEMBAR.ALL.GPU before the arrive, and the acquire to an L1
+// invalidation after the wait.
+__device__ __forceinline__ void cluster_sync() {
+  __syncwarp();
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The same barrier with nothing to release: where a CTA only waits until
+// its peers are done reading its shared memory (their loads have
+// returned), its own earlier writes need not be made visible first.
+__device__ __forceinline__ void cluster_sync_relaxed() {
+  __syncwarp();
+  asm volatile(
+      "barrier.cluster.arrive.relaxed.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::
+          : "memory");
+}
+
+// The distributed shared-memory address of shared address `addr` in the
+// CTA of cluster rank `rank`.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                unsigned rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // -- warpgroup register reallocation -----------------------------------------
 
 template <int N>
@@ -96,13 +225,6 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // -- wgmma -------------------------------------------------------------------
-
-// Row bytes of one box at D bf16 per row, and the swizzle that matches
-// it: D = 16, 32 rows of 32 and 64 bytes; D >= 64 boxes of 64 (128 bytes).
-__host__ __device__ constexpr int box_cols(int d) { return d < 64 ? d : 64; }
-__host__ __device__ constexpr int box_row_bytes(int d) {
-  return 2 * box_cols(d);
-}
 
 // A wgmma shared-memory descriptor: start address, leading and stride
 // byte offsets (in 16-byte units), layout type 1 / 2 / 3 for the 128- /

@@ -16,10 +16,14 @@ its kernel for a CUDA tensor, or raises; on a meta tensor it returns an
 empty output and records the call (``kernels/meta.py``);
 ``<wrapper>.launches`` counts kernel launches.  All four kernels walk
 tiles of ``DENSE_TILE`` logical rows, dense and paged alike and whatever
-the page size, through one tensor-core tile loop and one split of S
-across CTAs (``decode_plan``; the int8 kernels widen their codes to bf16
-in shared memory first): on identical K/V, or codes and scales, with
+the page size, through one tensor-core tile and one split of S across
+CTAs (``decode_plan``): on identical K/V, or codes and scales, with
 ``M * bs == S`` a dense and a paged kernel give bit-identical outputs.
+The bf16 pair is one launch a call, its splits one thread block cluster
+that merges them in shared memory (``cluster_plan``: at most
+``MAX_CLUSTER`` splits); the int8 pair widens its codes to bf16 in shared
+memory and merges its splits in a second kernel, through scratch the
+wrapper allocates (``split_plan``, ``scratch_shapes``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ MAX_TILE = 64   # rows per page of the paged kernels (kMaxT)
 TARGET_CTAS = 4 * 132  # about four CTAs per SM of an H100
 DENSE_TILE = 16  # rows per tile (kTile: one mma n16 step) = the engine's
 #                  page size
+MAX_CLUSTER = 16  # splits of a bf16 launch, one cluster (kMaxCluster; the
+#                   portable limit is 8)
+CLUSTER_CTAS = 2 * 132  # the bf16 plan's CTAs: about two an SM, so that
+#                         its clusters run in one wave
 
 
 def tiles_per_split(b: int, n_kv: int, n_tiles: int) -> int:
@@ -54,6 +62,19 @@ def split_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
     return per, -(-max(n_tiles, 1) // per)
 
 
+def cluster_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
+    """(tiles per CTA, number of splits) of a bf16 launch: S is split
+    until about ``CLUSTER_CTAS`` CTAs run, in at most ``MAX_CLUSTER``
+    splits, since the splits of one (b, kv head) are one thread block
+    cluster and a cluster's CTAs are scheduled together.  A function of
+    the shapes only, and the same for the dense and the paged kernel."""
+    n_tiles = max(n_tiles, 1)
+    n_split = min(n_tiles, MAX_CLUSTER,
+                  max(1, -(-CLUSTER_CTAS // (b * n_kv))))
+    per = -(-n_tiles // n_split)
+    return per, -(-n_tiles // per)
+
+
 def row_tiles(n_rows: int) -> int:
     """Tiles of ``DENSE_TILE`` logical rows the kernels walk over a
     sequence of ``n_rows`` rows (S dense, M * bs paged)."""
@@ -62,20 +83,22 @@ def row_tiles(n_rows: int) -> int:
 
 def decode_plan(kv: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None,
-                plan_kv: Optional[int] = None) -> tuple[int, int]:
-    """``split_plan`` of a decode launch over a dense (B,S,K,D) cache or,
-    given ``block_tables`` (B,M), over (N,bs,K,D) pages (bf16 or int8
-    codes alike): tiles of the S or M * bs logical rows.  ``plan_kv``
-    (default: the cache's K) is the kv-head count the split is planned
-    for: each CTA walks one kv head and the combine merges a head's
-    splits in split order, so two launches that plan alike give every
-    head the same output bit for bit, whatever heads each holds."""
+                plan_kv: Optional[int] = None,
+                plan=split_plan) -> tuple[int, int]:
+    """``plan`` (``split_plan`` for int8, ``cluster_plan`` for bf16) of a
+    decode launch over a dense (B,S,K,D) cache or, given
+    ``block_tables`` (B,M), over (N,bs,K,D) pages: tiles of the S or
+    M * bs logical rows.  ``plan_kv`` (default: the cache's K) is the
+    kv-head count the split is planned for: each CTA walks one kv head
+    and a head's splits merge in split order, so two launches that plan
+    alike give every head the same output bit for bit, whatever heads
+    each holds."""
     if block_tables is None:
         b, s, n_kv = kv.shape[:3]
-        return split_plan(b, plan_kv or n_kv, row_tiles(s))
+        return plan(b, plan_kv or n_kv, row_tiles(s))
     b, m = block_tables.shape
     bs, n_kv = kv.shape[1:3]
-    return split_plan(b, plan_kv or n_kv, row_tiles(m * bs))
+    return plan(b, plan_kv or n_kv, row_tiles(m * bs))
 
 
 def scratch_shapes(b: int, n_kv: int, n_split: int, d: int
@@ -185,15 +208,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError("decode_attention: cache / cache_len shapes do "
                          "not match q")
-    per, n_split = decode_plan(k_cache, plan_kv=plan_kv)
-    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
+    per, _ = decode_plan(k_cache, plan_kv=plan_kv, plan=cluster_plan)
     o = torch.empty_like(q)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     ptrs = build.pointers(
         "decode_attention", q.device,
         {"q": (q, bf16), "k_cache": (k_cache, bf16),
          "v_cache": (v_cache, bf16), "cache_len": (cache_len, torch.int32),
-         "part_acc": (part_acc, f32), "part_ml": (part_ml, f32),
          "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_decode_attention_bf16(
@@ -215,8 +236,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Single-token GQA attention against (N,bs,K,D) pages (bs of 1-64
     rows) walked through a (B,M) int32 block table; returns (B,1,H,D).
     Table entries must name blocks of the pool (rows on an entry outside
-    [0, N) are masked, never read).  Bit-identical to ``decode_attention``
-    on the same K/V gathered into a cache of S = M * bs rows."""
+    [0, N) are masked, never read: the kernel's loads read zeros there).
+    Bit-identical to ``decode_attention`` on the same K/V gathered into a
+    cache of S = M * bs rows."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages,
                                             block_tables, cache_len)
@@ -234,16 +256,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: pages / tables / "
                          "cache_len shapes do not match q")
     m = block_tables.shape[1]
-    per, n_split = decode_plan(k_pages, block_tables, plan_kv)
-    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
+    per, _ = decode_plan(k_pages, block_tables, plan_kv, cluster_plan)
     o = torch.empty_like(q)
-    bf16, i32, f32 = torch.bfloat16, torch.int32, torch.float32
+    bf16, i32 = torch.bfloat16, torch.int32
     ptrs = build.pointers(
         "paged_decode_attention", q.device,
         {"q": (q, bf16), "k_pages": (k_pages, bf16),
          "v_pages": (v_pages, bf16), "block_tables": (block_tables, i32),
-         "cache_len": (cache_len, i32), "part_acc": (part_acc, f32),
-         "part_ml": (part_ml, f32), "o": (o, bf16)}, align=16)
+         "cache_len": (cache_len, i32), "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_paged_decode_attention_bf16(
             *ptrs, b, n, bs, m, h, n_kv, d, per, d ** -0.5,

@@ -143,6 +143,230 @@ def test_decode_kernel_clamps_past_cache_end(cuda_device):
         atol=2e-2, rtol=2e-2)
 
 
+# -- the bf16 decode kernels: one launch a call, its splits one cluster ------
+
+
+def _bf16_pair(q, kc, vc, lens, kp, vp, tables):
+    """Dense and paged bf16 decode on the same rows, each against the
+    plain version; returns both outputs."""
+    dense = da.decode_attention(q, kc, vc, lens)
+    paged = da.paged_decode_attention(q, kp, vp, tables, lens)
+    want = da.decode_attention_plain(q, kc, vc, lens).float()
+    for got in (dense, paged):
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    return dense, paged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 32, 16])
+@pytest.mark.parametrize("bs", [1, 3, 8, 16, 32, 64])
+def test_bf16_paged_equals_dense_at_page_sizes(cuda_device, bs, d):
+    """bf16 pages of 1-64 rows (TMA boxes of gcd(bs, 16) rows, a page's
+    piece of a tile, each at a 128-byte aligned pitch) give the dense
+    kernel's output bit for bit, at head dims 128, 32 and 16."""
+    b, s = 4, bs * -(-320 // bs)
+    rng = np.random.default_rng(bs * d)
+    q = _cuda_rand(rng, (b, 1, 28, d), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, 4, d), cuda_device) for _ in range(2))
+    lens = torch.tensor([s, 1, 150, 77], dtype=torch.int32,
+                        device=cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), bs, cuda_device)
+    dense, paged = _bf16_pair(q, kc, vc, lens, kp, vp, tables)
+    assert torch.equal(paged, dense)
+
+
+def _masked_plain(q, kc, vc, lens, valid):
+    """The plain decode over the rows ``valid`` (B, S) marks, below
+    cache_len, in f32."""
+    b, _, h, d = q.shape
+    s, kv = kc.shape[1:3]
+    qg = q.reshape(b, kv, h // kv, d).float() * d ** -0.5
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kc.float())
+    live = valid & (torch.arange(s, device=q.device)[None, :]
+                    < lens[:, None].long())
+    scores = scores.masked_fill(~live[:, None, None, :], -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", p, vc.float()).reshape(b, 1, h, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outside", ["-1", "N"])
+def test_bf16_paged_entries_outside_the_pool_are_masked(cuda_device,
+                                                        outside):
+    """A table entry of -1 or N within cache_len: its rows read as zeros
+    (TMA's out-of-bounds fill) and are masked, as if the cache did not
+    hold them."""
+    b, s, bs = 4, 256, 16
+    rng = np.random.default_rng(21)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, 4, 128), cuda_device)
+              for _ in range(2))
+    lens = torch.tensor([256, 200, 100, 37], dtype=torch.int32,
+                        device=cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), bs, cuda_device)
+    entry = -1 if outside == "-1" else kp.shape[0]
+    tables = tables.clone()
+    valid = torch.ones(b, s, dtype=torch.bool, device=cuda_device)
+    for i, page in [(0, 3), (0, 15), (1, 0), (2, 5), (3, 2)]:
+        tables[i, page] = entry
+        valid[i, page * bs:(page + 1) * bs] = False
+    got = da.paged_decode_attention(q, kp, vp, tables, lens)
+    torch.testing.assert_close(got.float(),
+                               _masked_plain(q, kc, vc, lens, valid),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_bf16_paged_never_reads_unnamed_pages(cuda_device):
+    """Pages that no table entry names hold NaN: the output is bit-equal
+    to the clean pool's.  (Rows past cache_len on a named page are masked
+    but may be read: 0 x NaN in P . V would show there.)"""
+    b, s, bs = 8, 512, 16
+    rng = np.random.default_rng(22)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, 4, 128), cuda_device)
+              for _ in range(2))
+    lens_np = np.array([512, 1, 300, 17, 64, 480, 129, 250], np.int32)
+    used = -(-lens_np // bs)
+    n_blocks = 1 + int(used.sum()) + 40  # the null block, named, unnamed
+    ids = rng.permutation(np.arange(1, n_blocks))
+    tables_np = np.zeros((b, s // bs), np.int32)  # past the end: block 0
+    clean = [torch.zeros((n_blocks, bs, 4, 128), dtype=torch.bfloat16,
+                         device=cuda_device) for _ in range(2)]
+    k = 0
+    for i in range(b):
+        for t in range(used[i]):
+            tables_np[i, t] = ids[k]
+            k += 1
+            for pool, x in zip(clean, (kc, vc)):
+                pool[tables_np[i, t]] = x[i, t * bs:(t + 1) * bs]
+    unnamed = torch.as_tensor(ids[k:], device=cuda_device).long()
+    dirty = [pool.clone() for pool in clean]
+    for pool in dirty:
+        pool[unnamed] = float("nan")
+    tables = torch.as_tensor(tables_np, device=cuda_device)
+    lens = torch.as_tensor(lens_np, device=cuda_device)
+    want = da.paged_decode_attention(q, *clean, tables, lens)
+    torch.testing.assert_close(
+        want.float(), da.decode_attention_plain(q, kc, vc, lens).float(),
+        atol=2e-2, rtol=2e-2)
+    assert torch.equal(da.paged_decode_attention(q, *dirty, tables, lens),
+                       want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ones", "past_end", "b1_full",
+                                  "b1_short"])
+def test_bf16_decode_edge_lengths(cuda_device, case):
+    """cache_len of 1 everywhere (every cluster's CTAs past the first have
+    no rows, and still pass both cluster barriers), cache_len past S (a
+    free slot), and B = 1 (the largest split: a full cluster)."""
+    s, bs = 1024, 16
+    lens = {"ones": [1] * 8,
+            "past_end": [s + 40, 1, 2000, 517, s, 3, s + 1, 64],
+            "b1_full": [s], "b1_short": [17]}[case]
+    b = len(lens)
+    rng = np.random.default_rng(23 + b)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, 4, 128), cuda_device)
+              for _ in range(2))
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), bs, cuda_device)
+    dense, paged = _bf16_pair(q, kc, vc, lens, kp, vp, tables)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,s", [
+    (32, 16, 2048),  # gemma3-27b's global layers: G = 2
+    (16, 16, 1024), (16, 4, 1024), (28, 4, 1024), (48, 4, 1024),
+    (64, 4, 1024)])  # G = 1, 4, 7, 12, 16
+def test_bf16_decode_geometries(cuda_device, h, kv, s):
+    """Dense and paged bf16 decode at gemma3's S = 2048 with G = 2, and at
+    G = 1, 4, 7, 12 and 16 query heads per kv head (mixed lengths, a free
+    slot past S), against the plain version and bit-equal to each
+    other."""
+    rng = np.random.default_rng(h + kv + s)
+    lens = torch.tensor([s, 1, s // 2 + 5, 64, s + 40, 333, 17, s - 1],
+                        dtype=torch.int32, device=cuda_device)
+    q = _cuda_rand(rng, (8, 1, h, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (8, s, kv, 128), cuda_device)
+              for _ in range(2))
+    (kp, vp), tables = _pooled(rng, (kc, vc), 16, cuda_device)
+    dense, paged = _bf16_pair(q, kc, vc, lens, kp, vp, tables)
+    assert torch.equal(paged, dense)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_bf16_decode_graph_replay_equals_eager(cuda_device, paged):
+    """A bf16 decode call captured in a CUDA graph (a cluster launch, its
+    tensor maps baked for the static buffers, as the round's graph bakes
+    them) replays equal to the eager call bit for bit, and after new q,
+    K/V and lengths are copied into the same buffers, equal to the eager
+    call on those."""
+    rng = np.random.default_rng(24)
+    b, s = 8, 1024
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (b, s, 4, 128), cuda_device)
+              for _ in range(2))
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), 16, cuda_device)
+    kv = (kp, vp) if paged else (kc, vc)
+
+    def call():
+        if paged:
+            return da.paged_decode_attention(q, kp, vp, tables, lens)
+        return da.decode_attention(q, kc, vc, lens)
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):  # warm up off the default stream
+        call()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        for x in (q, *kv):
+            x.copy_(_cuda_rand(rng, tuple(x.shape), cuda_device))
+        lens.copy_(torch.as_tensor(rng.integers(1, s + 50, size=b),
+                                   dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_bf16_decode_is_one_kernel_a_call(cuda_device):
+    """Each bf16 call, dense and paged, is one kernel on the device: the
+    splits merge inside their cluster, with no combine kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(25)
+    q = _cuda_rand(rng, (8, 1, 28, 128), cuda_device)
+    kc, vc = (_cuda_rand(rng, (8, 1024, 4, 128), cuda_device)
+              for _ in range(2))
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    (kp, vp), tables = _pooled(rng, (kc, vc), 16, cuda_device)
+    da.decode_attention(q, kc, vc, lens)
+    da.paged_decode_attention(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that came back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            da.decode_attention(q, kc, vc, lens)
+            da.paged_decode_attention(q, kp, vp, tables, lens)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() != torch.autograd.DeviceType.CPU]
+        if names:
+            break
+    assert len(names) == 2, names
+    assert "decode_bf16_kernel" in names[0] and "paged" not in names[0]
+    assert "paged_decode_bf16_kernel" in names[1]
+
+
 def _int8_cache(rng, shape, device):
     """Random bf16 rows quantized on the card: (codes, scales)."""
     from repro_torch.models.attention import kv_quantize

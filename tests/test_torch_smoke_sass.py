@@ -38,3 +38,33 @@ def test_sass_counter_counts_each_kernels_own_tensor_op():
     assert chip_smoke.tensor_op("flash_kernel<32>") == "HGMMA"
     assert chip_smoke.tensor_op("paged_decode_q8_kernel<128>") == "HMMA"
     assert chip_smoke.tensor_op("wkv6_chunked_kernel") == "HMMA"
+
+
+_DECODE = "_ZN51_GLOBAL__N__7e3a1c2b_19_decode_attention_cu_5c3b1a20"
+TMA_SASS = f"""
+	code for sm_90a
+		Function : {_DECODE}24paged_decode_bf16_kernelILi128EEEv14CUtensorMap_stS1_PK13__nv_bfloat16PKiS6_PS2_iiiiiiif
+        /*0400*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0410*/                   UTMALDG.4D [UR16], [UR12] ;
+        /*0a10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+		Function : {_DECODE}18decode_bf16_kernelILi16EEEv14CUtensorMap_stS1_PK13__nv_bfloat16PKiPS2_iiiiiif
+        /*0a10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0a20*/                   LDGSTS.E.BYPASS.128 [R3], desc[UR6][R4.64] ;
+		Function : {_DECODE}16decode_q8_kernelILi128EEEvPK13__nv_bfloat16PKaS5_S3_S3_PKiPfS8_iiiif
+        /*0400*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0a10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+"""
+
+
+def test_tma_load_counter_counts_the_tma_kernels():
+    """UTMALDG is counted for flash and the bf16 decode kernels only (the
+    int8 ones load by cp.async): a bf16 decode kernel without one is
+    what the smoke fails on."""
+    counts, lines = chip_smoke.sass_counts(TMA_SASS)
+    assert counts == {"paged_decode_bf16_kernel<128>": 1,
+                      "decode_bf16_kernel<16>": 1,
+                      "decode_q8_kernel<128>": 1}
+    assert chip_smoke.tma_loads(lines) == {
+        "paged_decode_bf16_kernel<128>": 2, "decode_bf16_kernel<16>": 0}
+    assert {"flash_kernel", "decode_bf16_kernel",
+            "paged_decode_bf16_kernel"} == set(chip_smoke.TMA_KERNELS)
