@@ -8,7 +8,7 @@ instructions in each kernel's SASS (HGMMA, the warpgroup products, in
 flash; HMMA, mma.sync's, in the others), failing if flash or any decode
 kernel, at any head dim they are built for (16, 32, 64, 128), chunked
 WKV-6 or the chunked selective scan (N = 16 and 8) holds none of its
-kind or spills, if flash or a bf16 decode kernel holds no TMA load
+kind or spills, if flash or any decode kernel holds no TMA load
 (UTMALDG), or if the scan's
 step kernel spills or moves its state otherwise than by one coherent
 16-byte load and one 16-byte store a thread (it updates the state in
@@ -22,7 +22,8 @@ place), and then:
    shapes, and times kernel, plain version, one PyTorch library call where
    one computes the same function, and the card's bound for the same work
    (flash also at a short serve bucket, Sq=64, and at hymba's prefill,
-   beside SDPA; bf16 dense and paged decode one kernel a call; bf16
+   beside SDPA; bf16 and int8 dense and paged decode one kernel a call;
+   bf16
    paged decode at pages of 8, 16 and 32 rows and int8 at 8, 16, 32 and
    64, bit-equal to dense, and blind to NaN in pages no table entry
    names; all four decode kernels also
@@ -728,7 +729,8 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
         **kernel_times(
             [lambda x=x: da.decode_attention_quant(*x, lens) for x in leaves],
             [lambda x=x: da.decode_attention_quant_plain(*x, lens)
-             for x in leaves], label="int8 dense decode"))
+             for x in leaves], label="int8 dense decode",
+            one_kernel="decode_q8_kernel<128>"))
 
     # -- the same codes and scales scattered over the bf16 phase's pages --
     bs, m = 16, tables_np.shape[1]
@@ -799,7 +801,8 @@ def int8_kernels(q, kc, vc, lens_np, tables_np) -> dict:
              for x in page_sets],
             [lambda x=x: da.paged_decode_attention_quant_plain(
                 q, *x, tables, lens) for x in page_sets],
-            label="int8 paged decode"))
+            label="int8 paged decode",
+            one_kernel="paged_decode_q8_kernel<128>"))
     return out
 
 
@@ -5279,11 +5282,9 @@ def profile_window(model, params, prompts, alloc, arch=ARCH,
     combines = sum(dev and b > a and "combine_kernel" in name
                    for name, dev, a, b in events)
     from repro_torch.kernels import decode_attention as da
-    if (combines and not kw.get("int8")
-            and Path(da.__file__).resolve().is_relative_to(ROOT / "src")):
+    if combines and Path(da.__file__).resolve().is_relative_to(ROOT / "src"):
         raise AssertionError(f"profile {arch}: {combines} combine_kernel "
-                             f"launches on the bf16 path (one kernel a "
-                             f"call)")
+                             f"launches (one kernel a decode call)")
     calls = [t for name, dev, t, _ in events
              if name in LAUNCH_CALLS and not dev]
     inside = {}
@@ -5367,8 +5368,7 @@ def kernel_profile(events, arch, what, wall) -> None:
 TENSOR_CORE_KERNELS = ("flash_kernel", "decode_bf16_kernel",
                        "paged_decode_bf16_kernel", "decode_q8_kernel",
                        "paged_decode_q8_kernel")
-KERNEL_NAMES = TENSOR_CORE_KERNELS + ("combine_kernel", "wkv6_kernel",
-                                      "wkv6_chunked_kernel",
+KERNEL_NAMES = TENSOR_CORE_KERNELS + ("wkv6_kernel", "wkv6_chunked_kernel",
                                       "ssm_scan_kernel",
                                       "ssm_chunked_kernel")
 
@@ -5432,7 +5432,8 @@ def ptxas_report(text: str) -> None:
 WGMMA_KERNELS = ("flash_kernel",)
 # Kernels that load their tiles by TMA: their SASS holds UTMALDG.
 TMA_KERNELS = ("flash_kernel", "decode_bf16_kernel",
-               "paged_decode_bf16_kernel")
+               "paged_decode_bf16_kernel", "decode_q8_kernel",
+               "paged_decode_q8_kernel")
 
 
 def tensor_op(name: str) -> str:
@@ -5472,7 +5473,7 @@ def tensor_core_report(lib) -> None:
     """Tensor-core instructions in the SASS of each kernel, by the
     toolkit's cuobjdump: the tensor-core kernels (``tensor_core_builds``)
     must hold their ``tensor_op`` (HGMMA for flash, HMMA for the rest),
-    flash and the bf16 decode kernels TMA loads (UTMALDG), and the step
+    flash and the four decode kernels TMA loads (UTMALDG), and the step
     kernel passes ``step_kernel_sass``."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")

@@ -1,19 +1,22 @@
-"""The bf16 decode kernels, dense and paged, at every decode shape the
-port's smoke runs, beside PyTorch's SDPA and the card's bound.
+"""The decode kernels, dense and paged, bf16 and (``--int8``) int8, at
+every decode shape the port's smoke runs, beside PyTorch's SDPA and the
+card's bound.
 
 For each shape: the kernel's output against its plain version (bf16,
 tolerance 2e-2; the script fails past it; a paged shape also bit-equal
-to the dense kernel on the same rows), the device time of a call split
-by CUDA kernel (``torch.profiler``'s kernel records over 30 calls), the
-CUDA-event time, the host's microseconds a call of the wrapper
-(``host_us``: checks, output allocation, tensor maps, the launch; the
-median of five runs of 100 calls), SDPA's device time beside the dense
-kernel (``enable_gqa``, a length mask), and the bound: the larger of the
-bytes (the live K/V rows, q, o, the lengths and table entries, each
-once) over ``launch/mesh.py``'s ``HBM_BW`` and the 4 * H * D flops a
-row over its ``PEAK_FLOPS_BF16``.  Calls rotate over copies of the
-inputs larger than twice the 50 MB L2, so every call reads cold memory.
-One JSON line a shape, then the card's name and power limit.
+to the dense kernel on the same rows), a digest of its output bits
+(equal across trees whose arithmetic is unchanged), the device time of a
+call split by CUDA kernel (``torch.profiler``'s kernel records over 30
+calls), the CUDA-event time, the host's microseconds a call of the
+wrapper (``host_us``: checks, output allocation, tensor maps, the
+launch; the median of five runs of 100 calls), SDPA's device time beside
+the dense bf16 kernel (``enable_gqa``, a length mask), and the bound: the
+larger of the bytes (the live K/V rows, or codes and scales, q, o, the
+lengths and table entries, each once) over ``launch/mesh.py``'s
+``HBM_BW`` and the 4 * H * D flops a row over its ``PEAK_FLOPS_BF16``.
+Calls rotate over copies of the inputs larger than twice the 50 MB L2,
+so every call reads cold memory.  One JSON line a shape and kind, then
+the card's name and power limit.
 
 ``repro_torch`` is imported from whatever ``PYTHONPATH`` names, so the
 same script times another tree's kernels (a ``git archive`` of the
@@ -22,12 +25,12 @@ parent commit unpacked under ``build/``) in turns with this one:
   PYTHONPATH=src python3 scripts/decode_shapes.py --label change
   PYTHONPATH=build/parent/src python3 scripts/decode_shapes.py --label parent
 
-``--max-cluster N`` plans the bf16 launches of a tree that has
+``--max-cluster N`` plans the launches of a tree that has
 ``cluster_plan`` with at most N splits (its ``MAX_CLUSTER``, 8 or 16;
 the kernel takes up to 16); ``--only`` keeps the shapes whose names
 contain one of its comma-separated words; ``--int8`` adds the int8
-kernels (dense and pages of 16, each call a split kernel and the
-combine) at the main shape, on the bf16 rows quantized on the card.
+kernels, dense and paged, at every shape with pages, on the bf16 rows
+quantized on the card (no PyTorch call computes them).
 """
 
 from __future__ import annotations
@@ -87,8 +90,8 @@ def device_split(calls, tries: int = 3) -> dict:
             if e.device_type() != torch.autograd.DeviceType.CPU:
                 ns = e.duration_ns() if hasattr(e, "duration_ns") \
                     else e.duration_us() * 1e3
-                name = e.name().split("(")[0].replace(
-                    "(anonymous namespace)::", "")
+                name = e.name().replace("(anonymous namespace)::", "")
+                name = name.removeprefix("void ").split("(")[0]
                 by[name] = by.get(name, 0.0) + ns / 1e6 / ITERS
         if by:
             return by
@@ -147,41 +150,58 @@ def check(name, got, want) -> float:
     return err
 
 
-def int8_lines(label, da, mesh, dev, gen) -> None:
-    """The int8 kernels at the main shape: device ms by CUDA kernel, and
-    a digest of the outputs' bits (equal across trees when the int8
-    arithmetic is unchanged)."""
+def digest(out) -> int:
+    """The output's bits, weighted by position: equal iff (almost surely)
+    the bits are."""
+    return int(out.view(torch.int16).long().mul(
+        torch.arange(1, out.numel() + 1, device=out.device).view(out.shape))
+        .sum())
+
+
+def int8_lines(label, da, mesh, shape, q, kc, vc, lens_t, page, plan_kv,
+               gen) -> None:
+    """The int8 kernels at one shape, on the codes and scales of ``kc``
+    and ``vc``: dense and over ``page``-row pages, each against its plain
+    version, paged bit-equal to dense."""
     from repro_torch.models.attention import kv_quantize
-    b, s, h, kv, d = 8, 1024, 28, 4, 128
-
-    def rand(*shape):
-        x = gen.standard_normal(shape).astype(np.float32)
-        return torch.from_numpy(x).to(dev).to(torch.bfloat16)
-
-    q, kc, vc = rand(b, 1, h, d), rand(b, s, kv, d), rand(b, s, kv, d)
-    lens_t = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    b, _, h, d = q.shape
+    s, kv = kc.shape[1:3]
     k8, ks, v8, vs = kv_quantize(kc) + kv_quantize(vc)
-    pools, tables = paged_copy((k8, v8, ks, vs), 16, gen)
-    rows = int(np.minimum(MIXED, s).sum())
-    io = 2 * rows * kv * (d + 2) + 2 * q.numel() * 2 + 4 * b
+    pools, tables = paged_copy((k8, v8, ks, vs), page, gen)
+    lens = lens_t.tolist()
+    rows = int(np.minimum(lens, s).sum())
+    entries = int(sum(-(-min(x, s) // page) for x in lens))
+    t_ops = 4 * h * d * rows / mesh.PEAK_FLOPS_BF16
     n = max(2, int(2 * L2_BYTES // (k8.numel() * 2)) + 1)
-    for kind, fn, leaves, tail in (
-            ("int8 dense", da.decode_attention_quant, (k8, v8, ks, vs),
-             (lens_t,)),
-            ("int8 paged 16", da.paged_decode_attention_quant, pools,
-             (tables, lens_t))):
-        out = fn(q, *leaves, *tail)
-        digest = int(out.view(torch.int16).long().mul(
-            torch.arange(1, out.numel() + 1, device=dev).view(out.shape))
-            .sum())
+    dense = None
+    for kind, fn, plain, leaves, tail, extra in (
+            ("int8 dense", da.decode_attention_quant,
+             da.decode_attention_quant_plain, (k8, v8, ks, vs), (lens_t,),
+             0),
+            (f"int8 paged {page}", da.paged_decode_attention_quant,
+             da.paged_decode_attention_quant_plain, pools, (tables, lens_t),
+             4 * entries)):
+        out = fn(q, *leaves, *tail, plan_kv=plan_kv)
+        err = check(f"{shape} {kind}", out, plain(q, *leaves, *tail))
+        if dense is None:
+            dense = out
+        elif not torch.equal(out, dense):
+            raise AssertionError(f"{shape}: int8 paged differs from dense")
+        io = (2 * rows * kv * (d + 2) + 2 * q.numel() * 2 + 4 * b + extra)
         sets = [[x.clone() for x in (q, *leaves)] for _ in range(n)]
-        calls = [lambda x=x: fn(*x, *tail) for x in sets]
+        calls = [lambda x=x: fn(*x, *tail, plan_kv=plan_kv) for x in sets]
         split = device_split(calls)
+        t_bytes = io / mesh.HBM_BW
         print(json.dumps(dict(
-            label=label, shape="main qwen2-7b 28/4", kind=kind,
+            label=label, shape=shape, kind=kind, B=b, S=s, H=h, KV=kv, D=d,
+            plan_kv=plan_kv, max_abs_err=err, output_digest=digest(out),
             device_ms=sum(split.values()), by_kernel=split,
-            ms=event_ms(calls), output_digest=digest,
-            bound_ms=io / mesh.HBM_BW * 1e3, bound_by="bytes")), flush=True)
+            ms=event_ms(calls),
+            wrapper_us=host_us(lambda: fn(q, *leaves, *tail,
+                                          plan_kv=plan_kv)),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes")),
+            flush=True)
         del sets
 
 
@@ -236,6 +256,7 @@ def main(argv=None) -> int:
         line = dict(
             label=label, shape=name, kind="dense", B=b, S=s, H=h, KV=kv,
             D=d, plan_kv=plan_kv, max_abs_err=err,
+            output_digest=digest(dense),
             device_ms=sum(split.values()), by_kernel=split,
             ms=event_ms(kernel),
             wrapper_us=host_us(lambda: da.decode_attention(
@@ -264,6 +285,7 @@ def main(argv=None) -> int:
         print(json.dumps(dict(
             label=label, shape=name, kind=f"paged {page}", B=b, S=s, H=h,
             KV=kv, D=d, plan_kv=plan_kv, max_abs_err=err,
+            output_digest=digest(paged),
             device_ms=sum(split.values()), by_kernel=split,
             ms=event_ms(kernel),
             wrapper_us=host_us(lambda: da.paged_decode_attention(
@@ -272,8 +294,9 @@ def main(argv=None) -> int:
             bound_by="operations" if t_ops > io_p / mesh.HBM_BW
             else "bytes")), flush=True)
         del psets
-    if args.int8:
-        int8_lines(label, da, mesh, dev, gen)
+        if args.int8:
+            int8_lines(label, da, mesh, name, q, kc, vc, lens_t, page,
+                       plan_kv, gen)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)

@@ -1,12 +1,12 @@
 // Shared helpers of the port's kernels (sm_90a, plain C interface): PTX
 // wrappers, bf16 hi + lo splits for the chunked recurrences (WKV-6, the
-// selective scan), and the attention kernels' warp tile.
+// selective scan), and the attention kernels' softmax on mma fragments.
 //
-// The last part is one warp's attention tile on the tensor cores.  The
-// four decode kernels run all of it: a warp holds 16 "query rows" (the G
-// query heads of one kv head) as the A fragment of mma.sync m16n8k16 and
-// attends them to bf16 K/V rows staged in shared memory (int8 decode
-// widens its codes to such rows):
+// The last part serves one warp's attention tile on the tensor cores.
+// The four decode kernels hold 16 "query rows" (the G query heads of one
+// kv head) as the A fragment of mma.sync m16n8k16 and attend them to
+// bf16 K/V rows in shared memory (int8 decode widens its codes to such
+// rows; decode_attention.cu):
 //   scores  S (16 x n) = Q (16 x D) . K^T   K through ldmatrix (B, "col")
 //   softmax online, on the f32 C fragments: a row's values sit in one quad
 //           of lanes, so a row reduction is two __shfl_xor_sync
@@ -32,7 +32,6 @@
 // tile).
 #define REPRO_NEG_INF (-1e30f)
 #define REPRO_LOG2E 1.4426950408889634f
-#define REPRO_LN2 0.6931471805599453f
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -51,6 +50,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (both 4-byte aligned); zero-filled when
+// !fill, the source then not read.
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool fill) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(fill ? 4 : 0)
                : "memory");
 }
 
@@ -136,32 +144,6 @@ __device__ __forceinline__ void unpack8(uint4 bits, float* f) {
 
 // -- one warp's attention tile -----------------------------------------------
 
-// s (16 x 8 NT) = Q . K^T over K rows [0, 8 NT) of a bf16 tile in shared
-// memory (row stride ld).  NT even.
-template <int D, int NT>
-__device__ __forceinline__ void warp_scores(const unsigned (&qa)[D / 16][4],
-                                            const __nv_bfloat16* k_tile,
-                                            int ld, float (&s)[NT][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  // x4: dims +0..7 and +8..15 of keys +0..7, then of keys +8..15.
-  const __nv_bfloat16* p =
-      k_tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int jj = 0; jj < NT / 2; ++jj) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      unsigned b[4];
-      ldmatrix_x4(b, p + 16 * jj * ld + 16 * kk);
-      mma_bf16(s[2 * jj], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * jj + 1], qa[kk], b[2], b[3]);
-    }
-  }
-}
-
 // Scale the scores to log2 units and mask them: live(r, c) for warp row
 // r (0..15) and tile column c (0..8 NT-1); masked scores become
 // REPRO_NEG_INF.
@@ -228,42 +210,6 @@ __device__ __forceinline__ void warp_rescale(float (&o)[NO][4],
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
-}
-
-// softmax_tile, then o rescaled.
-template <int NT, int NO>
-__device__ __forceinline__ void warp_softmax(float (&s)[NT][4],
-                                             float (&m)[2], float (&l)[2],
-                                             float (&o)[NO][4]) {
-  float alpha[2];
-  softmax_tile<NT>(s, m, l, alpha);
-  warp_rescale<NO>(o, alpha);
-}
-
-// o (16 x D) += P . V, P from the score fragments (rounded to bf16), V
-// rows [0, 8 NT) of a bf16 tile in shared memory (row stride ld).
-template <int D, int NT>
-__device__ __forceinline__ void warp_pv(const float (&p)[NT][4],
-                                        const __nv_bfloat16* v_tile, int ld,
-                                        float (&o)[D / 8][4]) {
-  const int lane = threadIdx.x & 31;
-  // x4 trans: keys +0..7 / +8..15 of dims +0..7, then of dims +8..15.
-  const __nv_bfloat16* vp =
-      v_tile + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) {
-      unsigned b[4];
-      ldmatrix_x4_trans(b, vp + 16 * kk * ld + 16 * dd);
-      mma_bf16(o[2 * dd], a, b[0], b[1]);
-      mma_bf16(o[2 * dd + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // The lane's row sums (rows gid, gid + 8) summed over its quad.

@@ -3,8 +3,8 @@
 // barriers and distributed shared memory, warpgroup matrix products
 // (wgmma) and their shared-memory descriptors, and warpgroup register
 // reallocation (setmaxnreg).  The flash kernel is built from them, and so
-// are the bf16 decode kernels (mbarriers, TMA and clusters; their
-// products stay on mma.sync).
+// are the decode kernels (mbarriers, TMA and clusters; their products
+// stay on mma.sync).
 //
 // Shared tiles are written by TMA with a 32-, 64- or 128-byte swizzle
 // and read by wgmma through a descriptor of the same
@@ -60,6 +60,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed (an arrival the barrier's count includes).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
 }
 
 // -- named barriers ----------------------------------------------------------
@@ -127,34 +135,52 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The map of an (outer, rows, heads, D) bf16 tensor, in boxes of
-// `box_rows` rows by box_cols(D) of one head, swizzled to the box's row
-// bytes; boxes reaching past the tensor read zeros.  Flash maps (batch,
-// rows, heads) in boxes of 64 rows, dense decode (batch, S, kv heads) in
-// boxes of 16, paged decode (pages, page rows, kv heads) in boxes of the
-// rows a piece of one page holds.
-template <int D>
-inline int encode_rows(CUtensorMap* map, const void* base, int outer,
-                       int rows, int heads, int box_rows) {
+// The map of an (outer, rows, heads, d) tensor of `elem`-byte elements,
+// in boxes of `box_rows` rows by `cols` elements of one head, swizzled to
+// the box's row bytes (32, 64 or 128; none at 16); boxes reaching past the
+// tensor read zeros.
+inline int encode_boxes(CUtensorMap* map, CUtensorMapDataType type,
+                        int elem, const void* base, int d, int outer,
+                        int rows, int heads, int cols, int box_rows) {
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t row = (cuuint64_t)elem * d;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)rows, (cuuint64_t)outer};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads,
-                                 2ull * D * heads * rows};
-  const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), 1,
-                             (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const int row_bytes = elem * cols;
   const CUtensorMapSwizzle swizzle =
-      box_row_bytes(D) == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : box_row_bytes(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides,
+                        box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of an (outer, rows, heads, D) bf16 tensor in boxes of box_cols(D)
+// dims.  Flash maps (batch, rows, heads) in boxes of 64 rows, dense decode
+// (batch, S, kv heads) in boxes of 16, paged decode (pages, page rows, kv
+// heads) in boxes of the rows a piece of one page holds.
+template <int D>
+inline int encode_rows(CUtensorMap* map, const void* base, int outer,
+                       int rows, int heads, int box_rows) {
+  return encode_boxes(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, D,
+                      outer, rows, heads, box_cols(D), box_rows);
+}
+
+// The same over int8 codes, a box row a whole row of D codes (16-128
+// bytes).
+template <int D>
+inline int encode_codes(CUtensorMap* map, const void* base, int outer,
+                        int rows, int heads, int box_rows) {
+  return encode_boxes(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, D, outer,
+                      rows, heads, D, box_rows);
 }
 
 // The XOR a TMA swizzle applies to the 16-byte chunks of the box row at

@@ -14,16 +14,15 @@ as ``ops.decode_attention_quant`` (ops.py:450-477).
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; on a meta tensor it returns an
 empty output and records the call (``kernels/meta.py``);
-``<wrapper>.launches`` counts kernel launches.  All four kernels walk
-tiles of ``DENSE_TILE`` logical rows, dense and paged alike and whatever
-the page size, through one tensor-core tile and one split of S across
-CTAs (``decode_plan``): on identical K/V, or codes and scales, with
-``M * bs == S`` a dense and a paged kernel give bit-identical outputs.
-The bf16 pair is one launch a call, its splits one thread block cluster
-that merges them in shared memory (``cluster_plan``: at most
-``MAX_CLUSTER`` splits); the int8 pair widens its codes to bf16 in shared
-memory and merges its splits in a second kernel, through scratch the
-wrapper allocates (``split_plan``, ``scratch_shapes``).
+``<wrapper>.launches`` counts kernel launches.  All four kernels are one
+launch a call: they walk tiles of ``DENSE_TILE`` logical rows, dense and
+paged alike and whatever the page size, through one tensor-core tile and
+one split of S across CTAs (``decode_plan``), and the splits of a (b, kv
+head) are one thread block cluster that merges them in shared memory
+(``cluster_plan``: at most ``MAX_CLUSTER`` splits).  So on identical K/V,
+or codes and scales, with ``M * bs == S`` a dense and a paged kernel give
+bit-identical outputs.  The int8 pair widens its codes in registers to
+the plain version's dequantized bf16 rows, bit for bit.
 """
 
 from __future__ import annotations
@@ -37,37 +36,20 @@ from repro_torch.kernels import build, meta
 NEG_INF = -1e30
 MAX_GROUP = 16  # query heads per kv head the kernels hold (kMaxG)
 MAX_TILE = 64   # rows per page of the paged kernels (kMaxT)
-TARGET_CTAS = 4 * 132  # about four CTAs per SM of an H100
 DENSE_TILE = 16  # rows per tile (kTile: one mma n16 step) = the engine's
 #                  page size
-MAX_CLUSTER = 16  # splits of a bf16 launch, one cluster (kMaxCluster; the
+MAX_CLUSTER = 16  # splits of a launch, one cluster (kMaxCluster; the
 #                   portable limit is 8)
-CLUSTER_CTAS = 2 * 132  # the bf16 plan's CTAs: about two an SM, so that
-#                         its clusters run in one wave
-
-
-def tiles_per_split(b: int, n_kv: int, n_tiles: int) -> int:
-    """Tiles each CTA walks: S is split until about ``TARGET_CTAS`` CTAs
-    run.  A function of the shapes only, and the same for the dense and
-    the paged kernel (the same n_tiles), so both split alike."""
-    n_tiles = max(n_tiles, 1)
-    n_split = min(n_tiles, max(1, -(-TARGET_CTAS // (b * n_kv))))
-    return -(-n_tiles // n_split)
-
-
-def split_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
-    """(tiles per CTA, number of splits) for ``n_tiles`` tiles of a
-    sequence: the grid is (n_kv, b, n_split)."""
-    per = tiles_per_split(b, n_kv, n_tiles)
-    return per, -(-max(n_tiles, 1) // per)
+CLUSTER_CTAS = 2 * 132  # the plan's CTAs: about two an SM, so that its
+#                         clusters run in one wave
 
 
 def cluster_plan(b: int, n_kv: int, n_tiles: int) -> tuple[int, int]:
-    """(tiles per CTA, number of splits) of a bf16 launch: S is split
-    until about ``CLUSTER_CTAS`` CTAs run, in at most ``MAX_CLUSTER``
-    splits, since the splits of one (b, kv head) are one thread block
-    cluster and a cluster's CTAs are scheduled together.  A function of
-    the shapes only, and the same for the dense and the paged kernel."""
+    """(tiles per CTA, number of splits) of a launch: S is split until
+    about ``CLUSTER_CTAS`` CTAs run, in at most ``MAX_CLUSTER`` splits,
+    since the splits of one (b, kv head) are one thread block cluster and
+    a cluster's CTAs are scheduled together.  A function of the shapes
+    only, and the same for the dense and the paged kernel."""
     n_tiles = max(n_tiles, 1)
     n_split = min(n_tiles, MAX_CLUSTER,
                   max(1, -(-CLUSTER_CTAS // (b * n_kv))))
@@ -83,35 +65,20 @@ def row_tiles(n_rows: int) -> int:
 
 def decode_plan(kv: torch.Tensor,
                 block_tables: Optional[torch.Tensor] = None,
-                plan_kv: Optional[int] = None,
-                plan=split_plan) -> tuple[int, int]:
-    """``plan`` (``split_plan`` for int8, ``cluster_plan`` for bf16) of a
-    decode launch over a dense (B,S,K,D) cache or, given
-    ``block_tables`` (B,M), over (N,bs,K,D) pages: tiles of the S or
-    M * bs logical rows.  ``plan_kv`` (default: the cache's K) is the
+                plan_kv: Optional[int] = None) -> tuple[int, int]:
+    """``cluster_plan`` of a decode launch over a dense (B,S,K,D) cache
+    or, given ``block_tables`` (B,M), over (N,bs,K,D) pages: tiles of the
+    S or M * bs logical rows.  ``plan_kv`` (default: the cache's K) is the
     kv-head count the split is planned for: each CTA walks one kv head
     and a head's splits merge in split order, so two launches that plan
     alike give every head the same output bit for bit, whatever heads
     each holds."""
     if block_tables is None:
         b, s, n_kv = kv.shape[:3]
-        return plan(b, plan_kv or n_kv, row_tiles(s))
+        return cluster_plan(b, plan_kv or n_kv, row_tiles(s))
     b, m = block_tables.shape
     bs, n_kv = kv.shape[1:3]
-    return plan(b, plan_kv or n_kv, row_tiles(m * bs))
-
-
-def scratch_shapes(b: int, n_kv: int, n_split: int, d: int
-                   ) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """Shapes of the per-split partials the combine kernel merges: the
-    unnormalised accumulator, and (max, sum), of every query head."""
-    return ((b, n_kv, n_split, MAX_GROUP, d),
-            (b, n_kv, n_split, MAX_GROUP, 2))
-
-
-def _scratch(b: int, n_kv: int, n_split: int, d: int, device):
-    return tuple(torch.empty(shape, dtype=torch.float32, device=device)
-                 for shape in scratch_shapes(b, n_kv, n_split, d))
+    return cluster_plan(b, plan_kv or n_kv, row_tiles(m * bs))
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -208,7 +175,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError("decode_attention: cache / cache_len shapes do "
                          "not match q")
-    per, _ = decode_plan(k_cache, plan_kv=plan_kv, plan=cluster_plan)
+    per, _ = decode_plan(k_cache, plan_kv=plan_kv)
     o = torch.empty_like(q)
     bf16 = torch.bfloat16
     ptrs = build.pointers(
@@ -256,7 +223,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention: pages / tables / "
                          "cache_len shapes do not match q")
     m = block_tables.shape[1]
-    per, _ = decode_plan(k_pages, block_tables, plan_kv, cluster_plan)
+    per, _ = decode_plan(k_pages, block_tables, plan_kv)
     o = torch.empty_like(q)
     bf16, i32 = torch.bfloat16, torch.int32
     ptrs = build.pointers(
@@ -345,16 +312,14 @@ def decode_attention_quant(q: torch.Tensor, k_cache: torch.Tensor,
             or tuple(cache_len.shape) != (b,)):
         raise ValueError(f"{name}: cache / cache_len shapes do not match q")
     _check_scales(name, k_cache, k_scale, v_scale)
-    per, n_split = decode_plan(k_cache, plan_kv=plan_kv)
-    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
+    per, _ = decode_plan(k_cache, plan_kv=plan_kv)
     o = torch.empty_like(q)
-    bf16, i8, f32 = torch.bfloat16, torch.int8, torch.float32
+    bf16, i8 = torch.bfloat16, torch.int8
     ptrs = build.pointers(
         name, q.device,
         {"q": (q, bf16), "k_cache": (k_cache, i8), "v_cache": (v_cache, i8),
          "k_scale": (k_scale, bf16, 2), "v_scale": (v_scale, bf16, 2),
-         "cache_len": (cache_len, torch.int32), "part_acc": (part_acc, f32),
-         "part_ml": (part_ml, f32), "o": (o, bf16)}, align=16)
+         "cache_len": (cache_len, torch.int32), "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_decode_attention_q8(
             *ptrs, b, s, h, n_kv, d, block_s, per, d ** -0.5,
@@ -397,17 +362,14 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: torch.Tensor,
                          f"match q")
     _check_scales(name, k_pages, ks_pages, vs_pages)
     m = block_tables.shape[1]
-    per, n_split = decode_plan(k_pages, block_tables, plan_kv)
-    part_acc, part_ml = _scratch(b, n_kv, n_split, d, q.device)
+    per, _ = decode_plan(k_pages, block_tables, plan_kv)
     o = torch.empty_like(q)
-    bf16, i8, i32, f32 = torch.bfloat16, torch.int8, torch.int32, \
-        torch.float32
+    bf16, i8, i32 = torch.bfloat16, torch.int8, torch.int32
     ptrs = build.pointers(
         name, q.device,
         {"q": (q, bf16), "k_pages": (k_pages, i8), "v_pages": (v_pages, i8),
          "ks_pages": (ks_pages, bf16, 2), "vs_pages": (vs_pages, bf16, 2),
          "block_tables": (block_tables, i32), "cache_len": (cache_len, i32),
-         "part_acc": (part_acc, f32), "part_ml": (part_ml, f32),
          "o": (o, bf16)}, align=16)
     with torch.cuda.device(q.device):
         err = build.library().repro_paged_decode_attention_q8(

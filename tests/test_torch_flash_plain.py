@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 
@@ -76,33 +77,49 @@ def test_flash_plain_vs_jax_offset_and_ragged(sq, sk, q_offset, causal):
 def test_bf16_dense_and_paged_plan_alike(bs):
     """The bf16 kernels walk tiles of DENSE_TILE logical rows whatever the
     page size, so a paged cache of M * bs = S rows gets the dense
-    cache's split: the condition of their bit-identity on the card."""
+    cache's split (``cluster_plan``): the condition of their bit-identity
+    on the card.  The splits cover the tiles, are at most one cluster, and
+    no more than about ``CLUSTER_CTAS`` CTAs need."""
     for b, n_kv, s in [(8, 4, 1024), (1, 4, 512), (3, 5, 1024),
                        (16, 4, 64), (2, 1, 4096)]:
         m = s // bs
-        dense = da.split_plan(b, n_kv, da.row_tiles(s))
-        paged = da.split_plan(b, n_kv, da.row_tiles(m * bs))
-        assert dense == paged
-        per, n_split = dense
+        dense = torch.empty(b, s, n_kv, 128, dtype=torch.bfloat16,
+                            device="meta")
+        pages = torch.empty(1 + b * m, bs, n_kv, 128, dtype=torch.bfloat16,
+                            device="meta")
+        tables = torch.empty(b, m, dtype=torch.int32, device="meta")
+        plan = da.decode_plan(dense)
+        assert da.decode_plan(pages, tables) == plan
+        assert plan == da.cluster_plan(b, n_kv, da.row_tiles(m * bs))
+        per, n_split = plan
         n_tiles = da.row_tiles(s)
         assert per * (n_split - 1) < n_tiles <= per * n_split
-        assert n_split <= n_tiles
-        assert n_split <= max(1, -(-da.TARGET_CTAS // (b * n_kv)))
+        assert n_split <= min(n_tiles, da.MAX_CLUSTER)
+        assert n_split <= max(1, -(-da.CLUSTER_CTAS // (b * n_kv)))
 
 
 def test_decode_plan_and_scratch_at_the_main_shape():
     """qwen2-7b's decode round (B=8, S=1024, 4 kv heads of 128): 64
-    tiles of 16 rows, 4 a CTA, 16 splits: 512 CTAs, and partials of
-    MAX_GROUP = 16 heads (G = 7 fits, and starcoder2-15b's G = 12) per
-    split."""
-    assert da.DENSE_TILE == 16
+    tiles of 16 rows, 8 a CTA, 8 splits: 256 CTAs, bf16 and int8 alike;
+    a single sequence in one full cluster of 16 splits of 4 tiles.  No
+    launch takes scratch: every decode entry point's pointers are its
+    operands and its output (the splits merge in their cluster)."""
+    assert da.DENSE_TILE == 16 and da.MAX_GROUP == 16
     assert da.row_tiles(1024) == 64
-    assert da.split_plan(8, 4, 64) == (4, 16)
-    assert da.MAX_GROUP == 16
-    assert da.scratch_shapes(8, 4, 16, 128) == ((8, 4, 16, 16, 128),
-                                                (8, 4, 16, 16, 2))
-    # A single sequence splits down to one tile per CTA.
-    assert da.split_plan(1, 4, 64) == (1, 64)
+    assert da.cluster_plan(8, 4, 64) == (8, 8)
+    for dtype in (torch.bfloat16, torch.int8):
+        cache = torch.empty(8, 1024, 4, 128, dtype=dtype, device="meta")
+        assert da.decode_plan(cache) == (8, 8)
+        one = torch.empty(1, 1024, 4, 128, dtype=dtype, device="meta")
+        assert da.decode_plan(one) == (4, 16)
+    pointers = {name: sum(t.__name__ == "c_void_p" for t in args) - 1
+                for name, args in build.SIGNATURES.items()
+                if "decode" in name}  # less the stream
+    assert pointers == {"repro_decode_attention_bf16": 5,
+                        "repro_paged_decode_attention_bf16": 6,
+                        "repro_decode_attention_q8": 7,
+                        "repro_paged_decode_attention_q8": 8}
+    assert not hasattr(da, "scratch_shapes")
 
 
 @pytest.mark.parametrize("bs", [8, 16, 32, 64])
@@ -110,7 +127,7 @@ def test_int8_paged_plan_equals_dense(bs):
     """The int8 wrappers plan as the bf16 ones: tiles of DENSE_TILE
     logical rows, so int8 pages of any size get the dense cache's split
     (the condition of their bit-identity on the card), at the main shape
-    and at a single sequence split down to one tile per CTA."""
+    and at a single sequence in one full cluster."""
     for b, n_kv, s, d in [(8, 4, 1024, 128), (1, 4, 1024, 128),
                           (2, 1, 64, 128), (3, 5, 512, 64)]:
         m = s // bs
@@ -118,11 +135,11 @@ def test_int8_paged_plan_equals_dense(bs):
         pages = torch.zeros((1 + b * m, bs, n_kv, d), dtype=torch.int8)
         tables = torch.zeros((b, m), dtype=torch.int32)
         assert da.decode_plan(pages, tables) == da.decode_plan(codes)
-        assert da.decode_plan(codes) == da.split_plan(b, n_kv,
-                                                      da.row_tiles(s))
+        assert da.decode_plan(codes) == da.cluster_plan(b, n_kv,
+                                                        da.row_tiles(s))
     assert da.decode_plan(torch.zeros((8 * 16, bs, 4, 128), dtype=torch.int8),
                           torch.zeros((8, 1024 // bs), dtype=torch.int32)
-                          ) == (4, 16)
+                          ) == (8, 8)
 
 
 @pytest.mark.parametrize("bs", [8, 16, 32])

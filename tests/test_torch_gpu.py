@@ -374,16 +374,20 @@ def _int8_cache(rng, shape, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lens_case", ["mixed", "one", "full", "past_end"])
+@pytest.mark.parametrize("lens_case", ["mixed", "one", "full", "past_end",
+                                       "b1_full", "b1_short"])
 def test_int8_decode_kernels_vs_plain_and_each_other(cuda_device, lens_case):
     """int8 dense and paged decode against their plain versions, and
-    bit-equal to each other on identical codes."""
-    b, s, bs = 8, 1024, 16
+    bit-equal to each other on identical codes: mixed lengths, cache_len
+    of 1 everywhere (every cluster's CTAs past the first have no rows),
+    full, past S (a free slot), and B = 1 (one full cluster of 16)."""
+    s, bs = 1024, 16
     rng = np.random.default_rng(13)
-    lens_np = {"mixed": np.array([1024, 1, 517, 64, 1000, 333, 768, 129]),
-               "one": np.ones(b), "full": np.full(b, s),
-               "past_end": np.array([1024, 1, 517, 64, 1000, 333, 768, 129])
-               + s}[lens_case].astype(np.int32)
+    mixed = np.array([1024, 1, 517, 64, 1000, 333, 768, 129])
+    lens_np = {"mixed": mixed, "one": np.ones(8), "full": np.full(8, s),
+               "past_end": mixed + s, "b1_full": np.array([s]),
+               "b1_short": np.array([17])}[lens_case].astype(np.int32)
+    b = len(lens_np)
     q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
     k8, ks = _int8_cache(rng, (b, s, 4, 128), cuda_device)
     v8, vs = _int8_cache(rng, (b, s, 4, 128), cuda_device)
@@ -437,11 +441,13 @@ def _pooled(rng, xs, bs, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("bs", [8, 32, 64])
+@pytest.mark.parametrize("bs", [1, 3, 8, 16, 32, 64])
 def test_int8_paged_equals_dense_at_page_sizes(cuda_device, bs):
-    """int8 pages of 8, 32 and 64 rows: the paged kernel walks the same
-    tiles of 16 logical rows as the dense one, so it is bit-equal to it."""
-    b, s = 8, 1024
+    """int8 pages of 1-64 rows (TMA boxes of gcd(bs, 16) rows of codes at
+    128-byte aligned pitches, the scales by the producer warp): the paged
+    kernel walks the same tiles of 16 logical rows as the dense one, so
+    it is bit-equal to it."""
+    b, s = 8, bs * -(-1024 // bs)
     rng = np.random.default_rng(14)
     lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
                         dtype=torch.int32, device=cuda_device)
@@ -519,6 +525,145 @@ def test_int8_code_view_off_16_bytes_raises(cuda_device, offset):
         da.paged_decode_attention_quant(q, *pools, tables, lens)
     assert (da.decode_attention_quant.launches,
             da.paged_decode_attention_quant.launches) == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("g", [1, 7, 12, 16])
+def test_int8_decode_geometries(cuda_device, g, d):
+    """The int8 pair at G = 1, 7, 12 and 16 query heads per kv head and at
+    head dims 16-128 (int8 rows of 16-128 bytes: TMA boxes swizzled to
+    32, 64 and 128 bytes, none at 16), mixed lengths and a free slot past
+    S, against the plain version and dense == paged bit for bit."""
+    b, s, n_kv = 8, 512, 2
+    rng = np.random.default_rng(100 * g + d)
+    lens = torch.tensor([s, 1, 300, 17, s + 40, 129, 64, s - 1],
+                        dtype=torch.int32, device=cuda_device)
+    q = _cuda_rand(rng, (b, 1, g * n_kv, d), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, n_kv, d), cuda_device)
+    dense = da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+    torch.testing.assert_close(
+        dense.float(),
+        da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens).float(),
+        atol=2e-2, rtol=2e-2)
+    pools, tables = _pooled(rng, (k8, v8, ks, vs), 16, cuda_device)
+    lens_in = lens.clamp(max=s)  # pages hold no rows past their table
+    paged = da.paged_decode_attention_quant(q, *pools, tables, lens_in)
+    assert torch.equal(paged,
+                       da.decode_attention_quant(q, k8, v8, ks, vs, lens_in))
+
+
+@pytest.mark.gpu
+def test_int8_paged_never_reads_unnamed_pages(cuda_device):
+    """Pages that no table entry names hold NaN scales and the largest
+    codes: the output is bit-equal to the clean pool's."""
+    b, s, bs = 8, 512, 16
+    rng = np.random.default_rng(26)
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    lens_np = np.array([512, 1, 300, 17, 64, 480, 129, 250], np.int32)
+    used = -(-lens_np // bs)
+    n_blocks = 1 + int(used.sum()) + 40  # the null block, named, unnamed
+    ids = rng.permutation(np.arange(1, n_blocks))
+    tables_np = np.zeros((b, s // bs), np.int32)  # past the end: block 0
+    clean = [torch.zeros((n_blocks, bs, 4, x.shape[-1]), dtype=x.dtype,
+                         device=cuda_device) for x in (k8, v8, ks, vs)]
+    k = 0
+    for i in range(b):
+        for t in range(used[i]):
+            tables_np[i, t] = ids[k]
+            k += 1
+            for pool, x in zip(clean, (k8, v8, ks, vs)):
+                pool[tables_np[i, t]] = x[i, t * bs:(t + 1) * bs]
+    unnamed = torch.as_tensor(ids[k:], device=cuda_device).long()
+    dirty = [pool.clone() for pool in clean]
+    for pool in dirty[:2]:
+        pool[unnamed] = 127
+    for pool in dirty[2:]:
+        pool[unnamed] = float("nan")
+    tables = torch.as_tensor(tables_np, device=cuda_device)
+    lens = torch.as_tensor(lens_np, device=cuda_device)
+    want = da.paged_decode_attention_quant(q, *clean, tables, lens)
+    torch.testing.assert_close(
+        want.float(),
+        da.decode_attention_quant_plain(q, k8, v8, ks, vs, lens).float(),
+        atol=2e-2, rtol=2e-2)
+    assert torch.equal(
+        da.paged_decode_attention_quant(q, *dirty, tables, lens), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_decode_graph_replay_equals_eager(cuda_device, paged):
+    """An int8 decode call captured in a CUDA graph (a cluster launch, its
+    code maps baked for the static buffers) replays equal to the eager
+    call bit for bit, and after new q, codes, scales and lengths are
+    copied into the same buffers, equal to the eager call on those."""
+    rng = np.random.default_rng(27)
+    b, s = 8, 1024
+    q = _cuda_rand(rng, (b, 1, 28, 128), cuda_device)
+    k8, ks = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    v8, vs = _int8_cache(rng, (b, s, 4, 128), cuda_device)
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    pools, tables = _pooled(rng, (k8, v8, ks, vs), 16, cuda_device)
+    leaves = pools if paged else [k8, v8, ks, vs]
+
+    def call():
+        if paged:
+            return da.paged_decode_attention_quant(q, *pools, tables, lens)
+        return da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):  # warm up off the default stream
+        call()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
+        q.copy_(_cuda_rand(rng, tuple(q.shape), cuda_device))
+        (kn, ksn), (vn, vsn) = (_int8_cache(rng, (b, s, 4, 128),
+                                            cuda_device) for _ in range(2))
+        for x, y in zip(leaves, (kn, vn, ksn, vsn)):
+            x.copy_(y.reshape(x.shape))
+        lens.copy_(torch.as_tensor(rng.integers(1, s + 1, size=b),
+                                   dtype=torch.int32))
+
+
+@pytest.mark.gpu
+def test_int8_decode_is_one_kernel_a_call(cuda_device):
+    """Each int8 call, dense and paged, is one kernel on the device: the
+    splits merge inside their cluster, with no combine kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(28)
+    q = _cuda_rand(rng, (8, 1, 28, 128), cuda_device)
+    k8, ks = _int8_cache(rng, (8, 1024, 4, 128), cuda_device)
+    v8, vs = _int8_cache(rng, (8, 1024, 4, 128), cuda_device)
+    lens = torch.tensor([1024, 1, 517, 64, 1000, 333, 768, 129],
+                        dtype=torch.int32, device=cuda_device)
+    pools, tables = _pooled(rng, (k8, v8, ks, vs), 16, cuda_device)
+    da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+    da.paged_decode_attention_quant(q, *pools, tables, lens)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile that came back empty is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            da.decode_attention_quant(q, k8, v8, ks, vs, lens)
+            da.paged_decode_attention_quant(q, *pools, tables, lens)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() != torch.autograd.DeviceType.CPU]
+        if names:
+            break
+    assert len(names) == 2, names
+    assert "decode_q8_kernel" in names[0] and "paged" not in names[0]
+    assert "paged_decode_q8_kernel" in names[1]
 
 
 def _wkv_inputs(rng, b, s, h, device, decay="mild", state_scale=1.0):
@@ -2246,12 +2391,13 @@ def test_pod_families_on_the_card(cuda_device, monkeypatch, arch, int8,
 @pytest.mark.parametrize("name", ["decode_attention", "paged_decode_attention",
                                   "decode_attention_quant",
                                   "paged_decode_attention_quant"])
-@pytest.mark.parametrize("h,kv", [(16, 16), (28, 4)])
+@pytest.mark.parametrize("h,kv", [(16, 16), (28, 4), (48, 4)])
 def test_member_heads_decode_as_the_whole_launch(cuda_device, name, h, kv):
     """A pod member's slice of the heads, its split of S planned for the
     whole model's kv heads (``plan_kv``), attends as the whole launch's
     heads bit for bit, at 2 and 4 members (qwen2-moe-a2.7b's 16 / 16
-    heads, qwen2-7b's 28 / 4; B=8, S=1024, mixed lengths)."""
+    heads, qwen2-7b's 28 / 4, starcoder2-15b's 48 / 4; B=8, S=1024,
+    mixed lengths)."""
     from repro_torch.models.attention import kv_quantize
     rng = np.random.default_rng(17)
     b, s, bs = 8, 1024, 16

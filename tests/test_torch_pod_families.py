@@ -229,21 +229,21 @@ DECODE_KERNELS = ("decode_attention", "paged_decode_attention",
 def test_member_decode_plan_is_one_devices_with_plan_kv(shards):
     """A member's cache, planned for the whole model's kv heads, splits S
     as one device's cache does (so its heads attend as one device's on
-    the card, where each CTA walks one kv head), under the int8 kernels'
-    ``split_plan`` and the bf16 kernels' ``cluster_plan`` alike; planned
-    for its own heads it splits S otherwise.  qwen2-moe-a2.7b's round:
-    B=8, S=1024, 16 kv heads of 128."""
-    whole = torch.empty(8, 1024, 16, 128, device="meta")
-    member = torch.empty(8, 1024, 16 // shards, 128, device="meta")
+    the card, where each CTA walks one kv head), over bf16 K/V and int8
+    codes alike (one ``cluster_plan`` for all four kernels); planned for
+    its own heads it splits S otherwise.  qwen2-moe-a2.7b's round: B=8,
+    S=1024, 16 kv heads of 128."""
     tables = torch.empty(8, 64, dtype=torch.int32, device="meta")
-    pages = torch.empty(513, 16, 16 // shards, 128, device="meta")
-    for plan in (da.split_plan, da.cluster_plan):
-        assert da.decode_plan(member, plan_kv=16, plan=plan) == \
-            da.decode_plan(whole, plan=plan)
-        assert da.decode_plan(member, plan=plan) != \
-            da.decode_plan(whole, plan=plan)
-        assert da.decode_plan(pages, tables, plan_kv=16, plan=plan) == \
-            da.decode_plan(whole, plan=plan)
+    for dtype in (torch.bfloat16, torch.int8):
+        whole = torch.empty(8, 1024, 16, 128, dtype=dtype, device="meta")
+        member = torch.empty(8, 1024, 16 // shards, 128, dtype=dtype,
+                             device="meta")
+        pages = torch.empty(513, 16, 16 // shards, 128, dtype=dtype,
+                            device="meta")
+        assert da.decode_plan(member, plan_kv=16) == da.decode_plan(whole)
+        assert da.decode_plan(member) != da.decode_plan(whole)
+        assert da.decode_plan(pages, tables, plan_kv=16) == \
+            da.decode_plan(whole)
 
 
 # mixtral's reduced cut attends its rolled cache in plain torch on every

@@ -57,14 +57,16 @@ TMA_SASS = f"""
 
 
 def test_tma_load_counter_counts_the_tma_kernels():
-    """UTMALDG is counted for flash and the bf16 decode kernels only (the
-    int8 ones load by cp.async): a bf16 decode kernel without one is
-    what the smoke fails on."""
+    """UTMALDG is counted for flash and all four decode kernels (bf16 and
+    int8 load their tiles by TMA): a decode kernel without one is what the
+    smoke fails on."""
     counts, lines = chip_smoke.sass_counts(TMA_SASS)
     assert counts == {"paged_decode_bf16_kernel<128>": 1,
                       "decode_bf16_kernel<16>": 1,
                       "decode_q8_kernel<128>": 1}
     assert chip_smoke.tma_loads(lines) == {
-        "paged_decode_bf16_kernel<128>": 2, "decode_bf16_kernel<16>": 0}
-    assert {"flash_kernel", "decode_bf16_kernel",
-            "paged_decode_bf16_kernel"} == set(chip_smoke.TMA_KERNELS)
+        "paged_decode_bf16_kernel<128>": 2, "decode_bf16_kernel<16>": 0,
+        "decode_q8_kernel<128>": 1}
+    assert {"flash_kernel", "decode_bf16_kernel", "paged_decode_bf16_kernel",
+            "decode_q8_kernel", "paged_decode_q8_kernel"} == set(
+                chip_smoke.TMA_KERNELS)
