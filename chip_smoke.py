@@ -29,8 +29,12 @@ place), and then:
    names; all four decode kernels also
    at starcoder2-15b's 12 query heads per kv head; flash at gemma3-27b's
    prefill geometry (1920 rows, 32 query heads over 16 kv heads of 128,
-   its window of 1024 and none) and at starcoder2-15b's (512 rows, 48
-   over 4), and bf16 dense decode at starcoder2's round (G = 12) and at
+   its window of 1024 and none), at starcoder2-15b's (512 rows, 48
+   over 4) and at mixtral-8x7b's past its window (4160 rows, 32 over 8,
+   window 4096; V of the 64 keys its last rows leave out set to
+   ``WINDOW_V``, so that each of rows 4096-4159 must lie within the
+   tolerance of the windowed plain version and outside it of the
+   windowless one), and bf16 dense decode at starcoder2's round (G = 12) and at
    gemma3's global layers (G = 2, S = 2048), each timed beside SDPA and
    the bound; flash with ``causal=False`` at seamless-m4t-large-v2's
    encoder (1024 rows, 16 heads of 64) and cross prefill (512 over 1024
@@ -61,7 +65,9 @@ place), and then:
    experts top-4 of d_ff 1408, 4 shared, an f32 router) has its expert
    block held layer by layer from identical inputs (routing equal where
    the top-k gate margin exceeds 1e-4, outputs within 2e-2 where routing
-   agrees, ``dest``/``keep`` equal at an overflowing 512-token shape); a
+   agrees, ``dest``/``keep`` equal at an overflowing 512-token shape), and
+   so has a 2-layer model of mixtral-8x7b's widths (8 experts of d_ff
+   14336 top-2, window 4096, decoding on its rolled cache); a
    2 + 2-layer encoder-decoder at seamless-m4t-large-v2's widths (a
    1024-frame context) and one vision group (2 self + 1 gated cross
    layer) at llama-3.2-vision-11b's heads (a 1600-row context), gates,
@@ -96,7 +102,15 @@ place), and then:
    profile window, speculation (the 2-layer draft of views against an
    agreeing target, whose routed and shared ``w_down`` of layers 2-23 are
    zeroed, and the unmodified one) and sampled checks, continuous and
-   paged; then full-width seamless-m4t-large-v2 (24 encoder and 24
+   paged; then mixtral-8x7b's full widths (d=4096, 8 experts of d_ff
+   14336 top-2, window 4096) at 8 of its 32 layers, whose 93.4 GB no
+   card holds (its sizes reckoned on the meta device against JAX's):
+   continuous on two instances, one round replayed == eager with its
+   split, a profile window, one instance at ``max_len=4352`` serving two
+   4160-token prompts past the window against the plain versions on the
+   card, and 1-, 2- and 4-member pods (``mixtral_phase``; all 32 layers
+   as a pod over two cards: ``scripts/mixtral_pod_cards.py``); then
+   full-width seamless-m4t-large-v2 (24 encoder and 24
    decoder layers, d=1024) and llama-3.2-vision-11b (40 self layers and
    8 gated cross layers, d=4096) through ``ContextLoop``: 16 requests of
    the mix, each with its own random context, 32 tokens each on 8 slots,
@@ -317,11 +331,15 @@ SLOT_TOL = 3e-2       # a pool slot vs its request alone at batch 1 on the
 #                       card, the same measure (context_slots): a little
 #                       above what sound full-width runs read (PERF.md)
 L2_BYTES = 50e6       # timed inputs rotate over copies exceeding 2x L2
+WINDOW_V = 64.0       # V of the keys a windowed prefill's last rows leave
+#                       out (window_inputs): without the window, every row
+#                       past it moves beyond TOL
 SEED = 0
 ARCH = "qwen2-7b"
 MOE_ARCH = "qwen2-moe-a2.7b"
 STARCODER_ARCH = "starcoder2-15b"
 GEMMA_ARCH = "gemma3-27b"
+MIXTRAL_ARCH = "mixtral-8x7b"
 RWKV_ARCH = "rwkv6-1.6b"
 HYBRID_ARCH = "hymba-1.5b"
 
@@ -1105,20 +1123,21 @@ def causal_pairs(sq: int, window=None) -> int:
     return w * (w + 1) // 2 + (sq - w) * w
 
 
-def flash_logged(label, q, k, v, window=None, causal=True) -> None:
+def flash_logged(label, q, k, v, window=None, causal=True):
     """The flash kernel at one more prefill shape, held against its plain
     version and timed (logged; the JSON line keeps qwen2-7b's main shape)
     beside SDPA: causal, or with a boolean mask where the window cuts
     pairs the causal mask keeps, or (``causal=False``: an encoder, or a
-    cross layer over a context of Sk rows) with no mask."""
+    cross layer over a context of Sk rows) with no mask.  Returns the
+    kernel's output."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
 
     b, sq, h, d = q.shape
     sk, kv = k.shape[1:3]
-    err = close(f"flash {label}",
-                fa.flash_attention(q, k, v, causal=causal, window=window),
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    err = close(f"flash {label}", out,
                 fa.flash_attention_plain(q, k, v, causal=causal,
                                          window=window))
     io = 2 * (q.numel() * 2 + k.numel() + v.numel())
@@ -1150,6 +1169,62 @@ def flash_logged(label, q, k, v, window=None, causal=True) -> None:
         f"device_ms={device_ms(calls)} library_ms={time_ms(sdpa)} "
         f"library_device_ms={device_ms(sdpa)} (SDPA, {how}) "
         f"bound_ms={bnd} ({by})")
+    return out
+
+
+def window_inputs(dev, sq=4160, h=32, kv=8, d=128, window=4096) -> tuple:
+    """bf16 q, k, v of a causal prefill of ``sq`` rows past its
+    ``window`` (mixtral-8x7b's geometry), drawn from their own seed, with
+    V of the ``sq - window`` keys its last row leaves out set to
+    ``WINDOW_V``: row ``window + j`` leaves out keys 0..j, and their
+    weight then moves each such row beyond ``TOL`` (``window_probe``)."""
+    import torch
+    gen = np.random.default_rng(SEED + 19)
+    q, k, v = (torch.from_numpy(gen.standard_normal((1, sq, n, d)).astype(
+        np.float32)).to(dev).to(torch.bfloat16) for n in (h, kv, kv))
+    v[:, :sq - window] = WINDOW_V
+    return q, k, v
+
+
+def window_gaps(q, k, v, window, out) -> tuple:
+    """The rows of a causal prefill past its ``window`` (``out``: a flash
+    output of ``q`` over ``k`` / ``v``, as many rows) against the plain
+    version with the window and without it: per row, the max |diff| to
+    each, and whether the row lies outside ``close``'s tolerance of
+    each.  Returns ((gaps windowed, windowless), (outside windowed,
+    windowless))."""
+    from repro_torch.kernels import flash_attention as fa
+    tail, got = q[:, window:], out[:, window:].float()
+    gaps, outside = [], []
+    for w in (window, None):
+        ref = fa.flash_attention_plain(tail, k, v, window=w,
+                                       q_offset=window).float()
+        diff = (got - ref).abs()
+        gaps.append(diff.flatten(2).amax(-1)[0])
+        outside.append((diff > TOL + TOL * ref.abs()).flatten(2).any(-1)[0])
+    return tuple(gaps), tuple(outside)
+
+
+def window_probe(label, q, k, v, window, out) -> str:
+    """flash's window, seen (inputs from ``window_inputs``): each row past
+    it lies within ``close``'s tolerance of the windowed plain version
+    and outside it of the windowless one, so a kernel that ignored the
+    window, or cut it a key off, would fail ``close``.  Returns what to
+    log."""
+    import torch
+    (win, free), (out_win, out_free) = window_gaps(q, k, v, window, out)
+    rows = f"rows {window}-{q.shape[1] - 1}"
+    if out_win.any() or not out_free.all():
+        raise AssertionError(
+            f"flash {label}: {rows}: outside the windowed plain version's "
+            f"tolerance at rows "
+            f"{(window + torch.nonzero(out_win).flatten()).tolist()}, "
+            f"within the windowless one's at rows "
+            f"{(window + torch.nonzero(~out_free).flatten()).tolist()}")
+    return (f"{rows} each within TOL of the windowed plain version (max "
+            f"|diff| {float(win.max())}) and beyond it of the windowless "
+            f"one (max |diff| a row {float(free.min())} to "
+            f"{float(free.max())}; row {window} leaves out 1 key)")
 
 
 def flash_dense_configs(dev) -> None:
@@ -1159,8 +1234,10 @@ def flash_dense_configs(dev) -> None:
     starcoder2-15b's (48 over 4 of 128), qwen2-moe-a2.7b's (16 over 16
     of 128: G = 1), seamless-m4t-large-v2's decoder self layers' (16 over
     16 of 64) and llama-3.2-vision-11b's self layers' (32 over 8 of 128:
-    G = 4), causal at a 512-token prompt; each held against its plain
-    version and timed beside SDPA and the bound."""
+    G = 4), causal at a 512-token prompt, and at mixtral-8x7b's (32 over
+    8 of 128) at a 4160-token prompt, past its window of 4096; each held
+    against its plain version and timed beside SDPA and the bound, the
+    last with the window seen (``window_probe``)."""
     import torch
     gen = np.random.default_rng(SEED + 9)
 
@@ -1175,9 +1252,15 @@ def flash_dense_configs(dev) -> None:
             ("qwen2-moe-a2.7b's prefill", 512, 16, 16, 128, None),
             ("seamless-m4t-large-v2's decoder prefill", 512, 16, 16, 64,
              None),
-            ("llama-3.2-vision-11b's self prefill", 512, 32, 8, 128, None)):
+            ("llama-3.2-vision-11b's self prefill", 512, 32, 8, 128,
+             None)):
         flash_logged(label, rand(1, sq, h, d), rand(1, sq, kv, d),
                      rand(1, sq, kv, d), window=window)
+    label, window = "mixtral-8x7b's prefill past its window", 4096
+    q, k, v = window_inputs(dev, window=window)
+    out = flash_logged(label, q, k, v, window=window)
+    log(f"kernel flash_attention at {label}, the window seen: "
+        f"{window_probe(label, q, k, v, window, out)}")
 
 
 def decode_logged(label, q, kc, vc, lens, plan_kv=None) -> None:
@@ -1775,6 +1858,7 @@ def reference_phase(rng) -> None:
     _reference_starcoder2()
     _reference_gemma3()
     _reference_moe()
+    _reference_mixtral()
     _reference_context()
     _reference_rwkv()
     _reference_hybrid()
@@ -1897,7 +1981,11 @@ def _reference_gemma3() -> None:
 
 MOE_MARGIN = 1e-4  # a top-k gate margin above this must route the same
 MIN_KEPT = 0.75  # of a moe pod's prefills and round rows, the least share
-#                  that must route as one instance's (near-tie flips aside)
+#                  that must route as one instance's (near-tie flips aside),
+#                  and of its prompts, the least share whose first token
+#                  must be one instance's but at a near-tie of the logits
+GATE_TOL = 5e-2  # a gate (a probability) of a run on another's experts
+#                  against that run's, as REF_TOL holds the logits
 #                    on the card as on the CPU
 
 
@@ -1905,7 +1993,7 @@ def _reference_moe() -> None:
     """A 2-layer MoE model with qwen2-moe-a2.7b's widths (d 2048, 16 q / 16
     kv heads of 128, QKV bias, 60 experts of d_ff 1408 top-4 and 4 shared;
     cut: 24 layers -> 2, V 151936 -> 1024), bf16 on the card against f32
-    on the CPU, layer by layer from identical inputs (``_moe_forward``):
+    on the CPU, layer by layer from identical inputs (``_moe_layers``):
     a 300-token prefill (the flash kernel; capacity 41), 2 decode steps of
     8 slots on its cache (the decode kernel; 8 rows, capacity 8) and a
     speculative verify window of 8 slots x 5 (the verify attention; 40
@@ -1914,8 +2002,7 @@ def _reference_moe() -> None:
     the CPU's as integers, on integer features and an integer router
     (exact logits on both devices, ties included)."""
     import torch
-    from repro_torch.models import attention as attn
-    from repro_torch.models import build_model, moe
+    from repro_torch.models import moe
     from repro_torch.models.config import ModelConfig
 
     cfg = ModelConfig(name="qwen2-moe-widths", family="moe", n_layers=2,
@@ -1923,43 +2010,8 @@ def _reference_moe() -> None:
                       vocab_size=1024, qkv_bias=True, rope_theta=1e6,
                       n_experts=60, top_k=4, n_shared_experts=4,
                       moe_d_ff=1408)
-    model = build_model(cfg)
+    stats = _moe_layers(cfg, verify=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    p_gpu = _filled(model.init(torch.Generator(device=dev).manual_seed(SEED)),
-                    SEED + 1)
-    p_ref = _tree(p_gpu, lambda t: t.float().cpu())
-    if p_gpu["layers"]["moe"]["router"].dtype != torch.float32:
-        raise AssertionError("moe reference: the router is not f32")
-    rng = np.random.default_rng(SEED + 14)
-    prompt = rng.integers(0, cfg.vocab_size, (1, 300)).astype(np.int32)
-    stats = dict(attention={}, dropped={}, experts=0.0, flips=0, near=0,
-                 rows=0, checked=0)
-    planes = (p_gpu, p_ref)
-    _moe_forward(cfg, planes, prompt, lambda a, h, i, plane: attn.attn_full(
-        a, h, cfg, positions=torch.arange(300, device=h.device))[0],
-        "prefill", stats)
-    _, cache = model.prefill(p_ref, torch.as_tensor(prompt), max_len=320)
-    rows = {k: cache[k].repeat(1, 8, 1, 1, 1) for k in ("k", "v")}
-
-    def both(rows):
-        """Both planes' caches: the CPU's rows so far, rounded to bf16."""
-        return ({k: v.to(torch.bfloat16).to(dev) for k, v in rows.items()},
-                {k: v.to(torch.bfloat16).float() for k, v in rows.items()})
-
-    for step in range(2):
-        caches, at = both(rows), torch.tensor(300 + step, dtype=torch.int32)
-        _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size, (8, 1)),
-                     lambda a, h, i, plane: attn.attn_decode(
-                         a, h, caches[plane]["k"][i], caches[plane]["v"][i],
-                         at.to(h.device), cfg)[0], f"decode step {step}",
-                     stats)
-        rows = caches[1]
-    caches, at = both(rows), torch.full((8,), 302, dtype=torch.int32)
-    _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size,
-                                           (8, SPEC_K + 1)),
-                 lambda a, h, i, plane: attn.attn_verify(
-                     a, h, caches[plane]["k"][i], caches[plane]["v"][i],
-                     at.to(h.device), cfg)[0], "verify", stats)
     # Exact logits: integer features and router, so routing is exact.
     irng = np.random.default_rng(SEED + 15)
     xi = irng.integers(-2, 3, (512, cfg.d_model)).astype(np.float32)
@@ -1981,17 +2033,102 @@ def _reference_moe() -> None:
         f"f32 router; cut: 24 layers -> 2, V 151936 -> 1024), layer by "
         f"layer from the CPU's inputs rounded to bf16, through a 300-token "
         f"prefill, 2 decode steps of 8 slots and a verify window of 8 x "
-        f"{SPEC_K + 1}: the attention half within "
-        f"{max(stats['attention'].values()):.4f} (limit {TOL}; by step "
-        f"{ {k: round(v, 4) for k, v in stats['attention'].items()} }) "
-        f"of f32 on the CPU at every position; the expert block routed the "
-        f"same wherever the top-k margin > {MOE_MARGIN} ({stats['near']} "
-        f"of {stats['rows']} token-layers at or below it; flips "
-        f"{stats['flips']}; pairs dropped on the CPU by step "
-        f"{stats['dropped']}), outputs of the {stats['checked']} "
-        f"token-layers routed the same within {stats['experts']:.4f} (limit {TOL}); top_e, dest and "
+        f"{SPEC_K + 1}: {_moe_stats_text(stats)}; top_e, dest and "
         f"keep at T=512, cf 0.5 (cap {cap_i}, {dropped} of "
         f"{512 * cfg.top_k} pairs dropped) equal the CPU's")
+
+
+def _reference_mixtral() -> None:
+    """A 2-layer model at mixtral-8x7b's widths (d 4096, 32 q / 8 kv heads
+    of 128, 8 experts of d_ff 14336 top-2, window 4096, an f32 router;
+    cut: 32 layers -> 2, V 32000 -> 1024), bf16 on the card against f32
+    on the CPU, layer by layer from identical inputs (``_moe_layers``): a
+    300-token prefill (windowed flash; capacity 150) and 2 decode steps of
+    8 slots on its rolled cache (the plain rolled attention; capacity
+    4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(MIXTRAL_ARCH),
+                              name="mixtral-widths", n_layers=2,
+                              vocab_size=1024)
+    t0 = time.perf_counter()
+    stats = _moe_layers(cfg, verify=False)
+    log(f"reference: 2-layer MoE model, {MIXTRAL_ARCH}'s widths (d "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv of "
+        f"{cfg.dh}, {cfg.n_experts} experts top-{cfg.top_k} of d_ff "
+        f"{cfg.expert_d_ff}, window {cfg.sliding_window}, f32 router; cut: "
+        f"32 layers -> 2, V 32000 -> {cfg.vocab_size}), layer by layer "
+        f"from the CPU's inputs rounded to bf16, through a 300-token "
+        f"prefill and 2 decode steps of 8 slots on the rolled cache: "
+        f"{_moe_stats_text(stats)}; {time.perf_counter() - t0:.1f}s")
+
+
+def _moe_layers(cfg, verify: bool) -> dict:
+    """``cfg``'s 2-layer model, bf16 on the card (norms filled) against
+    its f32 copy on the CPU, layer by layer from identical inputs
+    (``_moe_forward``): a 300-token prefill through flash (within the
+    config's window), 2 decode steps of 8 slots on the prefill's cache
+    (a rolled cache for a windowed config, as the model keeps one) and,
+    with ``verify``, a speculative verify window of 8 slots x
+    ``SPEC_K + 1``.  Returns the comparison's statistics."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    p_gpu = _filled(model.init(torch.Generator(device=dev).manual_seed(SEED)),
+                    SEED + 1)
+    p_ref = _tree(p_gpu, lambda t: t.float().cpu())
+    if p_gpu["layers"]["moe"]["router"].dtype != torch.float32:
+        raise AssertionError(f"{cfg.name} reference: the router is not f32")
+    w = cfg.sliding_window
+    rng = np.random.default_rng(SEED + 14)
+    prompt = rng.integers(0, cfg.vocab_size, (1, 300)).astype(np.int32)
+    stats = dict(attention={}, dropped={}, experts=0.0, flips=0, near=0,
+                 rows=0, checked=0)
+    planes = (p_gpu, p_ref)
+    _moe_forward(cfg, planes, prompt, lambda a, h, i, plane: attn.attn_full(
+        a, h, cfg, positions=torch.arange(300, device=h.device),
+        window=w)[0], "prefill", stats)
+    _, cache = model.prefill(p_ref, torch.as_tensor(prompt), max_len=320)
+    rows = {k: cache[k].repeat(1, 8, 1, 1, 1) for k in ("k", "v")}
+
+    def both(rows):
+        """Both planes' caches: the CPU's rows so far, rounded to bf16."""
+        return ({k: v.to(torch.bfloat16).to(dev) for k, v in rows.items()},
+                {k: v.to(torch.bfloat16).float() for k, v in rows.items()})
+
+    for step in range(2):
+        caches, at = both(rows), torch.tensor(300 + step, dtype=torch.int32)
+        _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size, (8, 1)),
+                     lambda a, h, i, plane: attn.attn_decode(
+                         a, h, caches[plane]["k"][i], caches[plane]["v"][i],
+                         at.to(h.device), cfg, rolled=w is not None,
+                         window=w)[0], f"decode step {step}", stats)
+        rows = caches[1]
+    if verify:
+        caches, at = both(rows), torch.full((8,), 302, dtype=torch.int32)
+        _moe_forward(cfg, planes, rng.integers(0, cfg.vocab_size,
+                                               (8, SPEC_K + 1)),
+                     lambda a, h, i, plane: attn.attn_verify(
+                         a, h, caches[plane]["k"][i], caches[plane]["v"][i],
+                         at.to(h.device), cfg)[0], "verify", stats)
+    return stats
+
+
+def _moe_stats_text(stats) -> str:
+    return (f"the attention half within "
+            f"{max(stats['attention'].values()):.4f} (limit {TOL}; by step "
+            f"{ {k: round(v, 4) for k, v in stats['attention'].items()} }) "
+            f"of f32 on the CPU at every position; the expert block routed "
+            f"the same wherever the top-k margin > {MOE_MARGIN} "
+            f"({stats['near']} of {stats['rows']} token-layers at or below "
+            f"it; flips {stats['flips']}; pairs dropped on the CPU by step "
+            f"{stats['dropped']}), outputs of the {stats['checked']} "
+            f"token-layers routed the same within {stats['experts']:.4f} "
+            f"(limit {TOL})")
 
 
 def _moe_forward(cfg, planes, tokens, attend, label, stats) -> None:
@@ -2323,7 +2460,8 @@ def _tree(tree, fn):
 # --------------------------------------------------------------------------
 
 # {shards: (weight bytes, slot-pool bytes at 8 x 1024)} a member of each
-# pod holds, as JAX's ``per_device_bytes`` counts the params it places by
+# pod holds at the depth the smoke serves it (``POD_LAYERS`` where it is
+# cut), as JAX's ``per_device_bytes`` counts the params it places by
 # ``serve_pspec`` and the pool its engine places by ``resolve_pspec``
 # (bf16 weights; the pool's per-slot ``pos`` included).  hymba's pool is
 # whole on every member: neither its 5 kv heads nor its 25 SSM heads
@@ -2334,7 +2472,12 @@ POD_MEMBER_BYTES = {
                    4: (1_632_772_096, 26_738_720)},
     "hymba-1.5b": {1: (2_702_673_600, 361_758_752),
                    2: (1_839_646_400, 361_758_752),
-                   4: (1_408_132_800, 361_758_752)}}
+                   4: (1_408_132_800, 361_758_752)},
+    # mixtral-8x7b at POD_LAYERS depth (8 of 32 layers): every member
+    # holds every expert's w_down whole (tests/test_torch_mixtral.py)
+    MIXTRAL_ARCH: {1: (23_745_142_784, 268_435_488),
+                   2: (15_765_479_424, 134_217_760),
+                   4: (11_775_647_744, 67_108_896)}}
 HYBRID_PARAMS = 1_351_336_800    # hymba-1.5b, as the JAX package counts
 HYBRID_DENSE_BYTES = 361_758_724  # its dense_kv_bytes(8, 1024): rolled
 #                                   K/V of 1024 rows + the f32 SSM state
@@ -2351,6 +2494,11 @@ GEMMA_MAX_LEN = 2048
 MOE_SIZES = (14_315_784_192,  # qwen2-moe-a2.7b params, as JAX's specs count
              28_637_466_624,  # its weight bytes (bf16, the f32 router)
              1_610_612_740)   # dense_kv_bytes(8, 1024), bf16
+MIXTRAL_SIZES = (46_702_792_704,  # mixtral-8x7b params, as JAX's specs count
+                 93_407_682_560,  # its weight bytes (bf16, the f32 router)
+                 1_073_741_828,   # dense_kv_bytes(8, 1024), bf16
+                 4_294_967_300)   # dense_kv_bytes(8, 4608): C = 4096 rows
+MIXTRAL_WINDOW = dict(max_len=4352, prompt=4160, new_tokens=64, requests=2)
 INT8_DENSE_BYTES = 238_551_044   # Model.dense_kv_bytes(8, 1024), int8 KV
 BF16_DENSE_BYTES = 469_762_052   # the same in bf16
 INT8_BLOCK_BYTES = 465_920       # Model.kv_block_bytes(16), int8 KV
@@ -2423,6 +2571,12 @@ def serve_phase(rng) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"serve: {MOE_ARCH} phase took {time.perf_counter() - t_arch:.1f}s")
+    t_arch = time.perf_counter()
+    mixtral_phase(prompts, alloc, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve: {MIXTRAL_ARCH} phase took "
+        f"{time.perf_counter() - t_arch:.1f}s")
     for arch in (SEAMLESS_ARCH, VISION_ARCH):
         context_phase(arch, prompts, totals)
         gc.collect()
@@ -2667,9 +2821,10 @@ def moe_round(model, params, round_dev: float) -> None:
     expert weights alone (the batched product reads every expert whatever
     the routing) and the active weights (``active_param_count``: top-k
     routed plus shared).  Then its split: the expert FFN (three batched
-    products and the activation) and the dispatch (router, rank, bucket
-    scatter, gather, combine and the aux loss), each timed alone at the
-    round's shapes (B = 8 tokens, capacity 8) on every layer's weights,
+    products and the activation), the dispatch (router, rank, bucket
+    scatter, gather, combine and the aux loss) and the shared experts
+    where the config has them, each timed alone at the round's shapes (B
+    = 8 tokens, capacity ``moe._capacity(8)``) on every layer's weights,
     and the rest."""
     import functools
     import torch
@@ -2707,9 +2862,10 @@ def moe_round(model, params, round_dev: float) -> None:
     parts = {
         "expert FFN": [functools.partial(moe.experts, lps[i], ins[i])
                        for i in range(n)],
-        "dispatch": [functools.partial(dispatch, i) for i in range(n)],
-        "shared experts": [functools.partial(moe._shared, lps[i]["shared"],
-                                             xt) for i in range(n)]}
+        "dispatch": [functools.partial(dispatch, i) for i in range(n)]}
+    if cfg.n_shared_experts:
+        parts["shared experts"] = [functools.partial(
+            moe._shared, lps[i]["shared"], xt) for i in range(n)]
     ms = {name: n * device_ms(calls, iters=2 * n,
                               label=f"{name} (one layer)")
           for name, calls in parts.items()}
@@ -2720,6 +2876,152 @@ def moe_round(model, params, round_dev: float) -> None:
                   for name, v in ms.items()) +
         f"; the rest (attention, norms, head, shared experts, launches) "
         f"{rest:.4f} ({rest / round_dev:.3f})")
+
+
+def mixtral_phase(qwen_prompts, alloc, totals) -> None:
+    """mixtral-8x7b at its full widths (d=4096, 32 q / 8 kv heads of 128, 8
+    experts of d_ff 14336 top-2, window 4096 on a rolled cache of every
+    layer, V=32000), on one card at ``POD_LAYERS`` depth (8 of 32 layers:
+    all 32 take 93.4 GB, which ``scripts/mixtral_pod_cards.py`` serves as
+    a pod over two cards).  The full config's params, weight bytes and
+    slot-pool bytes, reckoned from its specs on the meta device, must
+    equal ``MIXTRAL_SIZES``.  The cut, drawn on the card, serves the mix
+    on two weight-shared instances, continuous, graph == ``fused=False``
+    (``serve_mode``; exact-length prefills, flash once a layer, no kernel
+    a round); one round replayed == eager bit for bit, its device time
+    beside its bounds and split into the expert FFN, the dispatch and the
+    rest (``round_check``); a profile window; the window crossed
+    (``mixtral_window``); then the cut as 1-, 2- and 4-member pods,
+    continuous (``pod_family``)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_sharing import pytree_nbytes
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    full = build_model(get_config(MIXTRAL_ARCH))
+    cfg = full.cfg
+    sizes = (full.n_params(), pytree_nbytes(dryrun.meta_params(full)),
+             full.dense_kv_bytes(8, 1024, False),
+             full.dense_kv_bytes(8, 4608, False))
+    if sizes != MIXTRAL_SIZES:
+        raise AssertionError(f"{MIXTRAL_ARCH} (params, weight bytes, "
+                             f"dense_kv_bytes(8, 1024), (8, 4608)): "
+                             f"{sizes}, reckoned {MIXTRAL_SIZES}")
+    layers = POD_LAYERS[MIXTRAL_ARCH]
+    model = build_model(dataclasses.replace(cfg, n_layers=layers))
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"serve: {MIXTRAL_ARCH} full widths ({cfg.n_layers}L d="
+        f"{cfg.d_model} H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.dh} "
+        f"V={cfg.vocab_size}, {cfg.n_experts} experts top-{cfg.top_k} of "
+        f"d_ff {cfg.expert_d_ff}, window {cfg.sliding_window}): (params, "
+        f"weight bytes, dense_kv_bytes(8, 1024), (8, 4608)) = {sizes} "
+        f"reckoned on the meta device; depth cut to {layers} of "
+        f"{cfg.n_layers} layers (POD_LAYERS), {model.n_params()} params, "
+        f"{pytree_nbytes(params)} bytes, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f}s")
+    prompts = [p % cfg.vocab_size for p in qwen_prompts]
+    serve_mode(model, params, MIXTRAL_ARCH, prompts, alloc, "continuous",
+               {"flash_attention"}, totals)
+    round_check(model, params, MIXTRAL_ARCH, prompts[:8], alloc)
+    profile_window(model, params, prompts[:8], alloc, MIXTRAL_ARCH,
+                   "continuous")
+    mixtral_window(model, params, alloc, totals)
+    log(f"pod {MIXTRAL_ARCH}: host MemAvailable {host_mem_available()} "
+        f"bytes before staging {pytree_nbytes(params)}")
+    store = staged_store(model, params, MIXTRAL_ARCH)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pod_family(model, store, MIXTRAL_ARCH, prompts, totals, ("continuous",),
+               forced=True)
+
+
+def mixtral_window(model, params, alloc, totals) -> None:
+    """mixtral's cut past its window (``MIXTRAL_WINDOW``): one instance at
+    ``max_len`` 4352, a rolled cache of C = 4096 rows a layer, serves 2
+    requests of 4160 prompt tokens x 64 new ones.  Each prefill's
+    windowed flash must leave the oldest keys out of its last rows:
+    in every flash call of the prefills (``_WindowProbe``), its last
+    row, which leaves out 64 keys, differs from the windowless plain
+    version by more than any row past the window differs from the
+    windowed one.  The prefill keeps the last 4096 rows rolled by 64;
+    decode writes positions 4160-4223 to slots 64-127.  flash must run
+    once a layer a prefill and no kernel a round.  The served first
+    tokens, and the logits of both prefills and of one round from their
+    pool (``pod_logits``), are held against the same weights through the
+    plain versions on the card (``_PlainOps``) with the kernels' experts
+    (``routed_as``): logits within ``REF_TOL``, a first token other only
+    at a near-tie; the plain versions' own choice on the kernels'
+    experts differs from them only at near-ties (``routing_ties``).
+    Then one round at the window replayed == eager bit for bit, with the
+    rolled attention's device time at C = 4096 (``round_check``)."""
+    import gc
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    cfg, win = model.cfg, MIXTRAL_WINDOW
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(0, cfg.vocab_size, win["prompt"]).astype(
+        np.int32) for _ in range(win["requests"])]
+    engine = deploy(model, params, MIXTRAL_ARCH, alloc, "continuous",
+                    n_instances=1, max_len=win["max_len"],
+                    max_batch=win["requests"])
+    (inst,) = engine.instances.values()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    reqs, done, wall = serve.drive(engine, MIXTRAL_ARCH, prompts,
+                                   win["new_tokens"])
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rows = inst.cache["k"].shape[2]  # the pool, made at the first admission
+    if rows != cfg.sliding_window:
+        raise AssertionError(f"window: a rolled cache of {rows} rows, the "
+                             f"window {cfg.sliding_window}")
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = cfg.n_layers * len(prompts)
+    if done != len(prompts) or counts != want or any(
+            len(r.tokens_out) != win["new_tokens"] for r in reqs):
+        raise AssertionError(f"window: served {done}, launches {counts}, "
+                             f"expected {want}")
+    for k in totals:
+        totals[k] += counts[k]
+    first = [r.tokens_out[0] for r in reqs]
+    with _WindowProbe(cfg.sliding_window) as probe:
+        routes, (pre, rnd, ker_first) = pod_routes(
+            cfg, lambda: pod_logits(inst, prompts))
+    with _PlainOps():
+        own, (ref_pre, ref_rnd, _) = pod_routes(cfg, lambda: routed_as(
+            routes, lambda: pod_logits(inst, prompts, ker_first)))
+    routing, _ = routing_ties(f"window {MIXTRAL_ARCH}", cfg, routes, own,
+                              len(prompts))
+    ref = dict(pre=ref_pre, rnd=ref_rnd, first=ref_pre.argmax(-1).tolist())
+    held = held_against(f"window {MIXTRAL_ARCH}", ref, first, pre, rnd,
+                        whose="the plain versions' (routed as the "
+                        "kernels')")
+    last = win["prompt"] + win["new_tokens"] - 1
+    log(f"window {MIXTRAL_ARCH} ({cfg.n_layers}L, max_len {win['max_len']}:"
+        f" a rolled cache of {rows} rows a layer): {done} requests of "
+        f"{win['prompt']} prompt tokens x {win['new_tokens']} new in "
+        f"{wall:.3f}s; {probe.report(cfg.n_layers * len(prompts))}, "
+        f"and decode wrote positions {win['prompt']}-{last} to "
+        f"slots {win['prompt'] % rows}-{last % rows}; launches {counts}; "
+        f"served first tokens {first} (the kernels' prefill argmax "
+        f"{[int(t) for t in ker_first]}, the plain versions' on the card "
+        f"{ref['first']}){held}{routing}")
+    del engine, inst
+    gc.collect()
+    torch.cuda.empty_cache()
+    round_check(model, params, MIXTRAL_ARCH, prompts, alloc,
+                max_len=win["max_len"], max_batch=win["requests"],
+                split=False)
+    log(f"window {MIXTRAL_ARCH} took {time.perf_counter() - t0:.1f}s")
 
 
 # --------------------------------------------------------------------------
@@ -3157,9 +3459,11 @@ def context_phase(arch, qwen_prompts, totals) -> None:
     log(f"serve: {arch} phase took {time.perf_counter() - t_arch:.1f}s")
 
 
-def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
+def round_check(model, params, arch, prompts, alloc, max_len=1024,
+                max_batch=8, split=True) -> None:
     """One continuous round of a one-instance engine with every slot live
-    (``prompts``; gemma3's, half of them past the window), replayed from
+    (``prompts``, one a slot of ``max_batch``; gemma3's, half of them past
+    the window; mixtral's at its window, all past it), replayed from
     the instance's graph against the eager round body over the same state
     (copies restored between them): slot tokens and every pool leaf
     (positions, ``k``/``v``, and gemma3's rolled ``k``/``v`` and
@@ -3167,13 +3471,13 @@ def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
     CUDA events and device time over replays, beside the weights' bytes at
     the card's rate, and for a windowed config the rolled decode
     attention's device time at the round's shapes, times the local layers
-    that run it."""
+    that run it; a moe round's split (``moe_round``) where ``split``."""
     import torch
     from repro_torch.core.model_sharing import pytree_nbytes
     from repro_torch.models import attention
 
     engine = deploy(model, params, arch, alloc, "continuous", n_instances=1,
-                    max_len=max_len)
+                    max_len=max_len, max_batch=max_batch)
     for p in prompts:
         engine.submit(arch, p, max_new_tokens=16)
     (inst,) = engine.instances.values()
@@ -3215,7 +3519,7 @@ def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
         f"{pytree_nbytes(params)} bytes at {PEAK_BYTES / 1e12} TB/s take "
         f"{weight_ms:.4f} ms")
     cfg = model.cfg
-    if cfg.family == "moe":
+    if cfg.family == "moe" and split:
         moe_round(model, params, round_dev)
     if not cfg.sliding_window:
         return
@@ -3230,7 +3534,8 @@ def round_check(model, params, arch, prompts, alloc, max_len=1024) -> None:
         q, pools["k"][i], pools["v"][i], pools["pos"], cfg.sliding_window)
         for i in range(2)]
     rolled_dev = device_ms(rolled, label="rolled decode attention")
-    log(f"round {arch}: rolled decode attention (plain torch, B=8 "
+    log(f"round {arch}: rolled decode attention (plain torch, "
+        f"B={inst.max_batch} "
         f"C={pools['k'].shape[2]} H={cfg.n_heads} K={cfg.n_kv_heads} "
         f"D={cfg.dh}) {rolled_dev:.5f} ms device a layer x {n_local} local "
         f"layers = {rolled_dev * n_local:.4f} ms a round "
@@ -3246,18 +3551,18 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 
 
 def deploy(model, params, arch, alloc, batching, *, int8=False,
-           n_instances=2, max_len=1024, **kw):
+           n_instances=2, max_len=1024, max_batch=8, **kw):
     """A ``ServingEngine`` on the card with ``n_instances`` weight-shared
-    instances (``max_batch=8``, ``max_len`` 1024 unless given, block size
-    16), the int8-KV gate set for the deploy only (an instance reads it
-    once)."""
+    instances (``max_batch`` 8 and ``max_len`` 1024 unless given, block
+    size 16), the int8-KV gate set for the deploy only (an instance reads
+    it once)."""
     from repro_torch.serving import ServingEngine
 
     engine = ServingEngine(window=0.2, device="cuda")
     with kv_gate(int8):
         engine.deploy(arch, model, params, alloc, n_instances=n_instances,
-                      max_batch=8, max_len=max_len, batching=batching,
-                      block_size=16, **kw)
+                      max_batch=max_batch, max_len=max_len,
+                      batching=batching, block_size=16, **kw)
     return engine
 
 
@@ -4763,8 +5068,9 @@ def pod_round_check(eng, inst, prompts, fn=ARCH) -> tuple[float, str]:
 
 def pod_logits(inst, prompts, first=None) -> tuple:
     """Exact-length prefill logits of every prompt and, over a fresh pool
-    holding ``prompts[:8]`` (8 slots, or paged 8 sequences' pages through
-    one page table; in the instance's KV dtype), one round's logits from
+    holding ``prompts[:8]`` (up to 8 slots, or paged up to 8 sequences'
+    pages through one page table; in the instance's KV dtype), one
+    round's logits from
     the tokens ``first``
     (default: the prefills' greedy picks; a pod takes one instance's, so a
     near-tie pick cannot change a round's input), eager, through the
@@ -4773,29 +5079,30 @@ def pod_logits(inst, prompts, first=None) -> tuple:
     import torch
     run, dev, int8 = inst.runner, inst.device, inst.kv_int8
     paged = inst.batching == "paged"
+    n = min(8, len(prompts))
     if paged:
         per = inst.max_len // inst.block_size
-        pool = run.init_paged_cache(8 * per + 1, inst.block_size, dev,
+        pool = run.init_paged_cache(n * per + 1, inst.block_size, dev,
                                     kv_int8=int8)
-        tables = (1 + torch.arange(8 * per, dtype=torch.int32,
-                                   device=dev)).view(8, per)
+        tables = (1 + torch.arange(n * per, dtype=torch.int32,
+                                   device=dev)).view(n, per)
     else:
-        pool = run.init_slot_cache(8, inst.max_len, dev, kv_int8=int8)
+        pool = run.init_slot_cache(n, inst.max_len, dev, kv_int8=int8)
     pre = []
     for slot, q in enumerate(prompts):
         tokens = torch.as_tensor(q[None], device=dev)
         logits, entry = run.prefill(inst.params, tokens,
                                     max_len=inst.max_len, kv_int8=int8)
         pre.append(logits[0].float())
-        if slot < 8 and paged:
+        if slot < n and paged:
             run.append_paged(pool, entry, tables[slot].long())
-        elif slot < 8:
+        elif slot < n:
             run.merge_slot(pool, entry, slot)
     if first is None:
         first = torch.stack([torch.argmax(x).to(torch.int32)
-                             for x in pre[:8]])
+                             for x in pre[:n]])
     if paged:
-        pos = torch.as_tensor([len(q) for q in prompts[:8]],
+        pos = torch.as_tensor([len(q) for q in prompts[:n]],
                               dtype=torch.int32, device=dev)
         round_logits, _ = run.decode_step_paged(inst.params, first, pool,
                                                 tables, pos)
@@ -4833,11 +5140,12 @@ def pod_phase(model, params, prompts, totals) -> None:
 
 
 # The pods of earlier slices (qwen2-7b's, bf16 and int8 KV; gemma3-27b's;
-# qwen2-moe-a2.7b's) serve their model's full widths at a quarter of its
-# depth (gemma3-27b: two of its local:global groups), so that the whole
+# qwen2-moe-a2.7b's; mixtral-8x7b's, whose 32 layers no card holds) serve
+# their model's full widths at a quarter of its depth (gemma3-27b: two of
+# its local:global groups), so that the whole
 # smoke keeps well inside its time limit; every run, request and check of
 # theirs is whole.  rwkv6-1.6b's and hymba-1.5b's pods run whole.
-POD_LAYERS = {ARCH: 7, GEMMA_ARCH: 12, MOE_ARCH: 6}
+POD_LAYERS = {ARCH: 7, GEMMA_ARCH: 12, MOE_ARCH: 6, MIXTRAL_ARCH: 8}
 
 
 def depth_cut(model, params, layers) -> tuple:
@@ -4864,11 +5172,12 @@ def staged_store(model, params, fn):
     return store
 
 
-def pod_family(model, store, fn, prompts, totals, batchings, max_len=1024
-               ) -> None:
+def pod_family(model, store, fn, prompts, totals, batchings, max_len=1024,
+               forced=False) -> None:
     """``fn``'s staged weights (``store``) on one instance and as 2- and
     4-member pods in each of ``batchings``, one placement at a time,
-    each held against the one instance (``pod_widths``), serving
+    each held against the one instance (``pod_widths``; ``forced``: a
+    moe pod's logits with one instance's routing), serving
     ``prompts``."""
     from repro_torch.core.resources import Alloc
 
@@ -4882,16 +5191,24 @@ def pod_family(model, store, fn, prompts, totals, batchings, max_len=1024
     alloc = Alloc(sm=0.25, quota_request=0.5, quota_limit=1.0)
     for b in batchings:
         pod_widths(model, None, prompts, totals, alloc, store, b, fn=fn,
-                   max_len=max_len, failure=False)
+                   max_len=max_len, failure=False, forced=forced)
     log(f"pod {fn} phase took {time.perf_counter() - t_phase:.1f}s")
 
 
 def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
-               fn=ARCH, int8=False, max_len=1024, failure=True) -> dict:
+               fn=ARCH, int8=False, max_len=1024, failure=True,
+               forced=False) -> dict:
     """The request mix on one instance and on 2- and 4-member pods of
     ``model`` in ``batching`` (bf16 or ``int8`` KV), one placement at a
     time, each held against the one instance (phase 7; a moe model's
-    routing too, ``pod_routing``); after the continuous bf16 2-member pod
+    routing too, ``pod_routing``, or with ``forced`` ``routing_ties`` and
+    the pod's logits taken with one instance's experts, ``routed_as``:
+    at full width a mixtral pod's 8 gates move from one instance's by
+    more than ``pod_routing``'s fixed margin, and the flips land in
+    prompts that could then not be left out of the logits' tolerance;
+    qwen2-moe's pods, whose gates equal one instance's bit for bit, keep
+    the fixed margin, the stricter rule);
+    after the continuous bf16 2-member pod
     (``failure``), a secondary member's failure.  ``params`` may be None
     when ``store`` holds ``fn``'s staged weights.  Returns the one
     instance's readings.  Each kernel of ``pod_kernels`` must launch once
@@ -4947,8 +5264,13 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
         first = [r.tokens_out[0] for r in reqs]
         streams = [list(r.tokens_out) for r in reqs]
         t_logits = time.perf_counter()
-        routes, (pre, rnd, fed) = pod_routes(
-            cfg, lambda: pod_logits(inst, prompts, one.get("fed")))
+        if forced and shards > 1:  # the pod's own choices on one's experts
+            routes, (pre, rnd, fed) = pod_routes(cfg, lambda: routed_as(
+                [r for r in one["routes"] for _ in range(shards)],
+                lambda: pod_logits(inst, prompts, one["fed"])))
+        else:
+            routes, (pre, rnd, fed) = pod_routes(
+                cfg, lambda: pod_logits(inst, prompts, one.get("fed")))
         t_logits = time.perf_counter() - t_logits
         members = inst.hbm_bytes_by_member()
         weights = (per_member_bytes(inst.group, inst.params)
@@ -4973,12 +5295,21 @@ def pod_widths(model, params, prompts, totals, alloc, store, batching, *,
                 raise AssertionError(f"pod {fn} {label}: member weights "
                                      f"{weights} not below one instance's "
                                      f"{one['weights']}")
-            routing, *flipped = pod_routing(f"{fn} {label}", cfg,
-                                            one["routes"], routes, shards,
-                                            len(prompts))
-            flips = pod_against_one(f"{fn} {label}", one, first, streams,
-                                    pre, rnd, members, n_tok,
-                                    flipped) + routing
+            if forced:
+                routing, exempt = routing_ties(
+                    f"pod {fn} {label}", cfg, one["routes"], routes,
+                    len(prompts), shards, "the pod's")
+                flips = pod_against_one(
+                    f"{fn} {label}", one, first, streams, pre, rnd, members,
+                    n_tok, exempt=exempt) + routing + (
+                    " (logits with one instance's routing)")
+            else:
+                routing, *flipped = pod_routing(f"{fn} {label}", cfg,
+                                                one["routes"], routes,
+                                                shards, len(prompts))
+                flips = pod_against_one(f"{fn} {label}", one, first,
+                                        streams, pre, rnd, members, n_tok,
+                                        flipped) + routing
         t_check = time.perf_counter()
         dev_ms, check = pod_round_check(eng, inst, prompts[:8], fn)
         t_check = time.perf_counter() - t_check
@@ -5013,9 +5344,10 @@ def pod_kernels(cfg, batching, int8) -> tuple[dict, dict]:
     at each round: ({kernel: layers a prefill}, {kernel: layers a
     round}).  rwkv: chunked WKV-6 a prefill, step WKV-6 a round; hybrid:
     windowed flash and the chunked scan a prefill, the step scan a round
-    (its rolled decode attention is plain torch); the others flash a
-    prefill and the decode kernel of their batching and KV dtype a round
-    (a dual-cache config's on its global layers only)."""
+    (its rolled decode attention is plain torch); a config rolled on
+    every layer (mixtral) flash a prefill and nothing a round; the others
+    flash a prefill and the decode kernel of their batching and KV dtype
+    a round (a dual-cache config's on its global layers only)."""
     from repro_torch.models import transformer
 
     n = cfg.n_layers
@@ -5023,6 +5355,8 @@ def pod_kernels(cfg, batching, int8) -> tuple[dict, dict]:
         return {"wkv6_chunked": n}, {"wkv6_step": n}
     if cfg.family == "hybrid":
         return {"flash_attention": n, "ssm_chunked": n}, {"ssm_step": n}
+    if cfg.sliding_window and not cfg.local_global_ratio:
+        return {"flash_attention": n}, {}
     decode = {("continuous", False): "decode_attention",
               ("paged", False): "paged_decode_attention",
               ("continuous", True): "decode_attention_quant",
@@ -5111,66 +5445,186 @@ def pod_routing(label, cfg, one, pod, shards, n_pre) -> tuple:
 
 
 def pod_against_one(label, one, first, streams, pre, rnd, members,
-                    n_tok, flipped=(set(), set())) -> str:
+                    n_tok, flipped=(set(), set()), exempt=frozenset()
+                    ) -> str:
     """A pod's logits, first tokens and member bytes held against the one
-    instance's readings ``one``; a moe pod's prompts and round rows that
-    routed a token-layer to other experts at a near-tie (``flipped``,
-    from ``pod_routing``) are left out of the logits' tolerance, and
-    their first tokens may differ, while at least ``MIN_KEPT`` of each
-    stay held.  Returns what to log."""
-    import torch
-    keep_pre = [i for i in range(len(pre)) if i not in flipped[0]]
-    keep_rnd = [i for i in range(len(rnd)) if i not in flipped[1]]
-    if (len(keep_pre) < MIN_KEPT * len(pre)
-            or len(keep_rnd) < MIN_KEPT * len(rnd)):
-        raise AssertionError(f"pod {label}: {len(keep_pre)}/{len(pre)} "
-                             f"prefills and {len(keep_rnd)}/{len(rnd)} "
-                             f"round rows routed as one instance's, fewer "
-                             f"than {MIN_KEPT} of each")
-    scale = float(one["rnd"].abs().max())
-    rel = float((rnd - one["rnd"])[keep_rnd].abs().max()) / scale
-    pre_rel = float((pre - one["pre"])[keep_pre].abs().max()) / float(
-        one["pre"].abs().max())
-    if rel > REF_TOL or pre_rel > REF_TOL:
-        raise AssertionError(f"pod {label}: logits {pre_rel:.4f} "
-                             f"(prefill) {rel:.4f} (round) of "
-                             f"one instance's, limit {REF_TOL}")
-    # A served first token may differ only at a near-tie of one
-    # instance's logits: top two within twice the pod's measured
-    # deviation, or within two bf16 steps of the top logit (the
-    # logits are bf16 products, so closer values tie in bf16).
-    top2 = torch.topk(one["pre"], 2, dim=-1).values
-    margin = (top2[:, 0] - top2[:, 1]).tolist()
-    dev = (pre - one["pre"]).abs().amax(dim=-1).tolist()
-    step = [2.0 ** (math.floor(math.log2(abs(t))) - 7)
-            for t in top2[:, 0].tolist()]
-    differ = [i for i, (a, b) in enumerate(zip(first, one["first"]))
-              if a != b]
-    bad = [i for i in differ if margin[i] > max(2 * dev[i], 2 * step[i])
-           and i not in flipped[0]]
-    if bad:
-        raise AssertionError(
-            f"pod {label}: first tokens of requests {bad} differ "
-            f"from one instance's with top-2 margins "
-            f"{[margin[i] for i in bad]} above twice the logits' "
-            f"deviation {[dev[i] for i in bad]} and two bf16 steps "
-            f"{[2 * step[i] for i in bad]}")
+    instance's readings ``one`` (``held_against``; a moe pod's prompts and
+    round rows that routed a token-layer to other experts at a near-tie,
+    ``flipped`` from ``pod_routing``, left out of the logits' tolerance;
+    ``exempt`` prompts' first tokens free at a routing tie).  Returns
+    what to log."""
+    held = held_against(f"pod {label}", one, first, pre, rnd, flipped,
+                        "one instance's", exempt)
     if any(b >= one["bytes"] for b in members.values()):
         raise AssertionError(f"pod {label}: member bytes {members} not "
                              f"below one instance's {one['bytes']}")
     same = sum(a == b for s_, o in zip(streams, one["streams"])
                for a, b in zip(s_, o))
+    return f"{held}; {same}/{n_tok} stream tokens equal (logged)"
+
+
+def held_against(label, ref, first, pre, rnd, flipped=(set(), set()),
+                 whose="the reference's", exempt=frozenset()) -> str:
+    """Prefill logits ``pre``, round logits ``rnd`` and served ``first``
+    tokens held against the readings ``ref`` (its ``pre``, ``rnd`` and
+    ``first``): the logits within ``REF_TOL`` of ref's (max |diff| / max
+    |logit|) on every prompt and round row but those in ``flipped`` (moe
+    rows routed to other experts at a near-tie), while at least
+    ``MIN_KEPT`` of each stay held; a first token other than ref's only at
+    a near-tie of ref's logits (top two within twice the logits'
+    deviation, or two bf16 steps of the top logit), on a flipped prompt
+    or on an ``exempt`` one (its last row routed other than ref's at a
+    near-tie, its logits held with ref's routing), at most ``1 -
+    MIN_KEPT`` of the prompts.  Returns what to log."""
+    import torch
+    keep_pre = [i for i in range(len(pre)) if i not in flipped[0]]
+    keep_rnd = [i for i in range(len(rnd)) if i not in flipped[1]]
+    if (len(keep_pre) < MIN_KEPT * len(pre)
+            or len(keep_rnd) < MIN_KEPT * len(rnd)):
+        raise AssertionError(f"{label}: {len(keep_pre)}/{len(pre)} "
+                             f"prefills and {len(keep_rnd)}/{len(rnd)} "
+                             f"round rows routed as {whose}, fewer "
+                             f"than {MIN_KEPT} of each")
+    if len(exempt) > (1 - MIN_KEPT) * len(first):
+        raise AssertionError(f"{label}: {len(exempt)}/{len(first)} "
+                             f"prompts' last rows routed other than "
+                             f"{whose} (exempt: {sorted(exempt)}), more "
+                             f"than {1 - MIN_KEPT} of them")
+    if not (torch.isfinite(pre).all() and torch.isfinite(rnd).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    scale = float(ref["rnd"].abs().max())
+    rel = float((rnd - ref["rnd"])[keep_rnd].abs().max()) / scale
+    pre_rel = float((pre - ref["pre"])[keep_pre].abs().max()) / float(
+        ref["pre"].abs().max())
+    if rel > REF_TOL or pre_rel > REF_TOL:
+        raise AssertionError(f"{label}: logits {pre_rel:.4f} "
+                             f"(prefill) {rel:.4f} (round) of "
+                             f"{whose}, limit {REF_TOL}")
+    # A served first token may differ only at a near-tie of the
+    # reference's logits: top two within twice the measured deviation,
+    # or within two bf16 steps of the top logit (the logits are bf16
+    # products, so closer values tie in bf16).
+    top2 = torch.topk(ref["pre"], 2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    dev = (pre - ref["pre"]).abs().amax(dim=-1).tolist()
+    step = [2.0 ** (math.floor(math.log2(abs(t))) - 7)
+            for t in top2[:, 0].tolist()]
+    differ = [i for i, (a, b) in enumerate(zip(first, ref["first"]))
+              if a != b]
+    bad = [i for i in differ if margin[i] > max(2 * dev[i], 2 * step[i])
+           and i not in flipped[0] and i not in exempt]
+    if bad:
+        raise AssertionError(
+            f"{label}: first tokens of requests {bad} differ "
+            f"from {whose} with top-2 margins "
+            f"{[margin[i] for i in bad]} above twice the logits' "
+            f"deviation {[dev[i] for i in bad]} and two bf16 steps "
+            f"{[2 * step[i] for i in bad]}")
     ties = ", ".join(f"request {i}: margin {margin[i]:.4f}, "
                      f"deviation {dev[i]:.4f}" for i in differ)
     left = (f" over the {len(keep_pre)} prefills and {len(keep_rnd)} "
-            f"round rows routed as one instance's" if any(flipped) else "")
-    return (f"; first tokens equal one instance's on "
+            f"round rows routed as {whose}" if any(flipped) else "")
+    return (f"; first tokens equal {whose} on "
             f"{len(first) - len(differ)}/{len(first)} requests "
             f"({len(differ)} near-ties{': ' + ties if ties else ''}), "
             f"logits within {pre_rel:.5f} (prefills) and {rel:.5f} (a "
-            f"round of 8 slots) of one instance's (max |diff| / max "
-            f"|logit|, limit {REF_TOL}){left}; {same}/{n_tok} stream "
-            f"tokens equal (logged)")
+            f"round of {len(rnd)} slots) of {whose} (max |diff| / max "
+            f"|logit|, limit {REF_TOL}){left}")
+
+
+def routing_ties(label, cfg, ref, got, n_pre, shards=1,
+                 whose="the plain versions'") -> tuple:
+    """A run's routing on a reference's experts against the reference's,
+    over ``n_pre`` prefills and a round: ``ref`` the reference's records
+    (``pod_routes``, one call a layer), ``got`` the run's own (top_e,
+    gates) at each call while it took ref's experts (``pod_routes``
+    around ``routed_as``; ``shards`` calls a layer, in member order), so
+    both are read on one trajectory and their gates differ only by their
+    sums' rounding.  Every member routes alike (by construction: its
+    tokens are the others' bit for bit); member 0's gates stay within
+    ``GATE_TOL`` of ref's, and its own experts equal ref's wherever ref's
+    top-k gate margin exceeds ``MOE_MARGIN`` and twice the row's gate
+    deviation.  Two runs whose sums round apart (the kernels and the
+    plain versions; at full width a pod's column slices and one device's
+    products) move mixtral's 8 gates by more than a fixed margin, which
+    qwen2-moe's pods, bit-equal to one instance, keep (``pod_routing``).
+    Returns (what to log: the flips, all at such near-ties, the largest
+    gate deviation, and the prompts whose last row flipped; those
+    prompts)."""
+    import torch
+
+    n, k = cfg.n_layers, cfg.top_k
+    if len(got) != shards * len(ref) or len(ref) != (n_pre + 1) * n:
+        raise AssertionError(f"{label}: {len(got)} routings, the "
+                             f"reference's {len(ref)}, {n_pre} prefills")
+    rows = flips = ties = 0
+    dev_max = 0.0
+    last, rnd = set(), set()
+    for j, (ref_e, ref_g) in enumerate(ref):
+        mine = got[j * shards:(j + 1) * shards]
+        if not all(torch.equal(e.to(mine[0][0].device), mine[0][0])
+                   for e, _ in mine[1:]):
+            raise AssertionError(f"{label}: members route call {j} "
+                                 f"differently")
+        top_e, gates = mine[0]
+        g = ref_g.sort(-1, descending=True).values
+        margin = g[:, k - 1] - g[:, k]
+        dev = (gates.to(ref_g.device) - ref_g).abs().amax(-1)
+        dev_max = max(dev_max, float(dev.max()))
+        if dev_max > GATE_TOL:
+            raise AssertionError(f"{label}: call {j}: {whose} gates "
+                                 f"{dev_max} from the reference's, limit "
+                                 f"{GATE_TOL}")
+        tie = margin <= torch.clamp(2 * dev, min=MOE_MARGIN)
+        same = (top_e.to(ref_e.device).sort(-1).values
+                == ref_e.sort(-1).values).all(-1)
+        if not (same | tie).all():
+            bad = ~(same | tie)
+            raise AssertionError(f"{label}: call {j}: {whose} own choice "
+                                 f"routes other experts than the "
+                                 f"reference's at margins "
+                                 f"{margin[bad].tolist()}, gate deviations "
+                                 f"{dev[bad].tolist()}")
+        rows += int(same.numel())
+        flips += int((~same).sum())
+        ties += int(tie.sum())
+        if j // n < n_pre and not bool(same[-1]):
+            last.add(j // n)
+        elif j // n == n_pre:
+            rnd.update(torch.nonzero(~same).flatten().tolist())
+    return (f"; {whose} own top-{k} on the reference's experts the same "
+            f"on {rows - flips}/{rows} token-layers ({flips} flips, each at "
+            f"a top-{k} margin within twice its gate deviation or "
+            f"{MOE_MARGIN}; {ties} token-layers at such a margin; gates "
+            f"within {dev_max:.4g} of the reference's, limit {GATE_TOL}; "
+            f"prompts whose last row flipped {sorted(last)}, round rows "
+            f"{sorted(rnd)})", last)
+
+
+def routed_as(recorded, run):
+    """``run()`` with the experts of every ``moe.route`` call replaced by
+    ``recorded``'s (``pod_routes``, call for call), each token's weights,
+    the ranks, buckets and drops made from its own gates at those experts
+    (``moe.pairs``): a run's logits with another's routing, so that a
+    near-tie flip between them (``routing_ties``) cannot move a row out
+    of the logits' tolerance.  Within ``pod_routes`` the records are the
+    run's own choices on those experts."""
+    from repro_torch.models import moe
+
+    calls, route = iter(recorded), moe.route
+
+    def forced(router, xt, cfg_, cap):
+        r = route(router, xt, cfg_, cap)
+        return moe.pairs(r["gates"], next(calls)[0], cfg_, cap)
+
+    moe.route = forced
+    try:
+        out = run()
+    finally:
+        moe.route = route
+    if next(calls, None) is not None:
+        raise AssertionError("routed_as: fewer routing calls than recorded")
+    return out
 
 
 def pod_spread(model, params, alloc, store, prompts, one) -> None:
@@ -5566,6 +6020,59 @@ def _step_grads(model, params, batch, remat=True):
             + TrainStepConfig().aux_weight * aux)
     del logits
     return loss.detach(), torch.autograd.grad(loss, diff)
+
+
+class _WindowProbe:
+    """Within the block, every causal flash call of more rows than
+    ``window`` with that window has its rows past the window held
+    against the plain version with and without it (``window_gaps``):
+    its last row must differ from the windowless version by more than
+    any of those rows differs from the windowed one."""
+
+    def __init__(self, window: int):
+        self.window, self.calls = window, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, ops.flash_attention
+
+        def probed(q, k, v, *, causal=True, window=None, **kw):
+            out = self.saved(q, k, v, causal=causal, window=window, **kw)
+            if causal and window == self.window and q.shape[1] > window \
+                    and not kw.get("q_offset"):
+                (win, free), _ = window_gaps(q, k, v, window, out)
+                if not float(free[-1]) > float(win.max()):
+                    raise AssertionError(
+                        f"window: flash call {len(self.calls)}: its last "
+                        f"row within {float(free[-1])} of the windowless "
+                        f"plain version, rows past the window within "
+                        f"{float(win.max())} of the windowed one")
+                self.calls.append((q.shape[1], float(win.max()),
+                                   float(free[0]), float(free[-1])))
+            return out
+
+        ops.flash_attention = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.saved
+
+    def report(self, n_calls: int) -> str:
+        """What to log; fails unless ``n_calls`` calls were probed."""
+        if len(self.calls) != n_calls:
+            raise AssertionError(f"window: {len(self.calls)} flash calls "
+                                 f"past the window, expected {n_calls}")
+        sq = {c[0] for c in self.calls}
+        first = [c[2] for c in self.calls]
+        last = [c[3] for c in self.calls]
+        return (f"in each of the {n_calls} flash calls of the prefills "
+                f"({sorted(sq)} rows), rows {self.window}-{max(sq) - 1} "
+                f"within {max(c[1] for c in self.calls):.3g} of the "
+                f"windowed plain version, while the windowless one differs "
+                f"by {min(first):.3g}-{max(first):.3g} at row "
+                f"{self.window} (1 key left out) and {min(last):.3g}-"
+                f"{max(last):.3g} at row {max(sq) - 1} "
+                f"({max(sq) - self.window} keys; max |diff| a row)")
 
 
 class _PlainOps:
@@ -6167,27 +6674,25 @@ class DryRun:
         self.waiter.join()
 
 
-def analysis_phase(dry: DryRun, t_serve: float) -> None:
-    """The dry run's reckoning of a member's weight and pool bytes, on the
-    meta device through the port's own pod code, at the smoke's serve
-    shape (8 slots x 1024 rows; gemma3's 2048), held equal to the byte
-    constants this script serves by (the JAX package's counts); no
-    kernel launches on meta.  Then the whole dry run's result, from its
-    own process: every cell ``ok`` or ``skipped``, and its fit table, and
-    when it exited against ``t_serve``, the serve phase's start."""
-    import torch
-    from repro_torch import kernels
+def byte_reckonings() -> dict:
+    """{what: (the dry run's reckoning on the meta device through the
+    port's own pod code, the byte constant this script serves by)}: a
+    member's weight and pool bytes at the smoke's serve shape (8 slots x
+    1024 rows; gemma3's 2048) and its pods' depth (``POD_LAYERS``, where
+    the pods are cut), and the configs' params and slot-pool bytes (the
+    JAX package's counts)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
     from repro_torch.models import build_model
 
-    t0 = time.perf_counter()
-    before = kernels.counter_values()
     slots = 8
 
-    def member(arch, n=1, max_len=1024, int8=False):
-        return dryrun.serve_member_bytes(get_config(arch), n, slots,
-                                         max_len, int8)
+    def member(arch, n=1, max_len=1024, int8=False, layers=None):
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        return dryrun.serve_member_bytes(cfg, n, slots, max_len, int8)
 
     def dense(arch, max_len=1024, int8=False):
         """``dense_kv_bytes``: the pool's leaves and one scalar ``pos``
@@ -6197,7 +6702,8 @@ def analysis_phase(dry: DryRun, t_serve: float) -> None:
     checks = {}
     for arch, by_n in POD_MEMBER_BYTES.items():
         for n, want in by_n.items():
-            checks[f"{arch} member of {n}"] = (member(arch, n), want)
+            checks[f"{arch} member of {n}"] = (
+                member(arch, n, layers=POD_LAYERS.get(arch)), want)
     checks[f"{ARCH} dense_kv_bytes(8, 1024)"] = (
         (dense(ARCH), dense(ARCH, int8=True)),
         (BF16_DENSE_BYTES, INT8_DENSE_BYTES))
@@ -6212,6 +6718,21 @@ def analysis_phase(dry: DryRun, t_serve: float) -> None:
     checks[MOE_ARCH] = (
         (build_model(get_config(MOE_ARCH)).n_params(), member(MOE_ARCH)[0],
          dense(MOE_ARCH)), MOE_SIZES)
+    return checks
+
+
+def analysis_phase(dry: DryRun, t_serve: float) -> None:
+    """The dry run's byte reckonings (``byte_reckonings``) held equal to
+    the byte constants this script serves by; no kernel launches on
+    meta.  Then the whole dry run's result, from its own process: every
+    cell ``ok`` or ``skipped``, and its fit table, and when it exited
+    against ``t_serve``, the serve phase's start."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    before = kernels.counter_values()
+    checks = byte_reckonings()
     bad = {k: v for k, v in checks.items() if tuple(v[0]) != tuple(v[1])}
     if bad:
         raise AssertionError(f"analysis: reckoned bytes differ from the "

@@ -3,10 +3,12 @@
 8 routed experts top-2, sliding-window attention (W=4096)
 [arXiv:2401.04088; hf]: a rolled cache of the window on every layer,
 continuous batching with exact-length prefills.  The same two configs as
-``repro.configs.mixtral_8x7b``.  The full width (93.4 GB in bf16) does
-not fit one card, nor does a pod of it on one card (every member holds
-the replicated ``w_down`` of every expert); it waits for a pod over
-several cards (ROADMAP.md, Queue 1 item 11b).
+``repro.configs.mixtral_8x7b``.  All 32 layers (93.4 GB in bf16) fit no
+card, nor a pod of it on one card (every member holds the replicated
+``w_down`` of every expert): they serve as a 2-member pod over two cards,
+62.81 GB a member (``scripts/mixtral_pod_cards.py``; the weights staged
+by ``serving.modelstore.stage_drawn``).  On one card ``chip_smoke.py``
+serves the full widths at 8 of the 32 layers.
 """
 
 from repro_torch.models.config import ModelConfig

@@ -74,17 +74,12 @@ def init_params(spec_tree: Any, generator: torch.Generator) -> Any:
     device = generator.device
 
     def one(spec: PSpec) -> torch.Tensor:
-        dtype = spec.dtype
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
-        shape = spec.shape
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        std = 0.02 if spec.init == "small" else 1.0 / math.sqrt(fan_in)
-        out = torch.empty(shape, dtype=dtype, device=device)
-        rows = out.view(-1, *shape[-2:]) if len(shape) > 2 else out[None]
-        for piece in rows:
-            piece.copy_(torch.randn(piece.shape, generator=generator,
-                                    dtype=torch.float32, device=device) * std)
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        out = torch.empty(spec.shape, dtype=spec.dtype, device=device)
+        for piece, value in zip(leaf_pieces(out), drawn_pieces(spec,
+                                                              generator)):
+            piece.copy_(value)
         return out
 
     def walk(tree: Any) -> Any:
@@ -93,6 +88,28 @@ def init_params(spec_tree: Any, generator: torch.Generator) -> Any:
         return one(tree)
 
     return walk(spec_tree)
+
+
+def leaf_pieces(t: torch.Tensor) -> torch.Tensor:
+    """A leaf as the pieces ``init_params`` draws it in: its trailing 2-D
+    slices (one (layer, expert) matrix of a 4-D leaf), in row-major order;
+    a 1-D or 2-D leaf is one piece."""
+    return t.view(-1, *t.shape[-2:]) if t.dim() > 2 else t[None]
+
+
+def drawn_pieces(spec: PSpec, generator: torch.Generator):
+    """The f32 values of a non-zero leaf's pieces (``leaf_pieces``), drawn
+    one at a time on the generator's device as ``init_params`` draws
+    them, uncast: a caller that casts each to ``spec.dtype`` in turn
+    holds the leaf ``init_params`` makes, bit for bit, with no more than
+    one piece on the device."""
+    shape = spec.shape
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    std = 0.02 if spec.init == "small" else 1.0 / math.sqrt(fan_in)
+    piece = tuple(shape[-2:]) if len(shape) >= 2 else tuple(shape)
+    for _ in range(math.prod(shape) // math.prod(piece)):
+        yield torch.randn(piece, generator=generator, dtype=torch.float32,
+                          device=generator.device) * std
 
 
 def unstack(tree: Any) -> list:

@@ -66,15 +66,25 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
     its expert (the earlier pairs with the same expert) is below ``cap``,
     ``dest`` its bucket row ``e * cap + rank`` or the trash row
     ``E * cap``, and ``counts`` (E,) pairs an expert."""
-    e, k = cfg.n_experts, cfg.top_k
     gates = torch.softmax(xt.float() @ router.float(), dim=-1)
-    top_w, top_e = torch.sort(gates, dim=-1, descending=True, stable=True)
-    top_w, top_e = top_w[:, :k], top_e[:, :k]
+    top_e = torch.sort(gates, dim=-1, descending=True,
+                       stable=True).indices[:, :cfg.top_k]
+    return pairs(gates, top_e, cfg, cap)
+
+
+def pairs(gates: torch.Tensor, top_e: torch.Tensor, cfg: ModelConfig,
+          cap: int) -> dict:
+    """``route``'s dict for tokens whose gates are ``gates`` (T, E) and
+    whose experts are ``top_e`` (T, k): each token's weights over its
+    experts renormalised, each pair's rank in its expert, ``keep``,
+    ``dest`` and ``counts``."""
+    e = cfg.n_experts
+    top_w = gates.gather(1, top_e)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     pair_e = top_e.reshape(-1)
     # (E, T * k): the scan runs along the contiguous dim, one row an
     # expert (a scan down the T * k rows of the transpose is serial).
-    onehot = (torch.arange(e, device=xt.device)[:, None] == pair_e).to(
+    onehot = (torch.arange(e, device=gates.device)[:, None] == pair_e).to(
         torch.int32)
     seen = onehot.cumsum(1, dtype=torch.int32)  # inclusive, per expert
     rank = seen.gather(0, pair_e[None])[0] - 1

@@ -3,7 +3,8 @@ from repro_torch.serving.engine import (FunctionInstance, ServeRequest,
 from repro_torch.serving.frontend import ClusterFrontend, InstancePlacement
 from repro_torch.serving.modelstore import (ColdStartEvent, FleetModelStore,
                                             HostWeightCache, StagedWeights,
-                                            stage_params, upload_params)
+                                            stage_drawn, stage_params,
+                                            upload_params)
 from repro_torch.serving.paging import (NULL_BLOCK, BlockExhausted,
                                         KVPageAllocator, PageTable,
                                         blocks_needed)
@@ -11,6 +12,6 @@ from repro_torch.serving.paging import (NULL_BLOCK, BlockExhausted,
 __all__ = ["ServingEngine", "FunctionInstance", "ServeRequest",
            "ClusterFrontend", "InstancePlacement",
            "FleetModelStore", "ColdStartEvent", "HostWeightCache",
-           "StagedWeights", "stage_params", "upload_params",
+           "StagedWeights", "stage_drawn", "stage_params", "upload_params",
            "KVPageAllocator", "PageTable", "BlockExhausted", "NULL_BLOCK",
            "blocks_needed"]

@@ -60,10 +60,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.layers import drawn_pieces, leaf_pieces
 
 __all__ = [
     "StagedWeights",
     "stage_params",
+    "stage_drawn",
     "upload_params",
     "HostWeightCache",
     "ColdStartEvent",
@@ -166,6 +168,25 @@ def _staged_over(buf: torch.Tensor, treedef: tuple, dtypes: list,
     return staged
 
 
+def _staging(paths: list, shapes: list, dtypes: list,
+             names: Optional[list], pin: bool) -> StagedWeights:
+    """An empty staging buffer for leaves of ``shapes`` and ``dtypes`` at
+    ``paths``, each at a 512-byte aligned offset; a leaf whose logical
+    names lead with ``"layers"`` is split into per-layer shards."""
+    layout, stacked, off, nbytes = [], [], 0, 0
+    for i, (shape, dtype) in enumerate(zip(shapes, dtypes)):
+        name = names[i] if names is not None else ()
+        stacked.append(bool(name) and name[0] == "layers" and len(shape) > 0
+                       and shape[0] > 0)
+        layout.append((off, tuple(shape)))
+        size = int(np.prod(shape)) * dtype.itemsize
+        nbytes += size
+        off += -(-size // _ALIGN) * _ALIGN
+    buf = torch.empty((off,), dtype=torch.uint8, pin_memory=pin)
+    return _staged_over(buf, tuple(paths), list(dtypes), layout, stacked,
+                        nbytes)
+
+
 def stage_params(model, params, *, pin: Optional[bool] = None
                  ) -> StagedWeights:
     """Stage a param tree (tensors on any device, or numpy arrays) into
@@ -182,24 +203,51 @@ def stage_params(model, params, *, pin: Optional[bool] = None
     leaves = [leaf if isinstance(leaf, torch.Tensor)
               else torch.from_numpy(np.ascontiguousarray(leaf))
               for _, leaf in flat]
-    layout, stacked, off, nbytes = [], [], 0, 0
-    for i, t in enumerate(leaves):
-        name = names[i] if names is not None else ()
-        stacked.append(bool(name) and name[0] == "layers" and t.dim() > 0
-                       and t.shape[0] > 0)
-        layout.append((off, tuple(t.shape)))
-        size = t.numel() * t.element_size()
-        nbytes += size
-        off += -(-size // _ALIGN) * _ALIGN
-    buf = torch.empty((off,), dtype=torch.uint8, pin_memory=pin)
-    staged = _staged_over(buf, tuple(p for p, _ in flat),
-                          [t.dtype for t in leaves], layout, stacked, nbytes)
+    staged = _staging([p for p, _ in flat], [t.shape for t in leaves],
+                      [t.dtype for t in leaves], names, pin)
     devices = set()
     for i, t in enumerate(leaves):
         staged.host_tensor(i).copy_(t, non_blocking=pin and t.is_cuda)
         if t.is_cuda:
             devices.add(t.device)
     for dev in devices:
+        torch.cuda.current_stream(dev).synchronize()
+    return staged
+
+
+def stage_drawn(model, seed: int, *, device=None) -> StagedWeights:
+    """``model``'s params as ``model.init`` draws them from a generator on
+    ``device`` (``None`` = the card) seeded with ``seed``, bit for bit,
+    staged as ``stage_params`` stages a tree, without the tree ever
+    whole on the device: each leaf's pieces (``layers.leaf_pieces``, one
+    (layer, expert) matrix of a stacked leaf) are drawn there one at a
+    time in ``init``'s order, cast to the leaf's dtype and copied into
+    their place in the host buffer (pinned when a card is present), so
+    the device holds one piece at a time.  The
+    weights of a model no one card holds are staged so, and a sharded
+    pod's placement uploads each member's slices from them."""
+    dev = resolve_device(device)
+    pin = torch.cuda.is_available()
+    flat = _flatten(model.specs)
+    staged = _staging([p for p, _ in flat], [s.shape for _, s in flat],
+                      [s.dtype for _, s in flat], _name_leaves(model), pin)
+    index = {path: i for i, (path, _) in enumerate(flat)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def walk(tree: Any, path: tuple) -> None:
+        if isinstance(tree, dict):  # init's order: the specs' own
+            for k, v in tree.items():
+                walk(v, path + (k,))
+            return
+        host = staged.host_tensor(index[path])
+        if tree.init == "zeros":
+            host.zero_()
+            return
+        for piece, value in zip(leaf_pieces(host), drawn_pieces(tree, gen)):
+            piece.copy_(value.to(tree.dtype), non_blocking=pin)
+
+    walk(model.specs, ())
+    if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
     return staged
 

@@ -2474,6 +2474,43 @@ def test_pods_on_other_member_devices_keep_their_own_weights(cuda_device):
     assert [r.tokens_out for r in reqs] == one
 
 
+@pytest.mark.gpu
+def test_mixtral_pod_across_two_cards_gives_one_instances_streams(
+        cuda_device):
+    """mixtral-8x7b's smoke cut (moe on a rolled cache of window 16) as a
+    2-member pod over ``cuda:0`` and ``cuda:1``, eager as declared, serves
+    one instance's greedy streams, prompts of 17 and 30 tokens past the
+    window.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from repro_torch.configs import get_config
+    from repro_torch.core.resources import Alloc
+    from repro_torch.models import build_model
+    from repro_torch.serving import ClusterFrontend
+
+    one, _ = _pod_streams(cuda_device, 1, "continuous",
+                          arch="mixtral-8x7b")
+    model = build_model(get_config("mixtral-8x7b", reduced=True))
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    fe = ClusterFrontend(n_nodes=2, devices=["cuda:0", "cuda:1"])
+    assert fe.place_instance("f", model, params,
+                             Alloc(sm=0.25, quota_request=0.5,
+                                   quota_limit=1.0),
+                             max_batch=4, max_len=64, shards=2) is not None
+    (p,) = fe.placements
+    inst = fe.engines[p.node].instances[p.inst_id]
+    assert inst.round_graph.always_eager
+    assert [str(d) for d in inst.group.devices] == ["cuda:0", "cuda:1"]
+    for tree, dev in zip(inst.params, inst.group.devices):
+        assert all(leaf.device == dev for leaf in _tree_leaves(tree))
+    rng = np.random.default_rng(3)
+    reqs = [fe.submit("f", rng.integers(0, 256, n).astype(np.int32),
+                      max_new_tokens=8) for n in (5, 17, 30, 9, 12)]
+    fe.pump(budget_s=120.0)
+    assert all(r.done for r in reqs) and inst.round_graph.captures == 0
+    assert [r.tokens_out for r in reqs] == one
+
+
 def _tree_leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module (and
-``chip_smoke.py``, ``scripts/scan_round.py`` and every
+``chip_smoke.py``, ``scripts/scan_round.py``,
+``scripts/mixtral_pod_cards.py`` and every
 ``examples/torch_*.py``) loads neither JAX nor the JAX package, entry points that default to the card refuse to fall
 back to the CPU, and the serve entry point refuses on the card a config
 its kernels do not take."""
@@ -25,6 +26,7 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 sys.path.insert(0, sys.argv[1] + "/scripts")
 import scan_round
+import mixtral_pod_cards
 import glob, importlib.util
 examples = sorted(glob.glob(sys.argv[1] + "/examples/torch_*.py"))
 assert len(examples) == 5, examples
@@ -63,6 +65,19 @@ def test_default_device_entry_points_raise_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.init_model("qwen2-7b", reduced=True, seed=0)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_mixtral_pod_cards_refuses_without_two_cards():
+    """The two-card script exits non-zero with its reason on a machine
+    with fewer than two cards, and runs no smaller case instead."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable,
+                          str(ROOT / "scripts" / "mixtral_pod_cards.py")],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert "needs two cards" in out.stderr and not out.stdout
 
 
 def test_registry_holds_every_reference_arch():
